@@ -1,0 +1,444 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port (`sparksched_tpu_torch`) on one CUDA card.
+
+    python3 chip_smoke.py
+
+Builds the port's CUDA kernels from `sparksched_tpu_torch/csrc/` with
+nvcc, holds each against its plain PyTorch version on the card, then
+drives the port's main path — Decima decisions served by
+`SessionStore(device="cuda")` at the flagship shape of
+`config/decima_tpch.yaml` (50 executors, 200-job cap, 20 stage slots;
+capacity 64 and max_batch 8 from the config's documented `serve:`
+block) — and checks it: every health mask 0, every served action valid,
+and the card's decisions equal to the CPU port's on the same sessions.
+
+Each phase prints one JSON line. Before the last line come the
+`{"kernels": [...]}` line (per kernel: launches on the main path,
+max abs error against the plain version, the kernel's own time from
+torch.profiler, taken after the main path, the plain version's time and
+the least time the card could take) and the card's name and
+power limit from nvidia-smi; the last line is
+`{"ok": true, "device": {...}}`. Any failed phase exits non-zero
+without that line, as does a run with no CUDA card or without the
+package next to this script. Imports no JAX.
+"""
+
+from __future__ import annotations
+
+import functools
+import json
+import os
+import subprocess
+import sys
+import time
+import traceback
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+CONFIG = os.path.join(HERE, "config", "decima_tpch.yaml")
+CAPACITY, MAX_BATCH = 64, 8  # the config's documented serve: block
+ROUNDS = 8  # ROUNDS x CAPACITY decisions through decide_batch
+PARITY_SESSIONS, PARITY_DECISIONS = 4, 16
+# Random-init weights are scaled by 0.3: at flax's init scale the Tanh
+# policy heads saturate at the flagship's feature magnitudes and some
+# greedy choices tie below float32 resolution, which would make the
+# card-vs-CPU decision comparison a coin flip.
+WEIGHT_SCALE = 0.3
+SEED = 42
+TOL = 1e-5
+# H100 SXM peaks (NVIDIA data sheet): HBM3 rate and FP32 outside the
+# tensor cores (the kernel runs plain FP32 FMAs)
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS_PER_S = 67e12
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def flagship(device):
+    from sparksched_tpu_torch.config import env_params_from_cfg, load
+    from sparksched_tpu_torch.workload import make_workload_bank
+
+    cfg = load(CONFIG)
+    params = env_params_from_cfg(cfg["env"])
+    bank = make_workload_bank(params.num_executors, params.max_stages,
+                              device=device)
+    params = params.replace(max_stages=bank.max_stages,
+                            max_levels=bank.max_stages)
+    agent = {k: v for k, v in cfg["agent"].items() if k != "agent_cls"}
+    return params, bank, agent
+
+
+def make_scheduler(params, agent, device, state_dict=None):
+    from sparksched_tpu_torch.schedulers import DecimaScheduler
+
+    sched = DecimaScheduler(params.num_executors, seed=SEED, device=device,
+                            **agent)
+    if state_dict is None:
+        state_dict = {k: v * WEIGHT_SCALE for k, v in sched.params.items()}
+    sched.load_params({k: v.cpu() for k, v in state_dict.items()})
+    return sched
+
+
+def cuda_ms(fn, reps: int) -> float:
+    import torch
+
+    for _ in range(3):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+# ---------------------------------------------------------------------------
+# phase 1: build
+# ---------------------------------------------------------------------------
+
+
+def phase_build() -> None:
+    from sparksched_tpu_torch.kernels import build
+
+    t0 = time.perf_counter()
+    build.build_all()
+    ptxas = {n: [ln.strip() for ln in log.splitlines()
+                 if "registers" in ln or "smem" in ln]
+             for n, log in build.build_log.items()}
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "sources": list(build.SOURCES), "ptxas": ptxas})
+
+
+# ---------------------------------------------------------------------------
+# phase 2: each kernel against its plain version
+# ---------------------------------------------------------------------------
+
+
+def _mlp_flops(layers) -> int:
+    return sum(2 * int(w.shape[0]) * int(w.shape[1]) for w, _ in layers)
+
+
+def encoder_work(f, net) -> tuple[int, int]:
+    """(bytes, flops) the NodeEncoder must move and do for these inputs.
+    Bytes: each input read once (x, adj, levels, node mask, the per-lane
+    edgeless flag, the packed weights), the output written once. Flops:
+    what this data needs, on node_mask-valid nodes only — prep once per
+    node; update once per node (a leaf from its h_init, a node with
+    children at its level; none on an edgeless lane, which keeps h_init);
+    msg once per child of a node updated at its level; D adds per such
+    edge for the aggregation and D per updated node for h_init + update.
+    Biases and activations are not counted, which only lowers the bound."""
+    b, k, s, _ = f.x.shape
+    d = net.embed_dim
+    w = net.encoder_weights()
+    nbytes = (f.x.numel() * 4 + f.adj.numel() + f.node_level.numel() * 4
+              + f.node_mask.numel() + b + w.packed.numel() * 4
+              + b * k * s * d * 4)
+    nl = min(net.num_levels, s) if net.num_levels else s
+    edged = f.adj.reshape(b, -1).any(1)[:, None, None]
+    has_child = f.adj.any(-1)
+    leaf = f.node_mask & ~has_child & edged
+    inner = f.node_mask & has_child & (f.node_level < nl) & edged
+    edges = f.adj & inner[..., None]  # [p, c]: p updated at its level
+    senders = edges.any(-2)  # c sends a message to an updated parent
+    n_inner = int(inner.sum())
+    flops = (int(f.node_mask.sum()) * _mlp_flops(w.prep)
+             + (int(leaf.sum()) + n_inner) * _mlp_flops(w.update)
+             + int(senders.sum()) * _mlp_flops(w.msg)
+             + (int(edges.sum()) + n_inner) * d)
+    return nbytes, flops
+
+
+def kernel_ms(fn, reps: int, kernel: str) -> float | None:
+    """Mean device time of the CUDA kernel named `kernel` per call of
+    `fn`, from torch.profiler's kernel records (the kernel alone, without
+    the wrapper's host work and other launches); None when the profiler
+    recorded no such kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and kernel in e.name]
+    if len(evs) != reps:
+        return None
+    return sum(e.time_range.elapsed_us() for e in evs) / reps / 1e3
+
+
+def phase_kernels(params, bank, sched) -> tuple[dict, dict]:
+    """Each case's error, wrapper and plain times and bound; returns the
+    cases and, per case, a call of the wrapper for `phase_kernel_alone`."""
+    import torch
+
+    from sparksched_tpu_torch.env.observe import observe
+    from sparksched_tpu_torch.kernels.decima_encoder import (
+        decima_node_encoder,
+        decima_node_encoder_ref,
+    )
+    from sparksched_tpu_torch.schedulers.decima import compact_features
+    from sparksched_tpu_torch.serve import SessionStore
+
+    # real flagship-shape sessions, a few decisions into their episodes
+    store = SessionStore(params, bank, sched, capacity=MAX_BATCH,
+                         max_batch=MAX_BATCH, seed=7, device="cuda")
+    sids = [store.create() for _ in range(MAX_BATCH)]
+    for _ in range(3):
+        store.decide_batch(sids)
+    f_full = sched.features(observe(params, store.store.env))
+    f_k, _ = compact_features(f_full, sched.job_bucket)
+    f_mixed, _ = compact_features(f_full, sched.job_bucket)
+    odd = torch.arange(MAX_BATCH, device="cuda") % 2 == 1
+    f_mixed.adj = (f_mixed.adj & ~odd[:, None, None, None]).contiguous()
+    net = sched.net
+    args = (net.encoder_weights(), net.num_levels, net.slope)
+    cases, calls = {}, {}
+    for name, f in (("B8_K32", f_k), ("B8_K200", f_full),
+                    ("B8_K32_mixed_edgeless", f_mixed)):
+        ins = (f.x, f.adj, f.node_level, f.node_mask)
+        out = decima_node_encoder(*ins, *args)
+        ref = decima_node_encoder_ref(*ins, *args)
+        torch.cuda.synchronize()
+        err = float((out - ref).abs().max())
+        nbytes, flops = encoder_work(f, net)
+        bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S) * 1e3
+        calls[name] = functools.partial(decima_node_encoder, *ins, *args)
+        cases[name] = {
+            "shape": list(f.x.shape), "max_abs_err": err,
+            # the whole wrapper call (CUDA events): the kernel plus the
+            # edgeless reduction, the output's allocation and the ctypes
+            # call; the kernel alone is timed in phase_kernel_alone
+            "wrapper_ms": cuda_ms(calls[name], 50),
+            "plain_ms": cuda_ms(lambda: decima_node_encoder_ref(*ins, *args), 10),
+            "bound_ms": bound_ms,
+            "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
+                         >= flops / FP32_FLOPS_PER_S else "operations"),
+            "bytes": nbytes, "flops": flops,
+        }
+        if not err <= TOL:
+            raise AssertionError(f"decima_node_encoder {name}: max abs err "
+                                 f"{err} > {TOL}")
+    emit({"phase": "kernel_vs_plain", "kernel": "decima_node_encoder",
+          "tolerance": TOL, "cases": cases})
+    return cases, calls
+
+
+def phase_kernel_alone(cases: dict, calls: dict) -> None:
+    """The kernel's own device time per case, from torch.profiler. It
+    runs after the main path, so that no profiler session in this
+    process comes before the serve phase's host-clock numbers."""
+    for name, call in calls.items():
+        ms = kernel_ms(call, 50, "decima_node_encoder_kernel")
+        cases[name]["ms"] = cases[name]["wrapper_ms"] if ms is None else ms
+        cases[name]["ms_from"] = ("wrapper" if ms is None
+                                  else "profiler_kernel")
+    emit({"phase": "kernel_alone", "kernel": "decima_node_encoder",
+          "ms": {n: c["ms"] for n, c in cases.items()},
+          "ms_from": {n: c["ms_from"] for n, c in cases.items()}})
+
+
+# ---------------------------------------------------------------------------
+# phase 3: the main path — serving on the card
+# ---------------------------------------------------------------------------
+
+
+def _check_results(results, sched_before, params) -> None:
+    n = params.num_executors
+    for r, sch in zip(results, sched_before):
+        if r.health_mask != 0:
+            raise AssertionError(f"session {r.session_id}: health mask "
+                                 f"{r.health_mask}")
+        if r.decided and r.stage_idx >= 0:
+            if not bool(sch[r.stage_idx]):
+                raise AssertionError(f"session {r.session_id}: stage "
+                                     f"{r.stage_idx} was not schedulable")
+            if not 1 <= r.num_exec <= n:
+                raise AssertionError(f"session {r.session_id}: num_exec "
+                                     f"{r.num_exec}")
+
+
+def phase_serve(params, bank, sched, device: str = "cuda") -> dict:
+    import numpy as np
+    import torch
+
+    from sparksched_tpu_torch.kernels.decima_encoder import decima_node_encoder
+    from sparksched_tpu_torch.serve import SessionStore
+
+    t0 = time.perf_counter()
+    store = SessionStore(params, bank, sched, capacity=CAPACITY,
+                         max_batch=MAX_BATCH, seed=0, device=device)
+    sids = [store.create() for _ in range(CAPACITY)]
+    if device == "cuda":
+        torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    def sched_rows(batch):
+        idx = torch.tensor(batch, device=device)
+        return store.store.env.schedulable[idx].reshape(len(batch), -1).cpu()
+
+    decima_node_encoder.launches = 0  # count the main path's launches only
+    batch_ms, decisions, restarts = [], 0, 0
+    t_serve = time.perf_counter()
+    for _ in range(ROUNDS):
+        for g in range(CAPACITY // MAX_BATCH):
+            batch = sids[g * MAX_BATCH:(g + 1) * MAX_BATCH]
+            before = sched_rows(batch)
+            t = time.perf_counter()
+            results = store.decide_batch(batch)
+            batch_ms.append((time.perf_counter() - t) * 1e3)
+            _check_results(results, before, params)
+            decisions += sum(r.decided for r in results)
+            for i, r in enumerate(results):
+                if r.done:  # a finished episode: its tenant starts anew
+                    store.close(r.session_id)
+                    sids[g * MAX_BATCH + i] = store.create()
+                    restarts += 1
+    serve_s = time.perf_counter() - t_serve
+    batch_launches = decima_node_encoder.launches
+    decide_launches = step_launches = 0
+    extra = 0
+    for sid in sids[:4]:
+        before = sched_rows([sid])
+        n0 = decima_node_encoder.launches
+        _check_results([store.decide(sid)], before, params)
+        n1 = decima_node_encoder.launches
+        before = sched_rows([sid])
+        stage = int(torch.argmax(before[0].int())) if bool(before[0].any()) else -1
+        _check_results([store.step(sid, stage, 2)], before, params)
+        decide_launches += n1 - n0
+        step_launches += decima_node_encoder.launches - n1
+        extra += 1
+    launches = decima_node_encoder.launches
+    if device == "cuda" and launches <= 0:
+        raise AssertionError("the serve path launched no decima_node_encoder")
+    if decisions < ROUNDS * CAPACITY * 0.9:
+        raise AssertionError(f"only {decisions} decisions were served")
+    ms = np.array(batch_ms)
+    out = {
+        "phase": "serve", "capacity": CAPACITY, "max_batch": MAX_BATCH,
+        "rounds": ROUNDS, "decide_batch_calls": len(batch_ms),
+        "decisions": decisions, "decide_calls": extra, "step_calls": extra,
+        "episode_restarts": restarts, "setup_s": setup_s,
+        "decisions_per_s": decisions / serve_s,
+        "decide_batch_ms_p50": float(np.percentile(ms, 50)),
+        "decide_batch_ms_p99": float(np.percentile(ms, 99)),
+        "encoder_launches": launches,
+        "encoder_launches_per_decide_batch": batch_launches / len(batch_ms),
+        "encoder_launches_per_decide": decide_launches / extra,
+        "encoder_launches_per_step": step_launches / extra,
+        "card": card_line(),
+    }
+    emit(out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the card against the CPU port
+# ---------------------------------------------------------------------------
+
+
+def phase_parity(agent, sched_cuda) -> None:
+    import numpy as np
+
+    from sparksched_tpu_torch.serve import SessionStore
+
+    results = {}
+    for dev in ("cuda", "cpu"):
+        params, bank, _ = flagship(dev)
+        sched = make_scheduler(params, agent, dev, sched_cuda.params)
+        store = SessionStore(params, bank, sched, capacity=PARITY_SESSIONS,
+                             max_batch=PARITY_SESSIONS, seed=3, device=dev)
+        sids = [store.create(seed=100 + i) for i in range(PARITY_SESSIONS)]
+        results[dev] = [r for _ in range(PARITY_DECISIONS)
+                        for r in store.decide_batch(sids)]
+    worst = 0.0
+    for a, b in zip(results["cuda"], results["cpu"]):
+        for k in ("stage_idx", "job_idx", "num_exec", "decided", "done",
+                  "health_mask"):
+            if getattr(a, k) != getattr(b, k):
+                raise AssertionError(f"card vs CPU: {k} differs: "
+                                     f"{a.to_dict()} vs {b.to_dict()}")
+        for k in ("lgprob", "reward", "dt", "wall_time"):
+            x, y = getattr(a, k), getattr(b, k)
+            if not np.isclose(x, y, rtol=TOL, atol=TOL):
+                raise AssertionError(f"card vs CPU: {k} {x} vs {y}")
+            worst = max(worst, abs(x - y) / max(abs(y), 1.0))
+    emit({"phase": "card_vs_cpu", "sessions": PARITY_SESSIONS,
+          "decisions": len(results["cpu"]), "tolerance": TOL,
+          "worst_rel_err": worst})
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    try:
+        import sparksched_tpu_torch
+    except ImportError:
+        print("chip_smoke: sparksched_tpu_torch not found next to this "
+              "script", file=sys.stderr)
+        return 2
+    if not os.path.abspath(sparksched_tpu_torch.__file__).startswith(HERE):
+        print("chip_smoke: sparksched_tpu_torch is not the checkout's",
+              file=sys.stderr)
+        return 2
+    try:
+        emit({"phase": "env", "python": sys.version.split()[0],
+              "torch": torch.__version__, "cuda": torch.version.cuda,
+              "device": torch.cuda.get_device_name(0)})
+        phase_build()
+        params, bank, agent = flagship("cuda")
+        sched = make_scheduler(params, agent, "cuda")
+        cases, calls = phase_kernels(params, bank, sched)
+        serve = phase_serve(params, bank, sched)
+        phase_parity(agent, sched)
+        phase_kernel_alone(cases, calls)
+    except Exception:
+        traceback.print_exc()
+        return 1
+    main_case = cases["B8_K32"]
+    emit({"kernels": [{
+        "name": "decima_node_encoder",
+        "route": "cuda",
+        "source": "sparksched_tpu_torch/csrc/decima_encoder.cu",
+        "replaces": "sparksched_tpu/schedulers/decima.py:284",
+        "launches": serve["encoder_launches"],
+        "max_abs_err": max(c["max_abs_err"] for c in cases.values()),
+        "ms": main_case["ms"],
+        "plain_ms": main_case["plain_ms"],
+        "bound_ms": main_case["bound_ms"],
+        "bound_by": main_case["bound_by"],
+        "library_ms": None,
+    }]})
+    print(card_line(), flush=True)
+    emit({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

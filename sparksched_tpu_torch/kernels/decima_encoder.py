@@ -1,0 +1,172 @@
+"""Decima NodeEncoder: wrapper of the CUDA kernel and its plain version.
+
+`decima_node_encoder` computes the GNN's level-wise message pass of
+`sparksched_tpu/schedulers/decima.py` (`DecimaNet.__call__`, the
+NodeEncoder part) for a batch of items `[B,K,...]` (B lanes, K jobs per
+lane, S stages per job). On a CUDA tensor it launches the kernel of
+`csrc/decima_encoder.cu` or raises; on a CPU tensor it runs the plain
+version `decima_node_encoder_ref`. Both take the three MLPs as
+`EncoderWeights`, packed once by `pack_weights` (the caller keeps them
+until the weights change). The edgeless fallback is reduced per lane
+over ALL of that lane's jobs, so it is computed here, before the
+launch, and handed to the kernel (one block sees one job only).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+
+import numpy as np
+import torch
+
+Layers = list[tuple[torch.Tensor, torch.Tensor]]  # [(weight [out,in], bias)]
+
+
+def _mlp(layers: Layers, h: torch.Tensor, slope: float) -> torch.Tensor:
+    for i, (w, b) in enumerate(layers):
+        h = h @ w.T + b
+        if i < len(layers) - 1:
+            h = torch.where(h >= 0, h, slope * h)
+    return h
+
+
+def edgeless_per_lane(adj: torch.Tensor) -> torch.Tensor:
+    """bool[B]: the lane's observation has no edge at all."""
+    return ~adj.reshape(adj.shape[0], -1).any(1)
+
+
+@dataclasses.dataclass(frozen=True)
+class EncoderWeights:
+    """The three NodeEncoder MLPs, as layers for the plain version and
+    packed once into the kernel's layout (`pack_weights`)."""
+
+    prep: Layers
+    msg: Layers
+    update: Layers
+    packed: torch.Tensor  # f32: each layer's W (out x in) then b
+    spec: np.ndarray  # i32: per MLP (n, in[0..n-1], out[0..n-1])
+
+
+def _spec(layers: Layers) -> list[int]:
+    return ([len(layers)] + [int(w.shape[1]) for w, _ in layers]
+            + [int(w.shape[0]) for w, _ in layers])
+
+
+def pack_weights(prep: Layers, msg: Layers, update: Layers
+                 ) -> EncoderWeights:
+    """Check the MLPs' shapes and pack them for the kernel: each layer's
+    W (out x in, row-major) then b, for prep, msg, update in that order.
+    The packed tensor is a copy: pack again after the weights change."""
+    d = int(prep[-1][0].shape[0])
+    for name, layers in (("mlp_msg", msg), ("mlp_update", update)):
+        if int(layers[0][0].shape[1]) != d or int(layers[-1][0].shape[0]) != d:
+            raise ValueError(f"{name} must map width {d} to {d}")
+    dev = prep[0][0].device
+    parts = []
+    for layers in (prep, msg, update):
+        if not 1 <= len(layers) <= 4:
+            raise ValueError("the kernel takes MLPs of 1 to 4 layers")
+        for w, b in layers:
+            if w.device != dev or w.dtype != torch.float32:
+                raise ValueError("weights must be float32 on one device")
+            parts += [w.reshape(-1), b.reshape(-1)]
+    spec = np.asarray(_spec(prep) + _spec(msg) + _spec(update), np.int32)
+    return EncoderWeights(prep, msg, update,
+                          torch.cat(parts).contiguous(), spec)
+
+
+def decima_node_encoder_ref(x, adj, node_level, node_mask,
+                            w: EncoderWeights, num_levels: int,
+                            negative_slope: float) -> torch.Tensor:
+    """Plain PyTorch NodeEncoder, op for op the JAX package's.
+    x f32[B,K,S,F], adj bool[B,K,S,S], node_level i32[B,K,S],
+    node_mask bool[B,K,S] -> h f32[B,K,S,D]."""
+    act = negative_slope
+    h_init = _mlp(w.prep, x, act)
+    adj_f = adj.to(h_init.dtype)
+    has_child = adj.any(-1)
+    h = torch.where(has_child[..., None], 0.0, _mlp(w.update, h_init, act))
+    s_cap = x.shape[-2]
+    nl = min(num_levels, s_cap) if num_levels else s_cap
+    for lvl in range(nl - 1, -1, -1):
+        agg = adj_f @ _mlp(w.msg, h, act)
+        upd = (node_level == lvl) & has_child
+        h = torch.where(upd[..., None], h_init + _mlp(w.update, agg, act), h)
+    edgeless = edgeless_per_lane(adj)
+    h = torch.where(edgeless[:, None, None, None], h_init, h)
+    return torch.where(node_mask[..., None], h, 0.0)
+
+
+def _check(x, adj, node_level, node_mask, w: EncoderWeights) -> None:
+    b, k, s, f = x.shape
+    want = {
+        "x": (x, torch.float32, (b, k, s, f)),
+        "adj": (adj, torch.bool, (b, k, s, s)),
+        "node_level": (node_level, torch.int32, (b, k, s)),
+        "node_mask": (node_mask, torch.bool, (b, k, s)),
+    }
+    for name, (t, dtype, shape) in want.items():
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+        if t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(
+                f"{name}: want {dtype} {shape}, got {t.dtype} "
+                f"{tuple(t.shape)}"
+            )
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if int(w.prep[0][0].shape[1]) != f:
+        raise ValueError("mlp_prep input width != feature width")
+    if w.packed.device != x.device:
+        raise ValueError(f"weights are on {w.packed.device}, x on {x.device}")
+
+
+@functools.cache
+def _launcher():
+    """The C entry point of the built library, with its signature."""
+    from .build import load
+
+    fn = load("decima_encoder").decima_node_encoder_launch
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci,
+                   ctypes.c_float, ctypes.POINTER(ci), vp]
+    fn.restype = ci
+    return fn
+
+
+def decima_node_encoder(x, adj, node_level, node_mask, w: EncoderWeights,
+                        num_levels: int, negative_slope: float
+                        ) -> torch.Tensor:
+    """NodeEncoder of a batch of items: the CUDA kernel on a CUDA tensor
+    (one launch, counted in `decima_node_encoder.launches`), the plain
+    version on a CPU tensor."""
+    _check(x, adj, node_level, node_mask, w)
+    if x.device.type == "cpu":
+        return decima_node_encoder_ref(
+            x, adj, node_level, node_mask, w, num_levels, negative_slope,
+        )
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    fn = _launcher()
+    b, k, s, f = x.shape
+    d = int(w.prep[-1][0].shape[0])
+    s_nl = min(num_levels, s) if num_levels else s
+    edgeless = edgeless_per_lane(adj).contiguous()
+    spec_c = w.spec.ctypes.data_as(ctypes.POINTER(ctypes.c_int))
+    out = torch.empty((b, k, s, d), dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = fn(x.data_ptr(), adj.data_ptr(), node_level.data_ptr(),
+            node_mask.data_ptr(), edgeless.data_ptr(), w.packed.data_ptr(),
+            out.data_ptr(), b, k, s, f, d, s_nl, float(negative_slope),
+            spec_c, stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"decima_node_encoder launch failed (cudaGetLastError={rc})"
+        )
+    decima_node_encoder.launches += 1
+    return out
+
+
+decima_node_encoder.launches = 0

@@ -1,0 +1,113 @@
+"""Counter-based PRNG with the bits of `jax.random`'s default.
+
+A session's whole trajectory is a function of its key: the job sequence,
+the time limit and every task-duration uniform come from `jax.random`
+calls in the JAX package. To serve the same decisions from the same
+seeds, this module reproduces jax 0.9.0's default generator bit for
+bit: impl `threefry2x32` (20 rounds) with `jax_threefry_partitionable`
+on, which makes `split` and `random_bits` hash a 64-bit iota counter.
+
+A key is an int64 tensor of shape `[..., 2]` holding two 32-bit words
+(torch's uint32 arithmetic is incomplete, so every word lives in int64
+and is masked back to 32 bits after each add or shift). All functions
+accept a batch of keys in the leading dimensions.
+"""
+
+from __future__ import annotations
+
+import torch
+
+_M32 = 0xFFFFFFFF
+_ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
+    return ((x << r) | (x >> (32 - r))) & _M32
+
+
+def threefry2x32(k0: torch.Tensor, k1: torch.Tensor, x0: torch.Tensor,
+                 x1: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Threefry-2x32 over broadcastable int64 words (jax's unrolled
+    `_threefry2x32_lowering`)."""
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    a = (x0 + ks[0]) & _M32
+    b = (x1 + ks[1]) & _M32
+    for i in range(5):
+        for r in _ROT[i % 2]:
+            a = (a + b) & _M32
+            b = _rotl(b, r) ^ a
+        a = (a + ks[(i + 1) % 3]) & _M32
+        b = (b + ks[(i + 2) % 3] + (i + 1)) & _M32
+    return a, b
+
+
+def PRNGKey(seed: int, device: str | torch.device = "cpu") -> torch.Tensor:
+    """`jax.random.PRNGKey(seed)` for a 32-bit seed: words (0, seed)."""
+    return torch.tensor([0, int(seed) & _M32], dtype=torch.int64,
+                        device=device)
+
+
+def _hash(key: torch.Tensor, hi, lo) -> tuple[torch.Tensor, torch.Tensor]:
+    """Hash counters (hi, lo) (shape `[n]`) under every key of the batch:
+    returns two words of shape `key.shape[:-1] + [n]`."""
+    k0 = key[..., 0:1]
+    k1 = key[..., 1:2]
+    return threefry2x32(k0, k1, hi, lo)
+
+
+def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
+    """`jax.random.fold_in(key, data)`."""
+    zero = torch.zeros(1, dtype=torch.int64, device=key.device)
+    d = torch.full((1,), int(data) & _M32, dtype=torch.int64,
+                   device=key.device)
+    a, b = _hash(key, zero, d)
+    return torch.cat([a, b], dim=-1)
+
+
+def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """`jax.random.split(key, num)`: shape `key.shape[:-1] + [num, 2]`."""
+    lo = torch.arange(num, dtype=torch.int64, device=key.device)
+    a, b = _hash(key, torch.zeros_like(lo), lo)
+    return torch.stack([a, b], dim=-1)
+
+
+def random_bits(key: torch.Tensor, shape: tuple[int, ...] = ()
+                ) -> torch.Tensor:
+    """32 random bits per element (as int64), shape
+    `key.shape[:-1] + shape` — `jax.random.bits` for uint32."""
+    n = 1
+    for d in shape:
+        n *= int(d)
+    lo = torch.arange(n, dtype=torch.int64, device=key.device)
+    hi = lo >> 32
+    a, b = _hash(key, hi, lo & _M32)
+    return (a ^ b).reshape(tuple(key.shape[:-1]) + tuple(shape))
+
+
+def uniform(key: torch.Tensor, shape: tuple[int, ...] = ()) -> torch.Tensor:
+    """`jax.random.uniform(key, shape)` in float32 on [0, 1)."""
+    bits = random_bits(key, shape)
+    fbits = ((bits >> 9) | 0x3F800000).to(torch.int32)
+    return torch.clamp_min(fbits.view(torch.float32) - 1.0, 0.0)
+
+
+def exponential(key: torch.Tensor, shape: tuple[int, ...] = ()
+                ) -> torch.Tensor:
+    """`jax.random.exponential(key, shape)` in float32: -log1p(-u).
+    XLA's and torch's float32 `log1p` may differ in the last ulp."""
+    return -torch.log1p(-uniform(key, shape))
+
+
+def randint(key: torch.Tensor, shape: tuple[int, ...], minval: int,
+            maxval: int) -> torch.Tensor:
+    """`jax.random.randint(key, shape, minval, maxval, dtype=int32)` for
+    Python-int bounds inside the int32 range."""
+    keys = split(key)
+    hi = random_bits(keys[..., 0, :], shape)
+    lo = random_bits(keys[..., 1, :], shape)
+    span = max(int(maxval) - int(minval), 1) & _M32
+    mult = (2 ** 16) % span
+    mult = (mult * mult) % span
+    off = (((hi % span) * mult) & _M32) + (lo % span)
+    off = (off & _M32) % span
+    return (int(minval) + off).to(torch.int32)

@@ -1,0 +1,33 @@
+"""Scheduler interfaces (counterpart of `sparksched_tpu/schedulers/base.py`).
+
+- `schedule(obs) -> (action, info)`: host-side, one decision at a time.
+- `policy(obs) -> (stage_idx, num_exec, info)`: tensors over a batch of
+  padded `Observation`s (leading lane axis). `stage_idx` is a flat padded
+  node index (job * max_stages + stage, or -1 for "no selection").
+"""
+
+from __future__ import annotations
+
+import abc
+from typing import Any
+
+
+class Scheduler(abc.ABC):
+    """Interface for all schedulers."""
+
+    name: str
+
+    @abc.abstractmethod
+    def schedule(self, obs: Any) -> tuple[dict[str, Any], dict[str, Any]]:
+        """One decision from a single-lane Observation."""
+
+    @abc.abstractmethod
+    def policy(self, obs: Any):
+        """Decisions for a batch of observations."""
+
+
+class TrainableScheduler(Scheduler):
+    """Interface for trainable schedulers: the parameters live in an
+    `nn.Module` (`params` is its state dict)."""
+
+    params: Any

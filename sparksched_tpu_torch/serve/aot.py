@@ -1,0 +1,180 @@
+"""Serve programs: one session's decision, or up to K in one batched
+policy evaluation (counterpart of `sparksched_tpu/serve/aot.py`).
+
+The JAX package compiles these ahead of time over a donated [C]-stacked
+store of `LoopState`s. PyTorch runs eagerly, so here they are plain
+functions over the same kind of store, which they update IN PLACE (the
+counterpart of the donated buffer). The module keeps its name so the
+counterpart is easy to find; CUDA graphs for these programs are later
+work.
+
+A decision: gather the session(s), observe, run the policy (or take the
+caller's forced action), `apply_and_drain` to the next decision point,
+compute the health sentinel over the post-drain state and the span
+reward, scatter back. Padding slots of a batch carry index C: they are
+never computed or written, and their outputs are masked (`valid` off),
+where the JAX package clamps their gathers and drops their scatters.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import torch
+
+from ..config import EnvParams
+from ..env.flat_loop import (
+    LoopState,
+    _lane_done,
+    apply_and_drain,
+    aux_action_fields,
+    take_slot,
+    write_slot,
+)
+from ..env.health import reward_health, state_health
+from ..env.observe import observe
+from ..workload.bank import WorkloadBank
+
+_i32 = torch.int32
+
+
+@dataclasses.dataclass
+class ServeOut:
+    """Served decisions, one row per batch slot ([K])."""
+
+    stage_idx: torch.Tensor  # i32; flat padded node index (-1 = none)
+    job_idx: torch.Tensor  # i32
+    num_exec: torch.Tensor  # i32; 1-based executor count
+    lgprob: torch.Tensor  # f32
+    decided: torch.Tensor  # bool; lane recorded a decision
+    done: torch.Tensor  # bool; episode over after the drain
+    reward: torch.Tensor  # f32; span reward
+    dt: torch.Tensor  # f32; sim-time advance of the span
+    wall_time: torch.Tensor  # f32
+    health_mask: torch.Tensor  # i32; sentinel bitmask (0 = healthy)
+    valid: torch.Tensor  # bool; real (non-padding) slot
+
+
+# engine knobs of the serve drain. The port runs the sequential engine:
+# the JAX package's serving default turns the bulk passes on, which this
+# slice does not port (ROADMAP queue B1); its decisions match the JAX
+# store built with these knobs. The programs below run this engine only.
+SERVE_KNOBS: dict[str, Any] = {"event_bulk": False, "fulfill_bulk": False}
+
+
+def _decide(params: EnvParams, bank: WorkloadBank, policy_fn: Callable,
+            ls: LoopState, force_stage, force_nexec, use_force):
+    """Decisions for a batch of sessions (the JAX `_decide_one`, over a
+    lane axis): observe -> policy (or the forced action under
+    `use_force`) -> apply_and_drain -> health."""
+    env0 = ls.env
+    was_done = _lane_done(env0)
+    s_cap = params.max_stages
+    if bool(use_force.all()):
+        # every lane takes the caller's action: the policy's output would
+        # be overridden, so it is not computed
+        stage_idx = force_stage
+        num_exec = force_nexec
+        lgprob = torch.zeros(force_stage.shape, device=force_stage.device)
+        job = torch.zeros_like(force_stage)
+    else:
+        stage_idx, num_exec, aux = policy_fn(observe(params, env0))
+        lgprob, job, _ = aux_action_fields(aux, stage_idx, num_exec, s_cap)
+    stage_idx = torch.where(use_force, force_stage, stage_idx).to(_i32)
+    num_exec = torch.where(use_force, force_nexec, num_exec).to(_i32)
+    job = torch.where(
+        use_force,
+        torch.where(stage_idx >= 0,
+                    torch.div(stage_idx, s_cap, rounding_mode="floor"), 0),
+        job,
+    ).to(_i32)
+    lgprob = torch.where(use_force, 0.0, lgprob).to(torch.float32)
+    ls2, (decided, reward, dt, reset) = apply_and_drain(
+        params, bank, ls, stage_idx, num_exec
+    )
+    hm = state_health(ls2.env, prev=env0, resetting=reset) | \
+        reward_health(reward)
+    out = ServeOut(
+        stage_idx=torch.where(decided, stage_idx, -1).to(_i32),
+        job_idx=job,
+        num_exec=num_exec,
+        lgprob=lgprob,
+        decided=decided,
+        done=_lane_done(ls2.env),
+        reward=reward,
+        dt=dt,
+        wall_time=ls2.env.wall_time,
+        health_mask=torch.where(was_done, 0, hm).to(_i32),
+        valid=torch.ones_like(decided),
+    )
+    return ls2, out
+
+
+def serve_decide_fn(params: EnvParams, bank: WorkloadBank,
+                    policy_fn: Callable) -> Callable:
+    """The single-session program:
+    `(store [C], slot, force_stage, force_nexec, use_force) -> ServeOut`
+    of one row; the store is updated in place."""
+
+    def fn(store: LoopState, slot: int, force_stage: int, force_nexec: int,
+           use_force: bool) -> ServeOut:
+        dev = store.mode.device
+        idx = torch.tensor([slot], device=dev)
+        ls = take_slot(store, idx)
+
+        def t(v, dtype):
+            return torch.tensor([v], dtype=dtype, device=dev)
+
+        ls2, out = _decide(
+            params, bank, policy_fn, ls, t(force_stage, _i32),
+            t(force_nexec, _i32), t(use_force, torch.bool),
+        )
+        write_slot(store, idx, ls2)
+        return out
+
+    return fn
+
+
+def serve_decide_batch_fn(params: EnvParams, bank: WorkloadBank,
+                          batch_policy_fn: Callable, batch: int) -> Callable:
+    """The batched program: `(store [C], slots [K]) -> ServeOut of [K]`.
+    ONE batched policy evaluation over the gathered sessions, then the
+    batched apply-and-drain; the store is updated in place. Slots equal
+    to C are padding."""
+    K = int(batch)
+
+    def fn(store: LoopState, slots: torch.Tensor) -> ServeOut:
+        if slots.shape != (K,):
+            raise ValueError(f"slots must have shape ({K},)")
+        C = store.mode.shape[0]
+        valid = slots < C
+        real = slots[valid]
+        dev = real.device
+        n = real.shape[0]
+        if n == 0:
+            raise ValueError("a batch needs at least one real slot")
+        ls = take_slot(store, real)
+        no = torch.zeros(n, dtype=_i32, device=dev)
+        ls2, out = _decide(
+            params, bank, batch_policy_fn, ls, no, no,
+            torch.zeros(n, dtype=torch.bool, device=dev),
+        )
+        write_slot(store, real, ls2)
+        pos = valid.nonzero()[:, 0]
+
+        def pad(v: torch.Tensor, fill) -> torch.Tensor:
+            full = torch.full((K,), fill, dtype=v.dtype, device=v.device)
+            full[pos] = v
+            return full
+
+        return ServeOut(
+            stage_idx=pad(out.stage_idx, -1), job_idx=pad(out.job_idx, 0),
+            num_exec=pad(out.num_exec, 0), lgprob=pad(out.lgprob, 0.0),
+            decided=pad(out.decided, False), done=pad(out.done, False),
+            reward=pad(out.reward, 0.0), dt=pad(out.dt, 0.0),
+            wall_time=pad(out.wall_time, 0.0),
+            health_mask=pad(out.health_mask, 0), valid=valid,
+        )
+
+    return fn

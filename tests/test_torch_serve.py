@@ -1,0 +1,197 @@
+"""The port's serving slice against the JAX package's: the same small
+setup as tests/test_serve.py (5 executors, 6 jobs, embed 8, job_bucket
+4), the JAX `SessionStore` built with knobs={"event_bulk": False,
+"fulfill_bulk": False} (the port's sequential engine) and the port's
+`SessionStore(device="cpu")` with the weights carried across by
+`params_from_flax`. Over a mixed run of create / decide_batch / decide /
+step / close calls every `ServeResult` field must agree (integers and
+bools equal, floats within rtol 1e-5, with atol 1e-6 for values near
+zero), and a poisoned session must quarantine alike. The weights are
+scaled by 0.3 on both sides (see tests/test_torch_decima.py: at random
+init the Tanh heads tie greedy choices below float32 resolution).
+
+Also: the port imports no JAX (a subprocess serves a decision with
+`jax`/`flax` blocked), and with no card its entry points raise unless
+the caller asks for the CPU."""
+
+from __future__ import annotations
+
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from sparksched_tpu.config import EnvParams as JaxParams
+from sparksched_tpu.schedulers import DecimaScheduler as JaxDecima
+from sparksched_tpu.serve import SessionQuarantined as JaxQuarantined
+from sparksched_tpu.serve import SessionStore as JaxStore
+from sparksched_tpu.workload import make_workload_bank as jax_bank
+from sparksched_tpu_torch.config import EnvParams
+from sparksched_tpu_torch.env.health import H_NONFINITE_TIME
+from sparksched_tpu_torch.schedulers import DecimaScheduler, params_from_flax
+from sparksched_tpu_torch.serve import SessionQuarantined, SessionStore
+from sparksched_tpu_torch.workload import make_workload_bank
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+KW = dict(num_executors=5, embed_dim=8, gnn_mlp_kwargs={"hid_dims": [16]},
+          policy_mlp_kwargs={"hid_dims": [16]}, job_bucket=4)
+INT_FIELDS = ("session_id", "stage_idx", "job_idx", "num_exec", "decided",
+              "done", "health_mask", "batched", "params_version")
+FLOAT_FIELDS = ("lgprob", "reward", "dt", "wall_time")
+
+
+@pytest.fixture(scope="module")
+def stores():
+    jp = JaxParams(num_executors=5, max_jobs=6, max_stages=20, max_levels=20,
+                   mean_time_limit=None)
+    jb = jax_bank(jp.num_executors, jp.max_stages)
+    jp = jp.replace(max_stages=jb.max_stages, max_levels=jb.max_stages)
+    js = JaxDecima(**KW)
+    js.params = jax.tree_util.tree_map(lambda a: a * 0.3, js.params)
+    jstore = JaxStore(jp, jb, js, capacity=6, max_batch=3, seed=0,
+                      knobs={"event_bulk": False, "fulfill_bulk": False})
+    tp = EnvParams(num_executors=5, max_jobs=6, max_stages=jp.max_stages,
+                   max_levels=jp.max_levels)
+    tb = make_workload_bank(5, tp.max_stages, device="cpu")
+    ts = DecimaScheduler(**KW, device="cpu")
+    ts.load_params(params_from_flax(jax.tree_util.tree_map(np.asarray, js.params)))
+    tstore = SessionStore(tp, tb, ts, capacity=6, max_batch=3, seed=0,
+                          device="cpu")
+    return jstore, tstore
+
+
+def _same(a, b) -> None:
+    for k in INT_FIELDS:
+        assert getattr(a, k) == getattr(b, k), (k, a.to_dict(), b.to_dict())
+    for k in FLOAT_FIELDS:
+        np.testing.assert_allclose(getattr(b, k), getattr(a, k), rtol=1e-5,
+                                   atol=1e-6, err_msg=k)
+
+
+def test_serve_matches_jax_store(stores):
+    jstore, tstore = stores
+    seeds = [11, 12, None, 13, None]
+    live = []
+    for s in seeds:
+        sid = jstore.create(seed=s)
+        assert tstore.create(seed=s) == sid
+        live.append(sid)
+    rng = np.random.default_rng(0)
+    served = 0
+    for it in range(40):
+        op = it % 5
+        if op in (0, 1):
+            batch = [int(x) for x in rng.choice(live, size=min(3, len(live)),
+                                                replace=False)]
+            for a, b in zip(jstore.decide_batch(batch),
+                            tstore.decide_batch(batch)):
+                _same(a, b)
+                served += 1
+        elif op == 2:
+            sid = int(rng.choice(live))
+            _same(jstore.decide(sid), tstore.decide(sid))
+            served += 1
+        elif op == 3:
+            sid = int(rng.choice(live))
+            sch = tstore.store.env.schedulable[sid].reshape(-1)
+            stage = int(torch.argmax(sch.int())) if bool(sch.any()) else -1
+            _same(jstore.step(sid, stage, 2), tstore.step(sid, stage, 2))
+            served += 1
+        elif it % 10 == 4:
+            sid = live.pop(int(rng.integers(len(live))))
+            jstore.close(sid)
+            tstore.close(sid)
+            seed = None if it % 20 == 4 else 100 + it
+            new = jstore.create(seed=seed)
+            assert tstore.create(seed=seed) == new
+            live.append(new)
+    assert served >= 40
+    assert any(r.decided for r in tstore.decide_batch(live[:3]))
+    for sid in live:
+        jstore.close(sid)
+        tstore.close(sid)
+
+
+def test_quarantine_matches_jax_store(stores):
+    jstore, tstore = stores
+    bad, ok = jstore.create(seed=77), jstore.create(seed=78)
+    assert (tstore.create(seed=77), tstore.create(seed=78)) == (bad, ok)
+    env = jstore._store.env
+    jstore._store = jstore._store.replace(env=env.replace(
+        job_t_completed=env.job_t_completed.at[bad].set(jnp.nan)))
+    tstore.store.env.job_t_completed[bad] = float("nan")
+    a, b = jstore.decide(bad), tstore.decide(bad)
+    _same(a, b)
+    assert b.health_mask & H_NONFINITE_TIME
+    assert tstore.stats["serve_quarantines"] == 1
+    with pytest.raises(JaxQuarantined):
+        jstore.decide(bad)
+    for call in (lambda: tstore.decide(bad), lambda: tstore.step(bad, 0, 1),
+                 lambda: tstore.decide_batch([ok, bad])):
+        with pytest.raises(SessionQuarantined):
+            call()
+    _same(jstore.decide(ok), tstore.decide(ok))
+    for sid in (bad, ok):
+        jstore.close(sid)
+        tstore.close(sid)
+
+
+def test_port_imports_no_jax():
+    code = """
+import sys
+sys.modules["jax"] = None
+sys.modules["flax"] = None
+from sparksched_tpu_torch.config import EnvParams
+from sparksched_tpu_torch.schedulers import DecimaScheduler
+from sparksched_tpu_torch.serve import SessionStore
+from sparksched_tpu_torch.workload import make_workload_bank
+bank = make_workload_bank(5, device="cpu")
+params = EnvParams(num_executors=5, max_jobs=6, max_stages=bank.max_stages,
+                   max_levels=bank.max_stages)
+sched = DecimaScheduler(5, embed_dim=8, job_bucket=4, device="cpu")
+store = SessionStore(params, bank, sched, capacity=2, max_batch=2, device="cpu")
+r = store.decide(store.create(seed=1))
+assert r.decided and r.health_mask == 0
+loaded = [m for m in sys.modules
+          if m == "sparksched_tpu" or m.startswith("sparksched_tpu.")]
+assert not loaded, loaded
+print("ok")
+"""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
+@pytest.mark.parametrize("knobs,err", [
+    ({"event_bulk": True}, NotImplementedError),
+    ({"fulfill_bulk": True}, NotImplementedError),
+    ({"bulk_fused": False}, ValueError),  # a JAX knob the port does not read
+])
+def test_store_refuses_bulk_and_unknown_knobs(knobs, err):
+    bank = make_workload_bank(5, device="cpu")
+    params = EnvParams(num_executors=5, max_jobs=6, max_stages=bank.max_stages,
+                       max_levels=bank.max_stages)
+    sched = DecimaScheduler(5, embed_dim=8, device="cpu")
+    with pytest.raises(err):
+        SessionStore(params, bank, sched, capacity=2, max_batch=2,
+                     knobs=knobs, device="cpu")
+
+
+def test_entry_points_raise_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_workload_bank(5)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DecimaScheduler(5)
+    bank = make_workload_bank(5, device="cpu")
+    sched = DecimaScheduler(5, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SessionStore(EnvParams(num_executors=5), bank, sched)
