@@ -12,6 +12,13 @@ capacity 64 and max_batch 8 from the config's documented `serve:`
 block) — and checks it: every health mask 0, every served action valid,
 and the card's decisions equal to the CPU port's on the same sessions.
 
+The kernel is held against its plain version on the serve path's own
+inputs and on the seeded adversarial inputs of
+`sparksched_tpu_torch/kernels/encoder_cases.py` (levels that are no
+topological order, edges into nodes outside node_mask, jobs with no
+valid node but with edges, `num_levels` 3, job counts below and above
+the kernel's warps-per-block granularity).
+
 Each phase prints one JSON line. Before the last line come the
 `{"kernels": [...]}` line (per kernel: launches on the main path,
 max abs error against the plain version, the kernel's own time from
@@ -45,6 +52,9 @@ PARITY_SESSIONS, PARITY_DECISIONS = 4, 16
 WEIGHT_SCALE = 0.3
 SEED = 42
 TOL = 1e-5
+# stress cases: (B, K) per encoder_cases case, each at num_levels 0 and 3
+STRESS_SHAPES = ((1, 1), (1, 3), (3, 86), (7, 229))
+TIMED = ("B8_K32", "B8_K200")  # the serve path's shapes
 # H100 SXM peaks (NVIDIA data sheet): HBM3 rate and FP32 outside the
 # tensor cores (the kernel runs plain FP32 FMAs)
 HBM_BYTES_PER_S = 3.35e12
@@ -162,11 +172,11 @@ def encoder_work(f, net) -> tuple[int, int]:
     return nbytes, flops
 
 
-def kernel_ms(fn, reps: int, kernel: str) -> float | None:
-    """Mean device time of the CUDA kernel named `kernel` per call of
-    `fn`, from torch.profiler's kernel records (the kernel alone, without
-    the wrapper's host work and other launches); None when the profiler
-    recorded no such kernel."""
+def kernel_ms(fn, reps: int, kernel: str) -> tuple[float, float]:
+    """Device time per call of `fn` from torch.profiler's records: (every
+    kernel whose name holds `kernel`, every device record of the call).
+    Raises when the profiler recorded none of `kernel`, or a count that
+    is not a whole number per call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -178,16 +188,46 @@ def kernel_ms(fn, reps: int, kernel: str) -> float | None:
             fn()
         torch.cuda.synchronize()
     evs = [e for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA
-           and kernel in e.name]
-    if len(evs) != reps:
-        return None
-    return sum(e.time_range.elapsed_us() for e in evs) / reps / 1e3
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    ours = [e for e in evs if kernel in e.name]
+    if not ours or len(ours) % reps:
+        raise AssertionError(
+            f"torch.profiler recorded {len(ours)} launches of {kernel} in "
+            f"{reps} calls: {sorted({e.name for e in evs})}")
+
+    def per_call(es):
+        return sum(e.time_range.elapsed_us() for e in es) / reps / 1e3
+
+    return per_call(ours), per_call(evs)
+
+
+def stress_cases(f_k, s: int, nf: int) -> dict:
+    """name -> (inputs on the card, num_levels): the serve features at
+    num_levels 3 (the bank's DAGs are up to 5 levels deep), and every
+    `encoder_cases` case at STRESS_SHAPES and num_levels 0 and 3 (lane 0
+    edgeless where B > 1)."""
+    import torch
+
+    from sparksched_tpu_torch.kernels.encoder_cases import CASES, make_case
+
+    out = {"B8_K32_num_levels3":
+           ((f_k.x, f_k.adj, f_k.node_level, f_k.node_mask), 3)}
+    for i, case in enumerate(CASES):
+        for b, k in STRESS_SHAPES:
+            x, adj, lvl, mask = make_case(case, b, k, s, nf, seed=SEED + i)
+            if b > 1:
+                adj[0] = False
+            ins = tuple(torch.from_numpy(a).cuda() for a in (x, adj, lvl, mask))
+            for nl in (0, 3):
+                out[f"{case}_B{b}_K{k}_nl{nl}"] = (ins, nl)
+    return out
 
 
 def phase_kernels(params, bank, sched) -> tuple[dict, dict]:
-    """Each case's error, wrapper and plain times and bound; returns the
-    cases and, per case, a call of the wrapper for `phase_kernel_alone`."""
+    """Each case's error against the plain version; for the serve path's
+    cases also the wrapper and plain times and the bound. Returns the
+    cases and, per timed case, a call of the wrapper for
+    `phase_kernel_alone`."""
     import torch
 
     from sparksched_tpu_torch.env.observe import observe
@@ -210,30 +250,37 @@ def phase_kernels(params, bank, sched) -> tuple[dict, dict]:
     odd = torch.arange(MAX_BATCH, device="cuda") % 2 == 1
     f_mixed.adj = (f_mixed.adj & ~odd[:, None, None, None]).contiguous()
     net = sched.net
-    args = (net.encoder_weights(), net.num_levels, net.slope)
+    w = net.encoder_weights()
+    checks = stress_cases(f_k, f_k.x.shape[2], f_k.x.shape[3])
     cases, calls = {}, {}
     for name, f in (("B8_K32", f_k), ("B8_K200", f_full),
                     ("B8_K32_mixed_edgeless", f_mixed)):
         ins = (f.x, f.adj, f.node_level, f.node_mask)
-        out = decima_node_encoder(*ins, *args)
-        ref = decima_node_encoder_ref(*ins, *args)
-        torch.cuda.synchronize()
-        err = float((out - ref).abs().max())
+        args = (w, net.num_levels, net.slope)
+        checks[name] = (ins, net.num_levels)
         nbytes, flops = encoder_work(f, net)
-        bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S) * 1e3
         calls[name] = functools.partial(decima_node_encoder, *ins, *args)
         cases[name] = {
-            "shape": list(f.x.shape), "max_abs_err": err,
+            "shape": list(f.x.shape),
             # the whole wrapper call (CUDA events): the kernel plus the
             # edgeless reduction, the output's allocation and the ctypes
             # call; the kernel alone is timed in phase_kernel_alone
             "wrapper_ms": cuda_ms(calls[name], 50),
             "plain_ms": cuda_ms(lambda: decima_node_encoder_ref(*ins, *args), 10),
-            "bound_ms": bound_ms,
+            "bound_ms": max(nbytes / HBM_BYTES_PER_S,
+                            flops / FP32_FLOPS_PER_S) * 1e3,
             "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
                          >= flops / FP32_FLOPS_PER_S else "operations"),
             "bytes": nbytes, "flops": flops,
         }
+    for name, (ins, nl) in checks.items():
+        out = decima_node_encoder(*ins, w, nl, net.slope)
+        ref = decima_node_encoder_ref(*ins, w, nl, net.slope)
+        torch.cuda.synchronize()
+        err = float((out - ref).abs().max())
+        case = cases.setdefault(name, {"shape": list(ins[0].shape),
+                                       "num_levels": nl})
+        case["max_abs_err"] = err
         if not err <= TOL:
             raise AssertionError(f"decima_node_encoder {name}: max abs err "
                                  f"{err} > {TOL}")
@@ -243,17 +290,17 @@ def phase_kernels(params, bank, sched) -> tuple[dict, dict]:
 
 
 def phase_kernel_alone(cases: dict, calls: dict) -> None:
-    """The kernel's own device time per case, from torch.profiler. It
-    runs after the main path, so that no profiler session in this
-    process comes before the serve phase's host-clock numbers."""
-    for name, call in calls.items():
-        ms = kernel_ms(call, 50, "decima_node_encoder_kernel")
-        cases[name]["ms"] = cases[name]["wrapper_ms"] if ms is None else ms
-        cases[name]["ms_from"] = ("wrapper" if ms is None
-                                  else "profiler_kernel")
+    """The kernel's own device time at the serve path's shapes, from
+    torch.profiler; fails when the profiler has no record of it. It runs
+    after the main path, so that no profiler session in this process
+    comes before the serve phase's host-clock numbers."""
+    for name in TIMED:
+        cases[name]["ms"], cases[name]["wrapper_device_ms"] = kernel_ms(
+            calls[name], 50, "decima_node_encoder")
     emit({"phase": "kernel_alone", "kernel": "decima_node_encoder",
-          "ms": {n: c["ms"] for n, c in cases.items()},
-          "ms_from": {n: c["ms_from"] for n, c in cases.items()}})
+          "ms": {n: cases[n]["ms"] for n in TIMED},
+          "wrapper_device_ms": {n: cases[n]["wrapper_device_ms"]
+                                for n in TIMED}})
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
-// Decima NodeEncoder: the GNN's level-wise message pass, one block per
-// (lane, job).
+// Decima NodeEncoder: the GNN's level-wise message pass, one warp per
+// (lane, job), several jobs per block.
 //
 // Replaces: sparksched_tpu/schedulers/decima.py `DecimaNet.__call__`, the
 // NodeEncoder part (h_init = mlp_prep(x); h0 = where(has_child, 0,
@@ -12,23 +12,42 @@
 // What bounds it: per call the bytes of x (B*K*S*5 f32), adj (B*K*S*S
 // bytes), node_level and node_mask, the output h (B*K*S*16 f32) and the
 // ~3.7k weight floats — about 0.6 MB at B=8, K=32, S=20 and 3.5 MB at
-// the full-width K=200, a microsecond of HBM time or less; the FLOPs
-// the data needs are about a MFLOP. Neither is what limits
-// this kernel: each block runs a serial chain of up to 20 levels x
-// (msg MLP, aggregation, update MLP), every dense layer closed by a
-// block barrier, and the chain's latency sets the time (PERF.md has
-// the kernel's time beside its bound). In eager PyTorch the same work
-// is ~20 x (3 matmuls + activations + einsum + where) launches per
-// decision row.
+// the full-width K=200, a microsecond of HBM time or less; the FLOPs the
+// data needs are about a MFLOP. Neither limits this kernel: each job is a
+// chain of dependent dense layers — prep, the leaves' update and the
+// message MLP up front, then per level with work an aggregation and two
+// MLPs on that level's few nodes — and the chain's latency sets the time
+// (PERF.md has the kernel's time beside its bound).
 //
-// What the design does about it: ONE launch per call. Each block stages
-// the three MLPs' weights and its job's x, adjacency, levels and running
-// embeddings in shared memory and runs every level inside the block, so
-// nothing between levels touches device memory; levels with no node to
-// update are skipped block-uniformly (they are exact no-ops). Layers are
-// evaluated with one thread per (node, output) pair in plain FP32 FMAs.
-// Shortening the per-block chain (fewer barriers, warp-level layers),
-// wgmma, TMA and tuning are later work.
+// What the design does about it:
+// - One launch per call; one warp per job, so the chain synchronises with
+//   __syncwarp only. The warps of a block share one shared-memory copy of
+//   the three MLPs' weights, staged with cp.async (16 B per thread) while
+//   each warp loads its first job; the one block barrier waits for that
+//   copy. The wrapper picks warps per block from the job count
+//   (kernels/decima_encoder.py `launch_config`); blocks walk the jobs with
+//   a grid stride, so a grid smaller than the job count is also exact.
+// - Weights are packed transposed, W_T[in][out]: lane o of a layer reads
+//   word o, so a warp's weight load is conflict-free; rows of activations
+//   sit at odd strides, so the two or more row groups a warp reads at once
+//   fall into distinct banks.
+// - Only the rows the result needs. h[c] changes only at c's own level,
+//   so m[c] = msg(h[c]) is cached: computed from h0 for a node some parent
+//   reads before the node's update, refreshed after its update for a node
+//   some parent reads later. A level runs the aggregation and update MLP
+//   on its own nodes only, found by warp ballots. Nodes outside node_mask
+//   that no parent reads are skipped. This is exact whatever the levels
+//   are: nodes at a level >= num_levels (or the padding level S, or below
+//   0) keep h0 and send msg(h0), as in the JAX scan.
+// - Exact early exits: a job whose node_mask row is all false writes
+//   zeros; on an edgeless lane the output is h_init masked (prep only).
+// - No tensor cores: a layer here is at most 20 rows x 32 x 32, far under
+//   wgmma's 64-row tile, and TF32 would leave the 1e-5 tolerance against
+//   the plain version (3xTF32 on mma.sync could be revisited if the chain
+//   ever became bound by operations). Plain FP32 FMAs on the CUDA cores.
+//
+// Limits: S <= 32 (a job's nodes are a warp's lanes and adjacency rows
+// are 32-bit masks), at most MAX_WARPS warps per block.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (see sparksched_tpu_torch/kernels/build.py);
@@ -38,53 +57,133 @@
 #include <stdint.h>
 
 #define MAX_LAYERS 4
-#define THREADS 128
+#define MAX_WARPS 8
+#define SMEM_MAX (227 * 1024)
+#define FULL 0xffffffffu
 
 struct MlpDims {
   int n;                    // number of dense layers
   int in[MAX_LAYERS];
   int out[MAX_LAYERS];
-  int off[MAX_LAYERS];      // float offset of W (out x in, row-major); b follows
+  int off[MAX_LAYERS];      // float offset of W_T (in x out, row-major); b follows
 };
 
 struct EncDims {
   MlpDims prep, msg, upd;
-  int S, F, D, nl, wtotal, hmax, K;
+  int S, F, D, nl, K;
+  int wtotal;               // packed weight floats, a multiple of 4
+  int xs, ds, hs;           // odd row strides: x, the [S,D] arrays, hidden rows
+  int warp_floats;          // shared scratch per warp, a multiple of 4
+  long jobs;                // B * K
   float slope;
 };
 
-// One MLP over `rows` rows held in shared memory. `in` has row stride
-// in_stride, `out` row stride out_stride; hidden layers ping-pong through
-// buf0/buf1 (row stride hmax). Every thread of the block must call it.
-__device__ void mlp_rows(const float* __restrict__ w, const MlpDims& m,
-                         const float* in, int in_stride, float* out,
-                         int out_stride, float* buf0, float* buf1, int hmax,
-                         int rows, float slope) {
-  const float* src = in;
-  int src_stride = in_stride;
-  for (int l = 0; l < m.n; ++l) {
-    const bool last = (l == m.n - 1);
-    float* dst = last ? out : ((l & 1) ? buf1 : buf0);
-    const int dst_stride = last ? out_stride : hmax;
-    const int ni = m.in[l], no = m.out[l];
-    const float* W = w + m.off[l];
-    const float* bias = W + ni * no;
-    for (int t = threadIdx.x; t < rows * no; t += blockDim.x) {
-      const int r = t / no, o = t - r * no;
-      const float* x = src + r * src_stride;
-      const float* wr = W + o * ni;
-      float acc = bias[o];
-      for (int i = 0; i < ni; ++i) acc = fmaf(x[i], wr[i], acc);
-      if (!last) acc = acc >= 0.f ? acc : slope * acc;
-      dst[r * dst_stride + o] = acc;
+// One dense layer, y = x @ W + b (LeakyReLU unless last), over n rows, by
+// one warp. The warp splits into 32/G groups of G lanes, G the layer width
+// rounded up to a power of two (at most 32; wider layers loop over output
+// chunks). Group g takes rows g, g + 32/G, ..., R at a time, one
+// accumulator each. Row j of the input is in[(in_idx ? in_idx[j] : j) *
+// in_stride]; row j of the output goes to the row out_idx[j] (or j), plus
+// the same row of `add` when given.
+template <int R>
+__device__ __forceinline__ void dense_r(
+    const float* __restrict__ W, int ni, int no, int G, const float* in,
+    int in_stride, const int* in_idx, float* out, int out_stride,
+    const int* out_idx, const float* add, int n, bool act, float slope,
+    int lane) {
+  const int RG = 32 / G, g = lane / G, ol = lane - g * G;
+  const float* bias = W + ni * no;
+  for (int o0 = 0; o0 < no; o0 += G) {
+    const int o = o0 + ol;
+    const bool live = o < no;
+    const int oc = live ? o : no - 1;
+    for (int r0 = g; r0 < n; r0 += R * RG) {
+      const float* ip[R];
+      float acc[R];
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        const int r = r0 + j * RG < n ? r0 + j * RG : r0;
+        ip[j] = in + (in_idx ? in_idx[r] : r) * in_stride;
+      }
+      if (R == 1) {  // one row: two chains halve the dependent FMA chain
+        float a0 = 0.f, a1 = 0.f;
+        int i = 0;
+#pragma unroll 4
+        for (; i + 1 < ni; i += 2) {
+          a0 = fmaf(ip[0][i], W[i * no + oc], a0);
+          a1 = fmaf(ip[0][i + 1], W[(i + 1) * no + oc], a1);
+        }
+        if (i < ni) a0 = fmaf(ip[0][i], W[i * no + oc], a0);
+        acc[0] = a0 + a1;
+      } else {
+#pragma unroll
+        for (int j = 0; j < R; ++j) acc[j] = 0.f;
+#pragma unroll 4
+        for (int i = 0; i < ni; ++i) {
+          const float w = W[i * no + oc];
+#pragma unroll
+          for (int j = 0; j < R; ++j) acc[j] = fmaf(ip[j][i], w, acc[j]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        const int r = r0 + j * RG;
+        if (live && r < n) {
+          float v = acc[j] + bias[oc];
+          if (act) v = v >= 0.f ? v : slope * v;
+          const int ro = (out_idx ? out_idx[r] : r) * out_stride + o;
+          out[ro] = add ? add[ro] + v : v;
+        }
+      }
     }
-    __syncthreads();
-    src = dst;
-    src_stride = dst_stride;
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
+__device__ __forceinline__ void dense(
+    const float* W, int ni, int no, const float* in, int in_stride,
+    const int* in_idx, float* out, int out_stride, const int* out_idx,
+    const float* add, int n, bool act, float slope, int lane) {
+  const int G = no > 16 ? 32 : no > 8 ? 16 : no > 4 ? 8 : no > 2 ? 4 : no;
+  const int per_group = (n + 32 / G - 1) / (32 / G);
+  if (per_group >= 4)
+    dense_r<4>(W, ni, no, G, in, in_stride, in_idx, out, out_stride,
+               out_idx, add, n, act, slope, lane);
+  else if (per_group >= 2)
+    dense_r<2>(W, ni, no, G, in, in_stride, in_idx, out, out_stride,
+               out_idx, add, n, act, slope, lane);
+  else
+    dense_r<1>(W, ni, no, G, in, in_stride, in_idx, out, out_stride,
+               out_idx, add, n, act, slope, lane);
+  __syncwarp();
+}
+
+// One MLP over n rows (see dense for the row addressing); hidden layers
+// ping-pong through buf0/buf1 (compact rows, stride hs).
+__device__ void mlp(const float* w, const MlpDims& m, const float* in,
+                    int in_stride, const int* in_idx, float* out,
+                    int out_stride, const int* out_idx, const float* add,
+                    int n, float* buf0, float* buf1, int hs, float slope,
+                    int lane) {
+  for (int l = 0; l < m.n; ++l) {
+    const bool last = l == m.n - 1;
+    float* dst = last ? out : ((l & 1) ? buf1 : buf0);
+    dense(w + m.off[l], m.in[l], m.out[l], in, in_stride, in_idx, dst,
+          last ? out_stride : hs, last ? out_idx : nullptr,
+          last ? add : nullptr, n, !last, slope, lane);
+    in = dst;
+    in_stride = hs;
+    in_idx = nullptr;
+  }
+}
+
+// The lanes set in `mask`, in order, into idx[0..popc); returns popc.
+__device__ __forceinline__ int rows_of(unsigned mask, int* idx, int lane) {
+  if ((mask >> lane) & 1u) idx[__popc(mask & ((1u << lane) - 1u))] = lane;
+  __syncwarp();
+  return __popc(mask);
+}
+
+__global__ void __launch_bounds__(32 * MAX_WARPS)
 decima_node_encoder_kernel(const float* __restrict__ x,
                            const uint8_t* __restrict__ adj,
                            const int32_t* __restrict__ level,
@@ -92,69 +191,157 @@ decima_node_encoder_kernel(const float* __restrict__ x,
                            const uint8_t* __restrict__ edgeless,
                            const float* __restrict__ weights,
                            float* __restrict__ out, EncDims d) {
-  extern __shared__ float sm[];
-  const int S = d.S, F = d.F, D = d.D;
-  const long item = blockIdx.x;           // lane * K + job
-  const int lane = (int)(item / d.K);
+  extern __shared__ __align__(16) float sm[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wpb = blockDim.x >> 5;
+  const int S = d.S, F = d.F, D = d.D, ds = d.ds;
 
-  float* ws = sm;
-  float* xs = ws + d.wtotal;              // [S,F]
-  float* hinit = xs + S * F;              // [S,D]
-  float* h = hinit + S * D;               // [S,D]
-  float* tmp = h + S * D;                 // [S,D]
-  float* agg = tmp + S * D;               // [S,D]
-  float* buf0 = agg + S * D;              // [S,hmax]
-  float* buf1 = buf0 + S * d.hmax;        // [S,hmax]
-  float* adjs = buf1 + S * d.hmax;        // [S,S] as 0/1 floats
-  int* lv = reinterpret_cast<int*>(adjs + S * S);  // [S]
-  int* has_child = lv + S;                // [S]
-
-  for (int i = threadIdx.x; i < d.wtotal; i += blockDim.x) ws[i] = weights[i];
-  for (int i = threadIdx.x; i < S * F; i += blockDim.x)
-    xs[i] = x[item * S * F + i];
-  for (int i = threadIdx.x; i < S * S; i += blockDim.x)
-    adjs[i] = adj[item * S * S + i] ? 1.f : 0.f;
-  for (int p = threadIdx.x; p < S; p += blockDim.x) {
-    lv[p] = level[item * S + p];
-    int any = 0;
-    for (int c = 0; c < S; ++c) any |= adj[item * S * S + p * S + c];
-    has_child[p] = any;
+  // stage the weights, 16 B per thread; waited for once each warp has
+  // loaded its first job
+  {
+    const unsigned base = (unsigned)__cvta_generic_to_shared(sm);
+    for (int i = threadIdx.x; i < d.wtotal / 4; i += blockDim.x)
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                       base + 16u * i),
+                   "l"(weights + 4 * i));
+    asm volatile("cp.async.commit_group;\n" ::);
   }
-  __syncthreads();
+  const float* ws = sm;
+  float* xs = sm + d.wtotal + warp * d.warp_floats;  // [S, xs]
+  float* hinit = xs + S * d.xs;                      // [S, ds]
+  float* h = hinit + S * ds;                         // [S, ds]
+  float* m = h + S * ds;                             // [S, ds]: msg(h)
+  float* agg = m + S * ds;                           // [S, ds], compact
+  float* buf0 = agg + S * ds;                        // [S, hs], compact
+  float* buf1 = buf0 + S * d.hs;                     // [S, hs], compact
+  int* rowm = reinterpret_cast<int*>(buf1 + S * d.hs);  // [S] child masks
+  int* lv = rowm + S;                                // [S]
+  int* idx0 = lv + S;                                // [32]
+  int* idx1 = idx0 + 32;                             // [32]
 
-  // h_init = prep(x); h0 = where(has_child, 0, update(h_init))
-  mlp_rows(ws, d.prep, xs, F, hinit, D, buf0, buf1, d.hmax, S, d.slope);
-  mlp_rows(ws, d.upd, hinit, D, tmp, D, buf0, buf1, d.hmax, S, d.slope);
-  for (int i = threadIdx.x; i < S * D; i += blockDim.x)
-    h[i] = has_child[i / D] ? 0.f : tmp[i];
-  __syncthreads();
-
-  for (int l = d.nl - 1; l >= 0; --l) {
-    int mine = 0;
-    for (int p = threadIdx.x; p < S; p += blockDim.x)
-      mine |= (lv[p] == l) & has_child[p];
-    if (!__syncthreads_or(mine)) continue;  // no node updates: exact no-op
-    mlp_rows(ws, d.msg, h, D, tmp, D, buf0, buf1, d.hmax, S, d.slope);
-    for (int i = threadIdx.x; i < S * D; i += blockDim.x) {
-      const int p = i / D, dd = i - p * D;
-      float acc = 0.f;
-      for (int c = 0; c < S; ++c) acc = fmaf(adjs[p * S + c], tmp[c * D + dd], acc);
-      agg[i] = acc;
+  const bool in_s = lane < S;
+  bool synced = false;
+  for (long job = (long)blockIdx.x * wpb + warp;; job += (long)gridDim.x * wpb) {
+    const bool have = job < d.jobs;
+    unsigned V = 0;  // node_mask row
+    if (have) {
+      V = __ballot_sync(FULL, in_s && node_mask[job * S + lane]);
+      float* o = out + job * S * D;
+      if (V == 0) {
+        for (int i = lane; i < S * D; i += 32) o[i] = 0.f;
+      } else {
+        const float* xj = x + job * S * F;
+        for (int i = lane; i < S * F; i += 32) {
+          const int r = i / F;
+          xs[r * d.xs + i - r * F] = xj[i];
+        }
+        if (in_s) {
+          const uint8_t* a = adj + (job * S + lane) * S;
+          unsigned row = 0;
+          for (int c = 0; c < S; ++c) row |= (a[c] != 0 ? 1u : 0u) << c;
+          rowm[lane] = (int)row;
+          lv[lane] = level[job * S + lane];
+        }
+      }
     }
-    __syncthreads();
-    mlp_rows(ws, d.upd, agg, D, tmp, D, buf0, buf1, d.hmax, S, d.slope);
-    for (int i = threadIdx.x; i < S * D; i += blockDim.x) {
+    if (!synced) {
+      asm volatile("cp.async.wait_group 0;\n" ::);
+      __syncthreads();
+      synced = true;
+    }
+    if (!have) break;
+    if (V == 0) continue;
+    __syncwarp();
+
+    float* o = out + job * S * D;
+    if (edgeless[job / d.K]) {  // no edge in the lane: h = h_init, masked
+      const int n = rows_of(V, idx0, lane);
+      mlp(ws, d.prep, xs, d.xs, idx0, hinit, ds, idx0, nullptr, n, buf0,
+          buf1, d.hs, d.slope, lane);
+      for (int i = lane; i < S * D; i += 32) {
+        const int p = i / D;
+        o[i] = ((V >> p) & 1u) ? hinit[p * ds + i - p * D] : 0.f;
+      }
+      continue;
+    }
+
+    const unsigned row = in_s ? (unsigned)rowm[lane] : 0u;
+    const int myl = in_s ? lv[lane] : -1;
+    const bool upd = row != 0 && myl >= 0 && myl < d.nl;
+    const unsigned U = __ballot_sync(FULL, upd);  // nodes updated at a level
+    const unsigned leaf = __ballot_sync(FULL, in_s && row == 0);
+    // Who reads m[lane]: each parent updated at a level; a parent at a
+    // level >= ours reads it before our update (or we are never updated),
+    // one at a lower level after it.
+    unsigned par = 0;
+    for (int q = 0; q < S; ++q)
+      par |= (((unsigned)rowm[q] >> lane) & 1u) << q;
+    par &= U;
+    bool before = false, after = false;
+    while (par) {
+      const int q = __ffs(par) - 1;
+      par &= par - 1;
+      if (!upd || lv[q] >= myl) before = true;
+      else after = true;
+    }
+    const unsigned NI = __ballot_sync(FULL, before);  // m from h0
+    const unsigned NR = __ballot_sync(FULL, after);   // m after update
+    const unsigned todo0 = U & (V | NR);              // updates we need
+    const unsigned h0 = leaf & (V | NI);              // leaves we need
+
+    // h_init = prep(x); h0 = update(h_init) on leaves, 0 with children
+    int n = rows_of(V | todo0 | (NI & leaf), idx0, lane);
+    mlp(ws, d.prep, xs, d.xs, idx0, hinit, ds, idx0, nullptr, n, buf0,
+        buf1, d.hs, d.slope, lane);
+    for (int i = lane; i < S * D; i += 32) {
       const int p = i / D;
-      if (lv[p] == l && has_child[p]) h[i] = hinit[i] + tmp[i];
+      if (rowm[p]) h[p * ds + i - p * D] = 0.f;
     }
-    __syncthreads();
-  }
+    n = rows_of(h0, idx0, lane);
+    mlp(ws, d.upd, hinit, ds, idx0, h, ds, idx0, nullptr, n, buf0, buf1,
+        d.hs, d.slope, lane);
+    if (NI) {
+      n = rows_of(NI, idx0, lane);
+      mlp(ws, d.msg, h, ds, idx0, m, ds, idx0, nullptr, n, buf0, buf1,
+          d.hs, d.slope, lane);
+    }
 
-  const bool el = edgeless[lane] != 0;
-  for (int i = threadIdx.x; i < S * D; i += blockDim.x) {
-    const int p = i / D;
-    const float v = el ? hinit[i] : h[i];
-    out[item * S * D + i] = node_mask[item * S + p] ? v : 0.f;
+    // levels with work, deepest first
+    unsigned todo = U;
+    while (todo) {
+      const int l = __reduce_max_sync(FULL, ((todo >> lane) & 1u) ? myl : -1);
+      const unsigned P = __ballot_sync(FULL, ((todo >> lane) & 1u) && myl == l);
+      todo &= ~P;
+      const unsigned Pn = P & todo0;
+      if (!Pn) continue;
+      n = rows_of(Pn, idx0, lane);
+      for (int t = lane; t < n * D; t += 32) {  // agg = adj @ m, level rows
+        const int j = t / D, dd = t - j * D;
+        unsigned bits = (unsigned)rowm[idx0[j]];
+        float acc = 0.f;
+        while (bits) {
+          const int c = __ffs(bits) - 1;
+          bits &= bits - 1;
+          acc += m[c * ds + dd];
+        }
+        agg[j * ds + dd] = acc;
+      }
+      __syncwarp();
+      mlp(ws, d.upd, agg, ds, nullptr, h, ds, idx0, hinit, n, buf0, buf1,
+          d.hs, d.slope, lane);  // h = h_init + update(agg)
+      const unsigned Rl = Pn & NR;
+      if (Rl) {
+        n = rows_of(Rl, idx1, lane);
+        mlp(ws, d.msg, h, ds, idx1, m, ds, idx1, nullptr, n, buf0, buf1,
+            d.hs, d.slope, lane);
+      }
+    }
+
+    for (int i = lane; i < S * D; i += 32) {
+      const int p = i / D;
+      o[i] = ((V >> p) & 1u) ? h[p * ds + i - p * D] : 0.f;
+    }
+    __syncwarp();
   }
 }
 
@@ -165,6 +352,7 @@ static int fill_mlp(MlpDims* m, const int* spec, int* off) {
   for (int l = 0; l < m->n; ++l) {
     m->in[l] = spec[1 + l];
     m->out[l] = spec[1 + m->n + l];
+    if (m->in[l] < 1 || m->out[l] < 1) return -1;
     m->off[l] = *off;
     *off += m->in[l] * m->out[l] + m->out[l];
   }
@@ -178,14 +366,16 @@ static int widest(const MlpDims& m) {
 }
 
 // C entry point. `mlp_spec` holds prep, msg, update back to back, each as
-// (n, in[0..n-1], out[0..n-1]); `weights` packs each layer's W (out x in,
-// row-major) then b, in that order. Returns cudaGetLastError() of the
-// launch (0 on success), or -1 for dims the kernel does not take.
+// (n, in[0..n-1], out[0..n-1]); `weights` packs each layer's W_T (in x
+// out, row-major) then b, in that order, zero-padded to a multiple of 4
+// floats (16-byte aligned). Launches `blocks` blocks of `warps` warps,
+// one warp per job at a time. Returns cudaGetLastError() of the launch (0
+// on success), or -1 for dims the kernel does not take.
 extern "C" int decima_node_encoder_launch(
     const float* x, const uint8_t* adj, const int32_t* level,
     const uint8_t* node_mask, const uint8_t* edgeless, const float* weights,
     float* out, int B, int K, int S, int F, int D, int nl, float slope,
-    const int* mlp_spec, void* stream) {
+    const int* mlp_spec, int warps, int blocks, void* stream) {
   EncDims d;
   int off = 0;
   const int* p = mlp_spec;
@@ -197,24 +387,32 @@ extern "C" int decima_node_encoder_launch(
   p += used;
   used = fill_mlp(&d.upd, p, &off);
   if (used < 0) return -1;
+  if (S < 1 || S > 32 || F < 1 || D < 1 || warps < 1 || warps > MAX_WARPS ||
+      blocks < 1)
+    return -1;
   d.S = S; d.F = F; d.D = D; d.nl = nl; d.K = K; d.slope = slope;
-  d.wtotal = off;
+  d.jobs = (long)B * K;
+  d.wtotal = (off + 3) / 4 * 4;
   int hmax = widest(d.prep);
   hmax = widest(d.msg) > hmax ? widest(d.msg) : hmax;
   hmax = widest(d.upd) > hmax ? widest(d.upd) : hmax;
-  d.hmax = hmax;
-  const size_t smem = sizeof(float) * ((size_t)off + S * F + 4 * S * D +
-                                       2 * S * hmax + S * S) +
-                      sizeof(int) * 2 * S;
-  if (smem > 227 * 1024) return -1;
-  if (smem > 48 * 1024) {
+  d.xs = F | 1;
+  d.ds = D | 1;
+  d.hs = hmax | 1;
+  d.warp_floats = (S * (d.xs + 4 * d.ds + 2 * d.hs) + 2 * S + 64 + 3) / 4 * 4;
+  const size_t smem = sizeof(float) * ((size_t)d.wtotal +
+                                       (size_t)warps * d.warp_floats);
+  if (smem > SMEM_MAX) return -1;
+  static bool opted_in = false;
+  if (smem > 48 * 1024 && !opted_in) {
     cudaError_t e = cudaFuncSetAttribute(
         decima_node_encoder_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
     if (e != cudaSuccess) return (int)e;
+    opted_in = true;
   }
-  if ((long)B * K == 0) return 0;
-  decima_node_encoder_kernel<<<(unsigned)(B * K), THREADS, smem,
+  if (d.jobs == 0) return 0;
+  decima_node_encoder_kernel<<<(unsigned)blocks, 32 * warps, smem,
                                (cudaStream_t)stream>>>(
       x, adj, level, node_mask, edgeless, weights, out, d);
   return (int)cudaGetLastError();

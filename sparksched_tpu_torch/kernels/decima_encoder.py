@@ -9,7 +9,8 @@ version `decima_node_encoder_ref`. Both take the three MLPs as
 `EncoderWeights`, packed once by `pack_weights` (the caller keeps them
 until the weights change). The edgeless fallback is reduced per lane
 over ALL of that lane's jobs, so it is computed here, before the
-launch, and handed to the kernel (one block sees one job only).
+launch, and handed to the kernel (one warp sees one job only): a call
+on the card makes two launches, that reduction and the kernel.
 """
 
 from __future__ import annotations
@@ -45,7 +46,7 @@ class EncoderWeights:
     prep: Layers
     msg: Layers
     update: Layers
-    packed: torch.Tensor  # f32: each layer's W (out x in) then b
+    packed: torch.Tensor  # f32: each layer's W.T (in x out) then b, padded
     spec: np.ndarray  # i32: per MLP (n, in[0..n-1], out[0..n-1])
 
 
@@ -57,8 +58,11 @@ def _spec(layers: Layers) -> list[int]:
 def pack_weights(prep: Layers, msg: Layers, update: Layers
                  ) -> EncoderWeights:
     """Check the MLPs' shapes and pack them for the kernel: each layer's
-    W (out x in, row-major) then b, for prep, msg, update in that order.
-    The packed tensor is a copy: pack again after the weights change."""
+    W transposed (in x out, row-major, so that the lane computing output
+    o reads word o of each input's row) then b, for prep, msg, update in
+    that order, zero-padded to a multiple of 4 floats (the kernel stages
+    them 16 bytes at a time). The packed tensor is a copy: pack again
+    after the weights change."""
     d = int(prep[-1][0].shape[0])
     for name, layers in (("mlp_msg", msg), ("mlp_update", update)):
         if int(layers[0][0].shape[1]) != d or int(layers[-1][0].shape[0]) != d:
@@ -71,7 +75,9 @@ def pack_weights(prep: Layers, msg: Layers, update: Layers
         for w, b in layers:
             if w.device != dev or w.dtype != torch.float32:
                 raise ValueError("weights must be float32 on one device")
-            parts += [w.reshape(-1), b.reshape(-1)]
+            parts += [w.T.reshape(-1), b.reshape(-1)]
+    pad = -sum(p.numel() for p in parts) % 4
+    parts.append(torch.zeros(pad, dtype=torch.float32, device=dev))
     spec = np.asarray(_spec(prep) + _spec(msg) + _spec(update), np.int32)
     return EncoderWeights(prep, msg, update,
                           torch.cat(parts).contiguous(), spec)
@@ -123,6 +129,21 @@ def _check(x, adj, node_level, node_mask, w: EncoderWeights) -> None:
         raise ValueError(f"weights are on {w.packed.device}, x on {x.device}")
 
 
+MAX_WARPS = 8  # the kernel's MAX_WARPS
+TARGET_BLOCKS = 128  # about one block per SM of an H100 (132)
+
+
+def launch_config(n_jobs: int) -> tuple[int, int]:
+    """(warps per block, blocks) for `n_jobs` jobs, one warp per job: as
+    many warps per block (a power of two, at most 8) as keep the jobs
+    spread over at least about 128 blocks, since the warps of a block
+    share one staged copy of the weights."""
+    warps = 1
+    while warps < MAX_WARPS and n_jobs >= 2 * warps * TARGET_BLOCKS:
+        warps *= 2
+    return warps, max(1, -(-n_jobs // warps))
+
+
 @functools.cache
 def _launcher():
     """The C entry point of the built library, with its signature."""
@@ -131,7 +152,7 @@ def _launcher():
     fn = load("decima_encoder").decima_node_encoder_launch
     vp, ci = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci,
-                   ctypes.c_float, ctypes.POINTER(ci), vp]
+                   ctypes.c_float, ctypes.POINTER(ci), ci, ci, vp]
     fn.restype = ci
     return fn
 
@@ -149,10 +170,13 @@ def decima_node_encoder(x, adj, node_level, node_mask, w: EncoderWeights,
         )
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    fn = _launcher()
     b, k, s, f = x.shape
+    if s > 32:
+        raise ValueError(f"the kernel takes at most 32 stage slots, got {s}")
+    fn = _launcher()
     d = int(w.prep[-1][0].shape[0])
     s_nl = min(num_levels, s) if num_levels else s
+    warps, blocks = launch_config(b * k)
     edgeless = edgeless_per_lane(adj).contiguous()
     spec_c = w.spec.ctypes.data_as(ctypes.POINTER(ctypes.c_int))
     out = torch.empty((b, k, s, d), dtype=torch.float32, device=x.device)
@@ -160,7 +184,7 @@ def decima_node_encoder(x, adj, node_level, node_mask, w: EncoderWeights,
     rc = fn(x.data_ptr(), adj.data_ptr(), node_level.data_ptr(),
             node_mask.data_ptr(), edgeless.data_ptr(), w.packed.data_ptr(),
             out.data_ptr(), b, k, s, f, d, s_nl, float(negative_slope),
-            spec_c, stream)
+            spec_c, warps, blocks, stream)
     if rc != 0:
         raise RuntimeError(
             f"decima_node_encoder launch failed (cudaGetLastError={rc})"

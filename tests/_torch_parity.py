@@ -16,6 +16,24 @@ def jax_leaves(ls) -> list[np.ndarray]:
     return [np.asarray(x) for x in jax.tree_util.tree_leaves(ls)]
 
 
+def jax_h_node(js, jf) -> np.ndarray:
+    """h_node of a JAX `DecimaScheduler`'s flax net on features `jf`: the
+    NodeEncoder output, read off the input of `mlp_dag` (concat[x,
+    h_node])."""
+    import flax.linen as fnn
+
+    seen = {}
+
+    def icpt(next_fun, args, kwargs, context):
+        if context.module.name == "mlp_dag" and context.method_name == "__call__":
+            seen["h"] = np.asarray(args[0][..., 5:])
+        return next_fun(*args, **kwargs)
+
+    with fnn.intercept_methods(icpt):
+        js.net.apply(js.params, jf)
+    return seen["h"]
+
+
 def port_leaves(ls, lane: int = 0) -> list[tuple[str, np.ndarray]]:
     """(name, numpy) of one lane of a port LoopState; the rng words come
     back as uint32 like the JAX key."""

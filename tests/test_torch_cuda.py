@@ -1,5 +1,7 @@
 """The port's CUDA kernel against its plain version on the card (needs
-an NVIDIA card; skips elsewhere). Run there with
+an NVIDIA card; skips elsewhere), on random DAGs and on the seeded
+adversarial inputs of `kernels/encoder_cases.py`, at job counts below
+and above the kernel's warps-per-block granularity, within 1e-5. Run there with
 `python -m pytest --noconftest -m cuda tests/test_torch_cuda.py`
 (`--noconftest`: the suite's conftest imports JAX, which the card's
 machine need not have)."""
@@ -12,8 +14,10 @@ import torch
 from sparksched_tpu_torch.kernels.decima_encoder import (
     decima_node_encoder,
     decima_node_encoder_ref,
+    launch_config,
     pack_weights,
 )
+from sparksched_tpu_torch.kernels.encoder_cases import CASES, make_case
 
 pytestmark = pytest.mark.cuda
 
@@ -54,4 +58,30 @@ def test_kernel_matches_plain_version(card, b, k, s):
     torch.cuda.synchronize()
     assert decima_node_encoder.launches == before + 1
     ref = decima_node_encoder_ref(*ins, *args)
+    assert float((out - ref).abs().max()) <= 1e-5
+
+
+# B*K = 1, 3 (under one block of warps), 256 (the serve shape), 258 and
+# 1603 (a last block only partly filled)
+SHAPES = [(1, 1), (1, 3), (8, 32), (3, 86), (7, 229)]
+
+
+@pytest.mark.parametrize("num_levels", [0, 3])
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("b,k", SHAPES)
+def test_kernel_matches_plain_version_on_adversarial_cases(card, b, k, case,
+                                                           num_levels):
+    x, adj, lvl, mask = make_case(case, b, k, 20, 5, seed=b * 1000 + k)
+    if b > 1:
+        adj[0] = False  # an edgeless lane beside edged ones
+    gen = torch.Generator().manual_seed(7)
+    w = pack_weights(_layers(gen, [5, 32, 16, 16], card),
+                     _layers(gen, [16, 32, 16, 16], card),
+                     _layers(gen, [16, 32, 16, 16], card))
+    ins = [torch.from_numpy(a).to(card) for a in (x, adj, lvl, mask)]
+    warps, blocks = launch_config(b * k)
+    assert (blocks - 1) * warps < b * k <= blocks * warps
+    out = decima_node_encoder(*ins, w, num_levels, 0.2)
+    torch.cuda.synchronize()
+    ref = decima_node_encoder_ref(*ins, w, num_levels, 0.2)
     assert float((out - ref).abs().max()) <= 1e-5

@@ -14,7 +14,6 @@ heads out of saturation."""
 
 from __future__ import annotations
 
-import flax.linen as fnn
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -35,6 +34,8 @@ from sparksched_tpu_torch.kernels.decima_encoder import (
 from sparksched_tpu_torch.schedulers import DecimaScheduler, params_from_flax
 from sparksched_tpu_torch.schedulers.decima import compact_features
 from sparksched_tpu_torch.workload import make_workload_bank
+
+from ._torch_parity import jax_h_node
 
 N, J, B = 10, 24, 6
 KW = dict(
@@ -77,21 +78,6 @@ def _pair(scale: float = 1.0, **kw):
     return js, ts
 
 
-def _jax_h_node(js, jf):
-    """h_node of the flax net: the NodeEncoder output, read off the input
-    of `mlp_dag` (concat[x, h_node])."""
-    seen = {}
-
-    def icpt(next_fun, args, kwargs, context):
-        if context.module.name == "mlp_dag" and context.method_name == "__call__":
-            seen["h"] = np.asarray(args[0][..., 5:])
-        return next_fun(*args, **kwargs)
-
-    with fnn.intercept_methods(icpt):
-        js.net.apply(js.params, jf)
-    return seen["h"]
-
-
 def _encode_ref(ts, tf):
     net = ts.net
     return decima_node_encoder_ref(
@@ -121,7 +107,7 @@ def test_encoder_ref_and_net_match_flax(obs_pair, num_levels):
     js, ts = _pair(num_levels=num_levels)
     jf, tf = jax.vmap(js.features)(jo), ts.features(to)
     np.testing.assert_allclose(_encode_ref(ts, tf).numpy(),
-                               _jax_h_node(js, jf), rtol=1e-4, atol=1e-5)
+                               jax_h_node(js, jf), rtol=1e-4, atol=1e-5)
     # on a CPU tensor the wrapper is the plain version
     np.testing.assert_array_equal(
         decima_node_encoder(
@@ -160,7 +146,7 @@ def test_mixed_edged_and_edgeless_batch(obs_pair):
     assert bool(tf.adj[0].any()) and not bool(tf.adj[1].any())
     jf = jax.vmap(js.features)(jo).replace(adj=jnp.asarray(tf.adj.numpy()))
     np.testing.assert_allclose(_encode_ref(ts, tf).numpy(),
-                               _jax_h_node(js, jf), rtol=1e-4, atol=1e-5)
+                               jax_h_node(js, jf), rtol=1e-4, atol=1e-5)
     jss, jes = js.net.apply(js.params, jf)
     tss, tes = ts.net(tf)
     np.testing.assert_allclose(tss.numpy(), np.asarray(jss), rtol=1e-4, atol=1e-5)
