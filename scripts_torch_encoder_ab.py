@@ -27,7 +27,19 @@ torch.profiler, in turns (baseline first and last). Variants:
 - ``persist_w{2,4,8}``: the checkout's kernel on a persistent grid of
   one block per SM, its warps walking over the jobs;
 - ``current_all_rows``: the checkout's kernel with every node's message
-  computed up front and refreshed after every update (no row pruning).
+  computed up front and refreshed after every update (no row pruning);
+- ``current_empty``: the checkout's kernel returning at once, at the
+  launch configuration the wrapper picks (the floor of a launch; its
+  output is not checked);
+- ``earlier`` (with --earlier-cu): another version of the checkout's
+  kernel with the current C interface.
+
+Beside the times: the checkout's kernel rebuilt with `clock64()` stamps
+(`phases`), which gives, per job with a valid node on an edged lane,
+the SM cycles spent loading the job, on its bookkeeping, in prep, in
+the leaves' update and the first messages, in the level chain and in
+the output writes; with --sass, the checkout's kernel's SASS in
+`chiprun_out/encoder_sass.txt`.
 
 One JSON line per variant and shape, the card's name and power limit,
 the ptxas report of every build; all of it also in --out.
@@ -62,6 +74,38 @@ BASELINE_DEAD = [(
     "    return;\n"
     "  }\n",
 )]
+EMPTY = [("  const int S = d.S, F = d.F, D = d.D, ds = d.ds, hs = d.hs;\n",
+          "  const int S = d.S, F = d.F, D = d.D, ds = d.ds, hs = d.hs;\n"
+          "  if (d.jobs > 0) return;\n")]
+STAMPS = 1 << 16  # 8 stamps for each of the first 8192 jobs
+PHASES = ("load", "bookkeeping", "prep", "h0_and_msg", "levels", "output")
+PHASE_STAMPS = [
+    ("#define X_CHUNKS",
+     f"__device__ long long enc_stamps[{STAMPS}];\n"
+     "extern \"C\" int enc_stamps_read(long long* dst) {\n"
+     "  return (int)cudaMemcpyFromSymbol(dst, enc_stamps,\n"
+     "                                   sizeof(enc_stamps));\n}\n"
+     "#define STAMP(k) if (lane == 0 && job < 8192) "
+     "enc_stamps[job * 8 + (k)] = clock64();\n"
+     "#define X_CHUNKS"),
+    ("  const int S = d.S, F = d.F, D = d.D, ds = d.ds, hs = d.hs;\n",
+     "  const int S = d.S, F = d.F, D = d.D, ds = d.ds, hs = d.hs;\n"
+     "  const long long t_start = clock64();\n"),
+    ("      synced = true;\n    }\n",
+     "      synced = true;\n    }\n"
+     "    if (have && lane == 0 && job < 8192) "
+     "enc_stamps[job * 8] = t_start;\n    STAMP(1)\n"),
+    ("    // h_init = prep(x); h0 = update(h_init) on leaves, 0 with children\n",
+     "    STAMP(2)\n"
+     "    // h_init = prep(x); h0 = update(h_init) on leaves, 0 with children\n"),
+    ("    n = rows_of(h0, idx0, lane);\n",
+     "    STAMP(3)\n    n = rows_of(h0, idx0, lane);\n"),
+    ("    // levels with work, deepest first\n",
+     "    STAMP(4)\n    // levels with work, deepest first\n"),
+    ("    write_rows(o, h, ds, V, S, D, lane);\n    __syncwarp();\n",
+     "    STAMP(5)\n    write_rows(o, h, ds, V, S, D, lane);\n    STAMP(6)\n"
+     "    __syncwarp();\n"),
+]
 ALL_ROWS = [
     ("const unsigned NI = __ballot_sync(FULL, before);",
      "const unsigned NI = __ballot_sync(FULL, in_s);"),
@@ -144,6 +188,33 @@ def launcher(lib, f, w, packed, nl: int, slope: float, config=None):
     return call
 
 
+def phase_cycles(lib, call, f, nl: int) -> dict:
+    """Run `call` (a build with PHASE_STAMPS) once; per phase, the median
+    and largest SM cycles over the jobs that ran the whole chain (a valid
+    node, an edged lane)."""
+    import numpy as np
+    import torch
+
+    stamps = np.zeros(STAMPS, np.int64)
+    call()
+    torch.cuda.synchronize()
+    rc = lib.enc_stamps_read(stamps.ctypes.data_as(ctypes.c_void_p))
+    if rc:
+        raise RuntimeError(f"enc_stamps_read: {rc}")
+    b, k = f.x.shape[:2]
+    edged = f.adj.reshape(b, -1).any(1)[:, None].expand(b, k)
+    full = (f.node_mask.any(-1) & edged).reshape(-1).cpu().numpy()
+    t = stamps.reshape(-1, 8)[:b * k][full[:8192]]
+    d = np.diff(t[:, :7], axis=1)
+    out = {"jobs": int(len(t))}
+    for i, name in enumerate(PHASES):
+        out[name] = {"median": float(np.median(d[:, i])),
+                     "max": int(d[:, i].max())}
+    tot = t[:, 6] - t[:, 0]
+    out["total"] = {"median": float(np.median(tot)), "max": int(tot.max())}
+    return out
+
+
 def job_stats(f, nl: int) -> dict:
     """Jobs, jobs with a valid node, and per such job the levels with a
     node to update and the nodes updated (the level chain's length)."""
@@ -165,6 +236,10 @@ def main() -> int:
     ap.add_argument("--baseline-cu", required=True)
     ap.add_argument("--reps", type=int, default=100)
     ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--earlier-cu", help="an earlier version of the "
+                    "checkout's kernel, with the current C interface")
+    ap.add_argument("--sass", action="store_true",
+                    help="write the kernel's SASS to chiprun_out/")
     ap.add_argument("--out", default="chiprun_out/encoder_ab.json")
     a = ap.parse_args()
     if not torch.cuda.is_available():
@@ -187,9 +262,23 @@ def main() -> int:
                "baseline_wt": patched(base, BASELINE_WT),
                "baseline_dead": patched(base, BASELINE_DEAD),
                "current": cur,
-               "current_all_rows": patched(cur, ALL_ROWS)}
+               "current_all_rows": patched(cur, ALL_ROWS),
+               "current_empty": patched(cur, EMPTY),
+               "phases": patched(cur, PHASE_STAMPS)}
+    if a.earlier_cu:
+        with open(a.earlier_cu) as fh:
+            sources["earlier"] = fh.read()
     with tempfile.TemporaryDirectory() as tmp:
         libs, ptxas = build_all(sources, tmp)
+        if a.sass:
+            nvcc = build.nvcc_path()
+            dump = subprocess.run(
+                [os.path.join(os.path.dirname(nvcc), "cuobjdump"), "-sass",
+                 os.path.join(tmp, "libcurrent.so")],
+                capture_output=True, text=True, check=True).stdout
+            os.makedirs("chiprun_out", exist_ok=True)
+            with open("chiprun_out/encoder_sass.txt", "w") as fh:
+                fh.write(dump)
         params, bank, agent = chip_smoke.flagship("cuda")
         sched = chip_smoke.make_scheduler(params, agent, "cuda")
         store = SessionStore(params, bank, sched, capacity=8, max_batch=8,
@@ -213,7 +302,12 @@ def main() -> int:
                 "baseline_dead": (libs["baseline_dead"], old_w, None),
                 "current_all_rows": (libs["current_all_rows"], w.packed,
                                      launch_config(jobs)),
+                "current_empty": (libs["current_empty"], w.packed,
+                                  launch_config(jobs)),
             }
+            if a.earlier_cu:
+                variants["earlier"] = (libs["earlier"], w.packed,
+                                       launch_config(jobs))
             for wp in (1, 2, 4, 8):
                 variants[f"current_w{wp}"] = (libs["current"], w.packed,
                                               (wp, -(-jobs // wp)))
@@ -228,7 +322,7 @@ def main() -> int:
                 calls[name] = launcher(lib, f, w, packed, nl, net.slope,
                                        config)
                 err = float((calls[name]() - ref).abs().max())
-                if not err <= chip_smoke.TOL:
+                if name != "current_empty" and not err <= chip_smoke.TOL:
                     raise AssertionError(f"{name} {shape}: err {err}")
                 per[name] = {"max_abs_err": err, "config": config,
                              "ms_rounds": []}
@@ -239,6 +333,10 @@ def main() -> int:
                                                  "decima_node_encoder")
                     per[name]["ms_rounds"].append(ms)
             stats = job_stats(f, nl)
+            stats["phase_cycles"] = phase_cycles(
+                libs["phases"], launcher(libs["phases"], f, w, w.packed, nl,
+                                         net.slope, launch_config(jobs)),
+                f, nl)
             for name, v in per.items():
                 v["ms"] = sum(v["ms_rounds"]) / len(v["ms_rounds"])
                 row = {"shape": shape, "variant": name, **v}

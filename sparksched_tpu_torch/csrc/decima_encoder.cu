@@ -28,9 +28,13 @@
 //   (kernels/decima_encoder.py `launch_config`); blocks walk the jobs with
 //   a grid stride, so a grid smaller than the job count is also exact.
 // - Weights are packed transposed, W_T[in][out]: lane o of a layer reads
-//   word o, so a warp's weight load is conflict-free; rows of activations
-//   sit at odd strides, so the two or more row groups a warp reads at once
-//   fall into distinct banks.
+//   word o, so a warp's weight load is conflict-free. Activations are
+//   read as float4 broadcasts, a quarter-warp to a row.
+// - The layer widths of the repo's configurations are compile-time in the
+//   unrolled layers, so each row's loads issue at once: with one live
+//   warp on an SM there is no other warp to hide a load's latency. A
+//   job's global loads (its mask, levels, adjacency columns and x) also
+//   issue at once, before the first wait.
 // - Only the rows the result needs. h[c] changes only at c's own level,
 //   so m[c] = msg(h[c]) is cached: computed from h0 for a node some parent
 //   reads before the node's update, refreshed after its update for a node
@@ -60,6 +64,8 @@
 #define MAX_WARPS 8
 #define SMEM_MAX (227 * 1024)
 #define FULL 0xffffffffu
+#define X_CHUNKS 8    // x floats a lane loads ahead: 8 x 32 >= S * F for F <= 8
+#define ADJ_CHUNKS 9  // adjacency words a lane loads ahead: 9 x 32 x 4 > 32 x 32 + 6
 
 struct MlpDims {
   int n;                    // number of dense layers
@@ -72,26 +78,35 @@ struct EncDims {
   MlpDims prep, msg, upd;
   int S, F, D, nl, K;
   int wtotal;               // packed weight floats, a multiple of 4
-  int xs, ds, hs;           // odd row strides: x, the [S,D] arrays, hidden rows
+  int xs, ds, hs;           // row strides, multiples of 4: x, [S,D], hidden
   int warp_floats;          // shared scratch per warp, a multiple of 4
   long jobs;                // B * K
   float slope;
 };
 
+// The block's shared memory: the weights, then each warp's scratch. Code
+// below addresses it through `sm` (offsets in floats), so every access
+// compiles to a shared-memory load or store.
+extern __shared__ __align__(16) float sm[];
+
 // One dense layer, y = x @ W + b (LeakyReLU unless last), over n rows, by
-// one warp. The warp splits into 32/G groups of G lanes, G the layer width
-// rounded up to a power of two (at most 32; wider layers loop over output
-// chunks). Group g takes rows g, g + 32/G, ..., R at a time, one
-// accumulator each. Row j of the input is in[(in_idx ? in_idx[j] : j) *
-// in_stride]; row j of the output goes to the row out_idx[j] (or j), plus
-// the same row of `add` when given.
+// one warp. The warp splits into 32/G groups of G = 1 << lg lanes, G the
+// layer width rounded up to a power of two (at most 32; wider layers loop
+// over output chunks). Group g takes rows g, g + 32/G, ..., R at a time.
+// Row j of the input is in[(in_idx ? in_idx[j] : j) * in_stride]; row j
+// of the output goes to the row out_idx[j] (or j), plus the same row of
+// `add` when given. Each pass of the input loop reads 4/R float4s of
+// every row (broadcasts: a quarter-warp reads one row; row strides are
+// multiples of 4) and the matching weights (lane o reads W_T[i][o],
+// consecutive words: conflict-free), then runs four independent chains
+// of four FMAs, whatever R.
 template <int R>
 __device__ __forceinline__ void dense_r(
-    const float* __restrict__ W, int ni, int no, int G, const float* in,
-    int in_stride, const int* in_idx, float* out, int out_stride,
-    const int* out_idx, const float* add, int n, bool act, float slope,
-    int lane) {
-  const int RG = 32 / G, g = lane / G, ol = lane - g * G;
+    const float* W, int ni, int no, int lg, const float* in, int in_stride,
+    const int* in_idx, float* out, int out_stride, const int* out_idx,
+    const float* add, int n, bool act, float slope, int lane) {
+  constexpr int KU = 4 / R;
+  const int G = 1 << lg, RG = 32 >> lg, g = lane >> lg, ol = lane & (G - 1);
   const float* bias = W + ni * no;
   for (int o0 = 0; o0 < no; o0 += G) {
     const int o = o0 + ol;
@@ -99,37 +114,42 @@ __device__ __forceinline__ void dense_r(
     const int oc = live ? o : no - 1;
     for (int r0 = g; r0 < n; r0 += R * RG) {
       const float* ip[R];
-      float acc[R];
+      float acc[R][KU];
 #pragma unroll
       for (int j = 0; j < R; ++j) {
         const int r = r0 + j * RG < n ? r0 + j * RG : r0;
         ip[j] = in + (in_idx ? in_idx[r] : r) * in_stride;
+#pragma unroll
+        for (int u = 0; u < KU; ++u) acc[j][u] = 0.f;
       }
-      if (R == 1) {  // one row: two chains halve the dependent FMA chain
-        float a0 = 0.f, a1 = 0.f;
-        int i = 0;
-#pragma unroll 4
-        for (; i + 1 < ni; i += 2) {
-          a0 = fmaf(ip[0][i], W[i * no + oc], a0);
-          a1 = fmaf(ip[0][i + 1], W[(i + 1) * no + oc], a1);
-        }
-        if (i < ni) a0 = fmaf(ip[0][i], W[i * no + oc], a0);
-        acc[0] = a0 + a1;
-      } else {
+      int i = 0;
+#pragma unroll 2
+      for (; i + 4 * KU <= ni; i += 4 * KU) {
 #pragma unroll
-        for (int j = 0; j < R; ++j) acc[j] = 0.f;
-#pragma unroll 4
-        for (int i = 0; i < ni; ++i) {
-          const float w = W[i * no + oc];
+        for (int u = 0; u < KU; ++u) {
+          const float* wp = W + (i + 4 * u) * no + oc;
+          const float w0 = wp[0], w1 = wp[no], w2 = wp[2 * no], w3 = wp[3 * no];
 #pragma unroll
-          for (int j = 0; j < R; ++j) acc[j] = fmaf(ip[j][i], w, acc[j]);
+          for (int j = 0; j < R; ++j) {
+            const float4 v = *reinterpret_cast<const float4*>(ip[j] + i + 4 * u);
+            acc[j][u] = fmaf(v.w, w3, fmaf(v.z, w2, fmaf(v.y, w1,
+                        fmaf(v.x, w0, acc[j][u]))));
+          }
         }
+      }
+      for (; i < ni; ++i) {
+        const float w = W[i * no + oc];
+#pragma unroll
+        for (int j = 0; j < R; ++j) acc[j][0] = fmaf(ip[j][i], w, acc[j][0]);
       }
 #pragma unroll
       for (int j = 0; j < R; ++j) {
         const int r = r0 + j * RG;
         if (live && r < n) {
-          float v = acc[j] + bias[oc];
+          float v = acc[j][0];
+#pragma unroll
+          for (int u = 1; u < KU; ++u) v += acc[j][u];
+          v += bias[oc];
           if (act) v = v >= 0.f ? v : slope * v;
           const int ro = (out_idx ? out_idx[r] : r) * out_stride + o;
           out[ro] = add ? add[ro] + v : v;
@@ -139,48 +159,62 @@ __device__ __forceinline__ void dense_r(
   }
 }
 
-__device__ __forceinline__ void dense(
-    const float* W, int ni, int no, const float* in, int in_stride,
-    const int* in_idx, float* out, int out_stride, const int* out_idx,
-    const float* add, int n, bool act, float slope, int lane) {
-  const int G = no > 16 ? 32 : no > 8 ? 16 : no > 4 ? 8 : no > 2 ? 4 : no;
-  const int per_group = (n + 32 / G - 1) / (32 / G);
-  if (per_group >= 4)
-    dense_r<4>(W, ni, no, G, in, in_stride, in_idx, out, out_stride,
-               out_idx, add, n, act, slope, lane);
-  else if (per_group >= 2)
-    dense_r<2>(W, ni, no, G, in, in_stride, in_idx, out, out_stride,
-               out_idx, add, n, act, slope, lane);
-  else
-    dense_r<1>(W, ni, no, G, in, in_stride, in_idx, out, out_stride,
-               out_idx, add, n, act, slope, lane);
-  __syncwarp();
-}
-
-// One MLP over n rows (see dense for the row addressing); hidden layers
-// ping-pong through buf0/buf1 (compact rows, stride hs).
-__device__ void mlp(const float* w, const MlpDims& m, const float* in,
-                    int in_stride, const int* in_idx, float* out,
-                    int out_stride, const int* out_idx, const float* add,
-                    int n, float* buf0, float* buf1, int hs, float slope,
-                    int lane) {
+// One MLP over n rows; operands are float offsets into `sm` (index arrays
+// and `add` -1 when absent; see dense_r for the row addressing). Hidden
+// layers ping-pong through buf0/buf1 (compact rows, stride hs). Not
+// inlined: its call sites share one copy, which stays in the instruction
+// cache.
+__device__ __noinline__ void mlp(const MlpDims& m, int in, int in_stride,
+                                 int in_idx, int out, int out_stride,
+                                 int out_idx, int add, int n, int buf0,
+                                 int buf1, int hs, float slope, int lane) {
+  const int* ix = reinterpret_cast<const int*>(sm);
   for (int l = 0; l < m.n; ++l) {
     const bool last = l == m.n - 1;
-    float* dst = last ? out : ((l & 1) ? buf1 : buf0);
-    dense(w + m.off[l], m.in[l], m.out[l], in, in_stride, in_idx, dst,
-          last ? out_stride : hs, last ? out_idx : nullptr,
-          last ? add : nullptr, n, !last, slope, lane);
+    const int dst = last ? out : ((l & 1) ? buf1 : buf0);
+    const float* W = sm + m.off[l];
+    const float* src = sm + in;
+    const int* si = in_idx >= 0 ? ix + in_idx : nullptr;
+    const int* di = last && out_idx >= 0 ? ix + out_idx : nullptr;
+    const float* ad = last && add >= 0 ? sm + add : nullptr;
+    const int ni = m.in[l], no = m.out[l], dstride = last ? out_stride : hs;
+    const int lg = no > 16 ? 5 : 32 - __clz(no - 1);  // log2 of G
+    const int per_group = (n + (32 >> lg) - 1) >> (5 - lg);
+    if (per_group >= 4)
+      dense_r<4>(W, ni, no, lg, src, in_stride, si, sm + dst, dstride, di, ad,
+                 n, !last, slope, lane);
+    else if (per_group >= 2)
+      dense_r<2>(W, ni, no, lg, src, in_stride, si, sm + dst, dstride, di, ad,
+                 n, !last, slope, lane);
+    else
+      dense_r<1>(W, ni, no, lg, src, in_stride, si, sm + dst, dstride, di, ad,
+                 n, !last, slope, lane);
+    __syncwarp();
     in = dst;
     in_stride = hs;
-    in_idx = nullptr;
+    in_idx = -1;
   }
 }
 
-// The lanes set in `mask`, in order, into idx[0..popc); returns popc.
-__device__ __forceinline__ int rows_of(unsigned mask, int* idx, int lane) {
-  if ((mask >> lane) & 1u) idx[__popc(mask & ((1u << lane) - 1u))] = lane;
+// The lanes set in `mask`, in order, into the int array at sm offset
+// `idx`; returns their count.
+__device__ __forceinline__ int rows_of(unsigned mask, int idx, int lane) {
+  if ((mask >> lane) & 1u)
+    reinterpret_cast<int*>(sm)[idx + __popc(mask & ((1u << lane) - 1u))] =
+        lane;
   __syncwarp();
   return __popc(mask);
+}
+
+// out[p] = rows p of `src` where V has p, else 0 (S x D floats)
+__device__ __forceinline__ void write_rows(float* o, int src, int ds,
+                                           unsigned V, int S, int D,
+                                           int lane) {
+#pragma unroll 4
+  for (int i = lane; i < S * D; i += 32) {
+    const int p = i / D;
+    o[i] = ((V >> p) & 1u) ? sm[src + p * ds + i - p * D] : 0.f;
+  }
 }
 
 __global__ void __launch_bounds__(32 * MAX_WARPS)
@@ -191,13 +225,12 @@ decima_node_encoder_kernel(const float* __restrict__ x,
                            const uint8_t* __restrict__ edgeless,
                            const float* __restrict__ weights,
                            float* __restrict__ out, EncDims d) {
-  extern __shared__ __align__(16) float sm[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int wpb = blockDim.x >> 5;
-  const int S = d.S, F = d.F, D = d.D, ds = d.ds;
+  const int S = d.S, F = d.F, D = d.D, ds = d.ds, hs = d.hs;
 
   // stage the weights, 16 B per thread; waited for once each warp has
-  // loaded its first job
+  // issued the loads of its first job
   {
     const unsigned base = (unsigned)__cvta_generic_to_shared(sm);
     for (int i = threadIdx.x; i < d.wtotal / 4; i += blockDim.x)
@@ -206,42 +239,51 @@ decima_node_encoder_kernel(const float* __restrict__ x,
                    "l"(weights + 4 * i));
     asm volatile("cp.async.commit_group;\n" ::);
   }
-  const float* ws = sm;
-  float* xs = sm + d.wtotal + warp * d.warp_floats;  // [S, xs]
-  float* hinit = xs + S * d.xs;                      // [S, ds]
-  float* h = hinit + S * ds;                         // [S, ds]
-  float* m = h + S * ds;                             // [S, ds]: msg(h)
-  float* agg = m + S * ds;                           // [S, ds], compact
-  float* buf0 = agg + S * ds;                        // [S, hs], compact
-  float* buf1 = buf0 + S * d.hs;                     // [S, hs], compact
-  int* rowm = reinterpret_cast<int*>(buf1 + S * d.hs);  // [S] child masks
-  int* lv = rowm + S;                                // [S]
-  int* idx0 = lv + S;                                // [32]
-  int* idx1 = idx0 + 32;                             // [32]
+  // this warp's scratch, float offsets into sm
+  const int xs = d.wtotal + warp * d.warp_floats;  // [S, xs]
+  const int hinit = xs + S * d.xs;                 // [S, ds]
+  const int h = hinit + S * ds;                    // [S, ds]
+  const int m = h + S * ds;                        // [S, ds]: msg(h)
+  const int agg = m + S * ds;                      // [S, ds], compact
+  const int buf0 = agg + S * ds;                   // [S, hs], compact
+  const int buf1 = buf0 + S * hs;                  // [S, hs], compact
+  const int rowm = buf1 + S * hs;                  // int [32]: child masks
+  const int lv = rowm + 32;                        // int [32]: levels
+  const int idx0 = lv + 32, idx1 = idx0 + 32;      // int [32] each
+  const int adjw = idx1 + 32;                      // u32 [32 * ADJ_CHUNKS]
+  int* ism = reinterpret_cast<int*>(sm);
 
   const bool in_s = lane < S;
   bool synced = false;
   for (long job = (long)blockIdx.x * wpb + warp;; job += (long)gridDim.x * wpb) {
+    // issue every load of the job at once: lane c reads node c's mask and
+    // level, and the lanes read x and the adjacency block (as the aligned
+    // 32-bit words that cover it) in coalesced slices
     const bool have = job < d.jobs;
-    unsigned V = 0;  // node_mask row
+    bool valid = false, el = false;
+    int myl = -1, shift = 0, nw = 0;
+    float xv[X_CHUNKS];
+    unsigned aw[ADJ_CHUNKS];
     if (have) {
-      V = __ballot_sync(FULL, in_s && node_mask[job * S + lane]);
-      float* o = out + job * S * D;
-      if (V == 0) {
-        for (int i = lane; i < S * D; i += 32) o[i] = 0.f;
-      } else {
-        const float* xj = x + job * S * F;
-        for (int i = lane; i < S * F; i += 32) {
-          const int r = i / F;
-          xs[r * d.xs + i - r * F] = xj[i];
-        }
-        if (in_s) {
-          const uint8_t* a = adj + (job * S + lane) * S;
-          unsigned row = 0;
-          for (int c = 0; c < S; ++c) row |= (a[c] != 0 ? 1u : 0u) << c;
-          rowm[lane] = (int)row;
-          lv[lane] = level[job * S + lane];
-        }
+      el = edgeless[job / d.K] != 0;
+      if (in_s) {
+        valid = node_mask[job * S + lane] != 0;
+        myl = level[job * S + lane];
+      }
+      const float* xj = x + job * S * F;
+#pragma unroll
+      for (int k = 0; k < X_CHUNKS; ++k) {
+        const int i = lane + 32 * k;
+        xv[k] = i < S * F ? xj[i] : 0.f;
+      }
+      const uint8_t* ab = adj + job * S * S;
+      shift = (int)((uintptr_t)ab & 3u);
+      nw = (shift + S * S + 3) >> 2;
+      const unsigned* words = reinterpret_cast<const unsigned*>(ab - shift);
+#pragma unroll
+      for (int k = 0; k < ADJ_CHUNKS; ++k) {
+        const int i = lane + 32 * k;
+        aw[k] = i < nw ? words[i] : 0u;
       }
     }
     if (!synced) {
@@ -250,38 +292,59 @@ decima_node_encoder_kernel(const float* __restrict__ x,
       synced = true;
     }
     if (!have) break;
-    if (V == 0) continue;
-    __syncwarp();
-
+    const unsigned V = __ballot_sync(FULL, valid);  // node_mask row
     float* o = out + job * S * D;
-    if (edgeless[job / d.K]) {  // no edge in the lane: h = h_init, masked
+    if (V == 0) {
+      for (int i = lane; i < S * D; i += 32) o[i] = 0.f;
+      continue;
+    }
+#pragma unroll
+    for (int k = 0; k < X_CHUNKS; ++k) {
+      const int i = lane + 32 * k, r = i / F;
+      if (i < S * F) sm[xs + r * d.xs + i - r * F] = xv[k];
+    }
+    for (int i = lane + 32 * X_CHUNKS; i < S * F; i += 32) {
+      const int r = i / F;
+      sm[xs + r * d.xs + i - r * F] = x[job * S * F + i];
+    }
+
+    if (el) {  // no edge in the lane: h = h_init, masked
       const int n = rows_of(V, idx0, lane);
-      mlp(ws, d.prep, xs, d.xs, idx0, hinit, ds, idx0, nullptr, n, buf0,
-          buf1, d.hs, d.slope, lane);
-      for (int i = lane; i < S * D; i += 32) {
-        const int p = i / D;
-        o[i] = ((V >> p) & 1u) ? hinit[p * ds + i - p * D] : 0.f;
-      }
+      mlp(d.prep, xs, d.xs, idx0, hinit, ds, idx0, -1, n, buf0, buf1, hs,
+          d.slope, lane);
+      write_rows(o, hinit, ds, V, S, D, lane);
       continue;
     }
 
-    const unsigned row = in_s ? (unsigned)rowm[lane] : 0u;
-    const int myl = in_s ? lv[lane] : -1;
+#pragma unroll
+    for (int k = 0; k < ADJ_CHUNKS; ++k)
+      if (lane + 32 * k < nw) ism[adjw + lane + 32 * k] = (int)aw[k];
+    __syncwarp();
+    // this node's children (its adjacency row) and parents (its column)
+    unsigned row = 0, col = 0;
+    if (in_s) {
+      const uint8_t* ab = reinterpret_cast<const uint8_t*>(sm + adjw) + shift;
+#pragma unroll 4
+      for (int c = 0; c < S; ++c) {
+        row |= (ab[lane * S + c] ? 1u : 0u) << c;
+        col |= (ab[c * S + lane] ? 1u : 0u) << c;
+      }
+    }
+    ism[rowm + lane] = (int)row;
+    ism[lv + lane] = myl;
     const bool upd = row != 0 && myl >= 0 && myl < d.nl;
     const unsigned U = __ballot_sync(FULL, upd);  // nodes updated at a level
     const unsigned leaf = __ballot_sync(FULL, in_s && row == 0);
+    __syncwarp();
     // Who reads m[lane]: each parent updated at a level; a parent at a
     // level >= ours reads it before our update (or we are never updated),
     // one at a lower level after it.
-    unsigned par = 0;
-    for (int q = 0; q < S; ++q)
-      par |= (((unsigned)rowm[q] >> lane) & 1u) << q;
-    par &= U;
+    unsigned par = col & U;
     bool before = false, after = false;
     while (par) {
       const int q = __ffs(par) - 1;
       par &= par - 1;
-      if (!upd || lv[q] >= myl) before = true;
+      if (!upd || ism[lv + q] >= myl) before = true;
       else after = true;
     }
     const unsigned NI = __ballot_sync(FULL, before);  // m from h0
@@ -291,19 +354,19 @@ decima_node_encoder_kernel(const float* __restrict__ x,
 
     // h_init = prep(x); h0 = update(h_init) on leaves, 0 with children
     int n = rows_of(V | todo0 | (NI & leaf), idx0, lane);
-    mlp(ws, d.prep, xs, d.xs, idx0, hinit, ds, idx0, nullptr, n, buf0,
-        buf1, d.hs, d.slope, lane);
+    mlp(d.prep, xs, d.xs, idx0, hinit, ds, idx0, -1, n, buf0, buf1, hs,
+        d.slope, lane);
     for (int i = lane; i < S * D; i += 32) {
       const int p = i / D;
-      if (rowm[p]) h[p * ds + i - p * D] = 0.f;
+      if (!((leaf >> p) & 1u)) sm[h + p * ds + i - p * D] = 0.f;
     }
     n = rows_of(h0, idx0, lane);
-    mlp(ws, d.upd, hinit, ds, idx0, h, ds, idx0, nullptr, n, buf0, buf1,
-        d.hs, d.slope, lane);
+    mlp(d.upd, hinit, ds, idx0, h, ds, idx0, -1, n, buf0, buf1, hs, d.slope,
+        lane);
     if (NI) {
       n = rows_of(NI, idx0, lane);
-      mlp(ws, d.msg, h, ds, idx0, m, ds, idx0, nullptr, n, buf0, buf1,
-          d.hs, d.slope, lane);
+      mlp(d.msg, h, ds, idx0, m, ds, idx0, -1, n, buf0, buf1, hs, d.slope,
+          lane);
     }
 
     // levels with work, deepest first
@@ -317,30 +380,27 @@ decima_node_encoder_kernel(const float* __restrict__ x,
       n = rows_of(Pn, idx0, lane);
       for (int t = lane; t < n * D; t += 32) {  // agg = adj @ m, level rows
         const int j = t / D, dd = t - j * D;
-        unsigned bits = (unsigned)rowm[idx0[j]];
+        unsigned bits = (unsigned)ism[rowm + ism[idx0 + j]];
         float acc = 0.f;
         while (bits) {
           const int c = __ffs(bits) - 1;
           bits &= bits - 1;
-          acc += m[c * ds + dd];
+          acc += sm[m + c * ds + dd];
         }
-        agg[j * ds + dd] = acc;
+        sm[agg + j * ds + dd] = acc;
       }
       __syncwarp();
-      mlp(ws, d.upd, agg, ds, nullptr, h, ds, idx0, hinit, n, buf0, buf1,
-          d.hs, d.slope, lane);  // h = h_init + update(agg)
+      mlp(d.upd, agg, ds, -1, h, ds, idx0, hinit, n, buf0, buf1, hs, d.slope,
+          lane);  // h = h_init + update(agg)
       const unsigned Rl = Pn & NR;
       if (Rl) {
         n = rows_of(Rl, idx1, lane);
-        mlp(ws, d.msg, h, ds, idx1, m, ds, idx1, nullptr, n, buf0, buf1,
-            d.hs, d.slope, lane);
+        mlp(d.msg, h, ds, idx1, m, ds, idx1, -1, n, buf0, buf1, hs, d.slope,
+            lane);
       }
     }
 
-    for (int i = lane; i < S * D; i += 32) {
-      const int p = i / D;
-      o[i] = ((V >> p) & 1u) ? h[p * ds + i - p * D] : 0.f;
-    }
+    write_rows(o, h, ds, V, S, D, lane);
     __syncwarp();
   }
 }
@@ -396,10 +456,10 @@ extern "C" int decima_node_encoder_launch(
   int hmax = widest(d.prep);
   hmax = widest(d.msg) > hmax ? widest(d.msg) : hmax;
   hmax = widest(d.upd) > hmax ? widest(d.upd) : hmax;
-  d.xs = F | 1;
-  d.ds = D | 1;
-  d.hs = hmax | 1;
-  d.warp_floats = (S * (d.xs + 4 * d.ds + 2 * d.hs) + 2 * S + 64 + 3) / 4 * 4;
+  d.xs = (F + 3) / 4 * 4;
+  d.ds = (D + 3) / 4 * 4;
+  d.hs = (hmax + 3) / 4 * 4;
+  d.warp_floats = S * (d.xs + 4 * d.ds + 2 * d.hs) + 4 * 32 + 32 * ADJ_CHUNKS;
   const size_t smem = sizeof(float) * ((size_t)d.wtotal +
                                        (size_t)warps * d.warp_floats);
   if (smem > SMEM_MAX) return -1;

@@ -85,3 +85,32 @@ def test_kernel_matches_plain_version_on_adversarial_cases(card, b, k, case,
     torch.cuda.synchronize()
     ref = decima_node_encoder_ref(*ins, w, num_levels, 0.2)
     assert float((out - ref).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("dims,s", [
+    (([5, 16, 8, 8], [8, 16, 8, 8], [8, 16, 8, 8]), 20),  # embed 8, hid [16, 8]
+    (([5, 24, 12], [12, 40, 12], [12, 12]), 32),  # a 40-wide layer, 32 slots
+])
+def test_kernel_matches_plain_version_at_other_widths(card, dims, s):
+    """Widths outside the repo's configurations run the kernel's
+    runtime-width layers; S = 32 fills the warp."""
+    x, adj, lvl, mask = make_case("random_levels", 3, 7, s, 5, seed=s)
+    adj[0] = False
+    gen = torch.Generator().manual_seed(s)
+    w = pack_weights(*(_layers(gen, d, card) for d in dims))
+    ins = [torch.from_numpy(a).to(card) for a in (x, adj, lvl, mask)]
+    for num_levels in (0, 3):
+        out = decima_node_encoder(*ins, w, num_levels, 0.2)
+        torch.cuda.synchronize()
+        ref = decima_node_encoder_ref(*ins, w, num_levels, 0.2)
+        assert float((out - ref).abs().max()) <= 1e-5
+
+
+def test_kernel_refuses_more_than_32_slots(card):
+    x, adj, lvl, mask = make_case("dag", 1, 2, 33, 5, seed=0)
+    gen = torch.Generator().manual_seed(0)
+    w = pack_weights(_layers(gen, [5, 16], card), _layers(gen, [16, 16], card),
+                     _layers(gen, [16, 16], card))
+    ins = [torch.from_numpy(a).to(card) for a in (x, adj, lvl, mask)]
+    with pytest.raises(ValueError, match="32 stage slots"):
+        decima_node_encoder(*ins, w, 0, 0.2)
