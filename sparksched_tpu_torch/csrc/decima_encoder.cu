@@ -463,13 +463,13 @@ extern "C" int decima_node_encoder_launch(
   const size_t smem = sizeof(float) * ((size_t)d.wtotal +
                                        (size_t)warps * d.warp_floats);
   if (smem > SMEM_MAX) return -1;
-  static bool opted_in = false;
-  if (smem > 48 * 1024 && !opted_in) {
+  static size_t opted_in = 48 * 1024;  // dynamic shared memory allowed so far
+  if (smem > opted_in) {
     cudaError_t e = cudaFuncSetAttribute(
         decima_node_encoder_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
-    opted_in = true;
+    opted_in = smem;
   }
   if (d.jobs == 0) return 0;
   decima_node_encoder_kernel<<<(unsigned)blocks, 32 * warps, smem,
