@@ -17,7 +17,7 @@ inputs and on the seeded adversarial inputs of
 `sparksched_tpu_torch/kernels/encoder_cases.py` (levels that are no
 topological order, edges into nodes outside node_mask, jobs with no
 valid node but with edges, `num_levels` 3, job counts below and above
-the kernel's warps-per-block granularity).
+the kernel's jobs-per-block granularity).
 
 Each phase prints one JSON line. Before the last line come the
 `{"kernels": [...]}` line (per kernel: launches on the main path,

@@ -22,14 +22,12 @@ torch.profiler, in turns (baseline first and last). Variants:
   warp's weight loads hit distinct banks;
 - ``baseline_dead``: a job whose node_mask row is all false writes
   zeros and exits;
-- ``current_w{1,2,4,8}``: the checkout's kernel, one warp per job, at 1,
-  2, 4 or 8 warps per block (the wrapper's `launch_config` picks one);
-- ``persist_w{2,4,8}``: the checkout's kernel on a persistent grid of
-  one block per SM, its warps walking over the jobs;
+- ``current_j{1,2,4}``: the checkout's kernel, four warps per job, at
+  1, 2 or 4 jobs per block (the wrapper's `launch_config` picks one);
+- ``persist_j{1,2,4}``: the checkout's kernel on a persistent grid of
+  one block per SM, its jobs walking over the jobs of the call;
 - ``current_all_rows``: the checkout's kernel with every node's message
   computed up front and refreshed after every update (no row pruning);
-- ``current_inline``: the checkout's kernel with its MLP routine inlined
-  at every call site;
 - ``current_empty``: the checkout's kernel returning at once, at the
   launch configuration the wrapper picks (the floor of a launch; its
   output is not checked);
@@ -40,10 +38,12 @@ Beside the times: the checkout's kernel rebuilt with `clock64()` stamps
 (`phases`), which gives, per job with a valid node on an edged lane,
 the SM cycles spent loading the job, on its bookkeeping, in prep, in
 the leaves' update and the first messages, in the level chain and in
-the output writes; the same with prep run twice (`phases_prep_twice`,
-whose second run finds warm caches) and with the MLP routine inlined
-(`phases_inline`); with --sass, the checkout's kernel's SASS in
+the output writes; with --sass, the checkout's kernel's SASS in
 `chiprun_out/encoder_sass.txt`.
+
+First, a single-warp calibration (`calibrate_cycles_per_op`): SM cycles
+per dependent FFMA, per dependent shared load, and per pass of a loop
+shaped like the kernel's layer loop, in one warp and in four.
 
 One JSON line per variant and shape, the card's name and power limit,
 the ptxas report of every build; all of it also in --out.
@@ -89,7 +89,7 @@ PHASE_STAMPS = [
      "extern \"C\" int enc_stamps_read(long long* dst) {\n"
      "  return (int)cudaMemcpyFromSymbol(dst, enc_stamps,\n"
      "                                   sizeof(enc_stamps));\n}\n"
-     "#define STAMP(k) if (lane == 0 && job < 8192) "
+     "#define STAMP(k) if (t == 0 && job < 8192) "
      "enc_stamps[job * 8 + (k)] = clock64();\n"
      "#define X_CHUNKS"),
     ("  const int S = d.S, F = d.F, D = d.D, ds = d.ds, hs = d.hs;\n",
@@ -97,31 +97,17 @@ PHASE_STAMPS = [
      "  const long long t_start = clock64();\n"),
     ("      synced = true;\n    }\n",
      "      synced = true;\n    }\n"
-     "    if (have && lane == 0 && job < 8192) "
+     "    if (have && t == 0 && job < 8192) "
      "enc_stamps[job * 8] = t_start;\n    STAMP(1)\n"),
-    ("    // h_init = prep(x); h0 = update(h_init) on leaves, 0 with children\n",
-     "    STAMP(2)\n"
-     "    // h_init = prep(x); h0 = update(h_init) on leaves, 0 with children\n"),
-    ("    n = rows_of(h0, idx0, lane);\n",
-     "    STAMP(3)\n    n = rows_of(h0, idx0, lane);\n"),
-    ("    // levels with work, deepest first\n",
-     "    STAMP(4)\n    // levels with work, deepest first\n"),
-    ("    write_rows(o, h, ds, V, S, D, lane);\n    __syncwarp();\n",
-     "    STAMP(5)\n    write_rows(o, h, ds, V, S, D, lane);\n    STAMP(6)\n"
-     "    __syncwarp();\n"),
+    ("    unsigned todo = U, Pn = 0;\n", "    STAMP(2)\n    unsigned todo = U, Pn = 0;\n"),
+    ("      stage = next;\n",
+     "      if (stage == PREP) STAMP(3)\n"
+     "      if (stage == H0 || stage == MSG0) STAMP(4)\n"
+     "      stage = next;\n"),
+    ("    write_rows(o, el ? hinit : h, ds, V, S, D, t);\n",
+     "    STAMP(5)\n    write_rows(o, el ? hinit : h, ds, V, S, D, t);\n"
+     "    STAMP(6)\n"),
 ]
-# run prep twice, stamping between (slot 7): the second run finds warm
-# caches, so the two times split cold-start costs from the layers' own
-PREP_TWICE = [(
-    "    mlp(d.prep, xs, d.xs, idx0, hinit, ds, idx0, -1, n, buf0, buf1, hs,\n"
-    "        d.slope, lane);\n    for (int i = lane;",
-    "    mlp(d.prep, xs, d.xs, idx0, hinit, ds, idx0, -1, n, buf0, buf1, hs,\n"
-    "        d.slope, lane);\n    STAMP(7)\n"
-    "    mlp(d.prep, xs, d.xs, idx0, hinit, ds, idx0, -1, n, buf0, buf1, hs,\n"
-    "        d.slope, lane);\n    for (int i = lane;",
-)]
-MLP_INLINE = [("__device__ __noinline__ void mlp(",
-               "__device__ __forceinline__ void mlp(")]
 # Single-warp latency calibration: SM cycles per instruction of a chain
 # of dependent FFMAs, of dependent shared loads (a pointer chase), and per
 # pass of a loop shaped like the kernel's layer loop (4 weight loads, 4
@@ -170,122 +156,6 @@ extern "C" int cal_run(int which, int n, int threads, long long* host) {
   cal_kernel<<<1, threads>>>(which, n, out, cyc);
   cudaMemcpy(host, cyc, sizeof(long long), cudaMemcpyDeviceToHost);
   cudaFree(out); cudaFree(cyc);
-  return (int)cudaGetLastError();
-}
-"""
-# per-layer log (a counter in shared memory, stamps written to global
-# memory, never read back in the kernel): SM cycles at each dense layer of
-# each MLP call (tag
-# rows * 10000 + in * 100 + out), at each MLP's return (-1), and around a
-# level's aggregation (-2 before, -3 after); one log per warp
-LAYER_LOG = [
-    ("extern __shared__ __align__(16) float sm[];\n",
-     "extern __shared__ __align__(16) float sm[];\n"
-     "__device__ long long enc_llog[8192 * 64];\n"
-     "__device__ int enc_ltag[8192 * 64];\n"
-     "__shared__ int enc_lcnt[32];  // per warp of the block\n"
-     "extern \"C\" int enc_llog_read(long long* t, int* tag) {\n"
-     "  cudaMemcpyFromSymbol(t, enc_llog, sizeof(enc_llog));\n"
-     "  return (int)cudaMemcpyFromSymbol(tag, enc_ltag, sizeof(enc_ltag));\n}\n"
-     "extern \"C\" int enc_llog_clear() {\n"
-     "  static long long z[8192 * 64];\n"
-     "  return (int)cudaMemcpyToSymbol(enc_llog, z, sizeof(z));\n}\n"
-     "__device__ __forceinline__ void lstamp(int tag) {\n"
-     "  if ((threadIdx.x & 31) == 0) {\n"
-     "    const int gw = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);\n"
-     "    if (gw < 8192) {\n"
-     "      const int c = enc_lcnt[threadIdx.x >> 5]++;\n"
-     "      if (c < 64) {\n"
-     "        enc_llog[gw * 64 + c] = clock64();\n"
-     "        enc_ltag[gw * 64 + c] = tag;\n"
-     "      }\n    }\n  }\n}\n"),
-    ("  const int wpb = blockDim.x >> 5;\n",
-     "  const int wpb = blockDim.x >> 5;\n  if (lane == 0) enc_lcnt[warp] = 0;\n"),
-    ("  for (int l = 0; l < m.n; ++l) {\n    const bool last = l == m.n - 1;\n",
-     "  for (int l = 0; l < m.n; ++l) {\n"
-     "    lstamp(n * 10000 + m.in[l] * 100 + m.out[l]);\n"
-     "    const bool last = l == m.n - 1;\n"),
-    ("    in_idx = -1;\n  }\n}\n", "    in_idx = -1;\n  }\n  lstamp(-1);\n}\n"),
-    ("      n = rows_of(Pn, idx0, lane);\n",
-     "      n = rows_of(Pn, idx0, lane);\n      lstamp(-2);\n"),
-    ("      __syncwarp();\n      mlp(d.upd, agg,",
-     "      __syncwarp();\n      lstamp(-3);\n      mlp(d.upd, agg,"),
-]
-
-
-def layer_log(lib, call, f) -> dict:
-    """Run `call` (a build with LAYER_LOG) once: per tag, the median SM
-    cycles from its stamp to the next, over every live edged job, and the
-    whole log of the job with the most cycles."""
-    import numpy as np
-    import torch
-
-    t = np.zeros(8192 * 64, np.int64)
-    tag = np.zeros(8192 * 64, np.int32)
-    torch.cuda.synchronize()
-    lib.enc_llog_clear()
-    call()
-    torch.cuda.synchronize()
-    if lib.enc_llog_read(t.ctypes.data_as(ctypes.c_void_p),
-                         tag.ctypes.data_as(ctypes.c_void_p)):
-        raise RuntimeError("enc_llog_read failed")
-    b, k = f.x.shape[:2]
-    edged = f.adj.reshape(b, -1).any(1)[:, None].expand(b, k)
-    full = (f.node_mask.any(-1) & edged).reshape(-1).cpu().numpy()
-    t, tag = t.reshape(-1, 64)[:b * k], tag.reshape(-1, 64)[:b * k]
-    per_tag, worst, worst_span = {}, [], -1
-    for j in np.flatnonzero(full):
-        n = int((t[j] != 0).sum())
-        seq = [(int(tag[j, i]), int(t[j, i + 1] - t[j, i]))
-               for i in range(n - 1)]
-        for tg, dt in seq:
-            per_tag.setdefault(tg, []).append(dt)
-        span = int(t[j, n - 1] - t[j, 0]) if n else 0
-        if span > worst_span:
-            worst, worst_span = seq, span
-    return {"median_by_tag": {str(k_): float(np.median(v))
-                              for k_, v in sorted(per_tag.items())},
-            "count_by_tag": {str(k_): len(v) for k_, v in sorted(per_tag.items())},
-            "slowest_job": worst, "slowest_span": worst_span}
-
-
-# The checkout's layer code alone, warm, in one warp: SM cycles per call
-# of dense_r<1> (one row, 16 -> 16), of mlp() with that one layer, and of
-# mlp() with 16 -> 32 -> 16 -> 16 on one row and on 11 rows, each the mean
-# of 100 calls after one untimed call (appended to the kernel's source).
-LAYER_BENCH = r"""
-__global__ void layer_bench(int which, int reps, long long* cyc) {
-  const int lane = threadIdx.x;
-  for (int i = lane; i < 8192; i += 32) sm[i] = 0.01f * (i % 97);
-  int* ix = reinterpret_cast<int*>(sm);
-  if (lane < 32) ix[8000 + lane] = (lane * 7) % 20;
-  __syncwarp();
-  MlpDims one = {1, {16}, {16}, {0}};
-  MlpDims three = {3, {16, 32, 16}, {32, 16, 16}, {0, 544, 1072}};
-  long long t0 = 0;
-  for (int r = 0; r <= reps; ++r) {
-    if (r == 1) t0 = clock64();
-    if (which == 0)
-      dense_r<1>(sm, 16, 16, 4, sm + 2048, 16, ix + 8000, sm + 4096, 16,
-                 ix + 8000, nullptr, 1, true, 0.2f, lane);
-    else if (which == 1)
-      mlp(one, 2048, 16, 8000, 4096, 16, 8000, -1, 1, 5000, 6000, 32, 0.2f,
-          lane);
-    else
-      mlp(three, 2048, 16, 8000, 4096, 16, 8000, -1, which == 2 ? 1 : 11,
-          5000, 6000, 32, 0.2f, lane);
-    __syncwarp();
-  }
-  if (lane == 0) cyc[0] = (clock64() - t0) / reps;
-}
-extern "C" int layer_bench_run(int which, long long* host) {
-  long long* cyc;
-  cudaMalloc(&cyc, sizeof(long long));
-  cudaFuncSetAttribute(layer_bench, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       40000);
-  layer_bench<<<1, 32, 40000>>>(which, 100, cyc);
-  cudaMemcpy(host, cyc, sizeof(long long), cudaMemcpyDeviceToHost);
-  cudaFree(cyc);
   return (int)cudaGetLastError();
 }
 """
@@ -390,10 +260,6 @@ def phase_cycles(lib, call, f, nl: int) -> dict:
     t = stamps.reshape(-1, 8)[:b * k][full[:8192]]
     d = np.diff(t[:, :7], axis=1)
     out = {"jobs": int(len(t))}
-    if t[:, 7].any():  # PREP_TWICE: prep's first run, then its second
-        d[:, 2] = t[:, 7] - t[:, 2]
-        out["prep_again"] = {"median": float(np.median(t[:, 3] - t[:, 7])),
-                             "max": int((t[:, 3] - t[:, 7]).max())}
     for i, name in enumerate(PHASES):
         out[name] = {"median": float(np.median(d[:, i])),
                      "max": int(d[:, i].max())}
@@ -451,18 +317,11 @@ def main() -> int:
                "current": cur,
                "current_all_rows": patched(cur, ALL_ROWS),
                "current_empty": patched(cur, EMPTY),
-               "current_inline": patched(cur, MLP_INLINE),
-               "phases": patched(cur, PHASE_STAMPS),
-               "phases_prep_twice": patched(patched(cur, PHASE_STAMPS),
-                                            PREP_TWICE),
-               "phases_inline": patched(patched(cur, PHASE_STAMPS),
-                                        MLP_INLINE),
-               "layer_log": patched(cur, LAYER_LOG)}
+               "phases": patched(cur, PHASE_STAMPS)}
     if a.earlier_cu:
         with open(a.earlier_cu) as fh:
             sources["earlier"] = fh.read()
     sources["calibrate"] = CALIBRATE
-    sources["layer_bench"] = cur + LAYER_BENCH
     with tempfile.TemporaryDirectory() as tmp:
         libs, ptxas = build_all(sources, tmp)
         if a.sass:
@@ -483,12 +342,6 @@ def main() -> int:
                                          ctypes.byref(cyc)):
                 raise RuntimeError("calibration launch failed")
             cal[name] = cyc.value / (1000 * ops)
-        for which, name in ((0, "dense_1row_16x16"), (1, "mlp_1layer_1row"),
-                            (2, "mlp_3layers_1row"), (3, "mlp_3layers_11rows")):
-            cyc = ctypes.c_longlong()
-            if libs["layer_bench"].layer_bench_run(which, ctypes.byref(cyc)):
-                raise RuntimeError("layer bench launch failed")
-            cal[name] = cyc.value
         print(json.dumps({"calibrate_cycles_per_op": cal}), flush=True)
         params, bank, agent = chip_smoke.flagship("cuda")
         sched = chip_smoke.make_scheduler(params, agent, "cuda")
@@ -516,17 +369,15 @@ def main() -> int:
                                      launch_config(jobs)),
                 "current_empty": (libs["current_empty"], w.packed,
                                   launch_config(jobs)),
-                "current_inline": (libs["current_inline"], w.packed,
-                                   launch_config(jobs)),
             }
             if a.earlier_cu:
                 variants["earlier"] = (libs["earlier"], w.packed,
                                        launch_config(jobs))
-            for wp in (1, 2, 4, 8):
-                variants[f"current_w{wp}"] = (libs["current"], w.packed,
+            for wp in (1, 2, 4):
+                variants[f"current_j{wp}"] = (libs["current"], w.packed,
                                               (wp, -(-jobs // wp)))
-            for wp in (2, 4, 8):
-                variants[f"persist_w{wp}"] = (
+            for wp in (1, 2, 4):
+                variants[f"persist_j{wp}"] = (
                     libs["current"], w.packed,
                     (wp, min(PERSIST_BLOCKS, -(-jobs // wp))))
             ins = (f.x, f.adj, f.node_level, f.node_mask)
@@ -547,15 +398,10 @@ def main() -> int:
                                                  "decima_node_encoder")
                     per[name]["ms_rounds"].append(ms)
             stats = job_stats(f, nl)
-            stats["layer_log"] = layer_log(
-                libs["layer_log"], launcher(libs["layer_log"], f, w, w.packed,
-                                            nl, net.slope, launch_config(jobs)),
-                f)
-            for name in ("phases", "phases_prep_twice", "phases_inline"):
-                stats[name] = phase_cycles(
-                    libs[name], launcher(libs[name], f, w, w.packed, nl,
+            stats["phases"] = phase_cycles(
+                libs["phases"], launcher(libs["phases"], f, w, w.packed, nl,
                                          net.slope, launch_config(jobs)),
-                    f, nl)
+                f, nl)
             for name, v in per.items():
                 v["ms"] = sum(v["ms_rounds"]) / len(v["ms_rounds"])
                 row = {"shape": shape, "variant": name, **v}

@@ -1,4 +1,4 @@
-// Decima NodeEncoder: the GNN's level-wise message pass, one warp per
+// Decima NodeEncoder: the GNN's level-wise message pass, four warps per
 // (lane, job), several jobs per block.
 //
 // Replaces: sparksched_tpu/schedulers/decima.py `DecimaNet.__call__`, the
@@ -16,25 +16,28 @@
 // data needs are about a MFLOP. Neither limits this kernel: each job is a
 // chain of dependent dense layers — prep, the leaves' update and the
 // message MLP up front, then per level with work an aggregation and two
-// MLPs on that level's few nodes — and the chain's latency sets the time
+// MLPs on that level's few nodes — and on the serve path a few live jobs
+// each have an SM to themselves, so the chain's latency sets the time
 // (PERF.md has the kernel's time beside its bound).
 //
 // What the design does about it:
-// - One launch per call; one warp per job, so the chain synchronises with
-//   __syncwarp only. The warps of a block share one shared-memory copy of
-//   the three MLPs' weights, staged with cp.async (16 B per thread) while
-//   each warp loads its first job; the one block barrier waits for that
-//   copy. The wrapper picks warps per block from the job count
-//   (kernels/decima_encoder.py `launch_config`); blocks walk the jobs with
-//   a grid stride, so a grid smaller than the job count is also exact.
+// - One launch per call. A job's four warps (one per SM sub-partition)
+//   split each layer: rows over row slots and, when rows are few, a row's
+//   inputs over up to a warp's lane groups, summed with shuffles. One
+//   warp per job was measured first: a lone warp issues a dependent
+//   instruction every ~5 cycles, and its chain ran ~45k cycles per job.
+// - The jobs of a block share one shared-memory copy of the MLPs' weights,
+//   staged with cp.async (16 B per thread) while the jobs load their
+//   inputs; after that one block barrier, a job's warps meet at their own
+//   named barrier. The wrapper picks jobs per block from the job count
+//   (kernels/decima_encoder.py `launch_config`); blocks walk the jobs
+//   with a grid stride.
 // - Weights are packed transposed, W_T[in][out]: lane o of a layer reads
-//   word o, so a warp's weight load is conflict-free. Activations are
-//   read as float4 broadcasts, a quarter-warp to a row.
-// - The layer widths of the repo's configurations are compile-time in the
-//   unrolled layers, so each row's loads issue at once: with one live
-//   warp on an SM there is no other warp to hide a load's latency. A
-//   job's global loads (its mask, levels, adjacency columns and x) also
-//   issue at once, before the first wait.
+//   word o, so weight loads are conflict-free. Inputs are read as float4
+//   broadcasts, a quarter-warp to a row; each pass runs four independent
+//   FMA chains. The MLP table lives in shared memory and every MLP runs
+//   through one inlined call site: a called routine kept the table and
+//   its saved registers in local memory, ~650 cycles per layer.
 // - Only the rows the result needs. h[c] changes only at c's own level,
 //   so m[c] = msg(h[c]) is cached: computed from h0 for a node some parent
 //   reads before the node's update, refreshed after its update for a node
@@ -51,7 +54,7 @@
 //   ever became bound by operations). Plain FP32 FMAs on the CUDA cores.
 //
 // Limits: S <= 32 (a job's nodes are a warp's lanes and adjacency rows
-// are 32-bit masks), at most MAX_WARPS warps per block.
+// are 32-bit masks), at most MAX_JOBS jobs per block.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (see sparksched_tpu_torch/kernels/build.py);
@@ -61,11 +64,13 @@
 #include <stdint.h>
 
 #define MAX_LAYERS 4
-#define MAX_WARPS 8
+#define JOB_THREADS 128  // four warps per job
+#define MAX_JOBS 4       // jobs per block
 #define SMEM_MAX (227 * 1024)
 #define FULL 0xffffffffu
-#define X_CHUNKS 8    // x floats a lane loads ahead: 8 x 32 >= S * F for F <= 8
-#define ADJ_CHUNKS 9  // adjacency words a lane loads ahead: 9 x 32 x 4 > 32 x 32 + 6
+#define X_CHUNKS 2    // x floats a thread loads ahead: 2 x 128 >= S * F for F <= 8
+#define ADJ_CHUNKS 3  // adjacency words a thread loads: 3 x 128 x 4 > 32 x 32 + 6
+#define DIMS 40       // ints of the MLP table: per MLP n, in[4], out[4], off[4]
 
 struct MlpDims {
   int n;                    // number of dense layers
@@ -79,76 +84,102 @@ struct EncDims {
   int S, F, D, nl, K;
   int wtotal;               // packed weight floats, a multiple of 4
   int xs, ds, hs;           // row strides, multiples of 4: x, [S,D], hidden
-  int warp_floats;          // shared scratch per warp, a multiple of 4
+  int job_floats;           // shared scratch per job, a multiple of 4
   long jobs;                // B * K
   float slope;
 };
 
-// The block's shared memory: the weights, then each warp's scratch. Code
-// below addresses it through `sm` (offsets in floats), so every access
-// compiles to a shared-memory load or store.
+// The block's shared memory: the weights, the MLP table, then each job's
+// scratch. Code below addresses it through `sm` (offsets in floats), so
+// every access compiles to a shared-memory load or store.
 extern __shared__ __align__(16) float sm[];
 
+// The job's four warps meet at named barrier `bar` (one per job slot).
+__device__ __forceinline__ void job_sync(int bar) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(bar), "r"(JOB_THREADS) : "memory");
+}
+
 // One dense layer, y = x @ W + b (LeakyReLU unless last), over n rows, by
-// one warp. The warp splits into 32/G groups of G = 1 << lg lanes, G the
+// a job's 128 threads (t). Threads form groups of G = 1 << lg lanes, G the
 // layer width rounded up to a power of two (at most 32; wider layers loop
-// over output chunks). Group g takes rows g, g + 32/G, ..., R at a time.
-// Row j of the input is in[(in_idx ? in_idx[j] : j) * in_stride]; row j
-// of the output goes to the row out_idx[j] (or j), plus the same row of
-// `add` when given. Each pass of the input loop reads 4/R float4s of
-// every row (broadcasts: a quarter-warp reads one row; row strides are
+// over output chunks); KS = 1 << lks neighbouring groups of a warp split
+// one row's inputs (float4 chunk c goes to slice c % KS) and add their
+// sums with shuffles; the remaining slots take rows rs, rs + NS, ..., R
+// at a time. Row j of the input is in[(in_idx ? in_idx[j] : j) *
+// in_stride]; row j of the output goes to the row out_idx[j] (or j), plus
+// the same row of `add` when given. A pass reads 4/R float4s of each of
+// its rows (broadcasts: a quarter-warp reads one row; strides are
 // multiples of 4) and the matching weights (lane o reads W_T[i][o],
-// consecutive words: conflict-free), then runs four independent chains
-// of four FMAs, whatever R.
+// consecutive words: conflict-free), then runs four independent chains of
+// four FMAs. Passes and shuffles are uniform across the job's threads.
 template <int R>
 __device__ __forceinline__ void dense_r(
-    const float* W, int ni, int no, int lg, const float* in, int in_stride,
-    const int* in_idx, float* out, int out_stride, const int* out_idx,
-    const float* add, int n, bool act, float slope, int lane) {
+    const float* W, int ni, int no, int lg, int lks, const float* in,
+    int in_stride, const int* in_idx, float* out, int out_stride,
+    const int* out_idx, const float* add, int n, bool act, float slope,
+    int t) {
   constexpr int KU = 4 / R;
-  const int G = 1 << lg, RG = 32 >> lg, g = lane >> lg, ol = lane & (G - 1);
+  const int G = 1 << lg, KS = 1 << lks;
+  const int gi = t >> lg, ol = t & (G - 1), sl = gi & (KS - 1), rs = gi >> lks;
+  const int NS = (JOB_THREADS >> lg) >> lks;  // row slots
+  const int nch = ni >> 2;                     // float4 chunks of a row
   const float* bias = W + ni * no;
+  const int passes = (n + R * NS - 1) / (R * NS);
   for (int o0 = 0; o0 < no; o0 += G) {
     const int o = o0 + ol;
     const bool live = o < no;
     const int oc = live ? o : no - 1;
-    for (int r0 = g; r0 < n; r0 += R * RG) {
+    for (int p = 0; p < passes; ++p) {
+      const int rb = rs + p * R * NS;
       const float* ip[R];
       float acc[R][KU];
 #pragma unroll
       for (int j = 0; j < R; ++j) {
-        const int r = r0 + j * RG < n ? r0 + j * RG : r0;
+        const int r = rb + j * NS < n ? rb + j * NS : 0;
         ip[j] = in + (in_idx ? in_idx[r] : r) * in_stride;
 #pragma unroll
         for (int u = 0; u < KU; ++u) acc[j][u] = 0.f;
       }
-      int i = 0;
-#pragma unroll 2
-      for (; i + 4 * KU <= ni; i += 4 * KU) {
+      int c = sl;
+      for (; c + (KU - 1) * KS < nch; c += KU * KS) {
 #pragma unroll
         for (int u = 0; u < KU; ++u) {
-          const float* wp = W + (i + 4 * u) * no + oc;
+          const int k = (c + u * KS) * 4;
+          const float* wp = W + k * no + oc;
           const float w0 = wp[0], w1 = wp[no], w2 = wp[2 * no], w3 = wp[3 * no];
 #pragma unroll
           for (int j = 0; j < R; ++j) {
-            const float4 v = *reinterpret_cast<const float4*>(ip[j] + i + 4 * u);
+            const float4 v = *reinterpret_cast<const float4*>(ip[j] + k);
             acc[j][u] = fmaf(v.w, w3, fmaf(v.z, w2, fmaf(v.y, w1,
                         fmaf(v.x, w0, acc[j][u]))));
           }
         }
       }
-      for (; i < ni; ++i) {
-        const float w = W[i * no + oc];
+      for (; c < nch; c += KS) {
+        const float* wp = W + c * 4 * no + oc;
+        const float w0 = wp[0], w1 = wp[no], w2 = wp[2 * no], w3 = wp[3 * no];
 #pragma unroll
-        for (int j = 0; j < R; ++j) acc[j][0] = fmaf(ip[j][i], w, acc[j][0]);
+        for (int j = 0; j < R; ++j) {
+          const float4 v = *reinterpret_cast<const float4*>(ip[j] + c * 4);
+          acc[j][0] = fmaf(v.w, w3, fmaf(v.z, w2, fmaf(v.y, w1,
+                      fmaf(v.x, w0, acc[j][0]))));
+        }
       }
+      if (sl == 0)
+        for (int i = nch * 4; i < ni; ++i) {
+          const float w = W[i * no + oc];
+#pragma unroll
+          for (int j = 0; j < R; ++j) acc[j][0] = fmaf(ip[j][i], w, acc[j][0]);
+        }
 #pragma unroll
       for (int j = 0; j < R; ++j) {
-        const int r = r0 + j * RG;
-        if (live && r < n) {
-          float v = acc[j][0];
+        float v = acc[j][0];
 #pragma unroll
-          for (int u = 1; u < KU; ++u) v += acc[j][u];
+        for (int u = 1; u < KU; ++u) v += acc[j][u];
+        for (int off = G; off < G * KS; off <<= 1)
+          v += __shfl_xor_sync(FULL, v, off);
+        const int r = rb + j * NS;
+        if (sl == 0 && live && r < n) {
           v += bias[oc];
           if (act) v = v >= 0.f ? v : slope * v;
           const int ro = (out_idx ? out_idx[r] : r) * out_stride + o;
@@ -159,45 +190,54 @@ __device__ __forceinline__ void dense_r(
   }
 }
 
-// One MLP over n rows; operands are float offsets into `sm` (index arrays
-// and `add` -1 when absent; see dense_r for the row addressing). Hidden
-// layers ping-pong through buf0/buf1 (compact rows, stride hs). Not
-// inlined: its call sites share one copy, which stays in the instruction
-// cache.
-__device__ __noinline__ void mlp(const MlpDims& m, int in, int in_stride,
-                                 int in_idx, int out, int out_stride,
-                                 int out_idx, int add, int n, int buf0,
-                                 int buf1, int hs, float slope, int lane) {
-  const int* ix = reinterpret_cast<const int*>(sm);
-  for (int l = 0; l < m.n; ++l) {
-    const bool last = l == m.n - 1;
+// One MLP (table row mi: 0 prep, 1 msg, 2 update) over n rows by the
+// job's threads; operands are float offsets into `sm` (index lists and
+// `add` -1 when absent). Hidden layers ping-pong through buf0/buf1
+// (compact rows, stride hs); every layer ends at the job's barrier.
+__device__ __forceinline__ void mlp(int mi, int in, int in_stride, int in_idx,
+                                    int out, int out_stride, int out_idx,
+                                    int add, int n, int buf0, int buf1, int hs,
+                                    float slope, int t, int bar) {
+  const int* ism = reinterpret_cast<const int*>(sm);
+  const int* dm = ism + mi * 13;  // the table sits at the start of sm
+  const int layers = dm[0];
+  for (int l = 0; l < layers; ++l) {
+    const bool last = l == layers - 1;
+    const int ni = dm[1 + l], no = dm[5 + l];
     const int dst = last ? out : ((l & 1) ? buf1 : buf0);
-    const float* W = sm + m.off[l];
-    const float* src = sm + in;
-    const int* si = in_idx >= 0 ? ix + in_idx : nullptr;
-    const int* di = last && out_idx >= 0 ? ix + out_idx : nullptr;
-    const float* ad = last && add >= 0 ? sm + add : nullptr;
-    const int ni = m.in[l], no = m.out[l], dstride = last ? out_stride : hs;
+    const int dstride = last ? out_stride : hs;
     const int lg = no > 16 ? 5 : 32 - __clz(no - 1);  // log2 of G
-    const int per_group = (n + (32 >> lg) - 1) >> (5 - lg);
-    if (per_group >= 4)
-      dense_r<4>(W, ni, no, lg, src, in_stride, si, sm + dst, dstride, di, ad,
-                 n, !last, slope, lane);
-    else if (per_group >= 2)
-      dense_r<2>(W, ni, no, lg, src, in_stride, si, sm + dst, dstride, di, ad,
-                 n, !last, slope, lane);
+    // split a row's inputs over up to a warp's groups while rows leave
+    // row slots free and each slice keeps two float4 chunks
+    int lks = 0;
+    while ((2 << lks) <= (32 >> lg) && (n << (lks + 1)) <= (JOB_THREADS >> lg) &&
+           (4 << lks) <= (ni >> 2))
+      ++lks;
+    const int per_slot = (n + ((JOB_THREADS >> lg) >> lks) - 1) /
+                         ((JOB_THREADS >> lg) >> lks);
+    const float* W = sm + DIMS + dm[9 + l];
+    const float* src = sm + in;
+    const int* si = in_idx >= 0 ? ism + in_idx : nullptr;
+    const int* di = last && out_idx >= 0 ? ism + out_idx : nullptr;
+    const float* ad = last && add >= 0 ? sm + add : nullptr;
+    if (per_slot >= 3)
+      dense_r<4>(W, ni, no, lg, lks, src, in_stride, si, sm + dst, dstride, di,
+                 ad, n, !last, slope, t);
+    else if (per_slot == 2)
+      dense_r<2>(W, ni, no, lg, lks, src, in_stride, si, sm + dst, dstride, di,
+                 ad, n, !last, slope, t);
     else
-      dense_r<1>(W, ni, no, lg, src, in_stride, si, sm + dst, dstride, di, ad,
-                 n, !last, slope, lane);
-    __syncwarp();
+      dense_r<1>(W, ni, no, lg, lks, src, in_stride, si, sm + dst, dstride, di,
+                 ad, n, !last, slope, t);
+    job_sync(bar);
     in = dst;
     in_stride = hs;
     in_idx = -1;
   }
 }
 
-// The lanes set in `mask`, in order, into the int array at sm offset
-// `idx`; returns their count.
+// The lanes set in `mask`, in order, into the int list at sm offset `idx`
+// (each warp keeps its own copy); returns their count.
 __device__ __forceinline__ int rows_of(unsigned mask, int idx, int lane) {
   if ((mask >> lane) & 1u)
     reinterpret_cast<int*>(sm)[idx + __popc(mask & ((1u << lane) - 1u))] =
@@ -208,16 +248,26 @@ __device__ __forceinline__ int rows_of(unsigned mask, int idx, int lane) {
 
 // out[p] = rows p of `src` where V has p, else 0 (S x D floats)
 __device__ __forceinline__ void write_rows(float* o, int src, int ds,
-                                           unsigned V, int S, int D,
-                                           int lane) {
-#pragma unroll 4
-  for (int i = lane; i < S * D; i += 32) {
+                                           unsigned V, int S, int D, int t) {
+  for (int i = t; i < S * D; i += JOB_THREADS) {
     const int p = i / D;
     o[i] = ((V >> p) & 1u) ? sm[src + p * ds + i - p * D] : 0.f;
   }
 }
 
-__global__ void __launch_bounds__(32 * MAX_WARPS)
+static __device__ __forceinline__ void fill_dims(const MlpDims& m, int* dst) {
+  dst[0] = m.n;
+#pragma unroll
+  for (int l = 0; l < MAX_LAYERS; ++l) {
+    dst[1 + l] = m.in[l];
+    dst[5 + l] = m.out[l];
+    dst[9 + l] = m.off[l];
+  }
+}
+
+enum Stage { PREP, H0, MSG0, LEVEL, REFRESH, DONE };
+
+__global__ void __launch_bounds__(JOB_THREADS * MAX_JOBS)
 decima_node_encoder_kernel(const float* __restrict__ x,
                            const uint8_t* __restrict__ adj,
                            const int32_t* __restrict__ level,
@@ -225,55 +275,61 @@ decima_node_encoder_kernel(const float* __restrict__ x,
                            const uint8_t* __restrict__ edgeless,
                            const float* __restrict__ weights,
                            float* __restrict__ out, EncDims d) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int wpb = blockDim.x >> 5;
+  const int t = threadIdx.x & (JOB_THREADS - 1), slot = threadIdx.x / JOB_THREADS;
+  const int lane = threadIdx.x & 31, warp = t >> 5;  // warp of the job
+  const int jpb = blockDim.x / JOB_THREADS, bar = 1 + slot;
   const int S = d.S, F = d.F, D = d.D, ds = d.ds, hs = d.hs;
+  int* ism = reinterpret_cast<int*>(sm);
 
-  // stage the weights, 16 B per thread; waited for once each warp has
-  // issued the loads of its first job
+  // stage the MLP table and the weights (cp.async, 16 B per thread); the
+  // copy is waited for once each job has issued the loads of its first job
+  if (threadIdx.x == 0) {
+    fill_dims(d.prep, ism);
+    fill_dims(d.msg, ism + 13);
+    fill_dims(d.upd, ism + 26);
+  }
   {
-    const unsigned base = (unsigned)__cvta_generic_to_shared(sm);
+    const unsigned base = (unsigned)__cvta_generic_to_shared(sm + DIMS);
     for (int i = threadIdx.x; i < d.wtotal / 4; i += blockDim.x)
       asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
                        base + 16u * i),
                    "l"(weights + 4 * i));
     asm volatile("cp.async.commit_group;\n" ::);
   }
-  // this warp's scratch, float offsets into sm
-  const int xs = d.wtotal + warp * d.warp_floats;  // [S, xs]
-  const int hinit = xs + S * d.xs;                 // [S, ds]
-  const int h = hinit + S * ds;                    // [S, ds]
-  const int m = h + S * ds;                        // [S, ds]: msg(h)
-  const int agg = m + S * ds;                      // [S, ds], compact
-  const int buf0 = agg + S * ds;                   // [S, hs], compact
-  const int buf1 = buf0 + S * hs;                  // [S, hs], compact
-  const int rowm = buf1 + S * hs;                  // int [32]: child masks
-  const int lv = rowm + 32;                        // int [32]: levels
-  const int idx0 = lv + 32, idx1 = idx0 + 32;      // int [32] each
-  const int adjw = idx1 + 32;                      // u32 [32 * ADJ_CHUNKS]
-  int* ism = reinterpret_cast<int*>(sm);
+  // this job's scratch, float offsets into sm
+  const int xs = DIMS + d.wtotal + slot * d.job_floats;  // [S, xs]
+  const int hinit = xs + S * d.xs;                       // [S, ds]
+  const int h = hinit + S * ds;                          // [S, ds]
+  const int m = h + S * ds;                              // [S, ds]: msg(h)
+  const int agg = m + S * ds;                            // [S, ds], compact
+  const int buf0 = agg + S * ds;                         // [S, hs], compact
+  const int buf1 = buf0 + S * hs;                        // [S, hs], compact
+  const int mk = buf1 + S * hs;                          // int [32]: node_mask
+  const int lv = mk + 32;                                // int [32]: levels
+  const int rowm = lv + 32;                              // int [32]: children
+  const int idx = rowm + 32 + warp * 32;                 // int [32] per warp
+  const int adjw = rowm + 32 + 4 * 32;                   // u32 [128 * ADJ_CHUNKS]
 
-  const bool in_s = lane < S;
   bool synced = false;
-  for (long job = (long)blockIdx.x * wpb + warp;; job += (long)gridDim.x * wpb) {
-    // issue every load of the job at once: lane c reads node c's mask and
-    // level, and the lanes read x and the adjacency block (as the aligned
-    // 32-bit words that cover it) in coalesced slices
+  for (long job = (long)blockIdx.x * jpb + slot;; job += (long)gridDim.x * jpb) {
+    // issue every load of the job at once: thread c < S reads node c's
+    // mask and level; all threads read coalesced slices of x and of the
+    // aligned 32-bit words that cover the adjacency block
     const bool have = job < d.jobs;
-    bool valid = false, el = false;
+    bool el = false, valid = false;
     int myl = -1, shift = 0, nw = 0;
     float xv[X_CHUNKS];
     unsigned aw[ADJ_CHUNKS];
     if (have) {
       el = edgeless[job / d.K] != 0;
-      if (in_s) {
-        valid = node_mask[job * S + lane] != 0;
-        myl = level[job * S + lane];
+      if (t < S) {
+        valid = node_mask[job * S + t] != 0;
+        myl = level[job * S + t];
       }
       const float* xj = x + job * S * F;
 #pragma unroll
       for (int k = 0; k < X_CHUNKS; ++k) {
-        const int i = lane + 32 * k;
+        const int i = t + JOB_THREADS * k;
         xv[k] = i < S * F ? xj[i] : 0.f;
       }
       const uint8_t* ab = adj + job * S * S;
@@ -282,7 +338,7 @@ decima_node_encoder_kernel(const float* __restrict__ x,
       const unsigned* words = reinterpret_cast<const unsigned*>(ab - shift);
 #pragma unroll
       for (int k = 0; k < ADJ_CHUNKS; ++k) {
-        const int i = lane + 32 * k;
+        const int i = t + JOB_THREADS * k;
         aw[k] = i < nw ? words[i] : 0u;
       }
     }
@@ -292,37 +348,36 @@ decima_node_encoder_kernel(const float* __restrict__ x,
       synced = true;
     }
     if (!have) break;
-    const unsigned V = __ballot_sync(FULL, valid);  // node_mask row
-    float* o = out + job * S * D;
-    if (V == 0) {
-      for (int i = lane; i < S * D; i += 32) o[i] = 0.f;
-      continue;
+    if (t < 32) {
+      ism[mk + t] = valid;
+      ism[lv + t] = myl;
     }
 #pragma unroll
     for (int k = 0; k < X_CHUNKS; ++k) {
-      const int i = lane + 32 * k, r = i / F;
+      const int i = t + JOB_THREADS * k, r = i / F;
       if (i < S * F) sm[xs + r * d.xs + i - r * F] = xv[k];
     }
-    for (int i = lane + 32 * X_CHUNKS; i < S * F; i += 32) {
+    for (int i = t + JOB_THREADS * X_CHUNKS; i < S * F; i += JOB_THREADS) {
       const int r = i / F;
       sm[xs + r * d.xs + i - r * F] = x[job * S * F + i];
     }
-
-    if (el) {  // no edge in the lane: h = h_init, masked
-      const int n = rows_of(V, idx0, lane);
-      mlp(d.prep, xs, d.xs, idx0, hinit, ds, idx0, -1, n, buf0, buf1, hs,
-          d.slope, lane);
-      write_rows(o, hinit, ds, V, S, D, lane);
-      continue;
-    }
-
 #pragma unroll
     for (int k = 0; k < ADJ_CHUNKS; ++k)
-      if (lane + 32 * k < nw) ism[adjw + lane + 32 * k] = (int)aw[k];
-    __syncwarp();
-    // this node's children (its adjacency row) and parents (its column)
-    unsigned row = 0, col = 0;
-    if (in_s) {
+      if (t + JOB_THREADS * k < nw) ism[adjw + t + JOB_THREADS * k] = (int)aw[k];
+    job_sync(bar);
+
+    // every warp derives the same masks from shared memory: lane c is node c
+    const bool in_s = lane < S;
+    const unsigned V = __ballot_sync(FULL, in_s && ism[mk + lane]);  // node_mask
+    float* o = out + job * S * D;
+    if (V == 0) {
+      for (int i = t; i < S * D; i += JOB_THREADS) o[i] = 0.f;
+      job_sync(bar);
+      continue;
+    }
+    unsigned row = 0, col = 0;  // this node's children and parents
+    const int ml = in_s ? ism[lv + lane] : -1;
+    if (in_s && !el) {
       const uint8_t* ab = reinterpret_cast<const uint8_t*>(sm + adjw) + shift;
 #pragma unroll 4
       for (int c = 0; c < S; ++c) {
@@ -330,12 +385,10 @@ decima_node_encoder_kernel(const float* __restrict__ x,
         col |= (ab[c * S + lane] ? 1u : 0u) << c;
       }
     }
-    ism[rowm + lane] = (int)row;
-    ism[lv + lane] = myl;
-    const bool upd = row != 0 && myl >= 0 && myl < d.nl;
+    ism[rowm + lane] = (int)row;  // every warp writes the same masks
+    const bool upd = row != 0 && ml >= 0 && ml < d.nl;
     const unsigned U = __ballot_sync(FULL, upd);  // nodes updated at a level
     const unsigned leaf = __ballot_sync(FULL, in_s && row == 0);
-    __syncwarp();
     // Who reads m[lane]: each parent updated at a level; a parent at a
     // level >= ours reads it before our update (or we are never updated),
     // one at a lower level after it.
@@ -344,64 +397,71 @@ decima_node_encoder_kernel(const float* __restrict__ x,
     while (par) {
       const int q = __ffs(par) - 1;
       par &= par - 1;
-      if (!upd || ism[lv + q] >= myl) before = true;
+      if (!upd || ism[lv + q] >= ml) before = true;
       else after = true;
     }
     const unsigned NI = __ballot_sync(FULL, before);  // m from h0
     const unsigned NR = __ballot_sync(FULL, after);   // m after update
     const unsigned todo0 = U & (V | NR);              // updates we need
-    const unsigned h0 = leaf & (V | NI);              // leaves we need
+    if (!el)  // h = 0 for nodes with children, until their update
+      for (int i = t; i < S * D; i += JOB_THREADS) {
+        const int p = i / D;
+        if (!((leaf >> p) & 1u)) sm[h + p * ds + i - p * D] = 0.f;
+      }
 
-    // h_init = prep(x); h0 = update(h_init) on leaves, 0 with children
-    int n = rows_of(V | todo0 | (NI & leaf), idx0, lane);
-    mlp(d.prep, xs, d.xs, idx0, hinit, ds, idx0, -1, n, buf0, buf1, hs,
-        d.slope, lane);
-    for (int i = lane; i < S * D; i += 32) {
-      const int p = i / D;
-      if (!((leaf >> p) & 1u)) sm[h + p * ds + i - p * D] = 0.f;
-    }
-    n = rows_of(h0, idx0, lane);
-    mlp(d.upd, hinit, ds, idx0, h, ds, idx0, -1, n, buf0, buf1, hs, d.slope,
-        lane);
-    if (NI) {
-      n = rows_of(NI, idx0, lane);
-      mlp(d.msg, h, ds, idx0, m, ds, idx0, -1, n, buf0, buf1, hs, d.slope,
-          lane);
-    }
-
-    // levels with work, deepest first
-    unsigned todo = U;
-    while (todo) {
-      const int l = __reduce_max_sync(FULL, ((todo >> lane) & 1u) ? myl : -1);
-      const unsigned P = __ballot_sync(FULL, ((todo >> lane) & 1u) && myl == l);
-      todo &= ~P;
-      const unsigned Pn = P & todo0;
-      if (!Pn) continue;
-      n = rows_of(Pn, idx0, lane);
-      for (int t = lane; t < n * D; t += 32) {  // agg = adj @ m, level rows
-        const int j = t / D, dd = t - j * D;
-        unsigned bits = (unsigned)ism[rowm + ism[idx0 + j]];
-        float acc = 0.f;
-        while (bits) {
-          const int c = __ffs(bits) - 1;
-          bits &= bits - 1;
-          acc += sm[m + c * ds + dd];
+    // the job's MLPs in order, through one call site: prep; the leaves'
+    // update (h0); the first messages; then per level with work, deepest
+    // first, the aggregation and update of its nodes and their new
+    // messages. An edgeless lane runs prep only and keeps h_init.
+    unsigned todo = U, Pn = 0;
+    int stage = PREP;
+    while (stage != DONE) {
+      int mi, in, ins, out_r, in_l = idx, add = -1, next, n;
+      if (stage == PREP) {
+        mi = 0; in = xs; ins = d.xs; out_r = hinit;
+        n = rows_of(el ? V : V | todo0 | (NI & leaf), idx, lane);
+        next = el ? DONE : H0;
+      } else if (stage == H0) {
+        mi = 2; in = hinit; ins = ds; out_r = h;
+        n = rows_of(leaf & (V | NI), idx, lane);
+        next = NI ? MSG0 : LEVEL;
+      } else if (stage == MSG0 || stage == REFRESH) {
+        mi = 1; in = h; ins = ds; out_r = m;
+        n = rows_of(stage == MSG0 ? NI : Pn & NR, idx, lane);
+        next = LEVEL;
+      } else {  // LEVEL: the next level with a node to update
+        Pn = 0;
+        while (todo && !Pn) {
+          const int l = __reduce_max_sync(FULL, ((todo >> lane) & 1u) ? ml : -1);
+          const unsigned P = __ballot_sync(FULL, ((todo >> lane) & 1u) && ml == l);
+          todo &= ~P;
+          Pn = P & todo0;
         }
-        sm[agg + j * ds + dd] = acc;
+        if (!Pn) break;
+        n = rows_of(Pn, idx, lane);
+        for (int i = t; i < n * D; i += JOB_THREADS) {  // agg = adj @ m
+          const int j = i / D, dd = i - j * D;
+          unsigned bits = (unsigned)ism[rowm + ism[idx + j]];
+          float acc = 0.f;
+          while (bits) {
+            const int c = __ffs(bits) - 1;
+            bits &= bits - 1;
+            acc += sm[m + c * ds + dd];
+          }
+          sm[agg + j * ds + dd] = acc;
+        }
+        job_sync(bar);
+        mi = 2; in = agg; ins = ds; in_l = -1; out_r = h; add = hinit;
+        next = (Pn & NR) ? REFRESH : LEVEL;  // h = h_init + update(agg)
       }
-      __syncwarp();
-      mlp(d.upd, agg, ds, -1, h, ds, idx0, hinit, n, buf0, buf1, hs, d.slope,
-          lane);  // h = h_init + update(agg)
-      const unsigned Rl = Pn & NR;
-      if (Rl) {
-        n = rows_of(Rl, idx1, lane);
-        mlp(d.msg, h, ds, idx1, m, ds, idx1, -1, n, buf0, buf1, hs, d.slope,
-            lane);
-      }
+      if (n)
+        mlp(mi, in, ins, in_l, out_r, ds, idx, add, n, buf0, buf1, hs,
+            d.slope, t, bar);
+      stage = next;
     }
 
-    write_rows(o, h, ds, V, S, D, lane);
-    __syncwarp();
+    write_rows(o, el ? hinit : h, ds, V, S, D, t);
+    job_sync(bar);
   }
 }
 
@@ -428,14 +488,14 @@ static int widest(const MlpDims& m) {
 // C entry point. `mlp_spec` holds prep, msg, update back to back, each as
 // (n, in[0..n-1], out[0..n-1]); `weights` packs each layer's W_T (in x
 // out, row-major) then b, in that order, zero-padded to a multiple of 4
-// floats (16-byte aligned). Launches `blocks` blocks of `warps` warps,
-// one warp per job at a time. Returns cudaGetLastError() of the launch (0
-// on success), or -1 for dims the kernel does not take.
+// floats (16-byte aligned). Launches `blocks` blocks of `jobs` x 128
+// threads, four warps per job at a time. Returns cudaGetLastError() of the
+// launch (0 on success), or -1 for dims the kernel does not take.
 extern "C" int decima_node_encoder_launch(
     const float* x, const uint8_t* adj, const int32_t* level,
     const uint8_t* node_mask, const uint8_t* edgeless, const float* weights,
     float* out, int B, int K, int S, int F, int D, int nl, float slope,
-    const int* mlp_spec, int warps, int blocks, void* stream) {
+    const int* mlp_spec, int jobs, int blocks, void* stream) {
   EncDims d;
   int off = 0;
   const int* p = mlp_spec;
@@ -447,7 +507,7 @@ extern "C" int decima_node_encoder_launch(
   p += used;
   used = fill_mlp(&d.upd, p, &off);
   if (used < 0) return -1;
-  if (S < 1 || S > 32 || F < 1 || D < 1 || warps < 1 || warps > MAX_WARPS ||
+  if (S < 1 || S > 32 || F < 1 || D < 1 || jobs < 1 || jobs > MAX_JOBS ||
       blocks < 1)
     return -1;
   d.S = S; d.F = F; d.D = D; d.nl = nl; d.K = K; d.slope = slope;
@@ -459,9 +519,10 @@ extern "C" int decima_node_encoder_launch(
   d.xs = (F + 3) / 4 * 4;
   d.ds = (D + 3) / 4 * 4;
   d.hs = (hmax + 3) / 4 * 4;
-  d.warp_floats = S * (d.xs + 4 * d.ds + 2 * d.hs) + 4 * 32 + 32 * ADJ_CHUNKS;
-  const size_t smem = sizeof(float) * ((size_t)d.wtotal +
-                                       (size_t)warps * d.warp_floats);
+  d.job_floats = S * (d.xs + 4 * d.ds + 2 * d.hs) + 3 * 32 + 4 * 32 +
+                 JOB_THREADS * ADJ_CHUNKS;
+  const size_t smem = sizeof(float) * ((size_t)DIMS + d.wtotal +
+                                       (size_t)jobs * d.job_floats);
   if (smem > SMEM_MAX) return -1;
   static size_t opted_in = 48 * 1024;  // dynamic shared memory allowed so far
   if (smem > opted_in) {
@@ -472,7 +533,7 @@ extern "C" int decima_node_encoder_launch(
     opted_in = smem;
   }
   if (d.jobs == 0) return 0;
-  decima_node_encoder_kernel<<<(unsigned)blocks, 32 * warps, smem,
+  decima_node_encoder_kernel<<<(unsigned)blocks, JOB_THREADS * jobs, smem,
                                (cudaStream_t)stream>>>(
       x, adj, level, node_mask, edgeless, weights, out, d);
   return (int)cudaGetLastError();

@@ -9,7 +9,7 @@ version `decima_node_encoder_ref`. Both take the three MLPs as
 `EncoderWeights`, packed once by `pack_weights` (the caller keeps them
 until the weights change). The edgeless fallback is reduced per lane
 over ALL of that lane's jobs, so it is computed here, before the
-launch, and handed to the kernel (one warp sees one job only): a call
+launch, and handed to the kernel (a job's warps see one job only): a call
 on the card makes two launches, that reduction and the kernel.
 """
 
@@ -129,19 +129,19 @@ def _check(x, adj, node_level, node_mask, w: EncoderWeights) -> None:
         raise ValueError(f"weights are on {w.packed.device}, x on {x.device}")
 
 
-MAX_WARPS = 8  # the kernel's MAX_WARPS
+MAX_JOBS_PER_BLOCK = 4  # the kernel's MAX_JOBS
 TARGET_BLOCKS = 128  # about one block per SM of an H100 (132)
 
 
 def launch_config(n_jobs: int) -> tuple[int, int]:
-    """(warps per block, blocks) for `n_jobs` jobs, one warp per job: as
-    many warps per block (a power of two, at most 8) as keep the jobs
-    spread over at least about 128 blocks, since the warps of a block
+    """(jobs per block, blocks) for `n_jobs` jobs, four warps per job: as
+    many jobs per block (a power of two, at most 4) as keep the jobs
+    spread over at least about 128 blocks, since the jobs of a block
     share one staged copy of the weights."""
-    warps = 1
-    while warps < MAX_WARPS and n_jobs >= 2 * warps * TARGET_BLOCKS:
-        warps *= 2
-    return warps, max(1, -(-n_jobs // warps))
+    jobs = 1
+    while jobs < MAX_JOBS_PER_BLOCK and n_jobs >= 2 * jobs * TARGET_BLOCKS:
+        jobs *= 2
+    return jobs, max(1, -(-n_jobs // jobs))
 
 
 @functools.cache
@@ -176,7 +176,7 @@ def decima_node_encoder(x, adj, node_level, node_mask, w: EncoderWeights,
     fn = _launcher()
     d = int(w.prep[-1][0].shape[0])
     s_nl = min(num_levels, s) if num_levels else s
-    warps, blocks = launch_config(b * k)
+    jobs, blocks = launch_config(b * k)
     edgeless = edgeless_per_lane(adj).contiguous()
     spec_c = w.spec.ctypes.data_as(ctypes.POINTER(ctypes.c_int))
     out = torch.empty((b, k, s, d), dtype=torch.float32, device=x.device)
@@ -184,7 +184,7 @@ def decima_node_encoder(x, adj, node_level, node_mask, w: EncoderWeights,
     rc = fn(x.data_ptr(), adj.data_ptr(), node_level.data_ptr(),
             node_mask.data_ptr(), edgeless.data_ptr(), w.packed.data_ptr(),
             out.data_ptr(), b, k, s, f, d, s_nl, float(negative_slope),
-            spec_c, warps, blocks, stream)
+            spec_c, jobs, blocks, stream)
     if rc != 0:
         raise RuntimeError(
             f"decima_node_encoder launch failed (cudaGetLastError={rc})"

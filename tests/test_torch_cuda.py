@@ -1,7 +1,7 @@
 """The port's CUDA kernel against its plain version on the card (needs
 an NVIDIA card; skips elsewhere), on random DAGs and on the seeded
 adversarial inputs of `kernels/encoder_cases.py`, at job counts below
-and above the kernel's warps-per-block granularity, within 1e-5. Run there with
+and above the kernel's jobs-per-block granularity, within 1e-5. Run there with
 `python -m pytest --noconftest -m cuda tests/test_torch_cuda.py`
 (`--noconftest`: the suite's conftest imports JAX, which the card's
 machine need not have)."""
@@ -61,7 +61,7 @@ def test_kernel_matches_plain_version(card, b, k, s):
     assert float((out - ref).abs().max()) <= 1e-5
 
 
-# B*K = 1, 3 (under one block of warps), 256 (the serve shape), 258 and
+# B*K = 1, 3 (under one block of jobs), 256 (the serve shape), 258 and
 # 1603 (a last block only partly filled)
 SHAPES = [(1, 1), (1, 3), (8, 32), (3, 86), (7, 229)]
 
@@ -79,8 +79,8 @@ def test_kernel_matches_plain_version_on_adversarial_cases(card, b, k, case,
                      _layers(gen, [16, 32, 16, 16], card),
                      _layers(gen, [16, 32, 16, 16], card))
     ins = [torch.from_numpy(a).to(card) for a in (x, adj, lvl, mask)]
-    warps, blocks = launch_config(b * k)
-    assert (blocks - 1) * warps < b * k <= blocks * warps
+    jobs, blocks = launch_config(b * k)
+    assert (blocks - 1) * jobs < b * k <= blocks * jobs
     out = decima_node_encoder(*ins, w, num_levels, 0.2)
     torch.cuda.synchronize()
     ref = decima_node_encoder_ref(*ins, w, num_levels, 0.2)

@@ -9,7 +9,7 @@
   1e-4 / atol 1e-5 (the tolerance of `test_torch_decima.py`).
 - The kernel's transposed weight layout read back into the layers.
 - The kernel's launch configuration at job counts around its
-  warps-per-block granularity.
+  jobs-per-block granularity.
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ import torch
 from sparksched_tpu.schedulers import DecimaScheduler as JaxDecima
 from sparksched_tpu.schedulers.decima import DecimaFeatures
 from sparksched_tpu_torch.kernels.decima_encoder import (
-    MAX_WARPS,
+    MAX_JOBS_PER_BLOCK,
     decima_node_encoder,
     decima_node_encoder_ref,
     launch_config,
@@ -99,10 +99,10 @@ def test_packed_weights_read_back_into_the_layers():
 
 @pytest.mark.parametrize("n_jobs", [1, 3, 255, 256, 257, 258, 1600, 1603])
 def test_launch_config_covers_every_job(n_jobs):
-    warps, blocks = launch_config(n_jobs)
-    assert warps in (1, 2, 4, 8) and warps <= MAX_WARPS
-    assert (blocks - 1) * warps < n_jobs <= blocks * warps  # no idle block
+    jobs, blocks = launch_config(n_jobs)
+    assert jobs in (1, 2, 4) and jobs <= MAX_JOBS_PER_BLOCK
+    assert (blocks - 1) * jobs < n_jobs <= blocks * jobs  # no idle block
     assert blocks >= min(n_jobs, 128)  # the jobs spread over ~128 blocks
-    expect = {1: (1, 1), 256: (2, 128), 1600: (8, 200)}  # serve shapes
+    expect = {1: (1, 1), 256: (2, 128), 1600: (4, 400)}  # serve shapes
     if n_jobs in expect:
-        assert (warps, blocks) == expect[n_jobs]
+        assert (jobs, blocks) == expect[n_jobs]
