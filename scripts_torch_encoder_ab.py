@@ -38,7 +38,8 @@ Beside the times: the checkout's kernel rebuilt with `clock64()` stamps
 (`phases`), which gives, per job with a valid node on an edged lane,
 the SM cycles spent loading the job, on its bookkeeping, in prep, in
 the leaves' update and the first messages, in the level chain and in
-the output writes; with --sass, the checkout's kernel's SASS in
+the output writes; the same kernel with a per-step log (`steps`: each
+dense layer, each stage of the job's MLP loop); with --sass, the checkout's kernel's SASS in
 `chiprun_out/encoder_sass.txt`.
 
 First, a single-warp calibration (`calibrate_cycles_per_op`): SM cycles
@@ -159,6 +160,84 @@ extern "C" int cal_run(int which, int n, int threads, long long* host) {
   return (int)cudaGetLastError();
 }
 """
+# Per-step log (stamps kept per job by its first thread, the count in
+# shared memory, written to global memory, never read back in the kernel):
+# SM cycles from each dense layer of each MLP (tag rows * 10000 + in * 100
+# + out), each stage of the job's MLP loop (tag -10 - stage: prep 0, h0 1,
+# first messages 2, level 3, refresh 4), the output (-1) and the end of
+# the loads (-2) to the next stamp.
+STEP_LOG = [
+    ("extern __shared__ __align__(16) float sm[];\n",
+     "extern __shared__ __align__(16) float sm[];\n"
+     "__device__ long long enc_llog[8192 * 64];\n"
+     "__device__ int enc_ltag[8192 * 64];\n"
+     "__shared__ int enc_lcnt[8], enc_ljob[8];  // per job slot\n"
+     "extern \"C\" int enc_llog_read(long long* t, int* tag) {\n"
+     "  cudaMemcpyFromSymbol(t, enc_llog, sizeof(enc_llog));\n"
+     "  return (int)cudaMemcpyFromSymbol(tag, enc_ltag, sizeof(enc_ltag));\n}\n"
+     "extern \"C\" int enc_llog_clear() {\n"
+     "  static long long z[8192 * 64];\n"
+     "  return (int)cudaMemcpyToSymbol(enc_llog, z, sizeof(z));\n}\n"
+     "__device__ __forceinline__ void lstamp(int tag) {\n"
+     "  if ((threadIdx.x & 127) == 0) {\n"
+     "    const int s = threadIdx.x >> 7, job = enc_ljob[s], c = enc_lcnt[s]++;\n"
+     "    if (job < 8192 && c < 64) {\n"
+     "      enc_llog[job * 64 + c] = clock64();\n"
+     "      enc_ltag[job * 64 + c] = tag;\n"
+     "    }\n  }\n}\n"),
+    ("    if (!have) break;\n",
+     "    if (!have) break;\n"
+     "    if (t == 0) { enc_lcnt[slot] = 0; enc_ljob[slot] = (int)job; }\n"),
+    ("    const int ni = e[0], no = e[1], lg = e[3], nch = e[4];\n",
+     "    const int ni = e[0], no = e[1], lg = e[3], nch = e[4];\n"
+     "    lstamp(n * 10000 + ni * 100 + no);\n"),
+    ("    while (stage != DONE) {\n", "    while (stage != DONE) {\n      lstamp(-10 - stage);\n"),
+    ("    write_rows(o, el ? hinit : h, ds, V, S, D, t);\n",
+     "    lstamp(-1);\n    write_rows(o, el ? hinit : h, ds, V, S, D, t);\n"
+     "    lstamp(-3);\n"),
+    ("    job_sync(bar);\n\n    // every warp derives",
+     "    job_sync(bar);\n    lstamp(-2);\n\n    // every warp derives"),
+]
+
+
+def step_log(lib, call, f) -> dict:
+    """Run `call` (a build with STEP_LOG) once: per tag, the median SM
+    cycles from its stamp to the next over every live edged job, and the
+    whole log of the job with the most cycles."""
+    import numpy as np
+    import torch
+
+    t = np.zeros(8192 * 64, np.int64)
+    tag = np.zeros(8192 * 64, np.int32)
+    torch.cuda.synchronize()
+    if lib.enc_llog_clear():
+        raise RuntimeError("enc_llog_clear failed")
+    call()
+    torch.cuda.synchronize()
+    if lib.enc_llog_read(t.ctypes.data_as(ctypes.c_void_p),
+                         tag.ctypes.data_as(ctypes.c_void_p)):
+        raise RuntimeError("enc_llog_read failed")
+    b, k = f.x.shape[:2]
+    edged = f.adj.reshape(b, -1).any(1)[:, None].expand(b, k)
+    full = (f.node_mask.any(-1) & edged).reshape(-1).cpu().numpy()
+    t, tag = t.reshape(-1, 64)[:b * k], tag.reshape(-1, 64)[:b * k]
+    per_tag, worst, worst_span = {}, [], -1
+    for j in np.flatnonzero(full):
+        n = int((t[j] != 0).sum())
+        seq = [(int(tag[j, i]), int(t[j, i + 1] - t[j, i]))
+               for i in range(n - 1)]
+        for tg, dt in seq:
+            per_tag.setdefault(tg, []).append(dt)
+        span = int(t[j, n - 1] - t[j, 0]) if n else 0
+        if span > worst_span:
+            worst, worst_span = seq, span
+    return {"median_by_tag": {str(k_): float(np.median(v))
+                              for k_, v in sorted(per_tag.items())},
+            "count_by_tag": {str(k_): len(v)
+                             for k_, v in sorted(per_tag.items())},
+            "slowest_job": worst, "slowest_span": worst_span}
+
+
 ALL_ROWS = [
     ("const unsigned NI = __ballot_sync(FULL, before);",
      "const unsigned NI = __ballot_sync(FULL, in_s);"),
@@ -317,7 +396,8 @@ def main() -> int:
                "current": cur,
                "current_all_rows": patched(cur, ALL_ROWS),
                "current_empty": patched(cur, EMPTY),
-               "phases": patched(cur, PHASE_STAMPS)}
+               "phases": patched(cur, PHASE_STAMPS),
+               "steps": patched(cur, STEP_LOG)}
     if a.earlier_cu:
         with open(a.earlier_cu) as fh:
             sources["earlier"] = fh.read()
@@ -398,6 +478,9 @@ def main() -> int:
                                                  "decima_node_encoder")
                     per[name]["ms_rounds"].append(ms)
             stats = job_stats(f, nl)
+            stats["steps"] = step_log(
+                libs["steps"], launcher(libs["steps"], f, w, w.packed, nl,
+                                        net.slope, launch_config(jobs)), f)
             stats["phases"] = phase_cycles(
                 libs["phases"], launcher(libs["phases"], f, w, w.packed, nl,
                                          net.slope, launch_config(jobs)),

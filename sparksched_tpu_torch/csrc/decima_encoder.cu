@@ -70,7 +70,8 @@
 #define FULL 0xffffffffu
 #define X_CHUNKS 2    // x floats a thread loads ahead: 2 x 128 >= S * F for F <= 8
 #define ADJ_CHUNKS 3  // adjacency words a thread loads: 3 x 128 x 4 > 32 x 32 + 6
-#define DIMS 40       // ints of the MLP table: per MLP n, in[4], out[4], off[4]
+#define DIMS 64       // ints of the layer table: per MLP n, then per layer
+                      // (in, out, W offset, log2 G, float4 chunks)
 
 struct MlpDims {
   int n;                    // number of dense layers
@@ -114,17 +115,15 @@ __device__ __forceinline__ void job_sync(int bar) {
 // four FMAs. Passes and shuffles are uniform across the job's threads.
 template <int R>
 __device__ __forceinline__ void dense_r(
-    const float* W, int ni, int no, int lg, int lks, const float* in,
-    int in_stride, const int* in_idx, float* out, int out_stride,
-    const int* out_idx, const float* add, int n, bool act, float slope,
-    int t) {
+    const float* W, int ni, int no, int lg, int nch, int lks, int passes,
+    const float* in, int in_stride, const int* in_idx, float* out,
+    int out_stride, const int* out_idx, const float* add, int n, bool act,
+    float slope, int t) {
   constexpr int KU = 4 / R;
   const int G = 1 << lg, KS = 1 << lks;
   const int gi = t >> lg, ol = t & (G - 1), sl = gi & (KS - 1), rs = gi >> lks;
   const int NS = (JOB_THREADS >> lg) >> lks;  // row slots
-  const int nch = ni >> 2;                     // float4 chunks of a row
   const float* bias = W + ni * no;
-  const int passes = (n + R * NS - 1) / (R * NS);
   for (int o0 = 0; o0 < no; o0 += G) {
     const int o = o0 + ol;
     const bool live = o < no;
@@ -193,42 +192,45 @@ __device__ __forceinline__ void dense_r(
 // One MLP (table row mi: 0 prep, 1 msg, 2 update) over n rows by the
 // job's threads; operands are float offsets into `sm` (index lists and
 // `add` -1 when absent). Hidden layers ping-pong through buf0/buf1
-// (compact rows, stride hs); every layer ends at the job's barrier.
+// (compact rows, stride hs); every layer ends at the job's barrier. A
+// layer splits a row's inputs over KS = 1 << lks lane groups, the most
+// that a warp holds, that leave a row slot for every row and that keep
+// two float4 chunks per slice; all of it in shifts, since a lone warp
+// pays ~5 cycles per dependent instruction.
 __device__ __forceinline__ void mlp(int mi, int in, int in_stride, int in_idx,
                                     int out, int out_stride, int out_idx,
                                     int add, int n, int buf0, int buf1, int hs,
                                     float slope, int t, int bar) {
   const int* ism = reinterpret_cast<const int*>(sm);
-  const int* dm = ism + mi * 13;  // the table sits at the start of sm
+  const int* dm = ism + mi * 21;  // the table sits at the start of sm
   const int layers = dm[0];
+  const int ln = n > 1 ? 32 - __clz(n - 1) : 0;  // ceil(log2 n)
   for (int l = 0; l < layers; ++l) {
     const bool last = l == layers - 1;
-    const int ni = dm[1 + l], no = dm[5 + l];
+    const int* e = dm + 1 + 5 * l;
+    const int ni = e[0], no = e[1], lg = e[3], nch = e[4];
+    int lks = min(5 - lg, 7 - lg - ln);
+    lks = max(0, min(lks, nch >= 2 ? 30 - __clz(nch) : 0));
+    const int lns = 7 - lg - lks;  // log2 of the row slots
+    const int per_slot = (n + (1 << lns) - 1) >> lns;
+    const int lr = per_slot >= 3 ? 2 : per_slot == 2 ? 1 : 0;  // log2 R
+    const int passes = (n + (1 << (lns + lr)) - 1) >> (lns + lr);
     const int dst = last ? out : ((l & 1) ? buf1 : buf0);
     const int dstride = last ? out_stride : hs;
-    const int lg = no > 16 ? 5 : 32 - __clz(no - 1);  // log2 of G
-    // split a row's inputs over up to a warp's groups while rows leave
-    // row slots free and each slice keeps two float4 chunks
-    int lks = 0;
-    while ((2 << lks) <= (32 >> lg) && (n << (lks + 1)) <= (JOB_THREADS >> lg) &&
-           (4 << lks) <= (ni >> 2))
-      ++lks;
-    const int per_slot = (n + ((JOB_THREADS >> lg) >> lks) - 1) /
-                         ((JOB_THREADS >> lg) >> lks);
-    const float* W = sm + DIMS + dm[9 + l];
+    const float* W = sm + DIMS + e[2];
     const float* src = sm + in;
     const int* si = in_idx >= 0 ? ism + in_idx : nullptr;
     const int* di = last && out_idx >= 0 ? ism + out_idx : nullptr;
     const float* ad = last && add >= 0 ? sm + add : nullptr;
-    if (per_slot >= 3)
-      dense_r<4>(W, ni, no, lg, lks, src, in_stride, si, sm + dst, dstride, di,
-                 ad, n, !last, slope, t);
-    else if (per_slot == 2)
-      dense_r<2>(W, ni, no, lg, lks, src, in_stride, si, sm + dst, dstride, di,
-                 ad, n, !last, slope, t);
+    if (lr == 2)
+      dense_r<4>(W, ni, no, lg, nch, lks, passes, src, in_stride, si, sm + dst,
+                 dstride, di, ad, n, !last, slope, t);
+    else if (lr == 1)
+      dense_r<2>(W, ni, no, lg, nch, lks, passes, src, in_stride, si, sm + dst,
+                 dstride, di, ad, n, !last, slope, t);
     else
-      dense_r<1>(W, ni, no, lg, lks, src, in_stride, si, sm + dst, dstride, di,
-                 ad, n, !last, slope, t);
+      dense_r<1>(W, ni, no, lg, nch, lks, passes, src, in_stride, si, sm + dst,
+                 dstride, di, ad, n, !last, slope, t);
     job_sync(bar);
     in = dst;
     in_stride = hs;
@@ -259,9 +261,12 @@ static __device__ __forceinline__ void fill_dims(const MlpDims& m, int* dst) {
   dst[0] = m.n;
 #pragma unroll
   for (int l = 0; l < MAX_LAYERS; ++l) {
-    dst[1 + l] = m.in[l];
-    dst[5 + l] = m.out[l];
-    dst[9 + l] = m.off[l];
+    int* e = dst + 1 + 5 * l;
+    e[0] = m.in[l];
+    e[1] = m.out[l];
+    e[2] = m.off[l];
+    e[3] = m.out[l] > 16 ? 5 : 32 - __clz(m.out[l] - 1);  // log2 of G
+    e[4] = m.in[l] >> 2;
   }
 }
 
@@ -285,8 +290,8 @@ decima_node_encoder_kernel(const float* __restrict__ x,
   // copy is waited for once each job has issued the loads of its first job
   if (threadIdx.x == 0) {
     fill_dims(d.prep, ism);
-    fill_dims(d.msg, ism + 13);
-    fill_dims(d.upd, ism + 26);
+    fill_dims(d.msg, ism + 21);
+    fill_dims(d.upd, ism + 42);
   }
   {
     const unsigned base = (unsigned)__cvta_generic_to_shared(sm + DIMS);
@@ -321,7 +326,7 @@ decima_node_encoder_kernel(const float* __restrict__ x,
     float xv[X_CHUNKS];
     unsigned aw[ADJ_CHUNKS];
     if (have) {
-      el = edgeless[job / d.K] != 0;
+      el = edgeless[(int)job / d.K] != 0;
       if (t < S) {
         valid = node_mask[job * S + t] != 0;
         myl = level[job * S + t];
@@ -512,6 +517,7 @@ extern "C" int decima_node_encoder_launch(
     return -1;
   d.S = S; d.F = F; d.D = D; d.nl = nl; d.K = K; d.slope = slope;
   d.jobs = (long)B * K;
+  if (d.jobs > 0x7fffffff) return -1;
   d.wtotal = (off + 3) / 4 * 4;
   int hmax = widest(d.prep);
   hmax = widest(d.msg) > hmax ? widest(d.msg) : hmax;
