@@ -154,14 +154,18 @@ __device__ __forceinline__ void dense_r(
           }
         }
       }
-      for (; c < nch; c += KS) {
-        const float* wp = W + c * 4 * no + oc;
-        const float w0 = wp[0], w1 = wp[no], w2 = wp[2 * no], w3 = wp[3 * no];
 #pragma unroll
-        for (int j = 0; j < R; ++j) {
-          const float4 v = *reinterpret_cast<const float4*>(ip[j] + c * 4);
-          acc[j][0] = fmaf(v.w, w3, fmaf(v.z, w2, fmaf(v.y, w1,
-                      fmaf(v.x, w0, acc[j][0]))));
+      for (int u = 0; u < KU - 1; ++u) {  // the last chunks, still in parallel
+        if (c + u * KS < nch) {
+          const int k = (c + u * KS) * 4;
+          const float* wp = W + k * no + oc;
+          const float w0 = wp[0], w1 = wp[no], w2 = wp[2 * no], w3 = wp[3 * no];
+#pragma unroll
+          for (int j = 0; j < R; ++j) {
+            const float4 v = *reinterpret_cast<const float4*>(ip[j] + k);
+            acc[j][u] = fmaf(v.w, w3, fmaf(v.z, w2, fmaf(v.y, w1,
+                        fmaf(v.x, w0, acc[j][u]))));
+          }
         }
       }
       if (sl == 0)
