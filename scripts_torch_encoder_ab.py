@@ -22,9 +22,9 @@ torch.profiler, in turns (baseline first and last). Variants:
   warp's weight loads hit distinct banks;
 - ``baseline_dead``: a job whose node_mask row is all false writes
   zeros and exits;
-- ``current_j{1,2}``: the checkout's kernel, eight warps per job, at 1
-  or 2 jobs per block (the wrapper's `launch_config` picks one);
-- ``persist_j{1,2}``: the checkout's kernel on a persistent grid of
+- ``current_j{1,2,4}``: the checkout's kernel, four warps per job, at
+  1, 2 or 4 jobs per block (the wrapper's `launch_config` picks one);
+- ``persist_j{1,2,4}``: the checkout's kernel on a persistent grid of
   one block per SM, its jobs walking over the jobs of the call;
 - ``current_all_rows``: the checkout's kernel with every node's message
   computed up front and refreshed after every update (no row pruning);
@@ -36,9 +36,10 @@ torch.profiler, in turns (baseline first and last). Variants:
 
 Beside the times: the checkout's kernel rebuilt with `clock64()` stamps
 (`phases`), which gives, per job with a valid node on an edged lane,
-the SM cycles spent loading the job, on its bookkeeping, up front
-(prep, the leaves' update, the first messages), in the level chain and
-in the output writes; with --sass, the checkout's kernel's SASS in
+the SM cycles spent loading the job, on its bookkeeping, in prep, in
+the leaves' update and the first messages, in the level chain and in
+the output writes; the same kernel with a per-step log (`steps`: each
+dense layer, each stage of the job's MLP loop); with --sass, the checkout's kernel's SASS in
 `chiprun_out/encoder_sass.txt`.
 
 First, a single-warp calibration (`calibrate_cycles_per_op`): SM cycles
@@ -78,36 +79,35 @@ BASELINE_DEAD = [(
     "    return;\n"
     "  }\n",
 )]
-EMPTY = [("  const int S = d.S, F = d.F, D = d.D, ds = d.ds;\n",
-          "  const int S = d.S, F = d.F, D = d.D, ds = d.ds;\n"
+EMPTY = [("  const int S = d.S, F = d.F, D = d.D, ds = d.ds, hs = d.hs;\n",
+          "  const int S = d.S, F = d.F, D = d.D, ds = d.ds, hs = d.hs;\n"
           "  if (d.jobs > 0) return;\n")]
 STAMPS = 1 << 16  # 8 stamps for each of the first 8192 jobs
-PHASES = ("load", "bookkeeping", "up_front", "levels", "output")
+PHASES = ("load", "bookkeeping", "prep", "h0_and_msg", "levels", "output")
 PHASE_STAMPS = [
-    ("#define ADJ_CHUNKS",
+    ("#define X_CHUNKS",
      f"__device__ long long enc_stamps[{STAMPS}];\n"
      "extern \"C\" int enc_stamps_read(long long* dst) {\n"
      "  return (int)cudaMemcpyFromSymbol(dst, enc_stamps,\n"
      "                                   sizeof(enc_stamps));\n}\n"
      "#define STAMP(k) if (t == 0 && job < 8192) "
      "enc_stamps[job * 8 + (k)] = clock64();\n"
-     "#define ADJ_CHUNKS"),
-    ("  const int S = d.S, F = d.F, D = d.D, ds = d.ds;\n",
-     "  const int S = d.S, F = d.F, D = d.D, ds = d.ds;\n"
+     "#define X_CHUNKS"),
+    ("  const int S = d.S, F = d.F, D = d.D, ds = d.ds, hs = d.hs;\n",
+     "  const int S = d.S, F = d.F, D = d.D, ds = d.ds, hs = d.hs;\n"
      "  const long long t_start = clock64();\n"),
     ("      synced = true;\n    }\n",
      "      synced = true;\n    }\n"
      "    if (have && t == 0 && job < 8192) "
      "enc_stamps[job * 8] = t_start;\n    STAMP(1)\n"),
-    ("    int n = rows_of(prep | NI, idx, lane);\n",
-     "    STAMP(2)\n    int n = rows_of(prep | NI, idx, lane);\n"),
-    ("    job_sync(bar);\n\n    // Then each level",
-     "    job_sync(bar);\n    STAMP(3)\n\n    // Then each level"),
-    ("    const int src = el ? hinit : h;\n",
-     "    STAMP(4)\n    const int src = el ? hinit : h;\n"),
-    ("    o[i] = ((V >> p) & 1u) ? sm[src + p * ds + i - p * D] : 0.f;\n    }\n",
-     "    o[i] = ((V >> p) & 1u) ? sm[src + p * ds + i - p * D] : 0.f;\n    }\n"
-     "    STAMP(5)\n"),
+    ("    unsigned todo = U, Pn = 0;\n", "    STAMP(2)\n    unsigned todo = U, Pn = 0;\n"),
+    ("      stage = next;\n",
+     "      if (stage == PREP) STAMP(3)\n"
+     "      if (stage == H0 || stage == MSG0) STAMP(4)\n"
+     "      stage = next;\n"),
+    ("    write_rows(o, el ? hinit : h, ds, V, S, D, t);\n",
+     "    STAMP(5)\n    write_rows(o, el ? hinit : h, ds, V, S, D, t);\n"
+     "    STAMP(6)\n"),
 ]
 # Single-warp latency calibration: SM cycles per instruction of a chain
 # of dependent FFMAs, of dependent shared loads (a pointer chase), and per
@@ -160,6 +160,84 @@ extern "C" int cal_run(int which, int n, int threads, long long* host) {
   return (int)cudaGetLastError();
 }
 """
+# Per-step log (stamps kept per job by its first thread, the count in
+# shared memory, written to global memory, never read back in the kernel):
+# SM cycles from each dense layer of each MLP (tag rows * 10000 + in * 100
+# + out), each stage of the job's MLP loop (tag -10 - stage: prep 0, h0 1,
+# first messages 2, level 3, refresh 4), the output (-1) and the end of
+# the loads (-2) to the next stamp.
+STEP_LOG = [
+    ("extern __shared__ __align__(16) float sm[];\n",
+     "extern __shared__ __align__(16) float sm[];\n"
+     "__device__ long long enc_llog[8192 * 64];\n"
+     "__device__ int enc_ltag[8192 * 64];\n"
+     "__shared__ int enc_lcnt[8], enc_ljob[8];  // per job slot\n"
+     "extern \"C\" int enc_llog_read(long long* t, int* tag) {\n"
+     "  cudaMemcpyFromSymbol(t, enc_llog, sizeof(enc_llog));\n"
+     "  return (int)cudaMemcpyFromSymbol(tag, enc_ltag, sizeof(enc_ltag));\n}\n"
+     "extern \"C\" int enc_llog_clear() {\n"
+     "  static long long z[8192 * 64];\n"
+     "  return (int)cudaMemcpyToSymbol(enc_llog, z, sizeof(z));\n}\n"
+     "__device__ __forceinline__ void lstamp(int tag) {\n"
+     "  if ((threadIdx.x & 127) == 0) {\n"
+     "    const int s = threadIdx.x >> 7, job = enc_ljob[s], c = enc_lcnt[s]++;\n"
+     "    if (job < 8192 && c < 64) {\n"
+     "      enc_llog[job * 64 + c] = clock64();\n"
+     "      enc_ltag[job * 64 + c] = tag;\n"
+     "    }\n  }\n}\n"),
+    ("    if (!have) break;\n",
+     "    if (!have) break;\n"
+     "    if (t == 0) { enc_lcnt[slot] = 0; enc_ljob[slot] = (int)job; }\n"),
+    ("    const int ni = e[0], no = e[1], lg = e[3], nch = e[4];\n",
+     "    const int ni = e[0], no = e[1], lg = e[3], nch = e[4];\n"
+     "    lstamp(n * 10000 + ni * 100 + no);\n"),
+    ("    while (stage != DONE) {\n", "    while (stage != DONE) {\n      lstamp(-10 - stage);\n"),
+    ("    write_rows(o, el ? hinit : h, ds, V, S, D, t);\n",
+     "    lstamp(-1);\n    write_rows(o, el ? hinit : h, ds, V, S, D, t);\n"
+     "    lstamp(-3);\n"),
+    ("    job_sync(bar);\n\n    // every warp derives",
+     "    job_sync(bar);\n    lstamp(-2);\n\n    // every warp derives"),
+]
+
+
+def step_log(lib, call, f) -> dict:
+    """Run `call` (a build with STEP_LOG) once: per tag, the median SM
+    cycles from its stamp to the next over every live edged job, and the
+    whole log of the job with the most cycles."""
+    import numpy as np
+    import torch
+
+    t = np.zeros(8192 * 64, np.int64)
+    tag = np.zeros(8192 * 64, np.int32)
+    torch.cuda.synchronize()
+    if lib.enc_llog_clear():
+        raise RuntimeError("enc_llog_clear failed")
+    call()
+    torch.cuda.synchronize()
+    if lib.enc_llog_read(t.ctypes.data_as(ctypes.c_void_p),
+                         tag.ctypes.data_as(ctypes.c_void_p)):
+        raise RuntimeError("enc_llog_read failed")
+    b, k = f.x.shape[:2]
+    edged = f.adj.reshape(b, -1).any(1)[:, None].expand(b, k)
+    full = (f.node_mask.any(-1) & edged).reshape(-1).cpu().numpy()
+    t, tag = t.reshape(-1, 64)[:b * k], tag.reshape(-1, 64)[:b * k]
+    per_tag, worst, worst_span = {}, [], -1
+    for j in np.flatnonzero(full):
+        n = int((t[j] != 0).sum())
+        seq = [(int(tag[j, i]), int(t[j, i + 1] - t[j, i]))
+               for i in range(n - 1)]
+        for tg, dt in seq:
+            per_tag.setdefault(tg, []).append(dt)
+        span = int(t[j, n - 1] - t[j, 0]) if n else 0
+        if span > worst_span:
+            worst, worst_span = seq, span
+    return {"median_by_tag": {str(k_): float(np.median(v))
+                              for k_, v in sorted(per_tag.items())},
+            "count_by_tag": {str(k_): len(v)
+                             for k_, v in sorted(per_tag.items())},
+            "slowest_job": worst, "slowest_span": worst_span}
+
+
 ALL_ROWS = [
     ("const unsigned NI = __ballot_sync(FULL, before);",
      "const unsigned NI = __ballot_sync(FULL, in_s);"),
@@ -259,12 +337,12 @@ def phase_cycles(lib, call, f, nl: int) -> dict:
     edged = f.adj.reshape(b, -1).any(1)[:, None].expand(b, k)
     full = (f.node_mask.any(-1) & edged).reshape(-1).cpu().numpy()
     t = stamps.reshape(-1, 8)[:b * k][full[:8192]]
-    d = np.diff(t[:, :len(PHASES) + 1], axis=1)
+    d = np.diff(t[:, :7], axis=1)
     out = {"jobs": int(len(t))}
     for i, name in enumerate(PHASES):
         out[name] = {"median": float(np.median(d[:, i])),
                      "max": int(d[:, i].max())}
-    tot = t[:, len(PHASES)] - t[:, 0]
+    tot = t[:, 6] - t[:, 0]
     out["total"] = {"median": float(np.median(tot)), "max": int(tot.max())}
     return out
 
@@ -318,7 +396,8 @@ def main() -> int:
                "current": cur,
                "current_all_rows": patched(cur, ALL_ROWS),
                "current_empty": patched(cur, EMPTY),
-               "phases": patched(cur, PHASE_STAMPS)}
+               "phases": patched(cur, PHASE_STAMPS),
+               "steps": patched(cur, STEP_LOG)}
     if a.earlier_cu:
         with open(a.earlier_cu) as fh:
             sources["earlier"] = fh.read()
@@ -374,10 +453,10 @@ def main() -> int:
             if a.earlier_cu:
                 variants["earlier"] = (libs["earlier"], w.packed,
                                        launch_config(jobs))
-            for wp in (1, 2):
+            for wp in (1, 2, 4):
                 variants[f"current_j{wp}"] = (libs["current"], w.packed,
                                               (wp, -(-jobs // wp)))
-            for wp in (1, 2):
+            for wp in (1, 2, 4):
                 variants[f"persist_j{wp}"] = (
                     libs["current"], w.packed,
                     (wp, min(PERSIST_BLOCKS, -(-jobs // wp))))
@@ -399,6 +478,9 @@ def main() -> int:
                                                  "decima_node_encoder")
                     per[name]["ms_rounds"].append(ms)
             stats = job_stats(f, nl)
+            stats["steps"] = step_log(
+                libs["steps"], launcher(libs["steps"], f, w, w.packed, nl,
+                                        net.slope, launch_config(jobs)), f)
             stats["phases"] = phase_cycles(
                 libs["phases"], launcher(libs["phases"], f, w, w.packed, nl,
                                          net.slope, launch_config(jobs)),

@@ -64,14 +64,14 @@
 #include <stdint.h>
 
 #define MAX_LAYERS 4
-#define MAX_WIDTH 32     // every layer width: one lane per input and output
-#define JOB_WARPS 8      // warps per job
-#define JOB_THREADS (32 * JOB_WARPS)
-#define MAX_JOBS 2       // jobs per block
+#define JOB_THREADS 128  // four warps per job
+#define MAX_JOBS 4       // jobs per block
 #define SMEM_MAX (227 * 1024)
 #define FULL 0xffffffffu
-#define ADJ_CHUNKS 2  // adjacency words a thread loads: 2 x 256 x 4 > 32 x 32 + 6
-#define DIMS 40       // ints of the MLP table: per MLP n, then (in, out, off) per layer
+#define X_CHUNKS 2    // x floats a thread loads ahead: 2 x 128 >= S * F for F <= 8
+#define ADJ_CHUNKS 3  // adjacency words a thread loads: 3 x 128 x 4 > 32 x 32 + 6
+#define DIMS 64       // ints of the layer table: per MLP n, then per layer
+                      // (in, out, W offset, log2 G, float4 chunks)
 
 struct MlpDims {
   int n;                    // number of dense layers
@@ -84,49 +84,162 @@ struct EncDims {
   MlpDims prep, msg, upd;
   int S, F, D, nl, K;
   int wtotal;               // packed weight floats, a multiple of 4
-  int xs, ds;               // row strides of x and of the [S, D] arrays
+  int xs, ds, hs;           // row strides, multiples of 4: x, [S,D], hidden
   int job_floats;           // shared scratch per job, a multiple of 4
   long jobs;                // B * K
   float slope;
 };
 
-// The block's shared memory: the MLP table, the weights, then each job's
+// The block's shared memory: the weights, the MLP table, then each job's
 // scratch. Code below addresses it through `sm` (offsets in floats), so
 // every access compiles to a shared-memory load or store.
 extern __shared__ __align__(16) float sm[];
 
-// The job's warps meet at named barrier `bar` (one per job slot).
+// The job's four warps meet at named barrier `bar` (one per job slot).
 __device__ __forceinline__ void job_sync(int bar) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(bar), "r"(JOB_THREADS) : "memory");
 }
 
-// One MLP (table row dm: prep, msg or update) on one row, by one warp,
-// its activations in registers: lane i holds input i of the row, 0 past
-// its width, and gets output i back. Each layer reads input i by a
-// shuffle from lane i and W_T[i][o] in lane o (consecutive words: no bank
-// conflict), eight inputs at a time in four chains of FMAs; no barrier
-// and no shared-memory round trip between layers.
-__device__ __forceinline__ float mlp_row(const int* dm, float a, float slope,
-                                         int lane) {
-  const int layers = dm[0];
-  for (int l = 0; l < layers; ++l) {
-    const int ni = dm[1 + 3 * l], no = dm[2 + 3 * l];
-    const float* W = sm + DIMS + dm[3 + 3 * l];
-    const int oc = lane < no ? lane : 0;
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int i = 0; i < ni; i += 8) {
+// One dense layer, y = x @ W + b (LeakyReLU unless last), over n rows, by
+// a job's 128 threads (t). Threads form groups of G = 1 << lg lanes, G the
+// layer width rounded up to a power of two (at most 32; wider layers loop
+// over output chunks); KS = 1 << lks neighbouring groups of a warp split
+// one row's inputs (float4 chunk c goes to slice c % KS) and add their
+// sums with shuffles; the remaining slots take rows rs, rs + NS, ..., R
+// at a time. Row j of the input is in[(in_idx ? in_idx[j] : j) *
+// in_stride]; row j of the output goes to the row out_idx[j] (or j), plus
+// the same row of `add` when given. A pass reads 4/R float4s of each of
+// its rows (broadcasts: a quarter-warp reads one row; strides are
+// multiples of 4) and the matching weights (lane o reads W_T[i][o],
+// consecutive words: conflict-free), then runs four independent chains of
+// four FMAs. Passes and shuffles are uniform across the job's threads.
+template <int R>
+__device__ __forceinline__ void dense_r(
+    const float* W, int ni, int no, int lg, int nch, int lks, int passes,
+    const float* in, int in_stride, const int* in_idx, float* out,
+    int out_stride, const int* out_idx, const float* add, int n, bool act,
+    float slope, int t) {
+  constexpr int KU = 4 / R;
+  const int G = 1 << lg, KS = 1 << lks;
+  const int gi = t >> lg, ol = t & (G - 1), sl = gi & (KS - 1), rs = gi >> lks;
+  const int NS = (JOB_THREADS >> lg) >> lks;  // row slots
+  const float* bias = W + ni * no;
+  for (int o0 = 0; o0 < no; o0 += G) {
+    const int o = o0 + ol;
+    const bool live = o < no;
+    const int oc = live ? o : no - 1;
+    for (int p = 0; p < passes; ++p) {
+      const int rb = rs + p * R * NS;
+      const float* ip[R];
+      float acc[R][KU];
 #pragma unroll
-      for (int u = 0; u < 8; ++u) {
-        const float xi = __shfl_sync(FULL, a, i + u);
-        const float w = i + u < ni ? W[(i + u) * no + oc] : 0.f;
-        acc[u & 3] = fmaf(xi, w, acc[u & 3]);
+      for (int j = 0; j < R; ++j) {
+        const int r = rb + j * NS < n ? rb + j * NS : 0;
+        ip[j] = in + (in_idx ? in_idx[r] : r) * in_stride;
+#pragma unroll
+        for (int u = 0; u < KU; ++u) acc[j][u] = 0.f;
+      }
+      int c = sl;
+      for (; c + (KU - 1) * KS < nch; c += KU * KS) {
+#pragma unroll
+        for (int u = 0; u < KU; ++u) {
+          const int k = (c + u * KS) * 4;
+          const float* wp = W + k * no + oc;
+          const float w0 = wp[0], w1 = wp[no], w2 = wp[2 * no], w3 = wp[3 * no];
+#pragma unroll
+          for (int j = 0; j < R; ++j) {
+            const float4 v = *reinterpret_cast<const float4*>(ip[j] + k);
+            acc[j][u] = fmaf(v.w, w3, fmaf(v.z, w2, fmaf(v.y, w1,
+                        fmaf(v.x, w0, acc[j][u]))));
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < KU - 1; ++u) {  // the last chunks, still in parallel
+        if (c + u * KS < nch) {
+          const int k = (c + u * KS) * 4;
+          const float* wp = W + k * no + oc;
+          const float w0 = wp[0], w1 = wp[no], w2 = wp[2 * no], w3 = wp[3 * no];
+#pragma unroll
+          for (int j = 0; j < R; ++j) {
+            const float4 v = *reinterpret_cast<const float4*>(ip[j] + k);
+            acc[j][u] = fmaf(v.w, w3, fmaf(v.z, w2, fmaf(v.y, w1,
+                        fmaf(v.x, w0, acc[j][u]))));
+          }
+        }
+      }
+      if (sl == 0)
+        for (int i = nch * 4; i < ni; ++i) {
+          const float w = W[i * no + oc];
+#pragma unroll
+          for (int j = 0; j < R; ++j) acc[j][0] = fmaf(ip[j][i], w, acc[j][0]);
+        }
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        float v = acc[j][0];
+#pragma unroll
+        for (int u = 1; u < KU; ++u) v += acc[j][u];
+        for (int off = G; off < G * KS; off <<= 1)
+          v += __shfl_xor_sync(FULL, v, off);
+        const int r = rb + j * NS;
+        if (sl == 0 && live && r < n) {
+          v += bias[oc];
+          if (act) v = v >= 0.f ? v : slope * v;
+          const int ro = (out_idx ? out_idx[r] : r) * out_stride + o;
+          out[ro] = add ? add[ro] + v : v;
+        }
       }
     }
-    float v = (acc[0] + acc[1]) + (acc[2] + acc[3]) + W[ni * no + oc];
-    if (l < layers - 1) v = v >= 0.f ? v : slope * v;
-    a = lane < no ? v : 0.f;
   }
-  return a;
+}
+
+// One MLP (table row mi: 0 prep, 1 msg, 2 update) over n rows by the
+// job's threads; operands are float offsets into `sm` (index lists and
+// `add` -1 when absent). Hidden layers ping-pong through buf0/buf1
+// (compact rows, stride hs); every layer ends at the job's barrier. A
+// layer splits a row's inputs over KS = 1 << lks lane groups, the most
+// that a warp holds, that leave a row slot for every row and that keep
+// two float4 chunks per slice; all of it in shifts, since a lone warp
+// pays ~5 cycles per dependent instruction.
+__device__ __forceinline__ void mlp(int mi, int in, int in_stride, int in_idx,
+                                    int out, int out_stride, int out_idx,
+                                    int add, int n, int buf0, int buf1, int hs,
+                                    float slope, int t, int bar) {
+  const int* ism = reinterpret_cast<const int*>(sm);
+  const int* dm = ism + mi * 21;  // the table sits at the start of sm
+  const int layers = dm[0];
+  const int ln = n > 1 ? 32 - __clz(n - 1) : 0;  // ceil(log2 n)
+  for (int l = 0; l < layers; ++l) {
+    const bool last = l == layers - 1;
+    const int* e = dm + 1 + 5 * l;
+    const int ni = e[0], no = e[1], lg = e[3], nch = e[4];
+    int lks = min(5 - lg, 7 - lg - ln);
+    lks = max(0, min(lks, nch >= 2 ? 30 - __clz(nch) : 0));
+    const int lns = 7 - lg - lks;  // log2 of the row slots
+    const int per_slot = (n + (1 << lns) - 1) >> lns;
+    const int lr = per_slot >= 3 ? 2 : per_slot == 2 ? 1 : 0;  // log2 R
+    const int passes = (n + (1 << (lns + lr)) - 1) >> (lns + lr);
+    const int dst = last ? out : ((l & 1) ? buf1 : buf0);
+    const int dstride = last ? out_stride : hs;
+    const float* W = sm + DIMS + e[2];
+    const float* src = sm + in;
+    const int* si = in_idx >= 0 ? ism + in_idx : nullptr;
+    const int* di = last && out_idx >= 0 ? ism + out_idx : nullptr;
+    const float* ad = last && add >= 0 ? sm + add : nullptr;
+    if (lr == 2)
+      dense_r<4>(W, ni, no, lg, nch, lks, passes, src, in_stride, si, sm + dst,
+                 dstride, di, ad, n, !last, slope, t);
+    else if (lr == 1)
+      dense_r<2>(W, ni, no, lg, nch, lks, passes, src, in_stride, si, sm + dst,
+                 dstride, di, ad, n, !last, slope, t);
+    else
+      dense_r<1>(W, ni, no, lg, nch, lks, passes, src, in_stride, si, sm + dst,
+                 dstride, di, ad, n, !last, slope, t);
+    job_sync(bar);
+    in = dst;
+    in_stride = hs;
+    in_idx = -1;
+  }
 }
 
 // The lanes set in `mask`, in order, into the int list at sm offset `idx`
@@ -139,15 +252,29 @@ __device__ __forceinline__ int rows_of(unsigned mask, int idx, int lane) {
   return __popc(mask);
 }
 
+// out[p] = rows p of `src` where V has p, else 0 (S x D floats)
+__device__ __forceinline__ void write_rows(float* o, int src, int ds,
+                                           unsigned V, int S, int D, int t) {
+  for (int i = t; i < S * D; i += JOB_THREADS) {
+    const int p = i / D;
+    o[i] = ((V >> p) & 1u) ? sm[src + p * ds + i - p * D] : 0.f;
+  }
+}
+
 static __device__ __forceinline__ void fill_dims(const MlpDims& m, int* dst) {
   dst[0] = m.n;
 #pragma unroll
   for (int l = 0; l < MAX_LAYERS; ++l) {
-    dst[1 + 3 * l] = m.in[l];
-    dst[2 + 3 * l] = m.out[l];
-    dst[3 + 3 * l] = m.off[l];
+    int* e = dst + 1 + 5 * l;
+    e[0] = m.in[l];
+    e[1] = m.out[l];
+    e[2] = m.off[l];
+    e[3] = m.out[l] > 16 ? 5 : 32 - __clz(m.out[l] - 1);  // log2 of G
+    e[4] = m.in[l] >> 2;
   }
 }
+
+enum Stage { PREP, H0, MSG0, LEVEL, REFRESH, DONE };
 
 __global__ void __launch_bounds__(JOB_THREADS * MAX_JOBS)
 decima_node_encoder_kernel(const float* __restrict__ x,
@@ -157,21 +284,18 @@ decima_node_encoder_kernel(const float* __restrict__ x,
                            const uint8_t* __restrict__ edgeless,
                            const float* __restrict__ weights,
                            float* __restrict__ out, EncDims d) {
-  const int t = threadIdx.x % JOB_THREADS, slot = threadIdx.x / JOB_THREADS;
+  const int t = threadIdx.x & (JOB_THREADS - 1), slot = threadIdx.x / JOB_THREADS;
   const int lane = threadIdx.x & 31, warp = t >> 5;  // warp of the job
   const int jpb = blockDim.x / JOB_THREADS, bar = 1 + slot;
-  const int S = d.S, F = d.F, D = d.D, ds = d.ds;
+  const int S = d.S, F = d.F, D = d.D, ds = d.ds, hs = d.hs;
   int* ism = reinterpret_cast<int*>(sm);
-  const int* dprep = ism;
-  const int* dmsg = ism + 13;
-  const int* dupd = ism + 26;
 
   // stage the MLP table and the weights (cp.async, 16 B per thread); the
-  // copy is waited for once each job has issued its first job's loads
+  // copy is waited for once each job has issued the loads of its first job
   if (threadIdx.x == 0) {
     fill_dims(d.prep, ism);
-    fill_dims(d.msg, ism + 13);
-    fill_dims(d.upd, ism + 26);
+    fill_dims(d.msg, ism + 21);
+    fill_dims(d.upd, ism + 42);
   }
   {
     const unsigned base = (unsigned)__cvta_generic_to_shared(sm + DIMS);
@@ -186,11 +310,14 @@ decima_node_encoder_kernel(const float* __restrict__ x,
   const int hinit = xs + S * d.xs;                       // [S, ds]
   const int h = hinit + S * ds;                          // [S, ds]
   const int m = h + S * ds;                              // [S, ds]: msg(h)
-  const int mk = m + S * ds;                             // int [32]: node_mask
+  const int agg = m + S * ds;                            // [S, ds], compact
+  const int buf0 = agg + S * ds;                         // [S, hs], compact
+  const int buf1 = buf0 + S * hs;                        // [S, hs], compact
+  const int mk = buf1 + S * hs;                          // int [32]: node_mask
   const int lv = mk + 32;                                // int [32]: levels
   const int rowm = lv + 32;                              // int [32]: children
   const int idx = rowm + 32 + warp * 32;                 // int [32] per warp
-  const int adjw = rowm + 32 + JOB_WARPS * 32;  // u32 [JOB_THREADS * ADJ_CHUNKS]
+  const int adjw = rowm + 32 + 4 * 32;                   // u32 [128 * ADJ_CHUNKS]
 
   bool synced = false;
   for (long job = (long)blockIdx.x * jpb + slot;; job += (long)gridDim.x * jpb) {
@@ -200,7 +327,7 @@ decima_node_encoder_kernel(const float* __restrict__ x,
     const bool have = job < d.jobs;
     bool el = false, valid = false;
     int myl = -1, shift = 0, nw = 0;
-    float xv = 0.f;
+    float xv[X_CHUNKS];
     unsigned aw[ADJ_CHUNKS];
     if (have) {
       el = edgeless[(int)job / d.K] != 0;
@@ -208,7 +335,12 @@ decima_node_encoder_kernel(const float* __restrict__ x,
         valid = node_mask[job * S + t] != 0;
         myl = level[job * S + t];
       }
-      if (t < S * F) xv = x[job * S * F + t];
+      const float* xj = x + job * S * F;
+#pragma unroll
+      for (int k = 0; k < X_CHUNKS; ++k) {
+        const int i = t + JOB_THREADS * k;
+        xv[k] = i < S * F ? xj[i] : 0.f;
+      }
       const uint8_t* ab = adj + job * S * S;
       shift = (int)((uintptr_t)ab & 3u);
       nw = (shift + S * S + 3) >> 2;
@@ -229,9 +361,15 @@ decima_node_encoder_kernel(const float* __restrict__ x,
       ism[mk + t] = valid;
       ism[lv + t] = myl;
     }
-    if (t < S * F) sm[xs + (t / F) * d.xs + t % F] = xv;
-    for (int i = t + JOB_THREADS; i < S * F; i += JOB_THREADS)
-      sm[xs + (i / F) * d.xs + i % F] = x[job * S * F + i];
+#pragma unroll
+    for (int k = 0; k < X_CHUNKS; ++k) {
+      const int i = t + JOB_THREADS * k, r = i / F;
+      if (i < S * F) sm[xs + r * d.xs + i - r * F] = xv[k];
+    }
+    for (int i = t + JOB_THREADS * X_CHUNKS; i < S * F; i += JOB_THREADS) {
+      const int r = i / F;
+      sm[xs + r * d.xs + i - r * F] = x[job * S * F + i];
+    }
 #pragma unroll
     for (int k = 0; k < ADJ_CHUNKS; ++k)
       if (t + JOB_THREADS * k < nw) ism[adjw + t + JOB_THREADS * k] = (int)aw[k];
@@ -274,68 +412,64 @@ decima_node_encoder_kernel(const float* __restrict__ x,
     const unsigned NI = __ballot_sync(FULL, before);  // m from h0
     const unsigned NR = __ballot_sync(FULL, after);   // m after update
     const unsigned todo0 = U & (V | NR);              // updates we need
-    const unsigned prep = el ? V : V | todo0 | (NI & leaf);
-
-    // Up front, one row per warp at a time: h_init = prep(x); then
-    // h0 = update(h_init) on the leaves we need, 0 with children; then the
-    // first messages m = msg(h0). An edgeless lane keeps h_init.
-    int n = rows_of(prep | NI, idx, lane);
-    for (int j = warp; j < n; j += JOB_WARPS) {
-      const int p = ism[idx + j];
-      const bool pp = (prep >> p) & 1u, lf = (leaf >> p) & 1u;
-      float a = 0.f;
-      if (pp) {
-        a = mlp_row(dprep, lane < F ? sm[xs + p * d.xs + lane] : 0.f,
-                    d.slope, lane);
-        if (lane < D) sm[hinit + p * ds + lane] = a;
+    if (!el)  // h = 0 for nodes with children, until their update
+      for (int i = t; i < S * D; i += JOB_THREADS) {
+        const int p = i / D;
+        if (!((leaf >> p) & 1u)) sm[h + p * ds + i - p * D] = 0.f;
       }
-      if (!el) {
-        if (lf && pp) a = mlp_row(dupd, a, d.slope, lane);
-        else a = 0.f;  // a node with children (or a leaf nobody needs)
-        if (lane < D) sm[h + p * ds + lane] = a;
-        if ((NI >> p) & 1u) {
-          a = mlp_row(dmsg, a, d.slope, lane);
-          if (lane < D) sm[m + p * ds + lane] = a;
-        }
-      }
-    }
-    job_sync(bar);
 
-    // Then each level with work, deepest first, its nodes one per warp:
-    // agg = adj @ m, h = h_init + update(agg), and the new message where a
-    // parent at a lower level reads it.
-    unsigned todo = el ? 0u : U;
-    while (todo) {
-      const int l = __reduce_max_sync(FULL, ((todo >> lane) & 1u) ? ml : -1);
-      const unsigned P = __ballot_sync(FULL, ((todo >> lane) & 1u) && ml == l);
-      todo &= ~P;
-      n = rows_of(P & todo0, idx, lane);
-      if (!n) continue;
-      for (int j = warp; j < n; j += JOB_WARPS) {
-        const int p = ism[idx + j];
-        unsigned bits = (unsigned)ism[rowm + p];
-        float a = 0.f;
-        while (bits) {
-          const int c = __ffs(bits) - 1;
-          bits &= bits - 1;
-          a += lane < D ? sm[m + c * ds + lane] : 0.f;
+    // the job's MLPs in order, through one call site: prep; the leaves'
+    // update (h0); the first messages; then per level with work, deepest
+    // first, the aggregation and update of its nodes and their new
+    // messages. An edgeless lane runs prep only and keeps h_init.
+    unsigned todo = U, Pn = 0;
+    int stage = PREP;
+    while (stage != DONE) {
+      int mi, in, ins, out_r, in_l = idx, add = -1, next, n;
+      if (stage == PREP) {
+        mi = 0; in = xs; ins = d.xs; out_r = hinit;
+        n = rows_of(el ? V : V | todo0 | (NI & leaf), idx, lane);
+        next = el ? DONE : H0;
+      } else if (stage == H0) {
+        mi = 2; in = hinit; ins = ds; out_r = h;
+        n = rows_of(leaf & (V | NI), idx, lane);
+        next = NI ? MSG0 : LEVEL;
+      } else if (stage == MSG0 || stage == REFRESH) {
+        mi = 1; in = h; ins = ds; out_r = m;
+        n = rows_of(stage == MSG0 ? NI : Pn & NR, idx, lane);
+        next = LEVEL;
+      } else {  // LEVEL: the next level with a node to update
+        Pn = 0;
+        while (todo && !Pn) {
+          const int l = __reduce_max_sync(FULL, ((todo >> lane) & 1u) ? ml : -1);
+          const unsigned P = __ballot_sync(FULL, ((todo >> lane) & 1u) && ml == l);
+          todo &= ~P;
+          Pn = P & todo0;
         }
-        a = mlp_row(dupd, a, d.slope, lane);
-        if (lane < D) a += sm[hinit + p * ds + lane];
-        if (lane < D) sm[h + p * ds + lane] = a;
-        if ((NR >> p) & 1u) {
-          a = mlp_row(dmsg, a, d.slope, lane);
-          if (lane < D) sm[m + p * ds + lane] = a;
+        if (!Pn) break;
+        n = rows_of(Pn, idx, lane);
+        for (int i = t; i < n * D; i += JOB_THREADS) {  // agg = adj @ m
+          const int j = i / D, dd = i - j * D;
+          unsigned bits = (unsigned)ism[rowm + ism[idx + j]];
+          float acc = 0.f;
+          while (bits) {
+            const int c = __ffs(bits) - 1;
+            bits &= bits - 1;
+            acc += sm[m + c * ds + dd];
+          }
+          sm[agg + j * ds + dd] = acc;
         }
+        job_sync(bar);
+        mi = 2; in = agg; ins = ds; in_l = -1; out_r = h; add = hinit;
+        next = (Pn & NR) ? REFRESH : LEVEL;  // h = h_init + update(agg)
       }
-      job_sync(bar);
+      if (n)
+        mlp(mi, in, ins, in_l, out_r, ds, idx, add, n, buf0, buf1, hs,
+            d.slope, t, bar);
+      stage = next;
     }
 
-    const int src = el ? hinit : h;
-    for (int i = t; i < S * D; i += JOB_THREADS) {
-      const int p = i / D;
-      o[i] = ((V >> p) & 1u) ? sm[src + p * ds + i - p * D] : 0.f;
-    }
+    write_rows(o, el ? hinit : h, ds, V, S, D, t);
     job_sync(bar);
   }
 }
@@ -363,9 +497,9 @@ static int widest(const MlpDims& m) {
 // C entry point. `mlp_spec` holds prep, msg, update back to back, each as
 // (n, in[0..n-1], out[0..n-1]); `weights` packs each layer's W_T (in x
 // out, row-major) then b, in that order, zero-padded to a multiple of 4
-// floats (16-byte aligned). Launches `blocks` blocks of `jobs` x 256
-// threads, eight warps per job at a time. Returns cudaGetLastError() of
-// the launch (0 on success), or -1 for dims the kernel does not take.
+// floats (16-byte aligned). Launches `blocks` blocks of `jobs` x 128
+// threads, four warps per job at a time. Returns cudaGetLastError() of the
+// launch (0 on success), or -1 for dims the kernel does not take.
 extern "C" int decima_node_encoder_launch(
     const float* x, const uint8_t* adj, const int32_t* level,
     const uint8_t* node_mask, const uint8_t* edgeless, const float* weights,
@@ -383,16 +517,19 @@ extern "C" int decima_node_encoder_launch(
   used = fill_mlp(&d.upd, p, &off);
   if (used < 0) return -1;
   if (S < 1 || S > 32 || F < 1 || D < 1 || jobs < 1 || jobs > MAX_JOBS ||
-      blocks < 1 || widest(d.prep) > MAX_WIDTH || widest(d.msg) > MAX_WIDTH ||
-      widest(d.upd) > MAX_WIDTH || F > MAX_WIDTH)
+      blocks < 1)
     return -1;
   d.S = S; d.F = F; d.D = D; d.nl = nl; d.K = K; d.slope = slope;
   d.jobs = (long)B * K;
   if (d.jobs > 0x7fffffff) return -1;
   d.wtotal = (off + 3) / 4 * 4;
+  int hmax = widest(d.prep);
+  hmax = widest(d.msg) > hmax ? widest(d.msg) : hmax;
+  hmax = widest(d.upd) > hmax ? widest(d.upd) : hmax;
   d.xs = (F + 3) / 4 * 4;
   d.ds = (D + 3) / 4 * 4;
-  d.job_floats = S * (d.xs + 3 * d.ds) + 3 * 32 + JOB_WARPS * 32 +
+  d.hs = (hmax + 3) / 4 * 4;
+  d.job_floats = S * (d.xs + 4 * d.ds + 2 * d.hs) + 3 * 32 + 4 * 32 +
                  JOB_THREADS * ADJ_CHUNKS;
   const size_t smem = sizeof(float) * ((size_t)DIMS + d.wtotal +
                                        (size_t)jobs * d.job_floats);

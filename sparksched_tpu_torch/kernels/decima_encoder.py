@@ -129,14 +129,13 @@ def _check(x, adj, node_level, node_mask, w: EncoderWeights) -> None:
         raise ValueError(f"weights are on {w.packed.device}, x on {x.device}")
 
 
-MAX_JOBS_PER_BLOCK = 2  # the kernel's MAX_JOBS
-MAX_WIDTH = 32  # the kernel's MAX_WIDTH and largest S
+MAX_JOBS_PER_BLOCK = 4  # the kernel's MAX_JOBS
 TARGET_BLOCKS = 128  # about one block per SM of an H100 (132)
 
 
 def launch_config(n_jobs: int) -> tuple[int, int]:
-    """(jobs per block, blocks) for `n_jobs` jobs, eight warps per job: as
-    many jobs per block (1 or 2) as keep the jobs
+    """(jobs per block, blocks) for `n_jobs` jobs, four warps per job: as
+    many jobs per block (a power of two, at most 4) as keep the jobs
     spread over at least about 128 blocks, since the jobs of a block
     share one staged copy of the weights."""
     jobs = 1
@@ -172,12 +171,8 @@ def decima_node_encoder(x, adj, node_level, node_mask, w: EncoderWeights,
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     b, k, s, f = x.shape
-    widest = max(max(wt.shape) for layers in (w.prep, w.msg, w.update)
-                 for wt, _ in layers)
-    if s > MAX_WIDTH or widest > MAX_WIDTH:
-        raise ValueError(
-            f"the kernel takes at most {MAX_WIDTH} stage slots and layers "
-            f"at most {MAX_WIDTH} wide, got {s} slots, width {widest}")
+    if s > 32:
+        raise ValueError(f"the kernel takes at most 32 stage slots, got {s}")
     fn = _launcher()
     d = int(w.prep[-1][0].shape[0])
     s_nl = min(num_levels, s) if num_levels else s

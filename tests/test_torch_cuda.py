@@ -89,11 +89,11 @@ def test_kernel_matches_plain_version_on_adversarial_cases(card, b, k, case,
 
 @pytest.mark.parametrize("dims,s", [
     (([5, 16, 8, 8], [8, 16, 8, 8], [8, 16, 8, 8]), 20),  # embed 8, hid [16, 8]
-    (([5, 24, 12], [12, 24, 12], [12, 12]), 32),  # 32 slots fill the warp
+    (([5, 24, 12], [12, 40, 12], [12, 12]), 32),  # a 40-wide layer, 32 slots
 ])
 def test_kernel_matches_plain_version_at_other_widths(card, dims, s):
-    """Widths other than the repo's configurations', and MLPs of one to
-    three layers."""
+    """Widths outside the repo's configurations run the kernel's
+    runtime-width layers; S = 32 fills the warp."""
     x, adj, lvl, mask = make_case("random_levels", 3, 7, s, 5, seed=s)
     adj[0] = False
     gen = torch.Generator().manual_seed(s)
@@ -106,12 +106,11 @@ def test_kernel_matches_plain_version_at_other_widths(card, dims, s):
         assert float((out - ref).abs().max()) <= 1e-5
 
 
-@pytest.mark.parametrize("s,hid", [(33, 16), (20, 40)])
-def test_kernel_refuses_more_than_32_slots_or_width(card, s, hid):
-    x, adj, lvl, mask = make_case("dag", 1, 2, s, 5, seed=0)
+def test_kernel_refuses_more_than_32_slots(card):
+    x, adj, lvl, mask = make_case("dag", 1, 2, 33, 5, seed=0)
     gen = torch.Generator().manual_seed(0)
-    w = pack_weights(_layers(gen, [5, hid, 16], card),
-                     _layers(gen, [16, 16], card), _layers(gen, [16, 16], card))
+    w = pack_weights(_layers(gen, [5, 16], card), _layers(gen, [16, 16], card),
+                     _layers(gen, [16, 16], card))
     ins = [torch.from_numpy(a).to(card) for a in (x, adj, lvl, mask)]
-    with pytest.raises(ValueError, match="at most 32"):
+    with pytest.raises(ValueError, match="32 stage slots"):
         decima_node_encoder(*ins, w, 0, 0.2)
