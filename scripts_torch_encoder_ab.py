@@ -24,8 +24,6 @@ torch.profiler, in turns (baseline first and last). Variants:
   zeros and exits;
 - ``current_j{1,2,4}``: the checkout's kernel, four warps per job, at
   1, 2 or 4 jobs per block (the wrapper's `launch_config` picks one);
-- ``persist_j{1,2,4}``: the checkout's kernel on a persistent grid of
-  one block per SM, its jobs walking over the jobs of the call;
 - ``current_all_rows``: the checkout's kernel with every node's message
   computed up front and refreshed after every update (no row pruning);
 - ``current_empty``: the checkout's kernel returning at once, at the
@@ -62,8 +60,6 @@ import tempfile
 
 import chip_smoke
 
-PERSIST_BLOCKS = 132  # one block per SM of an H100
-
 # (old, new) text patches; each `old` must occur exactly once
 BASELINE_WT = [
     ("      const float* wr = W + o * ni;\n", ""),
@@ -96,18 +92,18 @@ PHASE_STAMPS = [
     ("  const int S = d.S, F = d.F, D = d.D, ds = d.ds, hs = d.hs;\n",
      "  const int S = d.S, F = d.F, D = d.D, ds = d.ds, hs = d.hs;\n"
      "  const long long t_start = clock64();\n"),
-    ("      synced = true;\n    }\n",
-     "      synced = true;\n    }\n"
-     "    if (have && t == 0 && job < 8192) "
-     "enc_stamps[job * 8] = t_start;\n    STAMP(1)\n"),
-    ("    unsigned todo = U, Pn = 0;\n", "    STAMP(2)\n    unsigned todo = U, Pn = 0;\n"),
-    ("      stage = next;\n",
-     "      if (stage == PREP) STAMP(3)\n"
-     "      if (stage == H0 || stage == MSG0) STAMP(4)\n"
-     "      stage = next;\n"),
-    ("    write_rows(o, el ? hinit : h, ds, V, S, D, t);\n",
-     "    STAMP(5)\n    write_rows(o, el ? hinit : h, ds, V, S, D, t);\n"
-     "    STAMP(6)\n"),
+    ("  __syncthreads();\n  if (!have) return;\n",
+     "  __syncthreads();\n  if (!have) return;\n"
+     "  if (t == 0 && job < 8192) enc_stamps[job * 8] = t_start;\n"
+     "  STAMP(1)\n"),
+    ("  unsigned todo = U, Pn = 0;\n", "  STAMP(2)\n  unsigned todo = U, Pn = 0;\n"),
+    ("    stage = next;\n",
+     "    if (stage == PREP) STAMP(3)\n"
+     "    if (stage == H0 || stage == MSG0) STAMP(4)\n"
+     "    stage = next;\n"),
+    ("  write_rows(o, el ? hinit : h, ds, V, S, D, t);\n",
+     "  STAMP(5)\n  write_rows(o, el ? hinit : h, ds, V, S, D, t);\n"
+     "  STAMP(6)\n"),
 ]
 # Single-warp latency calibration: SM cycles per instruction of a chain
 # of dependent FFMAs, of dependent shared loads (a pointer chase), and per
@@ -456,10 +452,6 @@ def main() -> int:
             for wp in (1, 2, 4):
                 variants[f"current_j{wp}"] = (libs["current"], w.packed,
                                               (wp, -(-jobs // wp)))
-            for wp in (1, 2, 4):
-                variants[f"persist_j{wp}"] = (
-                    libs["current"], w.packed,
-                    (wp, min(PERSIST_BLOCKS, -(-jobs // wp))))
             ins = (f.x, f.adj, f.node_level, f.node_mask)
             ref = decima_node_encoder_ref(*ins, w, net.num_levels, net.slope)
             calls, per = {}, {}
