@@ -181,18 +181,18 @@ STEP_LOG = [
      "      enc_llog[job * 64 + c] = clock64();\n"
      "      enc_ltag[job * 64 + c] = tag;\n"
      "    }\n  }\n}\n"),
-    ("    if (!have) break;\n",
-     "    if (!have) break;\n"
-     "    if (t == 0) { enc_lcnt[slot] = 0; enc_ljob[slot] = (int)job; }\n"),
+    ("  if (!have) return;\n",
+     "  if (!have) return;\n"
+     "  if (t == 0) { enc_lcnt[slot] = 0; enc_ljob[slot] = (int)job; }\n"),
     ("    const int ni = e[0], no = e[1], lg = e[3], nch = e[4];\n",
      "    const int ni = e[0], no = e[1], lg = e[3], nch = e[4];\n"
      "    lstamp(n * 10000 + ni * 100 + no);\n"),
-    ("    while (stage != DONE) {\n", "    while (stage != DONE) {\n      lstamp(-10 - stage);\n"),
-    ("    write_rows(o, el ? hinit : h, ds, V, S, D, t);\n",
-     "    lstamp(-1);\n    write_rows(o, el ? hinit : h, ds, V, S, D, t);\n"
-     "    lstamp(-3);\n"),
-    ("    job_sync(bar);\n\n    // every warp derives",
-     "    job_sync(bar);\n    lstamp(-2);\n\n    // every warp derives"),
+    ("  while (stage != DONE) {\n", "  while (stage != DONE) {\n    lstamp(-10 - stage);\n"),
+    ("  write_rows(o, el ? hinit : h, ds, V, S, D, t);\n",
+     "  lstamp(-1);\n  write_rows(o, el ? hinit : h, ds, V, S, D, t);\n"
+     "  lstamp(-3);\n"),
+    ("  job_sync(bar);\n\n  // every warp derives",
+     "  job_sync(bar);\n  lstamp(-2);\n\n  // every warp derives"),
 ]
 
 
