@@ -32,8 +32,9 @@
 //   staged with cp.async (16 B per thread) while the jobs load their
 //   inputs; after that one block barrier, a job's warps meet at their own
 //   named barrier. The wrapper picks jobs per block from the job count
-//   (kernels/decima_encoder.py `launch_config`); a persistent grid of one
-//   block per SM walking the jobs was measured no faster (PERF.md).
+//   (kernels/decima_encoder.py `launch_config`); blocks walk the jobs
+//   with a grid stride (a persistent grid of one block per SM measured
+//   no faster; a version without the loop measured slower, PERF.md).
 // - Weights are packed transposed, W_T[in][out]: lane o of a layer reads
 //   word o, so weight loads are conflict-free. Inputs are read as float4
 //   broadcasts, a quarter-warp to a row; each pass runs four independent
@@ -293,7 +294,7 @@ decima_node_encoder_kernel(const float* __restrict__ x,
   int* ism = reinterpret_cast<int*>(sm);
 
   // stage the MLP table and the weights (cp.async, 16 B per thread); the
-  // copy is waited for once each job has issued its loads
+  // copy is waited for once each job has issued the loads of its first job
   if (threadIdx.x == 0) {
     fill_dims(d.prep, ism);
     fill_dims(d.msg, ism + 21);
@@ -321,152 +322,159 @@ decima_node_encoder_kernel(const float* __restrict__ x,
   const int idx = rowm + 32 + warp * 32;                 // int [32] per warp
   const int adjw = rowm + 32 + 4 * 32;                   // u32 [128 * ADJ_CHUNKS]
 
-  const long job = (long)blockIdx.x * jpb + slot;
-  // issue every load of the job at once: thread c < S reads node c's
-  // mask and level; all threads read coalesced slices of x and of the
-  // aligned 32-bit words that cover the adjacency block
-  const bool have = job < d.jobs;
-  bool el = false, valid = false;
-  int myl = -1, shift = 0, nw = 0;
-  float xv[X_CHUNKS];
-  unsigned aw[ADJ_CHUNKS];
-  if (have) {
-    el = edgeless[(int)job / d.K] != 0;
-    if (t < S) {
-      valid = node_mask[job * S + t] != 0;
-      myl = level[job * S + t];
+  bool synced = false;
+  for (long job = (long)blockIdx.x * jpb + slot;; job += (long)gridDim.x * jpb) {
+    // issue every load of the job at once: thread c < S reads node c's
+    // mask and level; all threads read coalesced slices of x and of the
+    // aligned 32-bit words that cover the adjacency block
+    const bool have = job < d.jobs;
+    bool el = false, valid = false;
+    int myl = -1, shift = 0, nw = 0;
+    float xv[X_CHUNKS];
+    unsigned aw[ADJ_CHUNKS];
+    if (have) {
+      el = edgeless[(int)job / d.K] != 0;
+      if (t < S) {
+        valid = node_mask[job * S + t] != 0;
+        myl = level[job * S + t];
+      }
+      const float* xj = x + job * S * F;
+#pragma unroll
+      for (int k = 0; k < X_CHUNKS; ++k) {
+        const int i = t + JOB_THREADS * k;
+        xv[k] = i < S * F ? xj[i] : 0.f;
+      }
+      const uint8_t* ab = adj + job * S * S;
+      shift = (int)((uintptr_t)ab & 3u);
+      nw = (shift + S * S + 3) >> 2;
+      const unsigned* words = reinterpret_cast<const unsigned*>(ab - shift);
+#pragma unroll
+      for (int k = 0; k < ADJ_CHUNKS; ++k) {
+        const int i = t + JOB_THREADS * k;
+        aw[k] = i < nw ? words[i] : 0u;
+      }
     }
-    const float* xj = x + job * S * F;
+    if (!synced) {
+      asm volatile("cp.async.wait_group 0;\n" ::);
+      __syncthreads();
+      synced = true;
+    }
+    if (!have) break;
+    if (t < 32) {
+      ism[mk + t] = valid;
+      ism[lv + t] = myl;
+    }
 #pragma unroll
     for (int k = 0; k < X_CHUNKS; ++k) {
-      const int i = t + JOB_THREADS * k;
-      xv[k] = i < S * F ? xj[i] : 0.f;
+      const int i = t + JOB_THREADS * k, r = i / F;
+      if (i < S * F) sm[xs + r * d.xs + i - r * F] = xv[k];
     }
-    const uint8_t* ab = adj + job * S * S;
-    shift = (int)((uintptr_t)ab & 3u);
-    nw = (shift + S * S + 3) >> 2;
-    const unsigned* words = reinterpret_cast<const unsigned*>(ab - shift);
-#pragma unroll
-    for (int k = 0; k < ADJ_CHUNKS; ++k) {
-      const int i = t + JOB_THREADS * k;
-      aw[k] = i < nw ? words[i] : 0u;
+    for (int i = t + JOB_THREADS * X_CHUNKS; i < S * F; i += JOB_THREADS) {
+      const int r = i / F;
+      sm[xs + r * d.xs + i - r * F] = x[job * S * F + i];
     }
-  }
-  asm volatile("cp.async.wait_group 0;\n" ::);
-  __syncthreads();
-  if (!have) return;
-  if (t < 32) {
-    ism[mk + t] = valid;
-    ism[lv + t] = myl;
-  }
 #pragma unroll
-  for (int k = 0; k < X_CHUNKS; ++k) {
-    const int i = t + JOB_THREADS * k, r = i / F;
-    if (i < S * F) sm[xs + r * d.xs + i - r * F] = xv[k];
-  }
-  for (int i = t + JOB_THREADS * X_CHUNKS; i < S * F; i += JOB_THREADS) {
-    const int r = i / F;
-    sm[xs + r * d.xs + i - r * F] = x[job * S * F + i];
-  }
-#pragma unroll
-  for (int k = 0; k < ADJ_CHUNKS; ++k)
-    if (t + JOB_THREADS * k < nw) ism[adjw + t + JOB_THREADS * k] = (int)aw[k];
-  job_sync(bar);
+    for (int k = 0; k < ADJ_CHUNKS; ++k)
+      if (t + JOB_THREADS * k < nw) ism[adjw + t + JOB_THREADS * k] = (int)aw[k];
+    job_sync(bar);
 
-  // every warp derives the same masks from shared memory: lane c is node c
-  const bool in_s = lane < S;
-  const unsigned V = __ballot_sync(FULL, in_s && ism[mk + lane]);  // node_mask
-  float* o = out + job * S * D;
-  if (V == 0) {
-    for (int i = t; i < S * D; i += JOB_THREADS) o[i] = 0.f;
-    return;
-  }
-  unsigned row = 0, col = 0;  // this node's children and parents
-  const int ml = in_s ? ism[lv + lane] : -1;
-  if (in_s && !el) {
-    const uint8_t* ab = reinterpret_cast<const uint8_t*>(sm + adjw) + shift;
-#pragma unroll 4
-    for (int c = 0; c < S; ++c) {
-      row |= (ab[lane * S + c] ? 1u : 0u) << c;
-      col |= (ab[c * S + lane] ? 1u : 0u) << c;
-    }
-  }
-  ism[rowm + lane] = (int)row;  // every warp writes the same masks
-  const bool upd = row != 0 && ml >= 0 && ml < d.nl;
-  const unsigned U = __ballot_sync(FULL, upd);  // nodes updated at a level
-  const unsigned leaf = __ballot_sync(FULL, in_s && row == 0);
-  // Who reads m[lane]: each parent updated at a level; a parent at a
-  // level >= ours reads it before our update (or we are never updated),
-  // one at a lower level after it.
-  unsigned par = col & U;
-  bool before = false, after = false;
-  while (par) {
-    const int q = __ffs(par) - 1;
-    par &= par - 1;
-    if (!upd || ism[lv + q] >= ml) before = true;
-    else after = true;
-  }
-  const unsigned NI = __ballot_sync(FULL, before);  // m from h0
-  const unsigned NR = __ballot_sync(FULL, after);   // m after update
-  const unsigned todo0 = U & (V | NR);              // updates we need
-  if (!el)  // h = 0 for nodes with children, until their update
-    for (int i = t; i < S * D; i += JOB_THREADS) {
-      const int p = i / D;
-      if (!((leaf >> p) & 1u)) sm[h + p * ds + i - p * D] = 0.f;
-    }
-
-  // the job's MLPs in order, through one call site: prep; the leaves'
-  // update (h0); the first messages; then per level with work, deepest
-  // first, the aggregation and update of its nodes and their new
-  // messages. An edgeless lane runs prep only and keeps h_init.
-  unsigned todo = U, Pn = 0;
-  int stage = PREP;
-  while (stage != DONE) {
-    int mi, in, ins, out_r, in_l = idx, add = -1, next, n;
-    if (stage == PREP) {
-      mi = 0; in = xs; ins = d.xs; out_r = hinit;
-      n = rows_of(el ? V : V | todo0 | (NI & leaf), idx, lane);
-      next = el ? DONE : H0;
-    } else if (stage == H0) {
-      mi = 2; in = hinit; ins = ds; out_r = h;
-      n = rows_of(leaf & (V | NI), idx, lane);
-      next = NI ? MSG0 : LEVEL;
-    } else if (stage == MSG0 || stage == REFRESH) {
-      mi = 1; in = h; ins = ds; out_r = m;
-      n = rows_of(stage == MSG0 ? NI : Pn & NR, idx, lane);
-      next = LEVEL;
-    } else {  // LEVEL: the next level with a node to update
-      Pn = 0;
-      while (todo && !Pn) {
-        const int l = __reduce_max_sync(FULL, ((todo >> lane) & 1u) ? ml : -1);
-        const unsigned P = __ballot_sync(FULL, ((todo >> lane) & 1u) && ml == l);
-        todo &= ~P;
-        Pn = P & todo0;
-      }
-      if (!Pn) break;
-      n = rows_of(Pn, idx, lane);
-      for (int i = t; i < n * D; i += JOB_THREADS) {  // agg = adj @ m
-        const int j = i / D, dd = i - j * D;
-        unsigned bits = (unsigned)ism[rowm + ism[idx + j]];
-        float acc = 0.f;
-        while (bits) {
-          const int c = __ffs(bits) - 1;
-          bits &= bits - 1;
-          acc += sm[m + c * ds + dd];
-        }
-        sm[agg + j * ds + dd] = acc;
-      }
+    // every warp derives the same masks from shared memory: lane c is node c
+    const bool in_s = lane < S;
+    const unsigned V = __ballot_sync(FULL, in_s && ism[mk + lane]);  // node_mask
+    float* o = out + job * S * D;
+    if (V == 0) {
+      for (int i = t; i < S * D; i += JOB_THREADS) o[i] = 0.f;
       job_sync(bar);
-      mi = 2; in = agg; ins = ds; in_l = -1; out_r = h; add = hinit;
-      next = (Pn & NR) ? REFRESH : LEVEL;  // h = h_init + update(agg)
+      continue;
     }
-    if (n)
-      mlp(mi, in, ins, in_l, out_r, ds, idx, add, n, buf0, buf1, hs,
-          d.slope, t, bar);
-    stage = next;
-  }
+    unsigned row = 0, col = 0;  // this node's children and parents
+    const int ml = in_s ? ism[lv + lane] : -1;
+    if (in_s && !el) {
+      const uint8_t* ab = reinterpret_cast<const uint8_t*>(sm + adjw) + shift;
+#pragma unroll 4
+      for (int c = 0; c < S; ++c) {
+        row |= (ab[lane * S + c] ? 1u : 0u) << c;
+        col |= (ab[c * S + lane] ? 1u : 0u) << c;
+      }
+    }
+    ism[rowm + lane] = (int)row;  // every warp writes the same masks
+    const bool upd = row != 0 && ml >= 0 && ml < d.nl;
+    const unsigned U = __ballot_sync(FULL, upd);  // nodes updated at a level
+    const unsigned leaf = __ballot_sync(FULL, in_s && row == 0);
+    // Who reads m[lane]: each parent updated at a level; a parent at a
+    // level >= ours reads it before our update (or we are never updated),
+    // one at a lower level after it.
+    unsigned par = col & U;
+    bool before = false, after = false;
+    while (par) {
+      const int q = __ffs(par) - 1;
+      par &= par - 1;
+      if (!upd || ism[lv + q] >= ml) before = true;
+      else after = true;
+    }
+    const unsigned NI = __ballot_sync(FULL, before);  // m from h0
+    const unsigned NR = __ballot_sync(FULL, after);   // m after update
+    const unsigned todo0 = U & (V | NR);              // updates we need
+    if (!el)  // h = 0 for nodes with children, until their update
+      for (int i = t; i < S * D; i += JOB_THREADS) {
+        const int p = i / D;
+        if (!((leaf >> p) & 1u)) sm[h + p * ds + i - p * D] = 0.f;
+      }
 
-  write_rows(o, el ? hinit : h, ds, V, S, D, t);
+    // the job's MLPs in order, through one call site: prep; the leaves'
+    // update (h0); the first messages; then per level with work, deepest
+    // first, the aggregation and update of its nodes and their new
+    // messages. An edgeless lane runs prep only and keeps h_init.
+    unsigned todo = U, Pn = 0;
+    int stage = PREP;
+    while (stage != DONE) {
+      int mi, in, ins, out_r, in_l = idx, add = -1, next, n;
+      if (stage == PREP) {
+        mi = 0; in = xs; ins = d.xs; out_r = hinit;
+        n = rows_of(el ? V : V | todo0 | (NI & leaf), idx, lane);
+        next = el ? DONE : H0;
+      } else if (stage == H0) {
+        mi = 2; in = hinit; ins = ds; out_r = h;
+        n = rows_of(leaf & (V | NI), idx, lane);
+        next = NI ? MSG0 : LEVEL;
+      } else if (stage == MSG0 || stage == REFRESH) {
+        mi = 1; in = h; ins = ds; out_r = m;
+        n = rows_of(stage == MSG0 ? NI : Pn & NR, idx, lane);
+        next = LEVEL;
+      } else {  // LEVEL: the next level with a node to update
+        Pn = 0;
+        while (todo && !Pn) {
+          const int l = __reduce_max_sync(FULL, ((todo >> lane) & 1u) ? ml : -1);
+          const unsigned P = __ballot_sync(FULL, ((todo >> lane) & 1u) && ml == l);
+          todo &= ~P;
+          Pn = P & todo0;
+        }
+        if (!Pn) break;
+        n = rows_of(Pn, idx, lane);
+        for (int i = t; i < n * D; i += JOB_THREADS) {  // agg = adj @ m
+          const int j = i / D, dd = i - j * D;
+          unsigned bits = (unsigned)ism[rowm + ism[idx + j]];
+          float acc = 0.f;
+          while (bits) {
+            const int c = __ffs(bits) - 1;
+            bits &= bits - 1;
+            acc += sm[m + c * ds + dd];
+          }
+          sm[agg + j * ds + dd] = acc;
+        }
+        job_sync(bar);
+        mi = 2; in = agg; ins = ds; in_l = -1; out_r = h; add = hinit;
+        next = (Pn & NR) ? REFRESH : LEVEL;  // h = h_init + update(agg)
+      }
+      if (n)
+        mlp(mi, in, ins, in_l, out_r, ds, idx, add, n, buf0, buf1, hs,
+            d.slope, t, bar);
+      stage = next;
+    }
+
+    write_rows(o, el ? hinit : h, ds, V, S, D, t);
+    job_sync(bar);
+  }
 }
 
 static int fill_mlp(MlpDims* m, const int* spec, int* off) {
@@ -493,9 +501,8 @@ static int widest(const MlpDims& m) {
 // (n, in[0..n-1], out[0..n-1]); `weights` packs each layer's W_T (in x
 // out, row-major) then b, in that order, zero-padded to a multiple of 4
 // floats (16-byte aligned). Launches `blocks` blocks of `jobs` x 128
-// threads, four warps per job, one job each. Returns cudaGetLastError()
-// of the launch (0 on success), or -1 for dims the kernel does not take
-// or a grid that does not cover the B * K jobs.
+// threads, four warps per job at a time. Returns cudaGetLastError() of the
+// launch (0 on success), or -1 for dims the kernel does not take.
 extern "C" int decima_node_encoder_launch(
     const float* x, const uint8_t* adj, const int32_t* level,
     const uint8_t* node_mask, const uint8_t* edgeless, const float* weights,
@@ -517,7 +524,7 @@ extern "C" int decima_node_encoder_launch(
     return -1;
   d.S = S; d.F = F; d.D = D; d.nl = nl; d.K = K; d.slope = slope;
   d.jobs = (long)B * K;
-  if (d.jobs > 0x7fffffff || (long)blocks * jobs < d.jobs) return -1;
+  if (d.jobs > 0x7fffffff) return -1;
   d.wtotal = (off + 3) / 4 * 4;
   int hmax = widest(d.prep);
   hmax = widest(d.msg) > hmax ? widest(d.msg) : hmax;
