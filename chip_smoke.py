@@ -16,8 +16,8 @@ The kernel is held against its plain version on the serve path's own
 inputs and on the seeded adversarial inputs of
 `sparksched_tpu_torch/kernels/encoder_cases.py` (levels that are no
 topological order, edges into nodes outside node_mask, jobs with no
-valid node but with edges, `num_levels` 3, job counts below and above
-the kernel's jobs-per-block granularity).
+valid node but with edges, `num_levels` 3, job counts from a single
+job to more blocks than the card holds at once).
 
 Each phase prints one JSON line. Before the last line come the
 `{"kernels": [...]}` line (per kernel: launches on the main path,

@@ -23,7 +23,7 @@ torch.profiler, in turns (baseline first and last). Variants:
 - ``baseline_dead``: a job whose node_mask row is all false writes
   zeros and exits;
 - ``current_j{1,2,4}``: the checkout's kernel, four warps per job, at
-  1, 2 or 4 jobs per block (the wrapper's `launch_config` picks one);
+  1, 2 or 4 jobs per block (the wrapper's `launch_config` takes 1);
 - ``persist_j{1,2,4}``: the checkout's kernel on a persistent grid of
   one block per SM, its jobs walking over the jobs of the call;
 - ``current_all_rows``: the checkout's kernel with every node's message

@@ -28,11 +28,12 @@
 //   inputs over up to a warp's lane groups, summed with shuffles. One
 //   warp per job was measured first: a lone warp issues a dependent
 //   instruction every ~5 cycles, and its chain ran ~45k cycles per job.
-// - The jobs of a block share one shared-memory copy of the MLPs' weights,
-//   staged with cp.async (16 B per thread) while the jobs load their
-//   inputs; after that one block barrier, a job's warps meet at their own
-//   named barrier. The wrapper picks jobs per block from the job count
-//   (kernels/decima_encoder.py `launch_config`); blocks walk the jobs
+// - The weights are staged into shared memory with cp.async (16 B per
+//   thread) while the job loads its inputs; after that one block barrier,
+//   a job's warps meet at their own named barrier. A block may carry up
+//   to MAX_JOBS jobs sharing one copy of the weights, but the wrapper
+//   launches one job per block (kernels/decima_encoder.py
+//   `launch_config`): 2 or 4 measured 3-5% slower. Blocks walk the jobs
 //   with a grid stride (a persistent grid of one block per SM measured
 //   no faster; a version without the loop measured slower, PERF.md).
 // - Weights are packed transposed, W_T[in][out]: lane o of a layer reads

@@ -129,19 +129,12 @@ def _check(x, adj, node_level, node_mask, w: EncoderWeights) -> None:
         raise ValueError(f"weights are on {w.packed.device}, x on {x.device}")
 
 
-MAX_JOBS_PER_BLOCK = 4  # the kernel's MAX_JOBS
-TARGET_BLOCKS = 128  # about one block per SM of an H100 (132)
-
-
 def launch_config(n_jobs: int) -> tuple[int, int]:
-    """(jobs per block, blocks) for `n_jobs` jobs, four warps per job: as
-    many jobs per block (a power of two, at most 4) as keep the jobs
-    spread over at least about 128 blocks, since the jobs of a block
-    share one staged copy of the weights."""
-    jobs = 1
-    while jobs < MAX_JOBS_PER_BLOCK and n_jobs >= 2 * jobs * TARGET_BLOCKS:
-        jobs *= 2
-    return jobs, max(1, -(-n_jobs // jobs))
+    """(jobs per block, blocks) for `n_jobs` jobs, four warps per job:
+    one job per block. Blocks of 2 or 4 jobs share one staged copy of the
+    weights, but measured 3-5% slower at both serve shapes on an H100
+    (PERF.md), so every job gets a block of its own."""
+    return 1, max(1, n_jobs)
 
 
 @functools.cache

@@ -1,7 +1,7 @@
 """The port's CUDA kernel against its plain version on the card (needs
 an NVIDIA card; skips elsewhere), on random DAGs and on the seeded
-adversarial inputs of `kernels/encoder_cases.py`, at job counts below
-and above the kernel's jobs-per-block granularity, within 1e-5. Run there with
+adversarial inputs of `kernels/encoder_cases.py`, from a single job to
+more blocks than the card holds at once, within 1e-5. Run there with
 `python -m pytest --noconftest -m cuda tests/test_torch_cuda.py`
 (`--noconftest`: the suite's conftest imports JAX, which the card's
 machine need not have)."""
@@ -61,8 +61,8 @@ def test_kernel_matches_plain_version(card, b, k, s):
     assert float((out - ref).abs().max()) <= 1e-5
 
 
-# B*K = 1, 3 (under one block of jobs), 256 (the serve shape), 258 and
-# 1603 (a last block only partly filled)
+# B*K = 1 and 3 (fewer jobs than SMs), 256 (the serve shape), 258 and
+# 1603 (more blocks than an H100 holds at once)
 SHAPES = [(1, 1), (1, 3), (8, 32), (3, 86), (7, 229)]
 
 
