@@ -39,8 +39,8 @@ Beside the times: the checkout's kernel rebuilt with `clock64()` stamps
 the SM cycles spent loading the job, on its bookkeeping, in prep, in
 the leaves' update and the first messages, in the level chain and in
 the output writes; the same kernel with a per-step log (`steps`: each
-dense layer, each stage of the job's MLP loop); with --sass, the checkout's kernel's SASS in
-`chiprun_out/encoder_sass.txt`.
+dense layer, each stage of the job's MLP loop); with --sass, the
+checkout's kernel's SASS in `encoder_sass.txt` beside --out.
 
 First, a single-warp calibration (`calibrate_cycles_per_op`): SM cycles
 per dependent FFMA, per dependent shared load, and per pass of a loop
@@ -382,8 +382,8 @@ def main() -> int:
     ap.add_argument("--earlier-cu", help="an earlier version of the "
                     "checkout's kernel, with the current C interface")
     ap.add_argument("--sass", action="store_true",
-                    help="write the kernel's SASS to chiprun_out/")
-    ap.add_argument("--out", default="chiprun_out/encoder_ab.json")
+                    help="write the kernel's SASS beside --out")
+    ap.add_argument("--out", default="test_artifacts/encoder_ab.json")
     a = ap.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
@@ -421,8 +421,9 @@ def main() -> int:
                 [os.path.join(os.path.dirname(nvcc), "cuobjdump"), "-sass",
                  os.path.join(tmp, "libcurrent.so")],
                 capture_output=True, text=True, check=True).stdout
-            os.makedirs("chiprun_out", exist_ok=True)
-            with open("chiprun_out/encoder_sass.txt", "w") as fh:
+            out_dir = os.path.dirname(os.path.abspath(a.out))
+            os.makedirs(out_dir, exist_ok=True)
+            with open(os.path.join(out_dir, "encoder_sass.txt"), "w") as fh:
                 fh.write(dump)
         cal = {}
         for which, name, ops, threads in (
