@@ -13,11 +13,11 @@ block) — and checks it: every health mask 0, every served action valid,
 and the card's decisions equal to the CPU port's on the same sessions.
 
 The kernel is held against its plain version on the serve path's own
-inputs and on the seeded adversarial inputs of
-`sparksched_tpu_torch/kernels/encoder_cases.py` (levels that are no
+inputs and on the seeded adversarial inputs of `make_case` in
+`tests/_torch_parity.py`, loaded by path (levels that are no
 topological order, edges into nodes outside node_mask, jobs with no
 valid node but with edges, `num_levels` 3, job counts from a single
-job to more blocks than the card holds at once).
+job to more blocks than the card holds at once; one block per job).
 
 Each phase prints one JSON line. Before the last line come the
 `{"kernels": [...]}` line (per kernel: launches on the main path,
@@ -33,6 +33,7 @@ package next to this script. Imports no JAX.
 from __future__ import annotations
 
 import functools
+import importlib.util
 import json
 import os
 import subprocess
@@ -52,7 +53,7 @@ PARITY_SESSIONS, PARITY_DECISIONS = 4, 16
 WEIGHT_SCALE = 0.3
 SEED = 42
 TOL = 1e-5
-# stress cases: (B, K) per encoder_cases case, each at num_levels 0 and 3
+# stress cases: (B, K) per `make_case` case, each at num_levels 0 and 3
 STRESS_SHAPES = ((1, 1), (1, 3), (3, 86), (7, 229))
 TIMED = ("B8_K32", "B8_K200")  # the serve path's shapes
 # H100 SXM peaks (NVIDIA data sheet): HBM3 rate and FP32 outside the
@@ -126,7 +127,7 @@ def phase_build() -> None:
     t0 = time.perf_counter()
     build.build_all()
     ptxas = {n: [ln.strip() for ln in log.splitlines()
-                 if "registers" in ln or "smem" in ln]
+                 if "registers" in ln or "spill" in ln or "smem" in ln]
              for n, log in build.build_log.items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "sources": list(build.SOURCES), "ptxas": ptxas})
@@ -209,12 +210,15 @@ def kernel_ms(fn, reps: int, kernel: str) -> tuple[float, float]:
 def stress_cases(f_k, s: int, nf: int) -> dict:
     """name -> (inputs on the card, num_levels): the serve features at
     num_levels 3 (the bank's DAGs are up to 5 levels deep), and every
-    `encoder_cases` case at STRESS_SHAPES and num_levels 0 and 3 (lane 0
+    `make_case` case at STRESS_SHAPES and num_levels 0 and 3 (lane 0
     edgeless where B > 1)."""
     import torch
 
-    from sparksched_tpu_torch.kernels.encoder_cases import CASES, make_case
-
+    spec = importlib.util.spec_from_file_location(
+        "_torch_parity", os.path.join(HERE, "tests", "_torch_parity.py"))
+    cases_mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cases_mod)
+    CASES, make_case = cases_mod.CASES, cases_mod.make_case
     out = {"B8_K32_num_levels3":
            ((f_k.x, f_k.adj, f_k.node_level, f_k.node_mask), 3)}
     for i, case in enumerate(CASES):

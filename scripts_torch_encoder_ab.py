@@ -1,53 +1,24 @@
 #!/usr/bin/env python3
-"""The NodeEncoder kernel beside an earlier version of it, and ablations,
-on one CUDA card.
+"""The NodeEncoder kernel beside earlier versions of it, on one CUDA card.
 
-    git show <commit>:sparksched_tpu_torch/csrc/decima_encoder.cu \\
+    git show 7743228:sparksched_tpu_torch/csrc/decima_encoder.cu \\
         > test_artifacts/encoder_baseline.cu
     python3 scripts_torch_encoder_ab.py \\
-        --baseline-cu test_artifacts/encoder_baseline.cu
+        --baseline-cu test_artifacts/encoder_baseline.cu [--cu NAME=PATH ...]
 
-The baseline is a `decima_encoder.cu` with the one-block-per-job C
-interface (weights W row-major, no launch configuration). The script
-builds it, variants patched from it and from the checkout's source, and
-the checkout's kernel, all with the package's nvcc flags into a
-temporary directory, one nvcc each, in parallel. It feeds every variant
-the serve path's inputs of `chip_smoke.py` (flagship config, 8 sessions
+`--baseline-cu` is a `decima_encoder.cu` that reads its weights
+row-major (each layer's W as out x in, then b), the layout of the
+kernel's first version; each `--cu` is a source with the checkout's
+weight layout and C entry point. The script builds them and the
+checkout's kernel (`current`) with the package's nvcc flags into a
+temporary directory, one nvcc each, in parallel. It feeds each the
+serve path's inputs of `chip_smoke.py` (flagship config, 8 sessions
 three decisions in; [8,32] compacted and [8,200] full width), checks
-each against the plain version (1e-5), and times each kernel alone from
-torch.profiler, in turns (baseline first and last). Variants:
-
-- ``baseline``: as given;
-- ``baseline_wt``: its weights read transposed, W_T[in][out], so a
-  warp's weight loads hit distinct banks;
-- ``baseline_dead``: a job whose node_mask row is all false writes
-  zeros and exits;
-- ``current_j{1,2,4}``: the checkout's kernel, four warps per job, at
-  1, 2 or 4 jobs per block (the wrapper's `launch_config` takes 1);
-- ``persist_j{1,2,4}``: the checkout's kernel on a persistent grid of
-  one block per SM, its jobs walking over the jobs of the call;
-- ``current_all_rows``: the checkout's kernel with every node's message
-  computed up front and refreshed after every update (no row pruning);
-- ``current_empty``: the checkout's kernel returning at once, at the
-  launch configuration the wrapper picks (the floor of a launch; its
-  output is not checked);
-- ``earlier`` (with --earlier-cu): another version of the checkout's
-  kernel with the current C interface.
-
-Beside the times: the checkout's kernel rebuilt with `clock64()` stamps
-(`phases`), which gives, per job with a valid node on an edged lane,
-the SM cycles spent loading the job, on its bookkeeping, in prep, in
-the leaves' update and the first messages, in the level chain and in
-the output writes; the same kernel with a per-step log (`steps`: each
-dense layer, each stage of the job's MLP loop); with --sass, the
-checkout's kernel's SASS in `encoder_sass.txt` beside --out.
-
-First, a single-warp calibration (`calibrate_cycles_per_op`): SM cycles
-per dependent FFMA, per dependent shared load, and per pass of a loop
-shaped like the kernel's layer loop, in one warp and in four.
-
-One JSON line per variant and shape, the card's name and power limit,
-the ptxas report of every build; all of it also in --out.
+each against the plain version (1e-5) and times each kernel alone with
+`chip_smoke.kernel_ms` (torch.profiler), in rounds whose order
+alternates. Prints one JSON line per version and shape, the ptxas
+report of every build and the card's name and power limit; writes all
+of it to --out.
 """
 
 from __future__ import annotations
@@ -62,208 +33,13 @@ import tempfile
 
 import chip_smoke
 
-PERSIST_BLOCKS = 132  # one block per SM of an H100
-
-# (old, new) text patches; each `old` must occur exactly once
-BASELINE_WT = [
-    ("      const float* wr = W + o * ni;\n", ""),
-    ("acc = fmaf(x[i], wr[i], acc);", "acc = fmaf(x[i], W[i * no + o], acc);"),
-]
-BASELINE_DEAD = [(
-    "  const int lane = (int)(item / d.K);\n",
-    "  const int lane = (int)(item / d.K);\n"
-    "  if (!__syncthreads_or(threadIdx.x < d.S &&\n"
-    "                        node_mask[item * d.S + threadIdx.x])) {\n"
-    "    for (int i = threadIdx.x; i < d.S * d.D; i += blockDim.x)\n"
-    "      out[item * d.S * d.D + i] = 0.f;\n"
-    "    return;\n"
-    "  }\n",
-)]
-EMPTY = [("  const int S = d.S, F = d.F, D = d.D, ds = d.ds, hs = d.hs;\n",
-          "  const int S = d.S, F = d.F, D = d.D, ds = d.ds, hs = d.hs;\n"
-          "  if (d.jobs > 0) return;\n")]
-STAMPS = 1 << 16  # 8 stamps for each of the first 8192 jobs
-PHASES = ("load", "bookkeeping", "prep", "h0_and_msg", "levels", "output")
-PHASE_STAMPS = [
-    ("#define X_CHUNKS",
-     f"__device__ long long enc_stamps[{STAMPS}];\n"
-     "extern \"C\" int enc_stamps_read(long long* dst) {\n"
-     "  return (int)cudaMemcpyFromSymbol(dst, enc_stamps,\n"
-     "                                   sizeof(enc_stamps));\n}\n"
-     "#define STAMP(k) if (t == 0 && job < 8192) "
-     "enc_stamps[job * 8 + (k)] = clock64();\n"
-     "#define X_CHUNKS"),
-    ("  const int S = d.S, F = d.F, D = d.D, ds = d.ds, hs = d.hs;\n",
-     "  const int S = d.S, F = d.F, D = d.D, ds = d.ds, hs = d.hs;\n"
-     "  const long long t_start = clock64();\n"),
-    ("      synced = true;\n    }\n",
-     "      synced = true;\n    }\n"
-     "    if (have && t == 0 && job < 8192) "
-     "enc_stamps[job * 8] = t_start;\n    STAMP(1)\n"),
-    ("    unsigned todo = U, Pn = 0;\n", "    STAMP(2)\n    unsigned todo = U, Pn = 0;\n"),
-    ("      stage = next;\n",
-     "      if (stage == PREP) STAMP(3)\n"
-     "      if (stage == H0 || stage == MSG0) STAMP(4)\n"
-     "      stage = next;\n"),
-    ("    write_rows(o, el ? hinit : h, ds, V, S, D, t);\n",
-     "    STAMP(5)\n    write_rows(o, el ? hinit : h, ds, V, S, D, t);\n"
-     "    STAMP(6)\n"),
-]
-# Single-warp latency calibration: SM cycles per instruction of a chain
-# of dependent FFMAs, of dependent shared loads (a pointer chase), and per
-# pass of a loop shaped like the kernel's layer loop (4 weight loads, 4
-# float4 input loads, 4 chains of 4 FFMAs), each timed by clock64 in one
-# warp of one block (and the loop in 4 warps at once).
-CALIBRATE = r"""
-#include <cuda_runtime.h>
-__global__ void cal_kernel(int which, int n, float* out, long long* cyc) {
-  __shared__ __align__(16) float buf[2048];
-  int* ib = reinterpret_cast<int*>(buf);
-  for (int i = threadIdx.x; i < 2048; i += blockDim.x)
-    ib[i] = which == 1 ? (i * 33 + 1) & 2047 : 0;
-  __syncthreads();
-  float a = threadIdx.x * 1e-3f, b = 1.0001f, c = 0.5f;
-  int p = threadIdx.x;
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  long long t0 = clock64();
-  if (which == 0) {
-    for (int i = 0; i < n; ++i) {
-      a = fmaf(a, b, c); a = fmaf(a, b, c); a = fmaf(a, b, c); a = fmaf(a, b, c);
-    }
-  } else if (which == 1) {
-    for (int i = 0; i < n; ++i) { p = ib[p]; p = ib[p]; p = ib[p]; p = ib[p]; }
-  } else {
-    const int o = threadIdx.x & 31;
-    for (int i = 0; i < n; ++i) {
-      const int k = (i * 4) & 127;  // weights in buf[0, 640)
-      const float w0 = buf[k * 4 + o], w1 = buf[k * 4 + 32 + o];
-      const float w2 = buf[k * 4 + 64 + o], w3 = buf[k * 4 + 96 + o];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float4 v = *reinterpret_cast<const float4*>(buf + 1024 + j * 64 + k);
-        acc[j] = fmaf(v.w, w3, fmaf(v.z, w2, fmaf(v.y, w1, fmaf(v.x, w0, acc[j]))));
-      }
-    }
-  }
-  long long t1 = clock64();
-  out[threadIdx.x] = a + p + acc[0] + acc[1] + acc[2] + acc[3];
-  if (threadIdx.x == 0) cyc[0] = t1 - t0;
-}
-extern "C" int cal_run(int which, int n, int threads, long long* host) {
-  float* out; long long* cyc;
-  cudaMalloc(&out, 1024 * sizeof(float));
-  cudaMalloc(&cyc, sizeof(long long));
-  cal_kernel<<<1, threads>>>(which, n, out, cyc);
-  cal_kernel<<<1, threads>>>(which, n, out, cyc);
-  cudaMemcpy(host, cyc, sizeof(long long), cudaMemcpyDeviceToHost);
-  cudaFree(out); cudaFree(cyc);
-  return (int)cudaGetLastError();
-}
-"""
-# Per-step log (stamps kept per job by its first thread, the count in
-# shared memory, written to global memory, never read back in the kernel):
-# SM cycles from each dense layer of each MLP (tag rows * 10000 + in * 100
-# + out), each stage of the job's MLP loop (tag -10 - stage: prep 0, h0 1,
-# first messages 2, level 3, refresh 4), the output (-1) and the end of
-# the loads (-2) to the next stamp.
-STEP_LOG = [
-    ("extern __shared__ __align__(16) float sm[];\n",
-     "extern __shared__ __align__(16) float sm[];\n"
-     "__device__ long long enc_llog[8192 * 64];\n"
-     "__device__ int enc_ltag[8192 * 64];\n"
-     "__shared__ int enc_lcnt[8], enc_ljob[8];  // per job slot\n"
-     "extern \"C\" int enc_llog_read(long long* t, int* tag) {\n"
-     "  cudaMemcpyFromSymbol(t, enc_llog, sizeof(enc_llog));\n"
-     "  return (int)cudaMemcpyFromSymbol(tag, enc_ltag, sizeof(enc_ltag));\n}\n"
-     "extern \"C\" int enc_llog_clear() {\n"
-     "  static long long z[8192 * 64];\n"
-     "  return (int)cudaMemcpyToSymbol(enc_llog, z, sizeof(z));\n}\n"
-     "__device__ __forceinline__ void lstamp(int tag) {\n"
-     "  if ((threadIdx.x & 127) == 0) {\n"
-     "    const int s = threadIdx.x >> 7, job = enc_ljob[s], c = enc_lcnt[s]++;\n"
-     "    if (job < 8192 && c < 64) {\n"
-     "      enc_llog[job * 64 + c] = clock64();\n"
-     "      enc_ltag[job * 64 + c] = tag;\n"
-     "    }\n  }\n}\n"),
-    ("    if (!have) break;\n",
-     "    if (!have) break;\n"
-     "    if (t == 0) { enc_lcnt[slot] = 0; enc_ljob[slot] = (int)job; }\n"),
-    ("    const int ni = e[0], no = e[1], lg = e[3], nch = e[4];\n",
-     "    const int ni = e[0], no = e[1], lg = e[3], nch = e[4];\n"
-     "    lstamp(n * 10000 + ni * 100 + no);\n"),
-    ("    while (stage != DONE) {\n", "    while (stage != DONE) {\n      lstamp(-10 - stage);\n"),
-    ("    write_rows(o, el ? hinit : h, ds, V, S, D, t);\n",
-     "    lstamp(-1);\n    write_rows(o, el ? hinit : h, ds, V, S, D, t);\n"
-     "    lstamp(-3);\n"),
-    ("    job_sync(bar);\n\n    // every warp derives",
-     "    job_sync(bar);\n    lstamp(-2);\n\n    // every warp derives"),
-]
-
-
-def step_log(lib, call, f) -> dict:
-    """Run `call` (a build with STEP_LOG) once: per tag, the median SM
-    cycles from its stamp to the next over every live edged job, and the
-    whole log of the job with the most cycles."""
-    import numpy as np
-    import torch
-
-    t = np.zeros(8192 * 64, np.int64)
-    tag = np.zeros(8192 * 64, np.int32)
-    torch.cuda.synchronize()
-    if lib.enc_llog_clear():
-        raise RuntimeError("enc_llog_clear failed")
-    call()
-    torch.cuda.synchronize()
-    if lib.enc_llog_read(t.ctypes.data_as(ctypes.c_void_p),
-                         tag.ctypes.data_as(ctypes.c_void_p)):
-        raise RuntimeError("enc_llog_read failed")
-    b, k = f.x.shape[:2]
-    edged = f.adj.reshape(b, -1).any(1)[:, None].expand(b, k)
-    full = (f.node_mask.any(-1) & edged).reshape(-1).cpu().numpy()
-    t, tag = t.reshape(-1, 64)[:b * k], tag.reshape(-1, 64)[:b * k]
-    per_tag, worst, worst_span = {}, [], -1
-    for j in np.flatnonzero(full):
-        n = int((t[j] != 0).sum())
-        seq = [(int(tag[j, i]), int(t[j, i + 1] - t[j, i]))
-               for i in range(n - 1)]
-        for tg, dt in seq:
-            per_tag.setdefault(tg, []).append(dt)
-        span = int(t[j, n - 1] - t[j, 0]) if n else 0
-        if span > worst_span:
-            worst, worst_span = seq, span
-    return {"median_by_tag": {str(k_): float(np.median(v))
-                              for k_, v in sorted(per_tag.items())},
-            "count_by_tag": {str(k_): len(v)
-                             for k_, v in sorted(per_tag.items())},
-            "slowest_job": worst, "slowest_span": worst_span}
-
-
-ALL_ROWS = [
-    ("const unsigned NI = __ballot_sync(FULL, before);",
-     "const unsigned NI = __ballot_sync(FULL, in_s);"),
-    ("const unsigned NR = __ballot_sync(FULL, after);",
-     "const unsigned NR = __ballot_sync(FULL, in_s);"),
-]
-
-
-def patched(src: str, pairs) -> str:
-    for old, new in pairs:
-        if src.count(old) != 1:
-            raise ValueError(f"patch target found {src.count(old)} times: "
-                             f"{old!r}")
-        src = src.replace(old, new)
-    return src
-
 
 def build_all(sources: dict, tmp: str) -> tuple[dict, dict]:
     """name -> loaded library and name -> ptxas lines, one nvcc each."""
     from sparksched_tpu_torch.kernels import build
 
     procs = {}
-    for name, text in sources.items():
-        cu = os.path.join(tmp, f"{name}.cu")
-        with open(cu, "w") as f:
-            f.write(text)
+    for name, cu in sources.items():
         so = os.path.join(tmp, f"lib{name}.so")
         procs[name] = (so, subprocess.Popen(
             [build.nvcc_path(), *build.NVCC_FLAGS, "-o", so, cu],
@@ -287,8 +63,8 @@ def row_major(w) -> "torch.Tensor":
                       for pair in ls for t in pair]).contiguous()
 
 
-def launcher(lib, f, w, packed, nl: int, slope: float, config=None):
-    """A call of one variant's C entry point on features `f` (the output
+def launcher(lib, f, w, packed, nl: int, slope: float):
+    """A call of one version's C entry point on features `f` (the output
     and the edgeless flags allocated once, outside the call)."""
     import torch
 
@@ -296,9 +72,8 @@ def launcher(lib, f, w, packed, nl: int, slope: float, config=None):
 
     fn = lib.decima_node_encoder_launch
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    tail = [ci, ci] if config else []
     fn.argtypes = [vp] * 7 + [ci] * 6 + [ctypes.c_float, ctypes.POINTER(ci),
-                                         *tail, vp]
+                                         vp]
     fn.restype = ci
     b, k, s, nf = f.x.shape
     d = int(w.prep[-1][0].shape[0])
@@ -308,8 +83,7 @@ def launcher(lib, f, w, packed, nl: int, slope: float, config=None):
     stream = torch.cuda.current_stream().cuda_stream
     args = [f.x.data_ptr(), f.adj.data_ptr(), f.node_level.data_ptr(),
             f.node_mask.data_ptr(), el.data_ptr(), packed.data_ptr(),
-            out.data_ptr(), b, k, s, nf, d, nl, float(slope), spec,
-            *(config or ()), stream]
+            out.data_ptr(), b, k, s, nf, d, nl, float(slope), spec, stream]
 
     def call():
         rc = fn(*args)
@@ -318,33 +92,6 @@ def launcher(lib, f, w, packed, nl: int, slope: float, config=None):
         return out
 
     return call
-
-
-def phase_cycles(lib, call, f, nl: int) -> dict:
-    """Run `call` (a build with PHASE_STAMPS) once; per phase, the median
-    and largest SM cycles over the jobs that ran the whole chain (a valid
-    node, an edged lane)."""
-    import numpy as np
-    import torch
-
-    stamps = np.zeros(STAMPS, np.int64)
-    call()
-    torch.cuda.synchronize()
-    rc = lib.enc_stamps_read(stamps.ctypes.data_as(ctypes.c_void_p))
-    if rc:
-        raise RuntimeError(f"enc_stamps_read: {rc}")
-    b, k = f.x.shape[:2]
-    edged = f.adj.reshape(b, -1).any(1)[:, None].expand(b, k)
-    full = (f.node_mask.any(-1) & edged).reshape(-1).cpu().numpy()
-    t = stamps.reshape(-1, 8)[:b * k][full[:8192]]
-    d = np.diff(t[:, :7], axis=1)
-    out = {"jobs": int(len(t))}
-    for i, name in enumerate(PHASES):
-        out[name] = {"median": float(np.median(d[:, i])),
-                     "max": int(d[:, i].max())}
-    tot = t[:, 6] - t[:, 0]
-    out["total"] = {"median": float(np.median(tot)), "max": int(tot.max())}
-    return out
 
 
 def profiled_ms(call, reps: int, tries: int = 3) -> float:
@@ -358,31 +105,15 @@ def profiled_ms(call, reps: int, tries: int = 3) -> float:
                 raise
 
 
-def job_stats(f, nl: int) -> dict:
-    """Jobs, jobs with a valid node, and per such job the levels with a
-    node to update and the nodes updated (the level chain's length)."""
-    adj, lvl, mask = f.adj.cpu(), f.node_level.cpu(), f.node_mask.cpu()
-    upd = adj.any(-1) & (lvl >= 0) & (lvl < nl)
-    live = mask.any(-1)
-    levels = [len(set(lvl[b, k][upd[b, k]].tolist()))
-              for b, k in live.nonzero().tolist()]
-    return {"jobs": live.numel(), "live_jobs": int(live.sum()),
-            "levels_with_work_mean": sum(levels) / max(len(levels), 1),
-            "levels_with_work_max": max(levels, default=0),
-            "updated_nodes": int((upd & live[..., None]).sum())}
-
-
 def main() -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--baseline-cu", required=True)
+    ap.add_argument("--cu", action="append", default=[],
+                    metavar="NAME=PATH")
     ap.add_argument("--reps", type=int, default=100)
-    ap.add_argument("--rounds", type=int, default=2)
-    ap.add_argument("--earlier-cu", help="an earlier version of the "
-                    "checkout's kernel, with the current C interface")
-    ap.add_argument("--sass", action="store_true",
-                    help="write the kernel's SASS beside --out")
+    ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--out", default="test_artifacts/encoder_ab.json")
     a = ap.parse_args()
     if not torch.cuda.is_available():
@@ -392,49 +123,17 @@ def main() -> int:
     from sparksched_tpu_torch.kernels import build
     from sparksched_tpu_torch.kernels.decima_encoder import (
         decima_node_encoder_ref,
-        launch_config,
     )
     from sparksched_tpu_torch.schedulers.decima import compact_features
     from sparksched_tpu_torch.serve import SessionStore
 
-    with open(a.baseline_cu) as fh:
-        base = fh.read()
-    with open(os.path.join(build.CSRC, "decima_encoder.cu")) as fh:
-        cur = fh.read()
-    sources = {"baseline": base,
-               "baseline_wt": patched(base, BASELINE_WT),
-               "baseline_dead": patched(base, BASELINE_DEAD),
-               "current": cur,
-               "current_all_rows": patched(cur, ALL_ROWS),
-               "current_empty": patched(cur, EMPTY),
-               "phases": patched(cur, PHASE_STAMPS),
-               "steps": patched(cur, STEP_LOG)}
-    if a.earlier_cu:
-        with open(a.earlier_cu) as fh:
-            sources["earlier"] = fh.read()
-    sources["calibrate"] = CALIBRATE
+    sources = {"baseline": a.baseline_cu,
+               "current": os.path.join(build.CSRC, "decima_encoder.cu")}
+    for spec in a.cu:
+        name, _, path = spec.partition("=")
+        sources[name] = path
     with tempfile.TemporaryDirectory() as tmp:
         libs, ptxas = build_all(sources, tmp)
-        if a.sass:
-            nvcc = build.nvcc_path()
-            dump = subprocess.run(
-                [os.path.join(os.path.dirname(nvcc), "cuobjdump"), "-sass",
-                 os.path.join(tmp, "libcurrent.so")],
-                capture_output=True, text=True, check=True).stdout
-            out_dir = os.path.dirname(os.path.abspath(a.out))
-            os.makedirs(out_dir, exist_ok=True)
-            with open(os.path.join(out_dir, "encoder_sass.txt"), "w") as fh:
-                fh.write(dump)
-        cal = {}
-        for which, name, ops, threads in (
-                (0, "ffma_dependent", 4, 32), (1, "lds_dependent", 4, 32),
-                (2, "layer_pass", 1, 32), (2, "layer_pass_4_warps", 1, 128)):
-            cyc = ctypes.c_longlong()
-            if libs["calibrate"].cal_run(which, 1000, threads,
-                                         ctypes.byref(cyc)):
-                raise RuntimeError("calibration launch failed")
-            cal[name] = cyc.value / (1000 * ops)
-        print(json.dumps({"calibrate_cycles_per_op": cal}), flush=True)
         params, bank, agent = chip_smoke.flagship("cuda")
         sched = chip_smoke.make_scheduler(params, agent, "cuda")
         store = SessionStore(params, bank, sched, capacity=8, max_batch=8,
@@ -448,64 +147,29 @@ def main() -> int:
         w = net.encoder_weights()
         s = f_k.x.shape[2]
         nl = min(net.num_levels, s) if net.num_levels else s
-        old_w = row_major(w)
-        results, rows = {"card": chip_smoke.card_line(), "ptxas": ptxas,
-                         "calibrate_cycles_per_op": cal}, []
+        results, rows = {"card": chip_smoke.card_line(), "ptxas": ptxas}, []
         for shape, f in (("B8_K32", f_k), ("B8_K200", f_full)):
-            jobs = f.x.shape[0] * f.x.shape[1]
-            variants = {
-                "baseline": (libs["baseline"], old_w, None),
-                "baseline_wt": (libs["baseline_wt"], w.packed, None),
-                "baseline_dead": (libs["baseline_dead"], old_w, None),
-                "current_all_rows": (libs["current_all_rows"], w.packed,
-                                     launch_config(jobs)),
-                "current_empty": (libs["current_empty"], w.packed,
-                                  launch_config(jobs)),
-            }
-            if a.earlier_cu:
-                variants["earlier"] = (libs["earlier"], w.packed,
-                                       launch_config(jobs))
-            for wp in (1, 2, 4):
-                variants[f"current_j{wp}"] = (libs["current"], w.packed,
-                                              (wp, -(-jobs // wp)))
-            for wp in (1, 2, 4):
-                variants[f"persist_j{wp}"] = (
-                    libs["current"], w.packed,
-                    (wp, min(PERSIST_BLOCKS, -(-jobs // wp))))
             ins = (f.x, f.adj, f.node_level, f.node_mask)
             ref = decima_node_encoder_ref(*ins, w, net.num_levels, net.slope)
             calls, per = {}, {}
-            for name, (lib, packed, config) in variants.items():
-                calls[name] = launcher(lib, f, w, packed, nl, net.slope,
-                                       config)
+            for name, lib in libs.items():
+                packed = row_major(w) if name == "baseline" else w.packed
+                calls[name] = launcher(lib, f, w, packed, nl, net.slope)
                 err = float((calls[name]() - ref).abs().max())
-                if name != "current_empty" and not err <= chip_smoke.TOL:
+                if not err <= chip_smoke.TOL:
                     raise AssertionError(f"{name} {shape}: err {err}")
-                per[name] = {"max_abs_err": err, "config": config,
-                             "ms_rounds": []}
-            order = list(variants)
+                per[name] = {"max_abs_err": err, "ms_rounds": []}
+            order = list(libs)
             for r in range(a.rounds):
                 for name in (order if r % 2 == 0 else order[::-1]):
                     per[name]["ms_rounds"].append(
                         profiled_ms(calls[name], a.reps))
             for name, v in per.items():
                 v["ms"] = sum(v["ms_rounds"]) / len(v["ms_rounds"])
-                row = {"shape": shape, "variant": name, **v}
+                row = {"shape": shape, "version": name, **v}
                 rows.append(row)
                 print(json.dumps(row), flush=True)
-            results[shape] = {"variants": per}
-        # the instrumented builds run after every timing
-        for shape, f in (("B8_K32", f_k), ("B8_K200", f_full)):
-            config = launch_config(f.x.shape[0] * f.x.shape[1])
-            stats = job_stats(f, nl)
-            stats["steps"] = step_log(
-                libs["steps"], launcher(libs["steps"], f, w, w.packed, nl,
-                                        net.slope, config), f)
-            stats["phases"] = phase_cycles(
-                libs["phases"], launcher(libs["phases"], f, w, w.packed, nl,
-                                         net.slope, config), f, nl)
-            print(json.dumps({"shape": shape, **stats}), flush=True)
-            results[shape]["stats"] = stats
+            results[shape] = per
     results["rows"] = rows
     os.makedirs(os.path.dirname(os.path.abspath(a.out)), exist_ok=True)
     with open(a.out, "w") as fh:

@@ -1,5 +1,5 @@
-// Decima NodeEncoder: the GNN's level-wise message pass, four warps per
-// (lane, job), several jobs per block.
+// Decima NodeEncoder: the GNN's level-wise message pass, one (lane, job)
+// per block of four warps.
 //
 // Replaces: sparksched_tpu/schedulers/decima.py `DecimaNet.__call__`, the
 // NodeEncoder part (h_init = mlp_prep(x); h0 = where(has_child, 0,
@@ -28,14 +28,17 @@
 //   inputs over up to a warp's lane groups, summed with shuffles. One
 //   warp per job was measured first: a lone warp issues a dependent
 //   instruction every ~5 cycles, and its chain ran ~45k cycles per job.
-// - The weights are staged into shared memory with cp.async (16 B per
-//   thread) while the job loads its inputs; after that one block barrier,
-//   a job's warps meet at their own named barrier. A block may carry up
-//   to MAX_JOBS jobs sharing one copy of the weights, but the wrapper
-//   launches one job per block (kernels/decima_encoder.py
-//   `launch_config`): 2 or 4 measured 3-5% slower. Blocks walk the jobs
-//   with a grid stride (a persistent grid of one block per SM measured
-//   no faster; a version without the loop measured slower, PERF.md).
+// - One block per job, grid = B*K. The weights are staged into shared
+//   memory with cp.async (16 B per thread) while the block loads its
+//   job's inputs. Blocks of 2 or 4 jobs sharing one copy of the weights
+//   measured 3-5% slower, and a persistent grid of one block per SM no
+//   faster (PERF.md).
+// - At most 96 registers a thread (`__maxnreg__`). Bounded only by its
+//   128 threads, ptxas aims at occupancy and gives the kernel 56
+//   registers and 40 B of spills (0.0227 / 0.0250 ms at the serve shapes
+//   [8,32] / [8,200] on an H100); left free it takes 161 (0.0196 /
+//   0.0232 ms); at 96 it does not spill and measured fastest of the caps
+//   from 72 to 161 (0.0193 / 0.0213 ms; PERF.md).
 // - Weights are packed transposed, W_T[in][out]: lane o of a layer reads
 //   word o, so weight loads are conflict-free. Inputs are read as float4
 //   broadcasts, a quarter-warp to a row; each pass runs four independent
@@ -58,7 +61,7 @@
 //   ever became bound by operations). Plain FP32 FMAs on the CUDA cores.
 //
 // Limits: S <= 32 (a job's nodes are a warp's lanes and adjacency rows
-// are 32-bit masks), at most MAX_JOBS jobs per block.
+// are 32-bit masks), B*K < 2^31 blocks.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (see sparksched_tpu_torch/kernels/build.py);
@@ -68,8 +71,7 @@
 #include <stdint.h>
 
 #define MAX_LAYERS 4
-#define JOB_THREADS 128  // four warps per job
-#define MAX_JOBS 4       // jobs per block
+#define JOB_THREADS 128  // four warps per job, one job per block
 #define SMEM_MAX (227 * 1024)
 #define FULL 0xffffffffu
 #define X_CHUNKS 2    // x floats a thread loads ahead: 2 x 128 >= S * F for F <= 8
@@ -89,20 +91,13 @@ struct EncDims {
   int S, F, D, nl, K;
   int wtotal;               // packed weight floats, a multiple of 4
   int xs, ds, hs;           // row strides, multiples of 4: x, [S,D], hidden
-  int job_floats;           // shared scratch per job, a multiple of 4
-  long jobs;                // B * K
   float slope;
 };
 
-// The block's shared memory: the layer table, the weights, then each
+// The block's shared memory: the layer table, the weights, then the
 // job's scratch. Code below addresses it through `sm` (offsets in floats), so
 // every access compiles to a shared-memory load or store.
 extern __shared__ __align__(16) float sm[];
-
-// The job's four warps meet at named barrier `bar` (one per job slot).
-__device__ __forceinline__ void job_sync(int bar) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(bar), "r"(JOB_THREADS) : "memory");
-}
 
 // One dense layer, y = x @ W + b (LeakyReLU unless last), over n rows, by
 // a job's 128 threads (t). Threads form groups of G = 1 << lg lanes, G the
@@ -200,7 +195,7 @@ __device__ __forceinline__ void dense_r(
 // One MLP (table row mi: 0 prep, 1 msg, 2 update) over n rows by the
 // job's threads; operands are float offsets into `sm` (index lists and
 // `add` -1 when absent). Hidden layers ping-pong through buf0/buf1
-// (compact rows, stride hs); every layer ends at the job's barrier. A
+// (compact rows, stride hs); every layer ends at a block barrier. A
 // layer splits a row's inputs over KS = 1 << lks lane groups, the most
 // that a warp holds, that leave a row slot for every row and that keep
 // two float4 chunks per slice; all of it in shifts, since a lone warp
@@ -208,7 +203,7 @@ __device__ __forceinline__ void dense_r(
 __device__ __forceinline__ void mlp(int mi, int in, int in_stride, int in_idx,
                                     int out, int out_stride, int out_idx,
                                     int add, int n, int buf0, int buf1, int hs,
-                                    float slope, int t, int bar) {
+                                    float slope, int t) {
   const int* ism = reinterpret_cast<const int*>(sm);
   const int* dm = ism + mi * 21;  // the table sits at the start of sm
   const int layers = dm[0];
@@ -239,7 +234,7 @@ __device__ __forceinline__ void mlp(int mi, int in, int in_stride, int in_idx,
     else
       dense_r<1>(W, ni, no, lg, nch, lks, passes, src, in_stride, si, sm + dst,
                  dstride, di, ad, n, !last, slope, t);
-    job_sync(bar);
+    __syncthreads();
     in = dst;
     in_stride = hs;
     in_idx = -1;
@@ -280,7 +275,7 @@ static __device__ __forceinline__ void fill_dims(const MlpDims& m, int* dst) {
 
 enum Stage { PREP, H0, MSG0, LEVEL, REFRESH, DONE };
 
-__global__ void __launch_bounds__(JOB_THREADS * MAX_JOBS)
+__global__ void __maxnreg__(96)
 decima_node_encoder_kernel(const float* __restrict__ x,
                            const uint8_t* __restrict__ adj,
                            const int32_t* __restrict__ level,
@@ -288,194 +283,181 @@ decima_node_encoder_kernel(const float* __restrict__ x,
                            const uint8_t* __restrict__ edgeless,
                            const float* __restrict__ weights,
                            float* __restrict__ out, EncDims d) {
-  const int t = threadIdx.x & (JOB_THREADS - 1), slot = threadIdx.x / JOB_THREADS;
-  const int lane = threadIdx.x & 31, warp = t >> 5;  // warp of the job
-  const int jpb = blockDim.x / JOB_THREADS, bar = 1 + slot;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const long job = blockIdx.x;
   const int S = d.S, F = d.F, D = d.D, ds = d.ds, hs = d.hs;
   int* ism = reinterpret_cast<int*>(sm);
 
   // stage the MLP table and the weights (cp.async, 16 B per thread); the
-  // copy is waited for once each job has issued the loads of its first job
-  if (threadIdx.x == 0) {
+  // copy is waited for once the job's loads are issued
+  if (t == 0) {
     fill_dims(d.prep, ism);
     fill_dims(d.msg, ism + 21);
     fill_dims(d.upd, ism + 42);
   }
   {
     const unsigned base = (unsigned)__cvta_generic_to_shared(sm + DIMS);
-    for (int i = threadIdx.x; i < d.wtotal / 4; i += blockDim.x)
+    for (int i = t; i < d.wtotal / 4; i += JOB_THREADS)
       asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
                        base + 16u * i),
                    "l"(weights + 4 * i));
     asm volatile("cp.async.commit_group;\n" ::);
   }
-  // this job's scratch, float offsets into sm
-  const int xs = DIMS + d.wtotal + slot * d.job_floats;  // [S, xs]
-  const int hinit = xs + S * d.xs;                       // [S, ds]
-  const int h = hinit + S * ds;                          // [S, ds]
-  const int m = h + S * ds;                              // [S, ds]: msg(h)
-  const int agg = m + S * ds;                            // [S, ds], compact
-  const int buf0 = agg + S * ds;                         // [S, hs], compact
-  const int buf1 = buf0 + S * hs;                        // [S, hs], compact
-  const int mk = buf1 + S * hs;                          // int [32]: node_mask
-  const int lv = mk + 32;                                // int [32]: levels
-  const int rowm = lv + 32;                              // int [32]: children
-  const int idx = rowm + 32 + warp * 32;                 // int [32] per warp
-  const int adjw = rowm + 32 + 4 * 32;                   // u32 [128 * ADJ_CHUNKS]
+  // the job's scratch, float offsets into sm
+  const int xs = DIMS + d.wtotal;         // [S, xs]
+  const int hinit = xs + S * d.xs;        // [S, ds]
+  const int h = hinit + S * ds;           // [S, ds]
+  const int m = h + S * ds;               // [S, ds]: msg(h)
+  const int agg = m + S * ds;             // [S, ds], compact
+  const int buf0 = agg + S * ds;          // [S, hs], compact
+  const int buf1 = buf0 + S * hs;         // [S, hs], compact
+  const int mk = buf1 + S * hs;           // int [32]: node_mask
+  const int lv = mk + 32;                 // int [32]: levels
+  const int rowm = lv + 32;               // int [32]: children
+  const int idx = rowm + 32 + warp * 32;  // int [32] per warp
+  const int adjw = rowm + 32 + 4 * 32;    // u32 [128 * ADJ_CHUNKS]
 
-  bool synced = false;
-  for (long job = (long)blockIdx.x * jpb + slot;; job += (long)gridDim.x * jpb) {
-    // issue every load of the job at once: thread c < S reads node c's
-    // mask and level; all threads read coalesced slices of x and of the
-    // aligned 32-bit words that cover the adjacency block
-    const bool have = job < d.jobs;
-    bool el = false, valid = false;
-    int myl = -1, shift = 0, nw = 0;
-    float xv[X_CHUNKS];
-    unsigned aw[ADJ_CHUNKS];
-    if (have) {
-      el = edgeless[(int)job / d.K] != 0;
-      if (t < S) {
-        valid = node_mask[job * S + t] != 0;
-        myl = level[job * S + t];
-      }
-      const float* xj = x + job * S * F;
-#pragma unroll
-      for (int k = 0; k < X_CHUNKS; ++k) {
-        const int i = t + JOB_THREADS * k;
-        xv[k] = i < S * F ? xj[i] : 0.f;
-      }
-      const uint8_t* ab = adj + job * S * S;
-      shift = (int)((uintptr_t)ab & 3u);
-      nw = (shift + S * S + 3) >> 2;
-      const unsigned* words = reinterpret_cast<const unsigned*>(ab - shift);
-#pragma unroll
-      for (int k = 0; k < ADJ_CHUNKS; ++k) {
-        const int i = t + JOB_THREADS * k;
-        aw[k] = i < nw ? words[i] : 0u;
-      }
-    }
-    if (!synced) {
-      asm volatile("cp.async.wait_group 0;\n" ::);
-      __syncthreads();
-      synced = true;
-    }
-    if (!have) break;
-    if (t < 32) {
-      ism[mk + t] = valid;
-      ism[lv + t] = myl;
-    }
-#pragma unroll
-    for (int k = 0; k < X_CHUNKS; ++k) {
-      const int i = t + JOB_THREADS * k, r = i / F;
-      if (i < S * F) sm[xs + r * d.xs + i - r * F] = xv[k];
-    }
-    for (int i = t + JOB_THREADS * X_CHUNKS; i < S * F; i += JOB_THREADS) {
-      const int r = i / F;
-      sm[xs + r * d.xs + i - r * F] = x[job * S * F + i];
-    }
-#pragma unroll
-    for (int k = 0; k < ADJ_CHUNKS; ++k)
-      if (t + JOB_THREADS * k < nw) ism[adjw + t + JOB_THREADS * k] = (int)aw[k];
-    job_sync(bar);
-
-    // every warp derives the same masks from shared memory: lane c is node c
-    const bool in_s = lane < S;
-    const unsigned V = __ballot_sync(FULL, in_s && ism[mk + lane]);  // node_mask
-    float* o = out + job * S * D;
-    if (V == 0) {
-      for (int i = t; i < S * D; i += JOB_THREADS) o[i] = 0.f;
-      job_sync(bar);
-      continue;
-    }
-    unsigned row = 0, col = 0;  // this node's children and parents
-    const int ml = in_s ? ism[lv + lane] : -1;
-    if (in_s && !el) {
-      const uint8_t* ab = reinterpret_cast<const uint8_t*>(sm + adjw) + shift;
-#pragma unroll 4
-      for (int c = 0; c < S; ++c) {
-        row |= (ab[lane * S + c] ? 1u : 0u) << c;
-        col |= (ab[c * S + lane] ? 1u : 0u) << c;
-      }
-    }
-    ism[rowm + lane] = (int)row;  // every warp writes the same masks
-    const bool upd = row != 0 && ml >= 0 && ml < d.nl;
-    const unsigned U = __ballot_sync(FULL, upd);  // nodes updated at a level
-    const unsigned leaf = __ballot_sync(FULL, in_s && row == 0);
-    // Who reads m[lane]: each parent updated at a level; a parent at a
-    // level >= ours reads it before our update (or we are never updated),
-    // one at a lower level after it.
-    unsigned par = col & U;
-    bool before = false, after = false;
-    while (par) {
-      const int q = __ffs(par) - 1;
-      par &= par - 1;
-      if (!upd || ism[lv + q] >= ml) before = true;
-      else after = true;
-    }
-    const unsigned NI = __ballot_sync(FULL, before);  // m from h0
-    const unsigned NR = __ballot_sync(FULL, after);   // m after update
-    const unsigned todo0 = U & (V | NR);              // updates we need
-    if (!el)  // h = 0 for nodes with children, until their update
-      for (int i = t; i < S * D; i += JOB_THREADS) {
-        const int p = i / D;
-        if (!((leaf >> p) & 1u)) sm[h + p * ds + i - p * D] = 0.f;
-      }
-
-    // the job's MLPs in order, through one call site: prep; the leaves'
-    // update (h0); the first messages; then per level with work, deepest
-    // first, the aggregation and update of its nodes and their new
-    // messages. An edgeless lane runs prep only and keeps h_init.
-    unsigned todo = U, Pn = 0;
-    int stage = PREP;
-    while (stage != DONE) {
-      int mi, in, ins, out_r, in_l = idx, add = -1, next, n;
-      if (stage == PREP) {
-        mi = 0; in = xs; ins = d.xs; out_r = hinit;
-        n = rows_of(el ? V : V | todo0 | (NI & leaf), idx, lane);
-        next = el ? DONE : H0;
-      } else if (stage == H0) {
-        mi = 2; in = hinit; ins = ds; out_r = h;
-        n = rows_of(leaf & (V | NI), idx, lane);
-        next = NI ? MSG0 : LEVEL;
-      } else if (stage == MSG0 || stage == REFRESH) {
-        mi = 1; in = h; ins = ds; out_r = m;
-        n = rows_of(stage == MSG0 ? NI : Pn & NR, idx, lane);
-        next = LEVEL;
-      } else {  // LEVEL: the next level with a node to update
-        Pn = 0;
-        while (todo && !Pn) {
-          const int l = __reduce_max_sync(FULL, ((todo >> lane) & 1u) ? ml : -1);
-          const unsigned P = __ballot_sync(FULL, ((todo >> lane) & 1u) && ml == l);
-          todo &= ~P;
-          Pn = P & todo0;
-        }
-        if (!Pn) break;
-        n = rows_of(Pn, idx, lane);
-        for (int i = t; i < n * D; i += JOB_THREADS) {  // agg = adj @ m
-          const int j = i / D, dd = i - j * D;
-          unsigned bits = (unsigned)ism[rowm + ism[idx + j]];
-          float acc = 0.f;
-          while (bits) {
-            const int c = __ffs(bits) - 1;
-            bits &= bits - 1;
-            acc += sm[m + c * ds + dd];
-          }
-          sm[agg + j * ds + dd] = acc;
-        }
-        job_sync(bar);
-        mi = 2; in = agg; ins = ds; in_l = -1; out_r = h; add = hinit;
-        next = (Pn & NR) ? REFRESH : LEVEL;  // h = h_init + update(agg)
-      }
-      if (n)
-        mlp(mi, in, ins, in_l, out_r, ds, idx, add, n, buf0, buf1, hs,
-            d.slope, t, bar);
-      stage = next;
-    }
-
-    write_rows(o, el ? hinit : h, ds, V, S, D, t);
-    job_sync(bar);
+  // issue every load of the job at once: thread c < S reads node c's mask
+  // and level; all threads read coalesced slices of x and of the aligned
+  // 32-bit words that cover the adjacency block
+  const bool el = edgeless[(int)job / d.K] != 0;
+  bool valid = false;
+  int myl = -1;
+  if (t < S) {
+    valid = node_mask[job * S + t] != 0;
+    myl = level[job * S + t];
   }
+  float xv[X_CHUNKS];
+  const float* xj = x + job * S * F;
+#pragma unroll
+  for (int k = 0; k < X_CHUNKS; ++k) {
+    const int i = t + JOB_THREADS * k;
+    xv[k] = i < S * F ? xj[i] : 0.f;
+  }
+  const uint8_t* ab_g = adj + job * S * S;
+  const int shift = (int)((uintptr_t)ab_g & 3u);
+  const int nw = (shift + S * S + 3) >> 2;
+  const unsigned* words = reinterpret_cast<const unsigned*>(ab_g - shift);
+  unsigned aw[ADJ_CHUNKS];
+#pragma unroll
+  for (int k = 0; k < ADJ_CHUNKS; ++k) {
+    const int i = t + JOB_THREADS * k;
+    aw[k] = i < nw ? words[i] : 0u;
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::);
+  __syncthreads();
+  if (t < 32) {
+    ism[mk + t] = valid;
+    ism[lv + t] = myl;
+  }
+#pragma unroll
+  for (int k = 0; k < X_CHUNKS; ++k) {
+    const int i = t + JOB_THREADS * k, r = i / F;
+    if (i < S * F) sm[xs + r * d.xs + i - r * F] = xv[k];
+  }
+  for (int i = t + JOB_THREADS * X_CHUNKS; i < S * F; i += JOB_THREADS) {
+    const int r = i / F;
+    sm[xs + r * d.xs + i - r * F] = xj[i];
+  }
+#pragma unroll
+  for (int k = 0; k < ADJ_CHUNKS; ++k)
+    if (t + JOB_THREADS * k < nw) ism[adjw + t + JOB_THREADS * k] = (int)aw[k];
+  __syncthreads();
+
+  // every warp derives the same masks from shared memory: lane c is node c
+  const bool in_s = lane < S;
+  const unsigned V = __ballot_sync(FULL, in_s && ism[mk + lane]);  // node_mask
+  float* o = out + job * S * D;
+  if (V == 0) {
+    for (int i = t; i < S * D; i += JOB_THREADS) o[i] = 0.f;
+    return;
+  }
+  unsigned row = 0, col = 0;  // this node's children and parents
+  const int ml = in_s ? ism[lv + lane] : -1;
+  if (in_s && !el) {
+    const uint8_t* ab = reinterpret_cast<const uint8_t*>(sm + adjw) + shift;
+#pragma unroll 4
+    for (int c = 0; c < S; ++c) {
+      row |= (ab[lane * S + c] ? 1u : 0u) << c;
+      col |= (ab[c * S + lane] ? 1u : 0u) << c;
+    }
+  }
+  ism[rowm + lane] = (int)row;  // every warp writes the same masks
+  const bool upd = row != 0 && ml >= 0 && ml < d.nl;
+  const unsigned U = __ballot_sync(FULL, upd);  // nodes updated at a level
+  const unsigned leaf = __ballot_sync(FULL, in_s && row == 0);
+  // Who reads m[lane]: each parent updated at a level; a parent at a
+  // level >= ours reads it before our update (or we are never updated),
+  // one at a lower level after it.
+  unsigned par = col & U;
+  bool before = false, after = false;
+  while (par) {
+    const int q = __ffs(par) - 1;
+    par &= par - 1;
+    if (!upd || ism[lv + q] >= ml) before = true;
+    else after = true;
+  }
+  const unsigned NI = __ballot_sync(FULL, before);  // m from h0
+  const unsigned NR = __ballot_sync(FULL, after);   // m after update
+  const unsigned todo0 = U & (V | NR);              // updates we need
+  if (!el)  // h = 0 for nodes with children, until their update
+    for (int i = t; i < S * D; i += JOB_THREADS) {
+      const int p = i / D;
+      if (!((leaf >> p) & 1u)) sm[h + p * ds + i - p * D] = 0.f;
+    }
+
+  // the job's MLPs in order, through one call site: prep; the leaves'
+  // update (h0); the first messages; then per level with work, deepest
+  // first, the aggregation and update of its nodes and their new
+  // messages. An edgeless lane runs prep only and keeps h_init.
+  unsigned todo = U, Pn = 0;
+  int stage = PREP;
+  while (stage != DONE) {
+    int mi, in, ins, out_r, in_l = idx, add = -1, next, n;
+    if (stage == PREP) {
+      mi = 0; in = xs; ins = d.xs; out_r = hinit;
+      n = rows_of(el ? V : V | todo0 | (NI & leaf), idx, lane);
+      next = el ? DONE : H0;
+    } else if (stage == H0) {
+      mi = 2; in = hinit; ins = ds; out_r = h;
+      n = rows_of(leaf & (V | NI), idx, lane);
+      next = NI ? MSG0 : LEVEL;
+    } else if (stage == MSG0 || stage == REFRESH) {
+      mi = 1; in = h; ins = ds; out_r = m;
+      n = rows_of(stage == MSG0 ? NI : Pn & NR, idx, lane);
+      next = LEVEL;
+    } else {  // LEVEL: the next level with a node to update
+      Pn = 0;
+      while (todo && !Pn) {
+        const int l = __reduce_max_sync(FULL, ((todo >> lane) & 1u) ? ml : -1);
+        const unsigned P = __ballot_sync(FULL, ((todo >> lane) & 1u) && ml == l);
+        todo &= ~P;
+        Pn = P & todo0;
+      }
+      if (!Pn) break;
+      n = rows_of(Pn, idx, lane);
+      for (int i = t; i < n * D; i += JOB_THREADS) {  // agg = adj @ m
+        const int j = i / D, dd = i - j * D;
+        unsigned bits = (unsigned)ism[rowm + ism[idx + j]];
+        float acc = 0.f;
+        while (bits) {
+          const int c = __ffs(bits) - 1;
+          bits &= bits - 1;
+          acc += sm[m + c * ds + dd];
+        }
+        sm[agg + j * ds + dd] = acc;
+      }
+      __syncthreads();
+      mi = 2; in = agg; ins = ds; in_l = -1; out_r = h; add = hinit;
+      next = (Pn & NR) ? REFRESH : LEVEL;  // h = h_init + update(agg)
+    }
+    if (n)
+      mlp(mi, in, ins, in_l, out_r, ds, idx, add, n, buf0, buf1, hs, d.slope,
+          t);
+    stage = next;
+  }
+
+  write_rows(o, el ? hinit : h, ds, V, S, D, t);
 }
 
 static int fill_mlp(MlpDims* m, const int* spec, int* off) {
@@ -501,14 +483,14 @@ static int widest(const MlpDims& m) {
 // C entry point. `mlp_spec` holds prep, msg, update back to back, each as
 // (n, in[0..n-1], out[0..n-1]); `weights` packs each layer's W_T (in x
 // out, row-major) then b, in that order, zero-padded to a multiple of 4
-// floats (16-byte aligned). Launches `blocks` blocks of `jobs` x 128
-// threads, four warps per job at a time. Returns cudaGetLastError() of the
-// launch (0 on success), or -1 for dims the kernel does not take.
+// floats (16-byte aligned). Launches B*K blocks of 128 threads, one job
+// each. Returns cudaGetLastError() of the launch (0 on success), or -1
+// for dims the kernel does not take.
 extern "C" int decima_node_encoder_launch(
     const float* x, const uint8_t* adj, const int32_t* level,
     const uint8_t* node_mask, const uint8_t* edgeless, const float* weights,
     float* out, int B, int K, int S, int F, int D, int nl, float slope,
-    const int* mlp_spec, int jobs, int blocks, void* stream) {
+    const int* mlp_spec, void* stream) {
   EncDims d;
   int off = 0;
   const int* p = mlp_spec;
@@ -520,12 +502,10 @@ extern "C" int decima_node_encoder_launch(
   p += used;
   used = fill_mlp(&d.upd, p, &off);
   if (used < 0) return -1;
-  if (S < 1 || S > 32 || F < 1 || D < 1 || jobs < 1 || jobs > MAX_JOBS ||
-      blocks < 1)
-    return -1;
+  if (S < 1 || S > 32 || F < 1 || D < 1 || B < 0 || K < 0) return -1;
+  const long jobs = (long)B * K;
+  if (jobs > 0x7fffffff) return -1;
   d.S = S; d.F = F; d.D = D; d.nl = nl; d.K = K; d.slope = slope;
-  d.jobs = (long)B * K;
-  if (d.jobs > 0x7fffffff) return -1;
   d.wtotal = (off + 3) / 4 * 4;
   int hmax = widest(d.prep);
   hmax = widest(d.msg) > hmax ? widest(d.msg) : hmax;
@@ -533,10 +513,9 @@ extern "C" int decima_node_encoder_launch(
   d.xs = (F + 3) / 4 * 4;
   d.ds = (D + 3) / 4 * 4;
   d.hs = (hmax + 3) / 4 * 4;
-  d.job_floats = S * (d.xs + 4 * d.ds + 2 * d.hs) + 3 * 32 + 4 * 32 +
-                 JOB_THREADS * ADJ_CHUNKS;
-  const size_t smem = sizeof(float) * ((size_t)DIMS + d.wtotal +
-                                       (size_t)jobs * d.job_floats);
+  const size_t job_floats = (size_t)S * (d.xs + 4 * d.ds + 2 * d.hs) +
+                            3 * 32 + 4 * 32 + JOB_THREADS * ADJ_CHUNKS;
+  const size_t smem = sizeof(float) * (DIMS + d.wtotal + job_floats);
   if (smem > SMEM_MAX) return -1;
   static size_t opted_in = 48 * 1024;  // dynamic shared memory allowed so far
   if (smem > opted_in) {
@@ -546,8 +525,8 @@ extern "C" int decima_node_encoder_launch(
     if (e != cudaSuccess) return (int)e;
     opted_in = smem;
   }
-  if (d.jobs == 0) return 0;
-  decima_node_encoder_kernel<<<(unsigned)blocks, JOB_THREADS * jobs, smem,
+  if (jobs == 0) return 0;
+  decima_node_encoder_kernel<<<(unsigned)jobs, JOB_THREADS, smem,
                                (cudaStream_t)stream>>>(
       x, adj, level, node_mask, edgeless, weights, out, d);
   return (int)cudaGetLastError();

@@ -129,14 +129,6 @@ def _check(x, adj, node_level, node_mask, w: EncoderWeights) -> None:
         raise ValueError(f"weights are on {w.packed.device}, x on {x.device}")
 
 
-def launch_config(n_jobs: int) -> tuple[int, int]:
-    """(jobs per block, blocks) for `n_jobs` jobs, four warps per job:
-    one job per block. Blocks of 2 or 4 jobs share one staged copy of the
-    weights, but measured 3-5% slower at both serve shapes on an H100
-    (PERF.md), so every job gets a block of its own."""
-    return 1, max(1, n_jobs)
-
-
 @functools.cache
 def _launcher():
     """The C entry point of the built library, with its signature."""
@@ -145,7 +137,7 @@ def _launcher():
     fn = load("decima_encoder").decima_node_encoder_launch
     vp, ci = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci,
-                   ctypes.c_float, ctypes.POINTER(ci), ci, ci, vp]
+                   ctypes.c_float, ctypes.POINTER(ci), vp]
     fn.restype = ci
     return fn
 
@@ -169,7 +161,6 @@ def decima_node_encoder(x, adj, node_level, node_mask, w: EncoderWeights,
     fn = _launcher()
     d = int(w.prep[-1][0].shape[0])
     s_nl = min(num_levels, s) if num_levels else s
-    jobs, blocks = launch_config(b * k)
     edgeless = edgeless_per_lane(adj).contiguous()
     spec_c = w.spec.ctypes.data_as(ctypes.POINTER(ctypes.c_int))
     out = torch.empty((b, k, s, d), dtype=torch.float32, device=x.device)
@@ -177,7 +168,7 @@ def decima_node_encoder(x, adj, node_level, node_mask, w: EncoderWeights,
     rc = fn(x.data_ptr(), adj.data_ptr(), node_level.data_ptr(),
             node_mask.data_ptr(), edgeless.data_ptr(), w.packed.data_ptr(),
             out.data_ptr(), b, k, s, f, d, s_nl, float(negative_slope),
-            spec_c, jobs, blocks, stream)
+            spec_c, stream)
     if rc != 0:
         raise RuntimeError(
             f"decima_node_encoder launch failed (cudaGetLastError={rc})"

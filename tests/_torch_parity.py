@@ -1,6 +1,7 @@
 """Shared helpers of the PyTorch-port parity tests (`test_torch_*.py`):
 the same inputs go through the JAX package and the port, and the leaves
-are compared as numpy arrays."""
+are compared as numpy arrays. Also the seeded NodeEncoder inputs of
+`make_case`, which `chip_smoke.py` loads from this file by path."""
 
 from __future__ import annotations
 
@@ -129,3 +130,57 @@ def port_fixture_state(spec, num_executors: int):
         torch.from_numpy(mask)[None],
     )
     return params, bank, tfl.init_loop_state(state)
+
+
+# -------------------------------------------------------------------------
+# Seeded NodeEncoder inputs that stress the kernel's bookkeeping.
+#
+# `make_case(name, b, k, s, f, seed)` returns numpy arrays `x f32[b,k,s,f]`,
+# `adj bool[b,k,s,s]`, `node_level i32[b,k,s]` and `node_mask bool[b,k,s]`
+# for the checks of `decima_node_encoder` against its plain version
+# (`chip_smoke.py` on the card, `tests/test_torch_cuda.py`) and of the
+# plain version against the JAX package (`tests/test_torch_encoder.py`).
+# `adj[p, c]` is an edge from parent p to child c, as in the features.
+#
+# - ``dag``: random DAG edges (parent index below child), levels the
+#   topological generation (1 + deepest parent), every node valid but a
+#   few at the end — the shape of real features.
+# - ``random_levels``: random edges in both directions, self loops
+#   included, and levels drawn at random from 0 to S (S is the padding
+#   level), so the levels are no topological order.
+# - ``masked_children``: a DAG whose node_mask is false on about half of
+#   the nodes that have a parent: edges into nodes outside node_mask.
+# - ``dead_jobs``: a DAG where every other job's node_mask row is all
+#   false while its edges stay.
+
+CASES = ("dag", "random_levels", "masked_children", "dead_jobs")
+
+
+def _dag(rng, b, k, s, density):
+    adj = np.triu(rng.random((b, k, s, s)) < density, 1)
+    lvl = np.zeros((b, k, s), np.int32)
+    for c in range(s):  # 1 + deepest parent
+        par = np.where(adj[..., :, c], lvl + 1, 0)
+        lvl[..., c] = par.max(-1)
+    return adj, lvl
+
+
+def make_case(name: str, b: int, k: int, s: int, f: int, seed: int):
+    """(x, adj, node_level, node_mask) as numpy arrays for case `name`."""
+    if name not in CASES:
+        raise ValueError(f"unknown case {name!r}; known: {CASES}")
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, k, s, f)).astype(np.float32)
+    mask = np.ones((b, k, s), bool)
+    mask[..., s - max(1, s // 5):] = rng.random((b, k, max(1, s // 5))) < 0.5
+    if name == "random_levels":
+        adj = rng.random((b, k, s, s)) < 0.15
+        lvl = rng.integers(0, s + 1, (b, k, s)).astype(np.int32)
+        return x, adj, lvl, mask
+    adj, lvl = _dag(rng, b, k, s, 0.2)
+    if name == "masked_children":
+        has_parent = adj.any(-2)
+        mask &= ~(has_parent & (rng.random((b, k, s)) < 0.5))
+    elif name == "dead_jobs":
+        mask[:, 1::2] = False
+    return x, adj, lvl, mask

@@ -1,8 +1,8 @@
 """The port's CUDA kernel against its plain version on the card (needs
 an NVIDIA card; skips elsewhere), on random DAGs and on the seeded
-adversarial inputs of `kernels/encoder_cases.py`, from a single job to
-more blocks than the card holds at once, within 1e-5. Run there with
-`python -m pytest --noconftest -m cuda tests/test_torch_cuda.py`
+adversarial inputs of `make_case` (`tests/_torch_parity.py`), from a
+single job to more blocks than the card holds at once, within 1e-5. Run
+there with `python -m pytest --noconftest -m cuda tests/test_torch_cuda.py`
 (`--noconftest`: the suite's conftest imports JAX, which the card's
 machine need not have)."""
 
@@ -14,10 +14,10 @@ import torch
 from sparksched_tpu_torch.kernels.decima_encoder import (
     decima_node_encoder,
     decima_node_encoder_ref,
-    launch_config,
     pack_weights,
 )
-from sparksched_tpu_torch.kernels.encoder_cases import CASES, make_case
+
+from ._torch_parity import CASES, make_case
 
 pytestmark = pytest.mark.cuda
 
@@ -79,8 +79,6 @@ def test_kernel_matches_plain_version_on_adversarial_cases(card, b, k, case,
                      _layers(gen, [16, 32, 16, 16], card),
                      _layers(gen, [16, 32, 16, 16], card))
     ins = [torch.from_numpy(a).to(card) for a in (x, adj, lvl, mask)]
-    jobs, blocks = launch_config(b * k)
-    assert (blocks - 1) * jobs < b * k <= blocks * jobs
     out = decima_node_encoder(*ins, w, num_levels, 0.2)
     torch.cuda.synchronize()
     ref = decima_node_encoder_ref(*ins, w, num_levels, 0.2)
