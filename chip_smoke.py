@@ -6,11 +6,16 @@
 Builds the port's CUDA kernels from `sparksched_tpu_torch/csrc/` with
 nvcc, holds each against its plain PyTorch version on the card, then
 drives the port's main path — Decima decisions served by
-`SessionStore(device="cuda")` at the flagship shape of
+`SessionStore(device="cuda")` at its default engine knobs (`SERVE_KNOBS`:
+the bulk event passes on) at the flagship shape of
 `config/decima_tpch.yaml` (50 executors, 200-job cap, 20 stage slots;
 capacity 64 and max_batch 8 from the config's documented `serve:`
 block) — and checks it: every health mask 0, every served action valid,
 and the card's decisions equal to the CPU port's on the same sessions.
+The earlier path, the store with the bulk knobs off, is served at a
+smaller depth beside it, and whole fair-policy episodes run through
+`run_flat` (16 lanes, the config's sequences x rollouts, auto-reset)
+with the card's lanes held against the CPU port's.
 
 The kernel is held against its plain version on the serve path's own
 inputs and on the seeded adversarial inputs of `make_case` in
@@ -18,6 +23,13 @@ inputs and on the seeded adversarial inputs of `make_case` in
 topological order, edges into nodes outside node_mask, jobs with no
 valid node but with edges, `num_levels` 3, job counts from a single
 job to more blocks than the card holds at once; one block per job).
+
+Phases, in order: `build`, `kernel_vs_plain`, `serve` (the main path,
+8 x 64 decisions at SERVE_KNOBS), `serve_knobs_off` (2 x 64),
+`card_vs_cpu` (4 sessions x 16 decisions at SERVE_KNOBS), `run_flat_fair`
+(16 lanes x 256 groups, two lanes replayed on the CPU) and
+`kernel_alone`. The serve phases report decisions/s, p50/p99
+`decide_batch` ms and drain iterations per call.
 
 Each phase prints one JSON line. Before the last line come the
 `{"kernels": [...]}` line (per kernel: launches on the main path,
@@ -45,7 +57,12 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(HERE, "config", "decima_tpch.yaml")
 CAPACITY, MAX_BATCH = 64, 8  # the config's documented serve: block
 ROUNDS = 8  # ROUNDS x CAPACITY decisions through decide_batch
+ROUNDS_OFF = 2  # the same with the bulk knobs off (the earlier path)
+KNOBS_OFF = {"event_bulk": False, "fulfill_bulk": False}
 PARITY_SESSIONS, PARITY_DECISIONS = 4, 16
+FLAT_GROUPS = 256  # run_flat micro-step groups (event_burst 1)
+FLAT_CPU_LANES = 2  # lanes of the run_flat phase replayed on the CPU
+FLAT_RTOL = 1e-6
 # Random-init weights are scaled by 0.3: at flax's init scale the Tanh
 # policy heads saturate at the flagship's feature magnitudes and some
 # greedy choices tie below float32 resolution, which would make the
@@ -247,6 +264,7 @@ def phase_kernels(params, bank, sched) -> tuple[dict, dict]:
     from sparksched_tpu_torch.schedulers.decima import compact_features
     from sparksched_tpu_torch.serve import SessionStore
 
+    t_phase = time.perf_counter()
     # real flagship-shape sessions, a few decisions into their episodes
     store = SessionStore(params, bank, sched, capacity=MAX_BATCH,
                          max_batch=MAX_BATCH, seed=7, device="cuda")
@@ -294,7 +312,8 @@ def phase_kernels(params, bank, sched) -> tuple[dict, dict]:
             raise AssertionError(f"decima_node_encoder {name}: max abs err "
                                  f"{err} > {TOL}")
     emit({"phase": "kernel_vs_plain", "kernel": "decima_node_encoder",
-          "tolerance": TOL, "cases": cases})
+          "tolerance": TOL, "cases": cases,
+          "seconds": time.perf_counter() - t_phase})
     return cases, calls
 
 
@@ -332,42 +351,70 @@ def _check_results(results, sched_before, params) -> None:
                                      f"{r.num_exec}")
 
 
-def phase_serve(params, bank, sched, device: str = "cuda") -> dict:
+class DrainCount:
+    """Counts drain iterations (`flat_loop.drain_micro_step` calls) while
+    active; restores the function on exit."""
+
+    def __enter__(self):
+        from sparksched_tpu_torch.env import flat_loop
+
+        self.n, self._fl = 0, flat_loop
+        self._orig = flat_loop.drain_micro_step
+
+        def counted(*a, **k):
+            self.n += 1
+            return self._orig(*a, **k)
+
+        flat_loop.drain_micro_step = counted
+        return self
+
+    def __exit__(self, *exc):
+        self._fl.drain_micro_step = self._orig
+
+
+def phase_serve(params, bank, sched, name: str, knobs, rounds: int,
+                device: str = "cuda") -> dict:
+    """`rounds` x CAPACITY decisions through `decide_batch` on a store
+    built with `knobs` (None: its default, SERVE_KNOBS), then a few
+    `decide` and `step` calls; the encoder's launches are counted from 0
+    over this phase alone."""
     import numpy as np
     import torch
 
     from sparksched_tpu_torch.kernels.decima_encoder import decima_node_encoder
     from sparksched_tpu_torch.serve import SessionStore
 
-    t0 = time.perf_counter()
+    t_phase = time.perf_counter()
     store = SessionStore(params, bank, sched, capacity=CAPACITY,
-                         max_batch=MAX_BATCH, seed=0, device=device)
+                         max_batch=MAX_BATCH, seed=0, knobs=knobs,
+                         device=device)
     sids = [store.create() for _ in range(CAPACITY)]
     if device == "cuda":
         torch.cuda.synchronize()
-    setup_s = time.perf_counter() - t0
+    setup_s = time.perf_counter() - t_phase
 
     def sched_rows(batch):
         idx = torch.tensor(batch, device=device)
         return store.store.env.schedulable[idx].reshape(len(batch), -1).cpu()
 
-    decima_node_encoder.launches = 0  # count the main path's launches only
+    decima_node_encoder.launches = 0  # count this phase's launches only
     batch_ms, decisions, restarts = [], 0, 0
     t_serve = time.perf_counter()
-    for _ in range(ROUNDS):
-        for g in range(CAPACITY // MAX_BATCH):
-            batch = sids[g * MAX_BATCH:(g + 1) * MAX_BATCH]
-            before = sched_rows(batch)
-            t = time.perf_counter()
-            results = store.decide_batch(batch)
-            batch_ms.append((time.perf_counter() - t) * 1e3)
-            _check_results(results, before, params)
-            decisions += sum(r.decided for r in results)
-            for i, r in enumerate(results):
-                if r.done:  # a finished episode: its tenant starts anew
-                    store.close(r.session_id)
-                    sids[g * MAX_BATCH + i] = store.create()
-                    restarts += 1
+    with DrainCount() as drains:
+        for _ in range(rounds):
+            for g in range(CAPACITY // MAX_BATCH):
+                batch = sids[g * MAX_BATCH:(g + 1) * MAX_BATCH]
+                before = sched_rows(batch)
+                t = time.perf_counter()
+                results = store.decide_batch(batch)
+                batch_ms.append((time.perf_counter() - t) * 1e3)
+                _check_results(results, before, params)
+                decisions += sum(r.decided for r in results)
+                for i, r in enumerate(results):
+                    if r.done:  # a finished episode: its tenant starts anew
+                        store.close(r.session_id)
+                        sids[g * MAX_BATCH + i] = store.create()
+                        restarts += 1
     serve_s = time.perf_counter() - t_serve
     batch_launches = decima_node_encoder.launches
     decide_launches = step_launches = 0
@@ -386,22 +433,25 @@ def phase_serve(params, bank, sched, device: str = "cuda") -> dict:
     launches = decima_node_encoder.launches
     if device == "cuda" and launches <= 0:
         raise AssertionError("the serve path launched no decima_node_encoder")
-    if decisions < ROUNDS * CAPACITY * 0.9:
+    if decisions < rounds * CAPACITY * 0.9:
         raise AssertionError(f"only {decisions} decisions were served")
     ms = np.array(batch_ms)
     out = {
-        "phase": "serve", "capacity": CAPACITY, "max_batch": MAX_BATCH,
-        "rounds": ROUNDS, "decide_batch_calls": len(batch_ms),
-        "decisions": decisions, "decide_calls": extra, "step_calls": extra,
+        "phase": name, "knobs": store.knobs, "capacity": CAPACITY,
+        "max_batch": MAX_BATCH, "rounds": rounds,
+        "decide_batch_calls": len(batch_ms), "decisions": decisions,
+        "decide_calls": extra, "step_calls": extra,
         "episode_restarts": restarts, "setup_s": setup_s,
         "decisions_per_s": decisions / serve_s,
         "decide_batch_ms_p50": float(np.percentile(ms, 50)),
         "decide_batch_ms_p99": float(np.percentile(ms, 99)),
+        "drain_iters_per_decide_batch": drains.n / len(batch_ms),
         "encoder_launches": launches,
         "encoder_launches_per_decide_batch": batch_launches / len(batch_ms),
         "encoder_launches_per_decide": decide_launches / extra,
         "encoder_launches_per_step": step_launches / extra,
-        "card": card_line(),
+        "seconds": time.perf_counter() - t_phase,
+        "card": card_line() if device == "cuda" else "cpu",
     }
     emit(out)
     return out
@@ -413,10 +463,13 @@ def phase_serve(params, bank, sched, device: str = "cuda") -> dict:
 
 
 def phase_parity(agent, sched_cuda) -> None:
+    """The card's decisions against the CPU port's at SERVE_KNOBS on the
+    same sessions: integer fields equal, floats within TOL."""
     import numpy as np
 
-    from sparksched_tpu_torch.serve import SessionStore
+    from sparksched_tpu_torch.serve import SERVE_KNOBS, SessionStore
 
+    t_phase = time.perf_counter()
     results = {}
     for dev in ("cuda", "cpu"):
         params, bank, _ = flagship(dev)
@@ -427,20 +480,117 @@ def phase_parity(agent, sched_cuda) -> None:
         results[dev] = [r for _ in range(PARITY_DECISIONS)
                         for r in store.decide_batch(sids)]
     worst = 0.0
-    for a, b in zip(results["cuda"], results["cpu"]):
+    for i, (a, b) in enumerate(zip(results["cuda"], results["cpu"])):
         for k in ("stage_idx", "job_idx", "num_exec", "decided", "done",
                   "health_mask"):
             if getattr(a, k) != getattr(b, k):
-                raise AssertionError(f"card vs CPU: {k} differs: "
+                raise AssertionError(f"card vs CPU: decision {i}: first "
+                                     f"diverging field {k}: "
                                      f"{a.to_dict()} vs {b.to_dict()}")
         for k in ("lgprob", "reward", "dt", "wall_time"):
             x, y = getattr(a, k), getattr(b, k)
             if not np.isclose(x, y, rtol=TOL, atol=TOL):
-                raise AssertionError(f"card vs CPU: {k} {x} vs {y}")
+                raise AssertionError(f"card vs CPU: decision {i}: first "
+                                     f"diverging field {k}: {x} vs {y}")
             worst = max(worst, abs(x - y) / max(abs(y), 1.0))
-    emit({"phase": "card_vs_cpu", "sessions": PARITY_SESSIONS,
-          "decisions": len(results["cpu"]), "tolerance": TOL,
-          "worst_rel_err": worst})
+    emit({"phase": "card_vs_cpu", "knobs": SERVE_KNOBS,
+          "sessions": PARITY_SESSIONS, "decisions": len(results["cpu"]),
+          "tolerance": TOL, "worst_rel_err": worst,
+          "seconds": time.perf_counter() - t_phase})
+
+
+# ---------------------------------------------------------------------------
+# phase 5: whole fair-policy episodes through run_flat
+# ---------------------------------------------------------------------------
+
+
+def run_flat_fair(params, bank, lanes: int, device: str, lane_ids=None):
+    """`run_flat` under the fair policy at the serve engine's knobs (bulk
+    fulfillment on), auto-reset, FLAT_GROUPS groups, from `lanes` seeded
+    resets; `lane_ids` runs only those lanes. Returns (final LoopState,
+    seconds)."""
+    import torch
+
+    from sparksched_tpu_torch import prng
+    from sparksched_tpu_torch.env import core, flat_loop
+    from sparksched_tpu_torch.schedulers import round_robin_policy
+    from sparksched_tpu_torch.serve import SERVE_KNOBS
+
+    keys = prng.split(prng.PRNGKey(SEED, device), 2)
+    reset_keys = prng.split(keys[0], lanes)
+    run_keys = prng.split(keys[1], lanes)
+    if lane_ids is not None:
+        reset_keys, run_keys = reset_keys[lane_ids], run_keys[lane_ids]
+
+    def fair(rng, obs):
+        si, ne = round_robin_policy(obs, params.num_executors, True)
+        return si, ne, {}
+
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t = time.perf_counter()
+    ls = flat_loop.run_flat(
+        params, bank, fair, run_keys, FLAT_GROUPS,
+        core.reset(params, bank, reset_keys), auto_reset=True,
+        **(SERVE_KNOBS | {"fulfill_bulk": True}),
+    )
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return ls, time.perf_counter() - t
+
+
+def phase_run_flat() -> None:
+    import torch
+
+    from sparksched_tpu_torch.config import load
+    from sparksched_tpu_torch.env import flat_loop
+    from sparksched_tpu_torch.env.health import state_health
+
+    cfg = load(CONFIG)
+    lanes = (int(cfg["trainer"]["num_sequences"])
+             * int(cfg["trainer"]["num_rollouts"]))
+    params, bank, _ = flagship("cuda")
+    ls, secs = run_flat_fair(params, bank, lanes, "cuda")
+    hm = state_health(ls.env)
+    if bool((hm != 0).any()):
+        raise AssertionError(f"run_flat: health masks {hm.tolist()}")
+    env = ls.env
+    done = env.job_arrived & torch.isfinite(env.job_t_completed)
+    dur = (env.job_t_completed - env.job_arrival_time)[done]
+    micro = lanes * FLAT_GROUPS
+    out = {
+        "phase": "run_flat_fair", "lanes": lanes, "groups": FLAT_GROUPS,
+        "micro_steps": micro, "seconds": secs, "micro_steps_per_s": micro / secs,
+        "decisions": int(ls.decisions.sum()),
+        "decisions_per_s": int(ls.decisions.sum()) / secs,
+        "bulked_events": int(ls.bulked.sum()),
+        "completed_episodes": int(ls.episodes.sum()),
+        "completed_jobs": int(done.sum()),
+        "avg_job_duration_completed_ms":
+            float(dur.mean()) if dur.numel() else None,
+        "health_masks_zero": True,
+    }
+    # the same lanes on the CPU port: every LoopState leaf
+    ids = torch.arange(FLAT_CPU_LANES)
+    cparams, cbank, _ = flagship("cpu")
+    cls, csecs = run_flat_fair(cparams, cbank, lanes, "cpu", ids)
+    for (name, a), (_, b) in zip(flat_loop.leaves(ls), flat_loop.leaves(cls)):
+        a = a[ids.to(a.device)].cpu()
+        if a.dtype.is_floating_point:
+            same = (torch.equal(torch.isinf(a), torch.isinf(b))
+                    and torch.equal(a[torch.isinf(a)], b[torch.isinf(b)])
+                    and torch.allclose(a[torch.isfinite(a)],
+                                       b[torch.isfinite(b)],
+                                       rtol=FLAT_RTOL, atol=0))
+        else:
+            same = torch.equal(a, b)
+        if not same:
+            raise AssertionError(f"run_flat card vs CPU: first diverging "
+                                 f"leaf {name}")
+    out.update({"card_vs_cpu_lanes": FLAT_CPU_LANES, "cpu_seconds": csecs,
+                "card_vs_cpu_rtol": FLAT_RTOL, "card_vs_cpu": "equal",
+                "card": card_line()})
+    emit(out)
 
 
 def main() -> int:
@@ -460,6 +610,7 @@ def main() -> int:
         print("chip_smoke: sparksched_tpu_torch is not the checkout's",
               file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     try:
         emit({"phase": "env", "python": sys.version.split()[0],
               "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -468,12 +619,16 @@ def main() -> int:
         params, bank, agent = flagship("cuda")
         sched = make_scheduler(params, agent, "cuda")
         cases, calls = phase_kernels(params, bank, sched)
-        serve = phase_serve(params, bank, sched)
+        serve = phase_serve(params, bank, sched, "serve", None, ROUNDS)
+        phase_serve(params, bank, sched, "serve_knobs_off", KNOBS_OFF,
+                    ROUNDS_OFF)
         phase_parity(agent, sched)
+        phase_run_flat()
         phase_kernel_alone(cases, calls)
     except Exception:
         traceback.print_exc()
         return 1
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     main_case = cases["B8_K32"]
     emit({"kernels": [{
         "name": "decima_node_encoder",

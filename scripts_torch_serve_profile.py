@@ -2,12 +2,15 @@
 """Where a served decision's time goes in the PyTorch port, on one card.
 
     python3 scripts_torch_serve_profile.py [--calls 8] [--trace DIR]
+                                           [--knobs serve|off]
                                            [--device cuda]
 
 Builds the flagship-shape `SessionStore(device="cuda")` exactly as
-`chip_smoke.py` does (64 sessions, max_batch 8, seeded weights), warms
-it up, then times `--calls` `decide_batch` calls three ways and prints
-one JSON line each:
+`chip_smoke.py` does (64 sessions, max_batch 8, seeded weights) at the
+store's default engine knobs (`--knobs serve`: `SERVE_KNOBS`, the bulk
+event passes on) or with the bulk knobs off (`--knobs off`: the
+sequential engine), warms it up, then times `--calls` `decide_batch`
+calls three ways and prints one JSON line each:
 
 - `split`: wall time per call, split into the policy (observe, features,
   Decima net with the NodeEncoder kernel, greedy head) and the engine
@@ -49,8 +52,10 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--calls", type=int, default=8)
     ap.add_argument("--trace", default=None)
+    ap.add_argument("--knobs", choices=("serve", "off"), default="serve")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args()
+    knobs = None if args.knobs == "serve" else cs.KNOBS_OFF
     dev = args.device
     on_card = dev == "cuda"
 
@@ -61,7 +66,8 @@ def main() -> int:
     params, bank, agent = cs.flagship(dev)
     sched = cs.make_scheduler(params, agent, dev)
     store = SessionStore(params, bank, sched, capacity=cs.CAPACITY,
-                         max_batch=cs.MAX_BATCH, seed=0, device=dev)
+                         max_batch=cs.MAX_BATCH, seed=0, knobs=knobs,
+                         device=dev)
     sids = [store.create() for _ in range(cs.CAPACITY)]
     groups = [sids[i:i + cs.MAX_BATCH]
               for i in range(0, cs.CAPACITY, cs.MAX_BATCH)]
@@ -99,7 +105,7 @@ def main() -> int:
     flat_loop.drain_micro_step = orig_drain
     card = cs.card_line() if on_card else "cpu"
     print(json.dumps({
-        "phase": "split", "calls": args.calls,
+        "phase": "split", "knobs": store.knobs, "calls": args.calls,
         "wall_ms_per_call": wall / args.calls * 1e3,
         "policy_ms_per_call": timers["policy_s"] / args.calls * 1e3,
         "engine_ms_per_call": timers["engine_s"] / args.calls * 1e3,
@@ -129,7 +135,7 @@ def main() -> int:
     host = prof.key_averages()
     top_host = sorted(host, key=lambda a: -a.cpu_time_total)[:8]
     print(json.dumps({
-        "phase": "profile", "calls": args.calls,
+        "phase": "profile", "knobs": args.knobs, "calls": args.calls,
         "wall_ms_per_call": wall / args.calls * 1e3,
         "device_busy_ms_per_call": busy_us / 1e3 / args.calls,
         "device_idle_share": 1.0 - busy_us / 1e6 / wall,
@@ -161,7 +167,7 @@ def main() -> int:
         store.decide_batch(groups[0])
     flat_loop.drain_micro_step = orig_drain
     print(json.dumps({
-        "phase": "launches", "torch_ops_per_call": c.n,
+        "phase": "launches", "knobs": args.knobs, "torch_ops_per_call": c.n,
         "drain_iters": iters[0],
         "torch_ops_per_drain_iter": c.n / max(iters[0], 1),
     }), flush=True)

@@ -1,21 +1,24 @@
-"""Flat micro-step engine, serving subset (counterpart of
+"""Flat micro-step engine (counterpart of
 `sparksched_tpu/env/flat_loop.py`).
 
 The JAX package flattens the simulation into DECIDE / FULFILL / EVENT
-micro-steps so that vmapped lanes advance in lockstep. This module ports
-the pieces that the serving path runs: one precomputed decision applied
-(`decide_micro_step`) and the lane drained to its next decision point
-(`drain_to_decision`), joined in `apply_and_drain`. Every function takes
-a lane batch (leading `[B]` axis). A `lax.while_loop` becomes a Python
-loop that runs while any lane's condition holds and keeps the others
-unchanged (the vmapped while's per-lane carry select); a `lax.switch`
-over the mode becomes the branches applied in turn, each masked to its
-own lanes, since each masked branch is an exact no-op elsewhere.
+micro-steps so that vmapped lanes advance in lockstep: `micro_step` (a
+policy-bearing step of any mode), `event_micro_step` (EVENT lanes only),
+`decide_micro_step` (one precomputed decision) and `drain_micro_step` /
+`drain_to_decision` (everything up to the next decision), with
+`apply_and_drain` for serving and `run_flat` for whole episodes. The
+engine knobs (`event_bulk`, `bulk_events`, `fulfill_bulk`,
+`bulk_cycles`, `bulk_fused`) select the bulk passes of `core` as in the
+JAX package, with its defaults per function.
 
-Only `auto_reset=False` is ported (serving freezes a finished lane), and
-only the sequential engine (`event_bulk=False, fulfill_bulk=False`).
-`micro_step`, `run_flat` and the trajectory ring wait for the training
-slice.
+Every function takes a lane batch (leading `[B]` axis) and one key per
+lane (`[B,2]`) where the JAX package takes one per vmapped lane. A
+`lax.while_loop` becomes a Python loop that runs while any lane's
+condition holds and keeps the others unchanged (the vmapped while's
+per-lane carry select); a `lax.switch` over the mode becomes the
+branches applied in turn, each masked to its own lanes; a `lax.scan`
+over groups becomes a Python loop. The trajectory records
+(`record=True`), `reset_fn` and telemetry are not ported.
 """
 
 from __future__ import annotations
@@ -24,37 +27,34 @@ import dataclasses
 
 import torch
 
+from .. import prng
 from ..config import EnvParams
 from ..workload.bank import WorkloadBank
 from . import core
 from .core import (
     RQ_NONE,
-    _add_commitment,
     _apply_action,
+    _bulk_events_fused,
+    _bulk_fulfill,
+    _bulk_ready,
+    _bulk_relaunch,
+    _clear_round,
+    _commit_decision,
     _commit_remaining,
     _compute_jobtime,
-    _full,
     _fulfill_commitment_phase_a,
+    _full,
     _g,
-    _handle_executor_ready,
-    _handle_job_arrival,
-    _handle_task_finished,
     _has_pending_event,
-    _move_idle_from_pool,
-    _next_event,
-    _onehot2,
+    _pop_event,
     _rank_order,
     _resolve_action,
+    _round_tail,
     _w,
-    find_schedulable,
+    select_env,
 )
-from .state import (
-    BIG_SEQ,
-    EV_EXECUTOR_READY,
-    EV_JOB_ARRIVAL,
-    EV_TASK_FINISHED,
-    EnvState,
-)
+from .observe import observe
+from .state import BIG_SEQ, EnvState
 
 _i32 = torch.int32
 
@@ -119,15 +119,6 @@ def select(m: torch.Tensor, a: LoopState, b: LoopState) -> LoopState:
     return tree_map(lambda x, y: _w(m, x, y), a, b)
 
 
-def select_env(m: torch.Tensor, a: EnvState, b: EnvState) -> EnvState:
-    if bool(m.all()):
-        return a
-    return EnvState(**{
-        f.name: _w(m, getattr(a, f.name), getattr(b, f.name))
-        for f in dataclasses.fields(EnvState)
-    })
-
-
 def take_slot(store: LoopState, idx: torch.Tensor) -> LoopState:
     """Sessions `idx` ([K] slot indices) gathered from a [C]-stacked
     store (a copy)."""
@@ -163,70 +154,67 @@ def _lane_done(env: EnvState) -> torch.Tensor:
     return env.all_jobs_complete | (env.wall_time >= env.time_limit)
 
 
-def _clear_round(st: EnvState, en: torch.Tensor) -> EnvState:
-    return st.replace(
-        source_valid=st.source_valid & ~en,
-        source_job=_w(en, -1, st.source_job),
-        source_stage=_w(en, -1, st.source_stage),
-        stage_selected=st.stage_selected & ~en[:, None, None],
-        round_ready=st.round_ready & ~en,
-        schedulable=st.schedulable & ~en[:, None, None],
-    )
+def _reset_key(rng: torch.Tensor, auto_reset: bool):
+    """The reset key of a micro-step's `split(rng)`; only an auto-reset
+    reads it, so without one the split is skipped (nothing observes
+    it)."""
+    return prng.split(rng)[:, 1] if auto_reset else None
 
 
-def _pop_event(params: EnvParams, st: EnvState, enabled: torch.Tensor):
-    """Pop + handle one event on the lanes in `enabled` that have one.
-    Returns (state, req_kind, rj, rs, event_arg, quirk, popped, kind)."""
-    has, t, kind, arg = _next_event(params, st)
-    popped = enabled & has
-    st = st.replace(wall_time=torch.where(popped, t, st.wall_time))
-    quirk = torch.where(popped, st.source_job_id(), -1)
-    rk = _full(arg, RQ_NONE)
-    rj = _full(arg, -1)
-    rs = _full(arg, -1)
-    for k, handler in (
-        (EV_JOB_ARRIVAL, _handle_job_arrival),
-        (EV_TASK_FINISHED, _handle_task_finished),
-        (EV_EXECUTOR_READY, _handle_executor_ready),
-    ):
-        on = popped & (kind == k)
+def _bulk_cycle_chain(params: EnvParams, bank: WorkloadBank, env: EnvState,
+                      is_event: torch.Tensor, bulk_events: int,
+                      bulk_cycles: int, bulk_fused: bool = True):
+    """`bulk_cycles` chained bulk passes on the lanes in `is_event`: each
+    cycle one `_bulk_events_fused` pass, or without `bulk_fused` the
+    relaunch cascade and the arrival burst. A cycle after the first runs
+    only where the between-event tail it skips would be a no-op
+    (`num_committable() == 0`, wall clock inside the episode limit).
+    A pass that no lane runs is skipped: it would change nothing.
+    Returns (env, events consumed[B])."""
+    nb = _full(env.wall_time, 0)
+    for i in range(bulk_cycles):
+        on = is_event if i == 0 else (
+            is_event
+            & (env.num_committable() == 0)
+            & (env.wall_time < env.time_limit)
+        )
         if not bool(on.any()):
             continue
-        st, rk_k, rj_k, rs_k = handler(st, arg, on)
-        rk = torch.where(on, rk_k, rk)
-        rj = torch.where(on, rj_k, rj)
-        rs = torch.where(on, rs_k, rs)
-    return st, rk, rj, rs, arg, quirk.to(_i32), popped, kind
+        if bulk_fused:
+            env, nb1, nb2 = _bulk_events_fused(
+                params, bank, env, on, stop_at_limit=True,
+                max_events=bulk_events,
+            )
+        else:
+            env, nb1 = _bulk_relaunch(
+                params, bank, env, on, stop_at_limit=True,
+                max_events=bulk_events,
+            )
+            # never past an episode-limit crossing the cascade committed
+            env, nb2 = _bulk_ready(
+                params, bank, env, on & (env.wall_time < env.time_limit),
+                stop_at_limit=True,
+            )
+        nb = nb + nb1 + nb2
+    return env, nb
 
 
-def _apply_decision(params: EnvParams, ls: LoopState, stage_idx, num_exec
-                    ) -> LoopState:
-    """core.step's front half for one precomputed decision per lane:
-    commit (or round finish), fulfillment-phase setup, mode bookkeeping."""
-    st = ls.env
-    s_cap = params.max_stages
-    j = torch.div(stage_idx, s_cap, rounding_mode="floor").to(_i32)
-    s = torch.remainder(stage_idx, s_cap).to(_i32)
-    valid = (
-        (stage_idx >= 0)
-        & (stage_idx < params.num_nodes)
-        & _g(st.schedulable, j, s)
+def _fused_pop_gate(env: EnvState, nb: torch.Tensor) -> torch.Tensor:
+    """May a micro-step still pop the run-cutting event after its bulk
+    passes consumed `nb` events? Always when nothing was bulked; after a
+    bulk only when the skipped between-event tail is a no-op."""
+    return (nb == 0) | (
+        (env.num_committable() == 0) & (env.wall_time < env.time_limit)
     )
 
-    # do_commit on valid lanes, _commit_remaining on the others
-    committable = st.num_committable()
-    nn = torch.minimum(torch.clamp_min(num_exec, 1), committable)
-    nn = torch.minimum(nn, _g(st.exec_demand, j, s)).to(_i32)
-    st = _add_commitment(st, nn, j, s, valid)
-    j_cap, s_cap2 = st.stage_selected.shape[1:]
-    sel = _onehot2(j_cap, s_cap2, j, s) & valid[:, None, None]
-    st = st.replace(stage_selected=st.stage_selected | sel)
-    st = st.replace(schedulable=torch.where(
-        valid[:, None, None],
-        find_schedulable(params, st, st.source_job_id()), st.schedulable,
-    ))
-    st = _commit_remaining(st, ~valid)
 
+def _apply_decision(params: EnvParams, ls: LoopState, stage_idx, num_exec,
+                    fulfill_bulk: bool) -> LoopState:
+    """core.step's front half for one precomputed decision per lane:
+    commit (or round finish), fulfillment-phase setup, mode bookkeeping.
+    With `fulfill_bulk` a finished round always enters FULFILL: the
+    shared tail runs the bulk fulfillment and clears it."""
+    st = _commit_decision(params, ls.env, stage_idx, num_exec)
     round_continues = (st.num_committable() > 0) & st.schedulable.any((1, 2))
     fin = ~round_continues
     # finish: commit the rest, order the idle executors and the slots
@@ -242,8 +230,11 @@ def _apply_decision(params: EnvParams, ls: LoopState, stage_idx, num_exec
         & (st.cm_src_stage == st.source_stage[:, None])
     )
     slot_order = _rank_order(torch.where(match, st.cm_seq, BIG_SEQ))
-    complete = fin & (num_idle <= 0)
-    st = _clear_round(st, complete)
+    if fulfill_bulk:
+        complete = torch.zeros_like(fin)
+    else:
+        complete = fin & (num_idle <= 0)
+        st = _clear_round(st, complete)
     mode = torch.where(
         round_continues, M_DECIDE,
         torch.where(complete, M_EVENT, M_FULFILL),
@@ -283,44 +274,65 @@ def _fulfill_branch(ls: LoopState, en: torch.Tensor):
     return ls, rk, rj, rs, e, quirk
 
 
-def _event_branch(params: EnvParams, ls: LoopState, en: torch.Tensor):
-    """One event pop + handling on the lanes in `en` (EVENT mode).
+def _event_branch(params: EnvParams, ls: LoopState, en: torch.Tensor,
+                  nb: torch.Tensor):
+    """One event pop + handling on the lanes in `en` (EVENT mode), gated
+    by `_fused_pop_gate` over the `nb` events the bulk passes consumed.
     Returns (ls, rk, rj, rs, e, quirk)."""
-    st, rk, rj, rs, arg, quirk, _, _ = _pop_event(params, ls.env, en)
+    st, rk, rj, rs, arg, quirk, _, _ = _pop_event(
+        params, ls.env, en & _fused_pop_gate(ls.env, nb)
+    )
     return ls.replace(env=st), rk, rj, rs, arg, quirk
 
 
+def _work_branches(params: EnvParams, ls: LoopState, is_ful, is_ev, nb,
+                   quirk):
+    """The FULFILL and EVENT branches, each masked to its own lanes, and
+    the move request of every lane's branch: (ls, rk, rj, rs, e, quirk).
+    A lane in neither mode keeps `quirk` and requests nothing."""
+    ls, rk, rj, rs, e, quirk_f = _fulfill_branch(ls, is_ful)
+    quirk = torch.where(is_ful, quirk_f, quirk)
+    ls, rk_e, rj_e, rs_e, arg, quirk_e = _event_branch(params, ls, is_ev, nb)
+    rk = torch.where(is_ev, rk_e, rk)
+    rj = torch.where(is_ev, rj_e, rj)
+    rs = torch.where(is_ev, rs_e, rs)
+    e = torch.where(is_ev, arg, torch.where(is_ful, e, 0)).to(_i32)
+    quirk = torch.where(is_ev, quirk_e, quirk)
+    return ls, rk, rj, rs, e, quirk
+
+
 def _finish_micro_step(params: EnvParams, bank: WorkloadBank, ls: LoopState,
-                       ls2: LoopState, rk, rj, rs, e, quirk, t_ref):
-    """Shared micro-step tail: move resolution/application, round
-    clearing and readiness, the frozen-lane rollback of `auto_reset=False`.
-    `ls` is the pre-step state, `ls2` the state after the mode branch.
-    Returns (ls, (reward, dt, reset)) — the JAX `record=True` form."""
+                       ls2: LoopState, rk, rj, rs, e, quirk, t_ref,
+                       k_reset=None, auto_reset: bool = False,
+                       fulfill_bulk: bool = False):
+    """Shared micro-step tail: the bulk fulfillment of a round that just
+    finished (`fulfill_bulk`), move resolution/application, round
+    clearing and readiness, episode end. `ls` is the pre-step state
+    (pre-bulk: a lane frozen by `auto_reset=False` goes back to exactly
+    it), `ls2` the state after the mode branch. With `auto_reset`, a
+    lane whose episode ended restarts from `core.reset` on its key of
+    `k_reset`. Returns (ls, (reward, dt, reset)) — the JAX `record=True`
+    form, measured on the pre-reset state."""
     st = ls2.env
+    if fulfill_bulk:
+        want = (ls.mode == M_DECIDE) & (ls2.mode == M_FULFILL)
+        if bool(want.any()):  # else the pass would change nothing
+            ni = torch.where(want, ls2.num_idle, 0)
+            st, k0 = _bulk_fulfill(params, bank, st, ni, ls2.exec_order,
+                                   ls2.slot_order)
+            complete = want & (k0 >= ls2.num_idle)
+            st = _clear_round(st, complete)
+            ls2 = ls2.replace(
+                fulfill_k=torch.where(want, k0, ls2.fulfill_k).to(_i32),
+                mode=torch.where(complete, M_EVENT, ls2.mode).to(_i32),
+            )
+
     ak, tj, ts = _resolve_action(params, st, rk, e, rj, rs, quirk)
     st = _apply_action(params, bank, st, ak, e, tj, ts)
 
     fulfill_done = (ls.mode == M_FULFILL) & (ls2.fulfill_k >= ls2.num_idle)
     st = _clear_round(st, fulfill_done)
-
-    is_event = ls.mode == M_EVENT
-    committable = st.num_committable()
-    sched = find_schedulable(params, st, st.source_job_id())
-    ready = is_event & (committable > 0) & sched.any((1, 2))
-    st = st.replace(
-        round_ready=st.round_ready | ready,
-        schedulable=torch.where(ready[:, None, None], sched, st.schedulable),
-    )
-    mc = ~ready & is_event & (committable > 0)
-    idle = st.source_pool_mask() & ~st.exec_executing
-    st = _move_idle_from_pool(
-        st, st.source_job, st.source_stage, idle & mc[:, None]
-    )
-    st = st.replace(
-        source_valid=st.source_valid & ~mc,
-        source_job=_w(mc, -1, st.source_job),
-        source_stage=_w(mc, -1, st.source_stage),
-    )
+    st, ready = _round_tail(params, st, ls.mode == M_EVENT)
     mode = torch.where(ready, M_DECIDE, ls2.mode).to(_i32)
 
     done = _lane_done(st)
@@ -332,30 +344,105 @@ def _finish_micro_step(params: EnvParams, bank: WorkloadBank, ls: LoopState,
         torch.where(was_done, 0.0, st.wall_time - t_old),
         done & ~was_done,
     )
-    # auto_reset=False: lanes whose episode was over at entry freeze
-    st = select_env(~was_done, st, ls.env)
+    if auto_reset:
+        if bool(done.any()):
+            st = select_env(done, core.reset(params, bank, k_reset), st)
+        mode = torch.where(done, M_DECIDE, mode).to(_i32)
+    else:
+        # lanes whose episode was over at entry freeze
+        st = select_env(~was_done, st, ls.env)
+        ls2 = ls2.replace(
+            decisions=torch.where(was_done, ls.decisions, ls2.decisions),
+            bulked=torch.where(was_done, ls.bulked, ls2.bulked),
+        )
     out = ls2.replace(
         env=st,
         mode=mode,
-        decisions=torch.where(was_done, ls.decisions, ls2.decisions),
-        bulked=torch.where(was_done, ls.bulked, ls2.bulked),
         episodes=ls2.episodes + (done & ~was_done).to(_i32),
     )
     return out, rec
 
 
+def micro_step(params: EnvParams, bank: WorkloadBank, policy_fn,
+               ls: LoopState, rng: torch.Tensor, auto_reset: bool = True,
+               compute_levels: bool = True, event_bulk: bool = True,
+               bulk_events: int = 8, fulfill_bulk: bool = False,
+               bulk_cycles: int = 1, bulk_fused: bool = True) -> LoopState:
+    """One unit of work per lane: EVENT lanes first run the bulk passes
+    (`event_bulk`), then every lane runs its mode's branch — DECIDE asks
+    `policy_fn(keys, obs)` for `(stage_idx, num_exec, aux)` and commits,
+    FULFILL fulfils one commitment, EVENT pops one event (fused pop) —
+    and the shared tail. `rng` holds one key per lane."""
+    keys = prng.split(rng)
+    k_pol, k_reset = keys[:, 0], keys[:, 1]
+    ls0 = ls  # pre-bulk state: the freeze path must restore exactly this
+    is_ev = ls.mode == M_EVENT
+    nb = _full(ls.mode, 0)
+    if event_bulk:
+        env_b, nb = _bulk_cycle_chain(params, bank, ls.env, is_ev,
+                                      bulk_events, bulk_cycles, bulk_fused)
+        ls = ls.replace(env=env_b, bulked=ls.bulked + nb)
+    is_dec = ls.mode == M_DECIDE
+    is_ful = ls.mode == M_FULFILL
+
+    # DECIDE: one commitment from the policy (core.step's front half)
+    ls2 = ls
+    quirk = ls.env.source_job_id()
+    if bool(is_dec.any()):
+        obs = observe(params, ls.env, compute_levels)
+        stage_idx, num_exec, _ = policy_fn(k_pol, obs)
+        ls_d = _apply_decision(params, ls, stage_idx.to(_i32),
+                               num_exec.to(_i32), fulfill_bulk)
+        ls2 = select(is_dec, ls_d, ls)
+        quirk = torch.where(is_dec, ls_d.env.source_job_id(), quirk)
+    ls2, *req = _work_branches(params, ls2, is_ful, is_ev, nb, quirk)
+    out, _ = _finish_micro_step(params, bank, ls0, ls2, *req, None, k_reset,
+                                auto_reset, fulfill_bulk)
+    return out
+
+
+def event_micro_step(params: EnvParams, bank: WorkloadBank, ls: LoopState,
+                     rng: torch.Tensor, auto_reset: bool = True,
+                     event_bulk: bool = True, bulk_events: int = 8,
+                     bulk_cycles: int = 1, bulk_fused: bool = True
+                     ) -> LoopState:
+    """One EVENT-only micro-step: lanes in EVENT mode run the bulk
+    passes, pop one event and the shared tail; every other lane is left
+    exactly as it was (rng and counters included)."""
+    is_event = ls.mode == M_EVENT
+    if not bool(is_event.any()):
+        return ls
+    k_reset = _reset_key(rng, auto_reset)
+    ls0 = ls.replace(mode=torch.full_like(ls.mode, M_EVENT))
+    if event_bulk:
+        env_b, nb = _bulk_cycle_chain(params, bank, ls.env, is_event,
+                                      bulk_events, bulk_cycles, bulk_fused)
+        ls = ls.replace(env=env_b, bulked=ls.bulked + nb)
+        pop_on = is_event & _fused_pop_gate(env_b, nb)
+    else:
+        pop_on = is_event
+    st, rk, rj, rs, arg, quirk, _, _ = _pop_event(params, ls.env, pop_on)
+    ls_ev = ls.replace(mode=torch.full_like(ls.mode, M_EVENT), env=st)
+    out, _ = _finish_micro_step(params, bank, ls0, ls_ev, rk, rj, rs, arg,
+                                quirk, None, k_reset, auto_reset)
+    return select(is_event, out, ls)
+
+
 def decide_micro_step(params: EnvParams, bank: WorkloadBank, ls: LoopState,
-                      stage_idx, num_exec, t_ref):
+                      stage_idx, num_exec, rng: torch.Tensor,
+                      auto_reset: bool = True, fulfill_bulk: bool = False,
+                      t_ref=None):
     """One DECIDE micro-step driven by a precomputed decision per lane;
     lanes not in DECIDE mode are left exactly as they were. Returns
     `(ls, (decided, reward, dt, reset))`."""
     is_dec = ls.mode == M_DECIDE
+    k_reset = _reset_key(rng, auto_reset)
     ls0 = ls.replace(mode=torch.zeros_like(ls.mode))
-    ls2 = _apply_decision(params, ls0, stage_idx, num_exec)
+    ls2 = _apply_decision(params, ls0, stage_idx, num_exec, fulfill_bulk)
     zero = torch.zeros_like(ls.mode)
     out_ls, (rw, dt, rs_) = _finish_micro_step(
         params, bank, ls0, ls2, zero + RQ_NONE, zero - 1, zero - 1, zero,
-        ls2.env.source_job_id(), t_ref,
+        ls2.env.source_job_id(), t_ref, k_reset, auto_reset, fulfill_bulk,
     )
     was_done = _lane_done(ls.env)
     decided = is_dec & ~was_done
@@ -370,42 +457,67 @@ def decide_micro_step(params: EnvParams, bank: WorkloadBank, ls: LoopState,
 
 
 def drain_micro_step(params: EnvParams, bank: WorkloadBank, ls: LoopState,
-                     t_ref):
-    """One non-policy micro-step: FULFILL and EVENT lanes advance, DECIDE
-    lanes take the no-op branch (the caller's loop select discards their
-    result, as the JAX `masked=False` form relies on). Returns
+                     rng: torch.Tensor, auto_reset: bool = True,
+                     event_bulk: bool = True, bulk_events: int = 8,
+                     bulk_cycles: int = 1, t_ref=None,
+                     bulk_fused: bool = True, masked: bool = True):
+    """One non-policy micro-step: FULFILL and EVENT lanes advance as in
+    `micro_step` (bulk passes and fused pop included); DECIDE lanes are
+    rolled back unless `masked=False` (legal only where the caller
+    discards their result, as `drain_to_decision` does). Returns
     `(ls, (reward, dt, reset))`."""
-    is_ful = ls.mode == M_FULFILL
+    active = ls.mode != M_DECIDE
+    k_reset = _reset_key(rng, auto_reset)
+    ls0 = ls
     is_ev = ls.mode == M_EVENT
-    quirk = ls.env.source_job_id()
-    ls2, rk, rj, rs, e, quirk_f = _fulfill_branch(ls, is_ful)
-    quirk = torch.where(is_ful, quirk_f, quirk)
-    ls2, rk_e, rj_e, rs_e, arg, quirk_e = _event_branch(params, ls2, is_ev)
-    rk = torch.where(is_ev, rk_e, rk)
-    rj = torch.where(is_ev, rj_e, rj)
-    rs = torch.where(is_ev, rs_e, rs)
-    e = torch.where(is_ev, arg, torch.where(is_ful, e, 0)).to(_i32)
-    quirk = torch.where(is_ev, quirk_e, quirk)
-    return _finish_micro_step(params, bank, ls, ls2, rk, rj, rs, e, quirk,
-                              t_ref)
+    is_ful = ls.mode == M_FULFILL
+    nb = _full(ls.mode, 0)
+    if event_bulk:
+        env_b, nb = _bulk_cycle_chain(params, bank, ls.env, is_ev,
+                                      bulk_events, bulk_cycles, bulk_fused)
+        ls = ls.replace(env=env_b, bulked=ls.bulked + nb)
+    ls2, *req = _work_branches(params, ls, is_ful, is_ev, nb,
+                               ls.env.source_job_id())
+    out, (rw, dt, rs_) = _finish_micro_step(params, bank, ls0, ls2, *req,
+                                            t_ref, k_reset, auto_reset)
+    if not masked:
+        return out, (rw, dt, rs_)
+    return select(active, out, ls0), (
+        torch.where(active, rw, 0.0),
+        torch.where(active, dt, 0.0),
+        active & rs_,
+    )
 
 
 def drain_to_decision(params: EnvParams, bank: WorkloadBank, ls: LoopState,
-                      t_ref):
+                      rng: torch.Tensor, auto_reset: bool = True,
+                      event_bulk: bool = True, bulk_events: int = 8,
+                      bulk_cycles: int = 1, t_ref=None,
+                      bulk_fused: bool = True):
     """Drain each lane's non-decision work — FULFILL leftovers and the
     event run — until it can DECIDE again, its episode is over or its
-    queue is drained, accumulating the span's reward/dt/reset. Returns
-    `(ls, (reward, dt, reset))`."""
+    queue is drained, accumulating the span's reward/dt/reset. With
+    `auto_reset` each iteration splits the lane's key (a lane whose
+    loop has ended keeps its key). Returns `(ls, (reward, dt,
+    reset))`."""
     zero = torch.zeros_like(ls.env.wall_time)
     rw, dt = zero, zero.clone()
     rs = torch.zeros_like(ls.env.round_ready)
+    k = rng
     while True:
         has = _has_pending_event(ls.env)
         stuck = (ls.mode == M_EVENT) & ~has & ~ls.env.round_ready
         cond = (ls.mode != M_DECIDE) & ~_lane_done(ls.env) & ~stuck
         if not bool(cond.any()):
             break
-        nxt, (r, d, re) = drain_micro_step(params, bank, ls, t_ref)
+        sub = k
+        if auto_reset:  # the key chain only feeds auto-reset draws
+            keys = prng.split(k)
+            k, sub = _w(cond, keys[:, 0], k), keys[:, 1]
+        nxt, (r, d, re) = drain_micro_step(
+            params, bank, ls, sub, auto_reset, event_bulk, bulk_events,
+            bulk_cycles, t_ref, bulk_fused, masked=False,
+        )
         ls = select(cond, nxt, ls)
         rw = torch.where(cond, rw + r, rw)
         dt = torch.where(cond, dt + d, dt)
@@ -414,16 +526,55 @@ def drain_to_decision(params: EnvParams, bank: WorkloadBank, ls: LoopState,
 
 
 def apply_and_drain(params: EnvParams, bank: WorkloadBank, ls: LoopState,
-                    stage_idx, num_exec, **knobs):
+                    stage_idx, num_exec, rng: torch.Tensor,
+                    auto_reset: bool = False, event_bulk: bool = True,
+                    bulk_events: int = 8, fulfill_bulk: bool = True,
+                    bulk_cycles: int = 1, bulk_fused: bool = True,
+                    **unknown):
     """One precomputed decision per lane applied and drained to the next
-    decision point: `decide_micro_step` then `drain_to_decision`, with the
-    discount reference at each lane's wall time on entry. `knobs` are the
-    JAX package's engine knobs; the bulk ones must be off (see
-    `core.check_knobs`). Returns `(ls, (decided, reward, dt, reset))`."""
-    core.check_knobs(knobs)
+    decision point: `decide_micro_step` then `drain_to_decision`, with
+    the discount reference at each lane's wall time on entry and the
+    lane's key split between them. The engine knobs default as in the
+    JAX package; any other keyword is refused (`core.check_knobs`).
+    Returns `(ls, (decided, reward, dt, reset))`."""
+    core.check_knobs(unknown)
+    keys = prng.split(rng)
     t_ref = ls.env.wall_time
     ls2, (decided, rw1, dt1, rs1) = decide_micro_step(
-        params, bank, ls, stage_idx, num_exec, t_ref
+        params, bank, ls, stage_idx, num_exec, keys[:, 0], auto_reset,
+        fulfill_bulk, t_ref,
     )
-    ls3, (rw2, dt2, rs2) = drain_to_decision(params, bank, ls2, t_ref)
+    ls3, (rw2, dt2, rs2) = drain_to_decision(
+        params, bank, ls2, keys[:, 1], auto_reset, event_bulk, bulk_events,
+        bulk_cycles, t_ref, bulk_fused,
+    )
     return ls3, (decided, rw1 + rw2, dt1 + dt2, rs1 | rs2)
+
+
+def run_flat(params: EnvParams, bank: WorkloadBank, policy_fn,
+             rng: torch.Tensor, num_groups: int,
+             state: EnvState | None = None, auto_reset: bool = True,
+             compute_levels: bool = True, event_burst: int = 1,
+             event_bulk: bool = True, bulk_events: int = 8,
+             fulfill_bulk: bool = False, bulk_cycles: int = 1,
+             loop_state: LoopState | None = None,
+             bulk_fused: bool = True) -> LoopState:
+    """`num_groups` micro-step groups per lane, each one `micro_step`
+    plus `event_burst - 1` `event_micro_step`s, from a freshly reset
+    `state` or, to continue an earlier run, from `loop_state`. `rng`
+    holds one key per lane; each micro-step splits it."""
+    ls = init_loop_state(state) if loop_state is None else loop_state
+    k = rng
+    for _ in range(num_groups):
+        keys = prng.split(k)
+        k = keys[:, 0]
+        ls = micro_step(params, bank, policy_fn, ls, keys[:, 1], auto_reset,
+                        compute_levels, event_bulk, bulk_events,
+                        fulfill_bulk, bulk_cycles, bulk_fused)
+        for _ in range(event_burst - 1):
+            keys = prng.split(k)
+            k = keys[:, 0]
+            ls = event_micro_step(params, bank, ls, keys[:, 1], auto_reset,
+                                  event_bulk, bulk_events, bulk_cycles,
+                                  bulk_fused)
+    return ls

@@ -98,16 +98,62 @@ def exponential(key: torch.Tensor, shape: tuple[int, ...] = ()
     return -torch.log1p(-uniform(key, shape))
 
 
-def randint(key: torch.Tensor, shape: tuple[int, ...], minval: int,
-            maxval: int) -> torch.Tensor:
+def randint(key: torch.Tensor, shape: tuple[int, ...], minval, maxval
+            ) -> torch.Tensor:
     """`jax.random.randint(key, shape, minval, maxval, dtype=int32)` for
-    Python-int bounds inside the int32 range."""
+    bounds inside the int32 range: Python ints, or int tensors that
+    broadcast against `key.shape[:-1] + shape` (per-key bounds, as a
+    traced bound under vmap). A span of 0 or less returns `minval`."""
     keys = split(key)
     hi = random_bits(keys[..., 0, :], shape)
     lo = random_bits(keys[..., 1, :], shape)
-    span = max(int(maxval) - int(minval), 1) & _M32
+    dev = key.device
+    lo_b = torch.as_tensor(minval, dtype=torch.int64, device=dev)
+    hi_b = torch.as_tensor(maxval, dtype=torch.int64, device=dev)
+    span = torch.where(hi_b <= lo_b, 1, (hi_b - lo_b) & _M32)
     mult = (2 ** 16) % span
-    mult = (mult * mult) % span
+    mult = ((mult * mult) & _M32) % span
     off = (((hi % span) * mult) & _M32) + (lo % span)
     off = (off & _M32) % span
-    return (int(minval) + off).to(torch.int32)
+    return (lo_b + off).to(torch.int32)
+
+
+def _cumsum_f32(x: torch.Tensor, block: int = 16) -> torch.Tensor:
+    """float32 prefix sum along the last axis with XLA's CPU association:
+    sequential within blocks of 16, the block totals summed the same way
+    (recursively), each block's exclusive prefix then added. `jnp.cumsum`
+    lowers to a reduce-window that XLA rewrites into this form, so the
+    bits match where `torch.cumsum` (double accumulation on the CPU, a
+    tree on the card) would not."""
+    n = x.shape[-1]
+
+    def seq(v: torch.Tensor) -> torch.Tensor:
+        cols = [v[..., 0]]
+        for i in range(1, v.shape[-1]):
+            cols.append(cols[-1] + v[..., i])
+        return torch.stack(cols, -1)
+
+    if n <= block:
+        return seq(x)
+    nb = -(-n // block)
+    pad = torch.zeros(x.shape[:-1] + (nb * block - n,), dtype=x.dtype,
+                      device=x.device)
+    xb = torch.cat([x, pad], -1).reshape(x.shape[:-1] + (nb, block))
+    inb = seq(xb)
+    pre = _cumsum_f32(inb[..., -1], block)
+    excl = torch.cat([torch.zeros_like(pre[..., :1]), pre[..., :-1]], -1)
+    out = inb + excl[..., None]
+    return out.reshape(x.shape[:-1] + (nb * block,))[..., :n]
+
+
+def choice(key: torch.Tensor, n: int, p: torch.Tensor) -> torch.Tensor:
+    """`jax.random.choice(key, n, p=p)` (one draw with replacement, the
+    default shape ()) per key: i32 of shape `key.shape[:-1]`. `p` is
+    float32 `key.shape[:-1] + [n]`; the draw is the first index whose
+    cumulative weight reaches `total * (1 - u)`."""
+    if p.shape[-1] != n:
+        raise ValueError(f"p has {p.shape[-1]} entries, not {n}")
+    cum = _cumsum_f32(p.to(torch.float32))
+    r = cum[..., -1:] * (1.0 - uniform(key)[..., None])
+    return torch.searchsorted(cum.contiguous(), r.contiguous())[..., 0].to(
+        torch.int32)

@@ -1,9 +1,12 @@
 """Scheduler interfaces (counterpart of `sparksched_tpu/schedulers/base.py`).
 
 - `schedule(obs) -> (action, info)`: host-side, one decision at a time.
-- `policy(obs) -> (stage_idx, num_exec, info)`: tensors over a batch of
+- `policy(...) -> (stage_idx, num_exec, info)`: tensors over a batch of
   padded `Observation`s (leading lane axis). `stage_idx` is a flat padded
-  node index (job * max_stages + stage, or -1 for "no selection").
+  node index (job * max_stages + stage, or -1 for "no selection"). The
+  heuristics take `(rng, obs)` with one key per lane, as the JAX
+  package's policies do (`run_flat`'s `policy_fn`); Decima's greedy
+  `policy(obs)` takes no key.
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ class Scheduler(abc.ABC):
         """One decision from a single-lane Observation."""
 
     @abc.abstractmethod
-    def policy(self, obs: Any):
+    def policy(self, *args: Any):
         """Decisions for a batch of observations."""
 
 

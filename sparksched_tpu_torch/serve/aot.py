@@ -9,7 +9,8 @@ counterpart is easy to find; CUDA graphs for these programs are later
 work.
 
 A decision: gather the session(s), observe, run the policy (or take the
-caller's forced action), `apply_and_drain` to the next decision point,
+caller's forced action), `apply_and_drain` to the next decision point
+with the engine knobs (`SERVE_KNOBS` by default) and the call's key,
 compute the health sentinel over the post-drain state and the span
 reward, scatter back. Padding slots of a batch carry index C: they are
 never computed or written, and their outputs are masked (`valid` off),
@@ -23,6 +24,7 @@ from typing import Any, Callable
 
 import torch
 
+from .. import prng
 from ..config import EnvParams
 from ..env.flat_loop import (
     LoopState,
@@ -56,18 +58,24 @@ class ServeOut:
     valid: torch.Tensor  # bool; real (non-padding) slot
 
 
-# engine knobs of the serve drain. The port runs the sequential engine:
-# the JAX package's serving default turns the bulk passes on, which this
-# slice does not port (ROADMAP queue B1); its decisions match the JAX
-# store built with these knobs. The programs below run this engine only.
-SERVE_KNOBS: dict[str, Any] = {"event_bulk": False, "fulfill_bulk": False}
+# engine knobs of the serve drain, the JAX package's (its round-5
+# calibration: bulk passes on, bulk_events 8, one fused cycle)
+SERVE_KNOBS: dict[str, Any] = {
+    "event_bulk": True,
+    "bulk_events": 8,
+    "fulfill_bulk": True,
+    "bulk_cycles": 1,
+    "bulk_fused": True,
+}
 
 
 def _decide(params: EnvParams, bank: WorkloadBank, policy_fn: Callable,
-            ls: LoopState, force_stage, force_nexec, use_force):
+            ls: LoopState, k_env, force_stage, force_nexec, use_force,
+            knobs: dict[str, Any]):
     """Decisions for a batch of sessions (the JAX `_decide_one`, over a
     lane axis): observe -> policy (or the forced action under
-    `use_force`) -> apply_and_drain -> health."""
+    `use_force`) -> apply_and_drain with one key of `k_env` per lane ->
+    health. The greedy policy takes no key."""
     env0 = ls.env
     was_done = _lane_done(env0)
     s_cap = params.max_stages
@@ -91,7 +99,8 @@ def _decide(params: EnvParams, bank: WorkloadBank, policy_fn: Callable,
     ).to(_i32)
     lgprob = torch.where(use_force, 0.0, lgprob).to(torch.float32)
     ls2, (decided, reward, dt, reset) = apply_and_drain(
-        params, bank, ls, stage_idx, num_exec
+        params, bank, ls, stage_idx, num_exec, k_env, auto_reset=False,
+        **knobs,
     )
     hm = state_health(ls2.env, prev=env0, resetting=reset) | \
         reward_health(reward)
@@ -112,13 +121,16 @@ def _decide(params: EnvParams, bank: WorkloadBank, policy_fn: Callable,
 
 
 def serve_decide_fn(params: EnvParams, bank: WorkloadBank,
-                    policy_fn: Callable) -> Callable:
+                    policy_fn: Callable,
+                    knobs: dict[str, Any] | None = None) -> Callable:
     """The single-session program:
-    `(store [C], slot, force_stage, force_nexec, use_force) -> ServeOut`
-    of one row; the store is updated in place."""
+    `(store [C], slot, key, force_stage, force_nexec, use_force) ->
+    ServeOut` of one row; the store is updated in place. The key splits
+    as the JAX program's does: (policy, engine)."""
+    kn = SERVE_KNOBS | (knobs or {})
 
-    def fn(store: LoopState, slot: int, force_stage: int, force_nexec: int,
-           use_force: bool) -> ServeOut:
+    def fn(store: LoopState, slot: int, key: torch.Tensor, force_stage: int,
+           force_nexec: int, use_force: bool) -> ServeOut:
         dev = store.mode.device
         idx = torch.tensor([slot], device=dev)
         ls = take_slot(store, idx)
@@ -126,9 +138,10 @@ def serve_decide_fn(params: EnvParams, bank: WorkloadBank,
         def t(v, dtype):
             return torch.tensor([v], dtype=dtype, device=dev)
 
+        k_env = prng.split(key)[1:]
         ls2, out = _decide(
-            params, bank, policy_fn, ls, t(force_stage, _i32),
-            t(force_nexec, _i32), t(use_force, torch.bool),
+            params, bank, policy_fn, ls, k_env, t(force_stage, _i32),
+            t(force_nexec, _i32), t(use_force, torch.bool), kn,
         )
         write_slot(store, idx, ls2)
         return out
@@ -137,14 +150,18 @@ def serve_decide_fn(params: EnvParams, bank: WorkloadBank,
 
 
 def serve_decide_batch_fn(params: EnvParams, bank: WorkloadBank,
-                          batch_policy_fn: Callable, batch: int) -> Callable:
-    """The batched program: `(store [C], slots [K]) -> ServeOut of [K]`.
-    ONE batched policy evaluation over the gathered sessions, then the
-    batched apply-and-drain; the store is updated in place. Slots equal
-    to C are padding."""
+                          batch_policy_fn: Callable, batch: int,
+                          knobs: dict[str, Any] | None = None) -> Callable:
+    """The batched program: `(store [C], slots [K], key) -> ServeOut of
+    [K]`. ONE batched policy evaluation over the gathered sessions, then
+    the batched apply-and-drain, batch position i on the i-th key of the
+    engine key's K-way split (the JAX program's); the store is updated
+    in place. Slots equal to C are padding."""
     K = int(batch)
+    kn = SERVE_KNOBS | (knobs or {})
 
-    def fn(store: LoopState, slots: torch.Tensor) -> ServeOut:
+    def fn(store: LoopState, slots: torch.Tensor, key: torch.Tensor
+           ) -> ServeOut:
         if slots.shape != (K,):
             raise ValueError(f"slots must have shape ({K},)")
         C = store.mode.shape[0]
@@ -155,13 +172,14 @@ def serve_decide_batch_fn(params: EnvParams, bank: WorkloadBank,
         if n == 0:
             raise ValueError("a batch needs at least one real slot")
         ls = take_slot(store, real)
+        pos = valid.nonzero()[:, 0]
+        k_env = prng.split(prng.split(key)[1], K)[pos]
         no = torch.zeros(n, dtype=_i32, device=dev)
         ls2, out = _decide(
-            params, bank, batch_policy_fn, ls, no, no,
-            torch.zeros(n, dtype=torch.bool, device=dev),
+            params, bank, batch_policy_fn, ls, k_env, no, no,
+            torch.zeros(n, dtype=torch.bool, device=dev), kn,
         )
         write_slot(store, real, ls2)
-        pos = valid.nonzero()[:, 0]
 
         def pad(v: torch.Tensor, fill) -> torch.Tensor:
             full = torch.full((K,), fill, dtype=v.dtype, device=v.device)

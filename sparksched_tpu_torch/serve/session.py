@@ -92,9 +92,8 @@ class SessionStore:
         device: str | torch.device = "cuda",
     ) -> None:
         dev = resolve_device(device)
-        # the engine knobs are checked here, once: the serve programs run
-        # the sequential engine they describe
-        check_knobs(SERVE_KNOBS | (knobs or {}))
+        self.knobs = SERVE_KNOBS | (knobs or {})
+        check_knobs(self.knobs)
         for name, d in (("bank", bank.device), ("scheduler", scheduler.device)):
             if torch.device(d).type != dev.type:
                 raise ValueError(f"{name} lives on {d}, the store on {dev}")
@@ -109,12 +108,15 @@ class SessionStore:
         self.capacity = int(capacity)
         self.max_batch = int(max_batch)
         self._base_key = prng.PRNGKey(seed, dev)
+        # calls served so far: call i runs on fold_in(base key, i). The
+        # JAX store's two warm-up calls take keys 1 and 2.
+        self._calls = 2
         self.params_version = 0
 
         pol, bpol = scheduler.serve_param_policies(deterministic=True)
-        self._decide1 = serve_decide_fn(params, bank, pol)
+        self._decide1 = serve_decide_fn(params, bank, pol, self.knobs)
         self._decidek = serve_decide_batch_fn(
-            params, bank, bpol, self.max_batch
+            params, bank, bpol, self.max_batch, self.knobs
         )
         # every slot starts as a copy of one dummy episode; create()
         # overwrites a slot with its own seeded reset
@@ -136,6 +138,10 @@ class SessionStore:
             "serve_param_swaps": 0,
             "serve_param_version": 0,
         }
+
+    def _next_key(self) -> torch.Tensor:
+        self._calls += 1
+        return prng.fold_in(self._base_key, self._calls)
 
     def _reset1(self, key: torch.Tensor):
         return init_loop_state(core.reset(self.params, self.bank, key[None]))
@@ -212,8 +218,8 @@ class SessionStore:
              use_force: bool) -> ServeResult:
         self._check_sid(sid)
         ver = self.params_version
-        out = _to_host(self._decide1(self.store, sid, stage_idx, num_exec,
-                                     use_force))
+        out = _to_host(self._decide1(self.store, sid, self._next_key(),
+                                     stage_idx, num_exec, use_force))
         res = ServeResult(sid, out, 0, batched=False, params_version=ver)
         self._apply_health(sid, res.health_mask)
         self.stats["serve_decisions"] += 1
@@ -246,7 +252,8 @@ class SessionStore:
         slots[: len(sids)] = sids
         ver = self.params_version
         out = _to_host(self._decidek(
-            self.store, torch.from_numpy(slots).to(self.device)
+            self.store, torch.from_numpy(slots).to(self.device),
+            self._next_key(),
         ))
         results = []
         for i, sid in enumerate(sids):

@@ -42,10 +42,14 @@ def sample_executor_key(
     bank: WorkloadBank, u: torch.Tensor, template: torch.Tensor,
     stage: torch.Tensor, num_local: torch.Tensor,
 ) -> torch.Tensor:
-    """Trace executor-level index per lane: random interpolation between
+    """Trace executor-level index per draw: random interpolation between
     the two levels bracketing `num_local`, falling back to the stage's
-    highest present level. `u` is f32[B] of pre-drawn uniforms."""
-    nl = num_local.long()
+    highest present level. `u` holds pre-drawn uniforms; all arguments
+    share one shape (`[B]` lanes, or `[B,K]` candidates). `num_local`
+    is clamped into the interval tables, as the JAX package's gathers
+    clamp: a bulk pass samples for candidates it then discards, whose
+    counts may lie outside them."""
+    nl = num_local.long().clamp(0, bank.itv_left_val.shape[0] - 1)
     left_v = bank.itv_left_val[nl]
     right_v = bank.itv_right_val[nl]
     left_i = bank.itv_left_idx[nl]
@@ -62,29 +66,40 @@ def sample_executor_key(
 def sample_task_duration(
     params: EnvParams, bank: WorkloadBank, u2: torch.Tensor,
     template: torch.Tensor, stage: torch.Tensor, num_local: torch.Tensor,
-    task_valid: torch.Tensor, same_stage: torch.Tensor,
+    task_valid, same_stage,
 ) -> torch.Tensor:
-    """One task duration per lane with the reference's wave logic and
-    fallback chains (see the JAX package's docstring). `u2` is f32[B,2]:
-    u2[:,0] drives the level interpolation, u2[:,1] the bucket pick."""
-    li = sample_executor_key(bank, u2[:, 0], template, stage, num_local)
-    t, s, l = template.long(), stage.long(), li.long()
-    cnt = bank.cnt[t, s, :, l]  # i32[B,3]
-    has = cnt > 0
-    idle_wave = torch.where(has[:, WAVE_FRESH], WAVE_FRESH, WAVE_FIRST)
-    idle_warm = ~has[:, WAVE_FRESH]
-    same_wave = torch.where(
-        has[:, WAVE_REST], WAVE_REST,
-        torch.where(has[:, WAVE_FIRST], WAVE_FIRST, WAVE_FRESH),
+    """One task duration per draw with the reference's wave logic and
+    fallback chains (see the JAX package's docstring). `u2` is
+    f32[..., 2]: u2[..., 0] drives the level interpolation, u2[..., 1]
+    the bucket pick. The other arguments broadcast against `u2[..., 0]`
+    — one draw per lane (`[B]`), or per lane and candidate (`[B,K]`, the
+    JAX package's vmap over a pass's candidates) — and the bank is
+    gathered once per draw."""
+    template, stage, num_local, task_valid, same_stage = (
+        torch.broadcast_tensors(
+            template, stage, num_local, torch.as_tensor(task_valid,
+                                                        device=u2.device),
+            torch.as_tensor(same_stage, device=u2.device), u2[..., 0],
+        )[:5]
     )
-    diff_wave = torch.where(has[:, WAVE_FIRST], WAVE_FIRST, WAVE_FRESH)
+    li = sample_executor_key(bank, u2[..., 0], template, stage, num_local)
+    t, s, l = template.long(), stage.long(), li.long()
+    cnt = bank.cnt[t, s, :, l]  # i32[..., 3]
+    has = cnt > 0
+    idle_wave = torch.where(has[..., WAVE_FRESH], WAVE_FRESH, WAVE_FIRST)
+    idle_warm = ~has[..., WAVE_FRESH]
+    same_wave = torch.where(
+        has[..., WAVE_REST], WAVE_REST,
+        torch.where(has[..., WAVE_FIRST], WAVE_FIRST, WAVE_FRESH),
+    )
+    diff_wave = torch.where(has[..., WAVE_FIRST], WAVE_FIRST, WAVE_FRESH)
     wave = torch.where(
         ~task_valid, idle_wave, torch.where(same_stage, same_wave, diff_wave)
     )
     warm = ~task_valid & idle_warm
-    c = cnt.gather(1, wave[:, None])[:, 0]
+    c = cnt.gather(-1, wave[..., None].long())[..., 0]
     n = torch.clamp_min(c, 1)
-    pick = torch.minimum((u2[:, 1] * n).to(torch.int32), n - 1)
+    pick = torch.minimum((u2[..., 1] * n).to(torch.int32), n - 1)
     dur = bank.dur[t, s, wave, l, pick.long()]
     dur = torch.where(c > 0, dur, bank.rough_duration[t, s])
     return dur + torch.where(warm, params.warmup_delay, 0.0)

@@ -35,12 +35,13 @@ def jax_h_node(js, jf) -> np.ndarray:
     return seen["h"]
 
 
-def port_leaves(ls, lane: int = 0) -> list[tuple[str, np.ndarray]]:
-    """(name, numpy) of one lane of a port LoopState; the rng words come
-    back as uint32 like the JAX key."""
+def port_leaves(ls, lane: int | None = 0) -> list[tuple[str, np.ndarray]]:
+    """(name, numpy) of one lane of a port LoopState (every lane, with the
+    lane axis, for `lane=None`); the rng words come back as uint32 like
+    the JAX key."""
     out = []
     for name, v in tfl.leaves(ls):
-        a = v[lane].cpu().numpy()
+        a = (v if lane is None else v[lane]).cpu().numpy()
         if name == "rng":
             a = a.astype(np.uint32)
         out.append((name, a))
@@ -130,6 +131,48 @@ def port_fixture_state(spec, num_executors: int):
         torch.from_numpy(mask)[None],
     )
     return params, bank, tfl.init_loop_state(state)
+
+
+def port_from_jax(jls):
+    """The port LoopState holding the same values as a JAX LoopState with
+    a leading lane axis (leaf for leaf, in the JAX pytree's order; the
+    rng words as int64)."""
+    import dataclasses
+
+    import jax
+
+    from sparksched_tpu_torch.env.state import EnvState
+
+    env_names = [f.name for f in dataclasses.fields(EnvState)]
+    loop_names = [f.name for f in dataclasses.fields(tfl.LoopState)
+                  if f.name != "env"]
+    vals = [np.asarray(x) for x in jax.tree_util.tree_leaves(jls)]
+    assert len(vals) == len(env_names) + len(loop_names)
+    ts = {}
+    for name, a in zip(env_names + loop_names, vals):
+        if name == "rng":
+            a = a.astype(np.int64)
+        ts[name] = torch.from_numpy(np.ascontiguousarray(a))
+    env = EnvState(**{k: ts[k] for k in env_names})
+    return tfl.LoopState(env=env, **{k: ts[k] for k in loop_names})
+
+
+def jax_env_from_port(env):
+    """The JAX EnvState holding the same values as a port EnvState (lane
+    axis kept; the rng words as uint32)."""
+    import dataclasses
+
+    import jax.numpy as jnp
+
+    from sparksched_tpu.env.state import EnvState as JaxEnvState
+
+    vals = {}
+    for f in dataclasses.fields(env):
+        a = getattr(env, f.name).cpu().numpy()
+        if f.name == "rng":
+            a = a.astype(np.uint32)
+        vals[f.name] = jnp.asarray(a)
+    return JaxEnvState(**vals)
 
 
 # -------------------------------------------------------------------------

@@ -62,7 +62,9 @@ def obs_pair():
         sch = ls.env.schedulable.reshape(B, -1)
         si = torch.where(sch.any(1), torch.argmax(sch.int(), 1), -1)
         ls, _ = flat_loop.apply_and_drain(
-            tp, tb, ls, si.int(), torch.full((B,), 1 + d % 2, dtype=torch.int32)
+            tp, tb, ls, si.int(), torch.full((B,), 1 + d % 2, dtype=torch.int32),
+            prng.split(prng.PRNGKey(d), B), event_bulk=False,
+            fulfill_bulk=False,
         )
     to = observe(tp, ls.env)
     jo = JaxObservation(**{k: jnp.asarray(v.numpy()) for k, v in vars(to).items()})

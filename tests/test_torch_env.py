@@ -2,7 +2,8 @@
 give equal LoopStates (all 61 leaves), and repeated `apply_and_drain`
 under a first-schedulable policy (knobs off: event_bulk=False,
 fulfill_bulk=False) must agree with `jax.jit(apply_and_drain)` after
-every decision, health masks included. Integer and bool leaves must be
+every decision, health masks included (the bulk engine is held against
+JAX in `test_torch_bulk.py` and `test_torch_drain.py`). Integer and bool leaves must be
 equal; float leaves equal on the reference fixtures (integral
 durations, no sampled arrivals) and within rtol 1e-6 on synthetic-bank
 episodes, whose arrival times carry last-ulp log1p differences."""
@@ -87,7 +88,7 @@ def _run(jp, jb, tp, tb, js, ts, max_decisions: int, rtol: float) -> int:
         js, jrec, jhm = step(js, jnp.int32(si), jnp.int32(ne))
         ts, trec = flat_loop.apply_and_drain(
             tp, tb, ts, torch.tensor([si], dtype=torch.int32),
-            torch.tensor([ne], dtype=torch.int32),
+            torch.tensor([ne], dtype=torch.int32), prng.PRNGKey(0)[None],
             event_bulk=False, fulfill_bulk=False,
         )
         thm = state_health(ts.env, env0, trec[3]) | reward_health(trec[1])
@@ -146,27 +147,18 @@ def test_apply_and_drain_matches_jax_on_synthetic_bank(synthetic, seed):
     assert _run(jp, jb, tp, tb, js, ts, 200, rtol=1e-6) == 200
 
 
-def test_bulk_knobs_are_refused(synthetic):
-    _, _, tp, tb = synthetic
-    ts = flat_loop.init_loop_state(core.reset(tp, tb, prng.PRNGKey(0)[None]))
-    one = torch.tensor([0], dtype=torch.int32)
-    for knob in ("event_bulk", "fulfill_bulk"):
-        with pytest.raises(NotImplementedError, match="B1"):
-            flat_loop.apply_and_drain(tp, tb, ts, one, one, **{knob: True})
-
-
 def test_unknown_knobs_are_refused(synthetic):
     _, _, tp, tb = synthetic
     ts = flat_loop.init_loop_state(core.reset(tp, tb, prng.PRNGKey(0)[None]))
     one = torch.tensor([0], dtype=torch.int32)
-    with pytest.raises(ValueError, match="bulk_events"):
-        flat_loop.apply_and_drain(tp, tb, ts, one, one, event_bulk=False,
-                                  bulk_events=8)
+    with pytest.raises(ValueError, match="bulk_width"):
+        flat_loop.apply_and_drain(tp, tb, ts, one, one, prng.PRNGKey(0)[None],
+                                  event_bulk=False, bulk_width=8)
 
 
-def test_fulfill_from_source_matches_jax(synthetic):
-    """`core.step`'s fulfillment phase (bulk=False): commit executors of
-    the common pool to the first schedulable stages, then fulfil."""
+def _fulfill_case(synthetic, bulk: bool) -> None:
+    """Commit executors of the common pool to the first schedulable
+    stages, then run the fulfillment phase in both packages."""
     jp, jb, tp, tb = synthetic
     for seed in (2, 4):
         js = jcore.reset(jp, jb, jax.random.PRNGKey(seed))
@@ -181,11 +173,22 @@ def test_fulfill_from_source_matches_jax(synthetic):
                                       torch.tensor([True]))
         js = jcore._commit_remaining(js)
         ts = core._commit_remaining(ts, torch.tensor([True]))
-        js = jcore._fulfill_from_source(jp, jb, js, jnp.bool_(True), bulk=False)
-        ts = core._fulfill_from_source(tp, tb, ts, torch.tensor([True]))
+        js = jcore._fulfill_from_source(jp, jb, js, jnp.bool_(True), bulk=bulk)
+        ts = core._fulfill_from_source(tp, tb, ts, torch.tensor([True]),
+                                       bulk=bulk)
         bad = mismatched_leaves(
             jax_leaves(jfl.init_loop_state(js)),
             port_leaves(flat_loop.init_loop_state(ts)), rtol=1e-6,
         )
         assert not bad, bad
         assert int(ts.exec_moving.sum()) == 5  # sent towards their stages
+
+
+def test_fulfill_from_source_matches_jax(synthetic):
+    """`core.step`'s fulfillment phase, one candidate at a time."""
+    _fulfill_case(synthetic, bulk=False)
+
+
+def test_fulfill_from_source_bulk_matches_jax(synthetic):
+    """The same phase with its simple prefix in one `_bulk_fulfill`."""
+    _fulfill_case(synthetic, bulk=True)

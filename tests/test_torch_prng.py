@@ -1,11 +1,13 @@
 """The port's PRNG (`sparksched_tpu_torch/prng.py`) against jax.random's
-default threefry2x32 with partitionable bits: keys, bits, uniforms and
-integers must be equal; exponentials agree within rtol 1e-6 (XLA's and
-torch's float32 log1p may differ in the last ulp)."""
+default threefry2x32 with partitionable bits: keys, bits, uniforms,
+integers and weighted choices must be equal; exponentials agree within
+rtol 1e-6 (XLA's and torch's float32 log1p may differ in the last
+ulp)."""
 
 from __future__ import annotations
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -60,3 +62,45 @@ def test_batched_uniform_matches_vmap():
     keys = jax.random.split(jax.random.PRNGKey(7), 6)
     u = np.asarray(jax.vmap(lambda k: jax.random.uniform(k, (2,)))(keys))
     assert np.array_equal(u, prng.uniform(_k(keys), (2,)).numpy())
+
+
+def test_uniform_at_the_bulk_table_shape():
+    """The fused bulk pass draws one (steps, executors, 2) table per key:
+    its bits follow the flattened counter, as `jax.random.uniform`'s."""
+    keys = jax.random.split(jax.random.PRNGKey(3), 4)
+    u = np.asarray(jax.vmap(lambda k: jax.random.uniform(k, (8, 50, 2)))(keys))
+    assert np.array_equal(u, prng.uniform(_k(keys), (8, 50, 2)).numpy())
+
+
+@pytest.mark.parametrize("n", [1, 6, 16, 17, 50, 200])
+def test_choice_with_p_matches_jax(n):
+    """`jax.random.choice(key, n, p=p)` for the random policy's weights
+    (uniform over a random subset, zeros elsewhere) and for arbitrary
+    ones; the cumulative weights follow XLA's summation order, so the
+    draws are equal even where a draw lands on a boundary."""
+    rng = np.random.default_rng(n)
+    keys = jax.random.split(jax.random.PRNGKey(n), 64)
+    has = rng.random((64, n)) < 0.5
+    has[0] = False  # no weight at all: index 0, as jax
+    uni = (np.where(has, 1.0, 0.0)
+           / np.maximum(1, has.sum(1, keepdims=True))).astype(np.float32)
+    arb = rng.random((64, n)).astype(np.float32)
+    for p in (uni, arb):
+        j = np.asarray(jax.vmap(lambda k, w: jax.random.choice(k, n, p=w))(
+            keys, jnp.asarray(p)))
+        t = prng.choice(_k(keys), n, torch.from_numpy(p))
+        assert t.dtype == torch.int32
+        assert np.array_equal(j, t.numpy())
+        cum = np.asarray(jax.vmap(jnp.cumsum)(jnp.asarray(p)))
+        assert np.array_equal(cum, prng._cumsum_f32(torch.from_numpy(p)).numpy())
+
+
+def test_randint_with_per_key_bounds():
+    """A traced upper bound per key (the random policy's executor count)
+    draws the bits of `jax.random.randint` with that bound."""
+    keys = jax.random.split(jax.random.PRNGKey(9), 12)
+    hi = np.array([1, 2, 3, 5, 8, 13, 50, 0, -2, 7, 200, 1000], np.int32)
+    j = np.asarray(jax.vmap(lambda k, h: jax.random.randint(
+        k, (), 1, h, dtype=jnp.int32))(keys, jnp.asarray(hi)))
+    t = prng.randint(_k(keys), (), 1, torch.from_numpy(hi))
+    assert np.array_equal(j, t.numpy())

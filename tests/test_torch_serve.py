@@ -1,9 +1,10 @@
 """The port's serving slice against the JAX package's: the same small
 setup as tests/test_serve.py (5 executors, 6 jobs, embed 8, job_bucket
-4), the JAX `SessionStore` built with knobs={"event_bulk": False,
-"fulfill_bulk": False} (the port's sequential engine) and the port's
-`SessionStore(device="cpu")` with the weights carried across by
-`params_from_flax`. Over a mixed run of create / decide_batch / decide /
+4), a JAX `SessionStore` and the port's `SessionStore(device="cpu")`
+with the weights carried across by `params_from_flax`, both built with
+no knobs (each package's `SERVE_KNOBS`: the bulk engine) or both with
+knobs={"event_bulk": False, "fulfill_bulk": False} (the sequential
+engine). Over a mixed run of create / decide_batch / decide /
 step / close calls every `ServeResult` field must agree (integers and
 bools equal, floats within rtol 1e-5, with atol 1e-6 for values near
 zero), and a poisoned session must quarantine alike. The weights are
@@ -45,8 +46,14 @@ INT_FIELDS = ("session_id", "stage_idx", "job_idx", "num_exec", "decided",
 FLOAT_FIELDS = ("lgprob", "reward", "dt", "wall_time")
 
 
-@pytest.fixture(scope="module")
-def stores():
+# no knobs: each store's default, SERVE_KNOBS
+KNOB_SETS = {"default": None,
+             "knobs_off": {"event_bulk": False, "fulfill_bulk": False}}
+
+
+@pytest.fixture(scope="module", params=list(KNOB_SETS))
+def stores(request):
+    knobs = KNOB_SETS[request.param]
     jp = JaxParams(num_executors=5, max_jobs=6, max_stages=20, max_levels=20,
                    mean_time_limit=None)
     jb = jax_bank(jp.num_executors, jp.max_stages)
@@ -54,14 +61,15 @@ def stores():
     js = JaxDecima(**KW)
     js.params = jax.tree_util.tree_map(lambda a: a * 0.3, js.params)
     jstore = JaxStore(jp, jb, js, capacity=6, max_batch=3, seed=0,
-                      knobs={"event_bulk": False, "fulfill_bulk": False})
+                      knobs=knobs)
     tp = EnvParams(num_executors=5, max_jobs=6, max_stages=jp.max_stages,
                    max_levels=jp.max_levels)
     tb = make_workload_bank(5, tp.max_stages, device="cpu")
     ts = DecimaScheduler(**KW, device="cpu")
     ts.load_params(params_from_flax(jax.tree_util.tree_map(np.asarray, js.params)))
     tstore = SessionStore(tp, tb, ts, capacity=6, max_batch=3, seed=0,
-                          device="cpu")
+                          knobs=knobs, device="cpu")
+    assert tstore.knobs == jstore.knobs
     return jstore, tstore
 
 
@@ -169,17 +177,22 @@ print("ok")
     assert out.stdout.strip().endswith("ok")
 
 
+def test_serve_knobs_are_the_jax_packages():
+    from sparksched_tpu.serve.aot import SERVE_KNOBS as JAX_SERVE_KNOBS
+    from sparksched_tpu_torch.serve import SERVE_KNOBS
+
+    assert SERVE_KNOBS == JAX_SERVE_KNOBS
+
+
 @pytest.mark.parametrize("knobs,err", [
-    ({"event_bulk": True}, NotImplementedError),
-    ({"fulfill_bulk": True}, NotImplementedError),
-    ({"bulk_fused": False}, ValueError),  # a JAX knob the port does not read
+    ({"bulk_width": 8}, ValueError),  # a knob neither package knows
 ])
 def test_store_refuses_bulk_and_unknown_knobs(knobs, err):
     bank = make_workload_bank(5, device="cpu")
     params = EnvParams(num_executors=5, max_jobs=6, max_stages=bank.max_stages,
                        max_levels=bank.max_stages)
     sched = DecimaScheduler(5, embed_dim=8, device="cpu")
-    with pytest.raises(err):
+    with pytest.raises(err, match="bulk_width"):
         SessionStore(params, bank, sched, capacity=2, max_batch=2,
                      knobs=knobs, device="cpu")
 
