@@ -560,7 +560,8 @@ def phase_run_flat() -> None:
     micro = lanes * FLAT_GROUPS
     out = {
         "phase": "run_flat_fair", "lanes": lanes, "groups": FLAT_GROUPS,
-        "micro_steps": micro, "seconds": secs, "micro_steps_per_s": micro / secs,
+        "micro_steps": micro, "seconds": secs,
+        "micro_steps_per_s": micro / secs,
         "decisions": int(ls.decisions.sum()),
         "decisions_per_s": int(ls.decisions.sum()) / secs,
         "bulked_events": int(ls.bulked.sum()),

@@ -521,7 +521,8 @@ def _bulk_fulfill(params: EnvParams, bank: WorkloadBank, state: EnvState,
     durs = sample_task_duration(params, bank, us, tpl, dsc, nl, tv, ss_same)
 
     inc = _i(start | send)
-    seq_k = state.seq_counter[:, None] + (earlier & (inc[:, None, :] > 0)).sum(-1)
+    seq_k = state.seq_counter[:, None] + (
+        earlier & (inc[:, None, :] > 0)).sum(-1)
     n_inc = inc.sum(1)
 
     fin_k = state.wall_time[:, None] + durs

@@ -204,12 +204,73 @@ def _enabled(b: int):
     return jnp.asarray(on), torch.from_numpy(on)
 
 
-@pytest.mark.parametrize("stop_at_limit", [False, True])
+def _with_source_join(jls):
+    """Make the second-earliest moving executor (the earliest when one
+    moves) arrive into the live source pool: the source becomes its
+    destination job's pool, or its stage's pool where it will start a
+    task, so a pass must stop right after consuming that arrival."""
+    env = jax.device_get(jls.env)
+    valid = np.array(env.source_valid)
+    sj, ss = np.array(env.source_job), np.array(env.source_stage)
+    for b in range(jls.mode.shape[0]):
+        t = np.where(env.exec_moving[b], env.exec_arrive_time[b], np.inf)
+        order = np.argsort(t, kind="stable")
+        e = order[min(1, int(np.isfinite(t).sum()) - 1)]
+        dj, ds = int(env.exec_dst_job[b, e]), int(env.exec_dst_stage[b, e])
+        done = (env.stage_completed_tasks[b, dj, ds]
+                >= env.stage_num_tasks[b, dj, ds])
+        front = env.stage_exists[b, dj, ds] & ~done
+        front &= env.incomplete_parent_count[b, dj, ds] == 0
+        valid[b], sj[b], ss[b] = True, dj, ds if front else -1
+    return jls.replace(env=jls.env.replace(
+        source_valid=jnp.asarray(valid), source_job=jnp.asarray(sj),
+        source_stage=jnp.asarray(ss)))
+
+
+def _with_tie(jls):
+    """Make a moving executor arrive at the earliest pending finish's
+    time (and no other arrival or job earlier), its sequence number just before
+    that finish's on even lanes and just after it on odd ones: the
+    passes must order the two events by (time, seq)."""
+    env = jax.device_get(jls.env)
+    at, aq = np.array(env.exec_arrive_time), np.array(env.exec_arrive_seq)
+    jt = np.array(env.job_arrival_time)
+    for b in range(jls.mode.shape[0]):
+        ft = env.exec_finish_time[b]
+        moving = np.flatnonzero(env.exec_moving[b])
+        f = int(np.argmin(ft))
+        if len(moving) and np.isfinite(ft[f]):
+            # no other arrival and no job arrival comes first
+            at[b, moving] = np.maximum(at[b, moving], ft[f] + 1.0)
+            later = ~env.job_arrived[b]
+            jt[b, later] = np.maximum(jt[b, later], ft[f] + 1.0)
+            e = moving[0]
+            at[b, e] = ft[f]
+            aq[b, e] = env.exec_finish_seq[b, f] + (-1 if b % 2 == 0 else 1)
+    return jls.replace(env=jls.env.replace(
+        exec_arrive_time=jnp.asarray(at), exec_arrive_seq=jnp.asarray(aq),
+        job_arrival_time=jnp.asarray(jt)))
+
+
 @pytest.mark.parametrize("source", ["fixture", "synthetic"])
-@pytest.mark.parametrize("bulk_pass", ["relaunch", "ready", "fused"])
-def test_bulk_event_pass_matches_jax(bulk_pass, source, stop_at_limit):
+@pytest.mark.parametrize("bulk_pass,variant", [
+    ("relaunch", "plain"), ("relaunch", "limit"), ("relaunch", "tie"),
+    ("ready", "plain"), ("ready", "limit"), ("ready", "join"),
+    ("fused", "plain"), ("fused", "limit"), ("fused", "join"),
+])
+def test_bulk_event_pass_matches_jax(bulk_pass, variant, source):
+    """`limit`: `stop_at_limit` with the time limit inside the run;
+    `join`: an arrival into the live source pool ends the run (the
+    relaunch pass never consumes an arrival, so it has no such case);
+    `tie`: an arrival at a finish's time (its competitor)."""
     jp, jb, tp, tb, rtol, states = _snapshots(source)
-    jls = _event_lanes(states)
+    stop_at_limit = variant == "limit"
+    if variant in ("join", "tie"):
+        jls = _pick(states, lambda l: (
+            (l.mode == jfl.M_EVENT) & l.env.exec_moving.any()))
+        jls = (_with_source_join if variant == "join" else _with_tie)(jls)
+    else:
+        jls = _event_lanes(states)
     if stop_at_limit:
         jls = _with_limits(jls)
     tls = port_from_jax(jls)

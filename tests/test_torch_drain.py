@@ -7,9 +7,10 @@ duration sampler pinned to a table lookup at durations x 0.02, moving
 delay 700: relaunch-generated finishes interleave with arrival bursts).
 Every LoopState leaf and the span records (decided, reward, dt, reset)
 are compared after every decision, the actions from the JAX fair
-policy. Tolerances: integers and bools equal; floats bit-equal on the
-fixture, within rtol 1e-6 on the synthetic bank and under the pinned
-sampler (see `tests/test_torch_bulk.py`)."""
+policy. Also the drain with `auto_reset`, where a lane restarts from
+its drain key. Tolerances: integers and bools equal; floats bit-equal
+on the fixture, within rtol 1e-6 on the synthetic bank and under the
+pinned sampler (see `tests/test_torch_bulk.py`)."""
 
 from __future__ import annotations
 
@@ -23,10 +24,12 @@ from sparksched_tpu.env import flat_loop as jfl
 from sparksched_tpu.env.observe import observe as jobserve
 from sparksched_tpu.schedulers import round_robin_policy as j_round_robin
 from sparksched_tpu_torch.env import flat_loop
+from sparksched_tpu_torch.env.observe import observe
+from sparksched_tpu_torch.schedulers import round_robin_policy
 from sparksched_tpu_torch.serve import SERVE_KNOBS
 
 from ._torch_parity import port_from_jax
-from .test_torch_bulk import _assert_same, _episodes, _i32, _keys
+from .test_torch_bulk import _assert_same, _episodes, _i32, _keys, _synthetic
 
 KNOBS = {
     "serve": SERVE_KNOBS,
@@ -89,3 +92,37 @@ def test_apply_and_drain_matches_jax(monkeypatch, source, knobs):
     assert bulked > 0
 
 
+
+
+def test_apply_and_drain_auto_reset_matches_jax():
+    """With `auto_reset` a lane whose episode ends inside the drain
+    restarts from its drain key's reset draw; 40 decisions on two
+    synthetic lanes with short time limits, at `SERVE_KNOBS`."""
+    jp, jb, tp, tb = _synthetic(mean_time_limit=5e5)
+    keys = jax.random.split(jax.random.PRNGKey(5), 2)
+    js = jax.vmap(lambda k: jfl.init_loop_state(jcore.reset(jp, jb, k)))(keys)
+    ts = port_from_jax(js)
+
+    @jax.jit
+    def jstep(ls, keys):
+        def one(l, k):
+            si, ne = j_round_robin(jobserve(jp, l.env), jp.num_executors,
+                                   True)
+            return jfl.apply_and_drain(jp, jb, l, si, ne, k,
+                                       auto_reset=True, **SERVE_KNOBS)
+        return jax.vmap(one)(ls, keys)
+
+    for d in range(40):
+        keys = jax.random.split(jax.random.PRNGKey(50 + d), 2)
+        si, ne = round_robin_policy(observe(tp, ts.env), tp.num_executors)
+        js, jrec = jstep(js, keys)
+        ts, trec = flat_loop.apply_and_drain(tp, tb, ts, si, ne, _keys(keys),
+                                             auto_reset=True, **SERVE_KNOBS)
+        _assert_same(js, ts, 1e-6, f"decision {d}")
+        for a, t in zip(jrec, trec):
+            a, t = np.asarray(a), t.numpy()
+            if a.dtype.kind == "f":
+                np.testing.assert_allclose(t, a, rtol=1e-6, atol=1e-3)
+            else:
+                assert np.array_equal(a, t), (d, a, t)
+    assert int(ts.episodes.sum()) >= 2  # episodes ended and restarted
