@@ -5,38 +5,45 @@
 
 Builds the port's CUDA kernels from `sparksched_tpu_torch/csrc/` with
 nvcc, holds each against its plain PyTorch version on the card, then
-drives the port's main path — Decima decisions served by
-`SessionStore(device="cuda")` at its default engine knobs (`SERVE_KNOBS`:
-the bulk event passes on) at the flagship shape of
-`config/decima_tpch.yaml` (50 executors, 200-job cap, 20 stage slots;
-capacity 64 and max_batch 8 from the config's documented `serve:`
-block) — and checks it: every health mask 0, every served action valid,
-and the card's decisions equal to the CPU port's on the same sessions.
-The earlier path, the store with the bulk knobs off, is served at a
-smaller depth beside it, and whole fair-policy episodes run through
-`run_flat` (16 lanes, the config's sequences x rollouts, auto-reset)
-with the card's lanes held against the CPU port's.
+drives the port's paths at the flagship shape of `config/decima_tpch.yaml`
+(50 executors, 200-job cap, 20 stage slots; Decima embed 16, GNN [32,16],
+policy [64,64], job_bucket 32) and checks them. The main path is PPO
+training as the config runs it (16 lanes, the flat single-eval collector,
+3 epochs x 10 minibatches), 2 iterations with `rollout_steps` cut to 256,
+through `make_trainer(...).train()`: health 0, parameters finite and
+changed, both encoder kernels launched (forward in collection and update,
+backward in the update) and no plain version called. The earlier paths
+stay: Decima decisions served by `SessionStore(device="cuda")` at its
+default engine knobs (`SERVE_KNOBS`) and with the bulk knobs off
+(capacity 64 and max_batch 8 from the config's documented `serve:`
+block), the card's decisions against the CPU port's, and whole
+fair-policy episodes through `run_flat` (16 lanes, auto-reset) with the
+card's lanes held against the CPU port's. Training on 2 lanes is held
+against the CPU port too.
 
-The kernel is held against its plain version on the serve path's own
-inputs and on the seeded adversarial inputs of `make_case` in
+The forward kernel is held against its plain version on the serve
+path's inputs and on the seeded adversarial inputs of `make_case` in
 `tests/_torch_parity.py`, loaded by path (levels that are no
 topological order, edges into nodes outside node_mask, jobs with no
 valid node but with edges, `num_levels` 3, job counts from a single
-job to more blocks than the card holds at once; one block per job).
+job to more blocks than the card holds at once); the backward kernel on
+the same cases and on update chunks of real rollout features, against
+the plain backward evaluated in float64.
 
-Phases, in order: `build`, `kernel_vs_plain`, `serve` (the main path,
-8 x 64 decisions at SERVE_KNOBS), `serve_knobs_off` (2 x 64),
-`card_vs_cpu` (4 sessions x 16 decisions at SERVE_KNOBS), `run_flat_fair`
-(16 lanes x 256 groups, two lanes replayed on the CPU) and
-`kernel_alone`. The serve phases report decisions/s, p50/p99
-`decide_batch` ms and drain iterations per call.
+Phases, in order: `build`, `kernel_vs_plain`, `serve` (4 x 64 decisions
+at SERVE_KNOBS), `serve_knobs_off` (2 x 64), `card_vs_cpu` (4 sessions x
+16 decisions), `run_flat_fair` (16 lanes x 128 groups, two lanes
+replayed on the CPU), `train` (the main path; a `train_iteration` line
+per iteration), `train_update_profile` (torch.profiler over an update:
+both kernels recorded), `bwd_kernel_vs_plain`, `kernel_alone` and
+`train_parity`.
 
 Each phase prints one JSON line. Before the last line come the
-`{"kernels": [...]}` line (per kernel: launches on the main path,
-max abs error against the plain version, the kernel's own time from
-torch.profiler, taken after the main path, the plain version's time and
-the least time the card could take) and the card's name and
-power limit from nvidia-smi; the last line is
+`{"kernels": [...]}` line (per kernel: launches on the main path, max
+abs error against the plain version, the kernel's own time from
+torch.profiler at an update chunk, taken after the main path, the plain
+version's time and the least time the card could take) and the card's
+name and power limit from nvidia-smi; the last line is
 `{"ok": true, "device": {...}}`. Any failed phase exits non-zero
 without that line, as does a run with no CUDA card or without the
 package next to this script. Imports no JAX.
@@ -56,11 +63,11 @@ import traceback
 HERE = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(HERE, "config", "decima_tpch.yaml")
 CAPACITY, MAX_BATCH = 64, 8  # the config's documented serve: block
-ROUNDS = 8  # ROUNDS x CAPACITY decisions through decide_batch
+ROUNDS = 4  # ROUNDS x CAPACITY decisions through decide_batch
 ROUNDS_OFF = 2  # the same with the bulk knobs off (the earlier path)
 KNOBS_OFF = {"event_bulk": False, "fulfill_bulk": False}
 PARITY_SESSIONS, PARITY_DECISIONS = 4, 16
-FLAT_GROUPS = 256  # run_flat micro-step groups (event_burst 1)
+FLAT_GROUPS = 128  # run_flat micro-step groups (event_burst 1)
 FLAT_CPU_LANES = 2  # lanes of the run_flat phase replayed on the CPU
 FLAT_RTOL = 1e-6
 # Random-init weights are scaled by 0.3: at flax's init scale the Tanh
@@ -73,6 +80,14 @@ TOL = 1e-5
 # stress cases: (B, K) per `make_case` case, each at num_levels 0 and 3
 STRESS_SHAPES = ((1, 1), (1, 3), (3, 86), (7, 229))
 TIMED = ("B8_K32", "B8_K200")  # the serve path's shapes
+# the training phases: the flagship config, rollout_steps cut to 256
+TRAIN_ITERS, TRAIN_STEPS = 2, 256
+PARITY_LANES, PARITY_STEPS = 2, 64  # card vs CPU training
+# the backward kernel: per gradient tensor, max abs error against the
+# float64 plain backward <= BWD_RTOL * max|ref| + BWD_ATOL
+BWD_RTOL, BWD_ATOL = 1e-4, 1e-6
+BWD_CHUNKS = (16, 256)  # update-chunk features: observations per chunk
+CHUNK_TIMED = "update_chunk_256"
 # H100 SXM peaks (NVIDIA data sheet): HBM3 rate and FP32 outside the
 # tensor cores (the kernel runs plain FP32 FMAs)
 HBM_BYTES_PER_S = 3.35e12
@@ -216,12 +231,24 @@ def kernel_ms(fn, reps: int, kernel: str) -> tuple[float, float]:
                    * max(1, round(len(by_name[n]) / reps))
                    for n in names) / 1e3
 
-    ours = [n for n in by_name if kernel in n]
+    names = (kernel,) if isinstance(kernel, str) else kernel
+    ours = [n for n in by_name if any(k in n for k in names)]
     if not ours:
         raise AssertionError(
             f"torch.profiler recorded no launch of {kernel} in {reps} "
             f"calls; device records: {sorted(by_name)}")
     return per_call(ours), per_call(by_name)
+
+
+@functools.cache
+def parity_helpers():
+    """`tests/_torch_parity.py`, loaded by path: the seeded NodeEncoder
+    stress cases and the update comparison the CPU tests use."""
+    spec = importlib.util.spec_from_file_location(
+        "_torch_parity", os.path.join(HERE, "tests", "_torch_parity.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def stress_cases(f_k, s: int, nf: int) -> dict:
@@ -231,10 +258,7 @@ def stress_cases(f_k, s: int, nf: int) -> dict:
     edgeless where B > 1)."""
     import torch
 
-    spec = importlib.util.spec_from_file_location(
-        "_torch_parity", os.path.join(HERE, "tests", "_torch_parity.py"))
-    cases_mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(cases_mod)
+    cases_mod = parity_helpers()
     CASES, make_case = cases_mod.CASES, cases_mod.make_case
     out = {"B8_K32_num_levels3":
            ((f_k.x, f_k.adj, f_k.node_level, f_k.node_mask), 3)}
@@ -314,21 +338,56 @@ def phase_kernels(params, bank, sched) -> tuple[dict, dict]:
     emit({"phase": "kernel_vs_plain", "kernel": "decima_node_encoder",
           "tolerance": TOL, "cases": cases,
           "seconds": time.perf_counter() - t_phase})
-    return cases, calls
+    return cases, calls, checks
 
 
-def phase_kernel_alone(cases: dict, calls: dict) -> None:
-    """The kernel's own device time at the serve path's shapes, from
-    torch.profiler; fails when the profiler has no record of it. It runs
-    after the main path, so that no profiler session in this process
-    comes before the serve phase's host-clock numbers."""
+def phase_kernel_alone(cases: dict, calls: dict, sched, chunk,
+                       bwd: dict) -> None:
+    """Each kernel's own device time from torch.profiler, failing when the
+    profiler has no record of it: the forward at the serve path's shapes
+    and at an update chunk (with its plain version and bound there), the
+    backward (its kernel and the fixed-order reduction) at that chunk. It
+    runs after the main paths, so that no profiler session in this
+    process comes before their host-clock numbers."""
+    from sparksched_tpu_torch.kernels.decima_encoder import (
+        decima_node_encoder,
+        decima_node_encoder_ref,
+    )
+
     for name in TIMED:
         cases[name]["ms"], cases[name]["wrapper_device_ms"] = kernel_ms(
-            calls[name], 50, "decima_node_encoder")
+            calls[name], 50, "decima_node_encoder_kernel")
+    net = sched.net
+    ins = (chunk.x, chunk.adj, chunk.node_level, chunk.node_mask)
+    args = (net.encoder_weights(), net.num_levels, net.slope)
+    nbytes, flops = encoder_work(chunk, net)
+    fwd = {"shape": list(chunk.x.shape),
+           "wrapper_ms": cuda_ms(lambda: decima_node_encoder(*ins, *args), 20),
+           "plain_ms": cuda_ms(lambda: decima_node_encoder_ref(*ins, *args),
+                               3),
+           "bound_ms": max(nbytes / HBM_BYTES_PER_S,
+                           flops / FP32_FLOPS_PER_S) * 1e3,
+           "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
+                        >= flops / FP32_FLOPS_PER_S else "operations"),
+           "bytes": nbytes, "flops": flops}
+    fwd["ms"], fwd["wrapper_device_ms"] = kernel_ms(
+        lambda: decima_node_encoder(*ins, *args), 20,
+        "decima_node_encoder_kernel")
+    cases[CHUNK_TIMED] = cases.get(CHUNK_TIMED, {}) | fwd
+    b = bwd[CHUNK_TIMED]
+    b["ms"], b["wrapper_device_ms"] = kernel_ms(
+        b["call"], 10, ("decima_node_encoder_bwd_kernel",
+                        "reduce_partials_kernel"))
     emit({"phase": "kernel_alone", "kernel": "decima_node_encoder",
-          "ms": {n: cases[n]["ms"] for n in TIMED},
+          "ms": {n: cases[n]["ms"] for n in (*TIMED, CHUNK_TIMED)},
           "wrapper_device_ms": {n: cases[n]["wrapper_device_ms"]
-                                for n in TIMED}})
+                                for n in (*TIMED, CHUNK_TIMED)},
+          "update_chunk": fwd})
+    emit({"phase": "kernel_alone", "kernel": "decima_node_encoder_bwd",
+          "shape": list(chunk.x.shape), "ms": b["ms"],
+          "wrapper_device_ms": b["wrapper_device_ms"],
+          "wrapper_ms": b["wrapper_ms"], "plain_ms": b["plain_ms"],
+          "bound_ms": b["bound_ms"], "bound_by": b["bound_by"]})
 
 
 # ---------------------------------------------------------------------------
@@ -594,6 +653,352 @@ def phase_run_flat() -> None:
     emit(out)
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the backward kernel against its plain version
+# ---------------------------------------------------------------------------
+
+
+def bwd_err(got, ref) -> tuple[float, float]:
+    """(worst max abs error, worst error over its tolerance) over the
+    gradient tensors; the tolerance is BWD_RTOL * max|ref| + BWD_ATOL."""
+    errs = [(float((a.double() - b).abs().max()),
+             BWD_RTOL * float(b.abs().max()) + BWD_ATOL)
+            for a, b in zip(got, ref)]
+    return max(e for e, _ in errs), max(e / t for e, t in errs)
+
+
+def bwd_work(f, net) -> tuple[int, int]:
+    """(bytes, flops) the NodeEncoder backward must move and do for these
+    inputs. Bytes: each input read once (x, adj, levels, node mask, the
+    per-lane edgeless flag, the packed weights, dL/dh), the gradient
+    written once. Flops: what this data needs, counted on the kernel's
+    algorithm, node_mask-valid rows only: per job with a valid node, prep
+    forward and backward (no input gradient at its first layer) over its
+    valid nodes; on an edged lane also update and msg forward and
+    backward over the valid nodes (h0 and its messages) and over each node
+    updated at its level (h_fin and its message), plus D per edge of an
+    updated node, twice (aggregation, scatter). Biases and activations are
+    not counted, which only lowers the bound."""
+    b, k, s, _ = f.x.shape
+    d = net.embed_dim
+    w = net.encoder_weights()
+    nbytes = (f.x.numel() * 4 + f.adj.numel() + f.node_level.numel() * 4
+              + f.node_mask.numel() + b + w.packed.numel() * 4
+              + b * k * s * d * 4 + w.packed.numel() * 4)
+    nl = min(net.num_levels, s) if net.num_levels else s
+    edged = f.adj.reshape(b, -1).any(1)[:, None, None]
+    has_child = f.adj.any(-1)
+    upd = has_child & (f.node_level < nl) & edged
+    upd &= f.node_mask.any(-1, keepdim=True)
+    valid = int(f.node_mask.sum())
+    valid_edged = int((f.node_mask & edged).sum())
+    n_upd = int(upd.sum())
+    edges = int((f.adj & upd[..., None]).sum())
+    prep = _mlp_flops(w.prep)
+    first = 2 * int(w.prep[0][0].shape[0]) * int(w.prep[0][0].shape[1])
+    um = _mlp_flops(w.update) + _mlp_flops(w.msg)
+    flops = (valid * (3 * prep - first) + (valid_edged + n_upd) * 3 * um
+             + 2 * edges * d)
+    return nbytes, flops
+
+
+def update_chunk_features(trainer, ro, items: int):
+    """The features of the first `items` valid steps of a rollout, as the
+    PPO update builds them (full width)."""
+    import torch
+
+    from sparksched_tpu_torch.trainers.rollout import stored_to_observation
+
+    bb, tt = torch.nonzero(ro.valid)[:items].unbind(1)
+    so = ro.obs.map(lambda a: a[bb, tt])
+    return trainer.scheduler.features(stored_to_observation(trainer.bank, so))
+
+
+def phase_bwd_kernel(sched, checks: dict, chunks: dict):
+    """The backward kernel against the float64 plain backward on the
+    stress cases and on update-chunk features, each with a seeded dL/dh
+    (the float32 plain backward's error against it reported beside); the
+    wrapper and the float32 plain version timed on the timed update
+    chunk. Returns (per timed chunk: the call and the numbers, the worst
+    max abs error)."""
+    import torch
+
+    from sparksched_tpu_torch.kernels.decima_encoder import (
+        decima_node_encoder_bwd,
+        decima_node_encoder_bwd_ref,
+    )
+
+    t_phase = time.perf_counter()
+    net = sched.net
+    w = net.encoder_weights()
+    d = net.embed_dim
+    cases = {}
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    todo = dict(checks)
+    for name, f in chunks.items():
+        todo[name] = ((f.x, f.adj, f.node_level, f.node_mask), net.num_levels)
+    for name, (ins, nl) in todo.items():
+        b, k, s, _ = ins[0].shape
+        g = torch.randn((b, k, s, d), device="cuda", generator=gen)
+        got = decima_node_encoder_bwd(*ins, w, nl, net.slope, g)
+        torch.cuda.synchronize()
+        ref = parity_helpers().bwd_ref64(*ins, w, nl, net.slope, g)
+        err, ratio = bwd_err(got, ref)
+        # the float32 plain backward against the same reference
+        _, plain32 = bwd_err(
+            decima_node_encoder_bwd_ref(*ins, w, nl, net.slope, g), ref)
+        cases[name] = {"shape": list(ins[0].shape), "num_levels": nl,
+                       "max_abs_err": err, "err_over_tol": ratio,
+                       "plain32_err_over_tol": plain32}
+        if not ratio <= 1.0:
+            raise AssertionError(f"decima_node_encoder_bwd {name}: error "
+                                 f"{err} is {ratio:.3g}x its tolerance")
+    timed = {}
+    for name in (CHUNK_TIMED,):
+        f = chunks[name]
+        ins = (f.x, f.adj, f.node_level, f.node_mask)
+        g = torch.randn(tuple(f.x.shape[:3]) + (d,), device="cuda",
+                        generator=gen)
+        nbytes, flops = bwd_work(f, net)
+        timed[name] = {
+            "call": functools.partial(decima_node_encoder_bwd, *ins, w,
+                                      net.num_levels, net.slope, g),
+            "wrapper_ms": cuda_ms(lambda: decima_node_encoder_bwd(
+                *ins, w, net.num_levels, net.slope, g), 10),
+            "plain_ms": cuda_ms(lambda: decima_node_encoder_bwd_ref(
+                *ins, w, net.num_levels, net.slope, g), 3),
+            "bound_ms": max(nbytes / HBM_BYTES_PER_S,
+                            flops / FP32_FLOPS_PER_S) * 1e3,
+            "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
+                         >= flops / FP32_FLOPS_PER_S else "operations"),
+            "bytes": nbytes, "flops": flops,
+        }
+        cases[name].update({k: v for k, v in timed[name].items()
+                            if k != "call"})
+    emit({"phase": "bwd_kernel_vs_plain", "kernel": "decima_node_encoder_bwd",
+          "tolerance": f"{BWD_RTOL} * max|ref| + {BWD_ATOL}, against the "
+                       "float64 plain backward",
+          "worst_err_over_tol": max(c["err_over_tol"] for c in cases.values()),
+          "worst_plain32_err_over_tol": max(
+              c["plain32_err_over_tol"] for c in cases.values()),
+          "cases": cases,
+          "seconds": time.perf_counter() - t_phase})
+    return timed, max(c["max_abs_err"] for c in cases.values())
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the main path — PPO training on the card
+# ---------------------------------------------------------------------------
+
+
+def train_cfg(**trainer) -> dict:
+    """config/decima_tpch.yaml with `trainer` keys replaced."""
+    from sparksched_tpu_torch.config import load
+
+    cfg = load(CONFIG)
+    cfg["trainer"] = cfg["trainer"] | trainer
+    return cfg
+
+
+class PlainCalls:
+    """Counts calls of the encoder's plain versions (forward and
+    backward) while active; restores them on exit."""
+
+    def __enter__(self):
+        from sparksched_tpu_torch.kernels import decima_encoder as de
+
+        self.n, self._de = 0, de
+        self._orig = (de.decima_node_encoder_ref,
+                      de.decima_node_encoder_bwd_ref)
+
+        def counted(fn):
+            def wrapper(*a, **k):
+                self.n += 1
+                return fn(*a, **k)
+            return wrapper
+
+        de.decima_node_encoder_ref = counted(self._orig[0])
+        de.decima_node_encoder_bwd_ref = counted(self._orig[1])
+        return self
+
+    def __exit__(self, *exc):
+        de = self._de
+        de.decima_node_encoder_ref, de.decima_node_encoder_bwd_ref = self._orig
+
+
+def phase_train() -> dict:
+    """The flagship config through `make_trainer(...).train()` on the
+    card, TRAIN_ITERS iterations at rollout_steps TRAIN_STEPS: one line
+    per iteration, the gates, and both encoder kernels' launches counted
+    from 0 over the phase."""
+    import math
+
+    import torch
+
+    from sparksched_tpu_torch.kernels.decima_encoder import (
+        decima_node_encoder,
+        decima_node_encoder_bwd,
+    )
+    from sparksched_tpu_torch.trainers import make_trainer
+
+    t_phase = time.perf_counter()
+    cfg = train_cfg(num_iterations=TRAIN_ITERS, rollout_steps=TRAIN_STEPS)
+    trainer = make_trainer(cfg, device="cuda")
+    p0 = {k: v.detach().clone()
+          for k, v in trainer.scheduler.net.named_parameters()}
+    lines = []
+
+    def report(i, state, stats):
+        line = {"phase": "train_iteration", "iteration": i + 1}
+        line.update({k: stats[k] for k in (
+            "collect_seconds", "rows", "decisions", "update_seconds",
+            "minibatches_applied", "kl_stopped", "update_chunks",
+            "policy_loss", "entropy", "approx_kl_div", "health_mask",
+            "max_memory_allocated", "episode_length", "avg_num_jobs")})
+        line["decisions_per_s"] = stats["decisions"] / stats["collect_seconds"]
+        lines.append(line)
+        emit(line)
+
+    torch.cuda.reset_peak_memory_stats()
+    decima_node_encoder.launches = 0
+    decima_node_encoder_bwd.launches = 0
+    with PlainCalls() as plain:
+        state = trainer.train(callback=report)
+    torch.cuda.synchronize()
+    launches = {"decima_node_encoder": decima_node_encoder.launches,
+                "decima_node_encoder_bwd": decima_node_encoder_bwd.launches}
+    if plain.n:
+        raise AssertionError(f"the plain encoder ran {plain.n} times on the "
+                             "card path")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"training launched no {name}")
+    for line in lines:
+        if line["health_mask"] != 0:
+            raise AssertionError(f"health mask {line['health_mask']}")
+        for k in ("policy_loss", "entropy", "approx_kl_div"):
+            if not math.isfinite(line[k]):
+                raise AssertionError(f"{k} = {line[k]}")
+    params = dict(trainer.scheduler.net.named_parameters())
+    if not all(bool(torch.isfinite(v).all()) for v in params.values()):
+        raise AssertionError("a parameter is not finite")
+    moved = max(float((v.detach() - p0[k]).abs().max())
+                for k, v in params.items())
+    if not moved > 0:
+        raise AssertionError("training changed no parameter")
+    out = {"phase": "train", "iterations": TRAIN_ITERS,
+           "rollout_steps": TRAIN_STEPS, "lanes": trainer.num_envs,
+           "encoder_launches": launches, "plain_encoder_calls": plain.n,
+           "max_param_change": moved,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "seconds": time.perf_counter() - t_phase, "card": card_line()}
+    emit(out)
+    return {"trainer": trainer, "state": state, "launches": launches}
+
+
+def phase_train_kernels(train: dict) -> dict:
+    """A profiled `_update` on the last training iteration's rollout:
+    both encoder kernels must be in torch.profiler's records of the
+    update (each counted at its mean duration). Returns update-chunk
+    features for phase_bwd_kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    trainer, state = train["trainer"], train["state"]
+    ro = trainer.last_rollout
+    chunks = {f"update_chunk_{n}": update_chunk_features(trainer, ro, n)
+              for n in BWD_CHUNKS}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        trainer._update(state, ro)
+        torch.cuda.synchronize()
+    by_name: dict[str, list[float]] = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    out = {}
+    for kernel, match in (("decima_node_encoder", "decima_node_encoder_kernel"),
+                          ("decima_node_encoder_bwd",
+                           "decima_node_encoder_bwd_kernel")):
+        recs = [t for n, ts in by_name.items() if match in n for t in ts]
+        if not recs:
+            raise AssertionError(f"torch.profiler recorded no {kernel} in "
+                                 "the update")
+        out[kernel] = {"records": len(recs), "mean_ms": sum(recs) / len(recs)
+                       / 1e3}
+    emit({"phase": "train_update_profile", "rollout_steps": TRAIN_STEPS,
+          "decisions": int(ro.valid.sum()), "kernels": out})
+    return chunks
+
+
+def phase_train_parity(parity) -> None:
+    """Two lanes of one collection at T = PARITY_STEPS and one `_update`
+    on it, on the card and on the CPU port, from the same weights (the
+    port's init x WEIGHT_SCALE) and keys: actions, valid and stage
+    indices equal, log-probs and rewards within rtol 1e-5. The updated
+    parameters are held as `tests/_torch_parity.py:assert_update_close`
+    holds the port to the JAX package: at the config's Adam within rtol
+    1e-4 / atol 1e-6 but the policy heads (Adam's step bound: there it
+    steps along float32 noise); at the linear Adam (eps 1e-2, lr 3e-2)
+    the change of every parameter outside the heads within rtol 1e-4 /
+    atol 1e-7 per applied step. The heads' gradients sum terms over every
+    node and executor row that nearly cancel (a softmax gradient sums to
+    0), so the card's float32 summation order reaches their update at
+    the 1e-4 level; they are plain torch on both devices, and their
+    gradients are held to jax.grad on the CPU
+    (`tests/test_torch_encoder_grad.py`)."""
+    import numpy as np
+    import torch
+
+    from sparksched_tpu_torch import prng
+    from sparksched_tpu_torch.trainers import make_trainer
+
+    t_phase = time.perf_counter()
+    out, sd, worst = {}, None, {}
+    for linear in (False, True):
+        over = {"num_sequences": 1, "num_rollouts": PARITY_LANES,
+                "rollout_steps": PARITY_STEPS}
+        if linear:
+            over["opt_kwargs"] = parity.LINEAR_ADAM
+        cfg = train_cfg(**over)
+        for dev in ("cuda", "cpu"):
+            trainer = make_trainer(cfg, device=dev)
+            if sd is None:
+                sd = {k: v.cpu() * WEIGHT_SCALE
+                      for k, v in trainer.scheduler.params.items()}
+            trainer.scheduler.load_params(sd)
+            state = trainer.init_state()
+            state.rng = prng.PRNGKey(SEED, dev)
+            t = time.perf_counter()
+            ro, hm = trainer._collect(0, state.rng)
+            state, stats = trainer._update(state, ro)
+            out[dev] = (ro, hm, state, stats, time.perf_counter() - t)
+        (rc, hc, sc, stc, tc), (rp, hp, sp, stp, tp) = out["cuda"], out["cpu"]
+        for k in ("stage_idx", "job_idx", "num_exec_k", "valid"):
+            if not torch.equal(getattr(rc, k).cpu(), getattr(rp, k)):
+                raise AssertionError(f"train parity: {k} differs")
+        for k in ("lgprob", "reward"):
+            a, b = getattr(rc, k).cpu().numpy(), getattr(rp, k).numpy()
+            if not np.allclose(a, b, rtol=1e-5, atol=1e-6):
+                raise AssertionError(f"train parity: {k} differs by "
+                                     f"{np.abs(a - b).max()}")
+        if stc["minibatches_applied"] != stp["minibatches_applied"]:
+            raise AssertionError("train parity: minibatches applied differ")
+        lr = parity.LINEAR_ADAM["lr"] if linear else 3e-4
+        worst["linear_adam" if linear else "config_adam"] = (
+            parity.assert_update_close(
+                {k: v.detach().cpu().numpy() for k, v in sp.params.items()},
+                sc.params, sd, int(stc["minibatches_applied"]), lr, linear,
+                skip=parity.POLICY_HEADS if linear else ()))
+    emit({"phase": "train_parity", "lanes": PARITY_LANES,
+          "rollout_steps": PARITY_STEPS, "decisions": int(rp.valid.sum()),
+          "minibatches_applied": int(stc["minibatches_applied"]),
+          "health": [int(hc.max()), int(hp.max())],
+          "worst_param_err_over_tol": worst, "card_seconds": tc,
+          "cpu_seconds": tp, "seconds": time.perf_counter() - t_phase})
+
+
 def main() -> int:
     import torch
 
@@ -619,29 +1024,47 @@ def main() -> int:
         phase_build()
         params, bank, agent = flagship("cuda")
         sched = make_scheduler(params, agent, "cuda")
-        cases, calls = phase_kernels(params, bank, sched)
-        serve = phase_serve(params, bank, sched, "serve", None, ROUNDS)
+        cases, calls, checks = phase_kernels(params, bank, sched)
+        phase_serve(params, bank, sched, "serve", None, ROUNDS)
         phase_serve(params, bank, sched, "serve_knobs_off", KNOBS_OFF,
                     ROUNDS_OFF)
         phase_parity(agent, sched)
         phase_run_flat()
-        phase_kernel_alone(cases, calls)
+        train = phase_train()
+        chunks = phase_train_kernels(train)
+        tsched = train["trainer"].scheduler
+        bwd, bwd_err_max = phase_bwd_kernel(tsched, checks, chunks)
+        phase_kernel_alone(cases, calls, tsched, chunks[CHUNK_TIMED], bwd)
+        phase_train_parity(parity_helpers())
     except Exception:
         traceback.print_exc()
         return 1
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
-    main_case = cases["B8_K32"]
+    fwd, bw = cases[CHUNK_TIMED], bwd[CHUNK_TIMED]
     emit({"kernels": [{
         "name": "decima_node_encoder",
         "route": "cuda",
         "source": "sparksched_tpu_torch/csrc/decima_encoder.cu",
         "replaces": "sparksched_tpu/schedulers/decima.py:284",
-        "launches": serve["encoder_launches"],
-        "max_abs_err": max(c["max_abs_err"] for c in cases.values()),
-        "ms": main_case["ms"],
-        "plain_ms": main_case["plain_ms"],
-        "bound_ms": main_case["bound_ms"],
-        "bound_by": main_case["bound_by"],
+        "launches": train["launches"]["decima_node_encoder"],
+        "max_abs_err": max(c["max_abs_err"] for c in cases.values()
+                           if "max_abs_err" in c),
+        "ms": fwd["ms"],
+        "plain_ms": fwd["plain_ms"],
+        "bound_ms": fwd["bound_ms"],
+        "bound_by": fwd["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "decima_node_encoder_bwd",
+        "route": "cuda",
+        "source": "sparksched_tpu_torch/csrc/decima_encoder_bwd.cu",
+        "replaces": "sparksched_tpu/schedulers/decima.py:706",
+        "launches": train["launches"]["decima_node_encoder_bwd"],
+        "max_abs_err": bwd_err_max,
+        "ms": bw["ms"],
+        "plain_ms": bw["plain_ms"],
+        "bound_ms": bw["bound_ms"],
+        "bound_by": bw["bound_by"],
         "library_ms": None,
     }]})
     print(card_line(), flush=True)

@@ -1,6 +1,6 @@
 """Health sentinels over the environment state (counterpart of
-`sparksched_tpu/env/health.py`: the bit table, `state_health` and
-`reward_health`; `grad_health` waits for the training slice).
+`sparksched_tpu/env/health.py`: the bit table, `state_health`,
+`reward_health` and `grad_health`).
 
 A health mask is an i32 bitmask of invariant violations computed as
 tensor reductions, one per lane."""
@@ -94,3 +94,31 @@ def state_health(state: EnvState, prev: EnvState | None = None,
 def reward_health(reward: torch.Tensor) -> torch.Tensor:
     """i32 bitmask (same shape as `reward`)."""
     return _bit(~torch.isfinite(reward), H_NONFINITE_REWARD)
+
+
+def tree_nonfinite(tensors) -> torch.Tensor:
+    """bool []: any floating tensor of `tensors` (an iterable, or a dict's
+    values) holds a non-finite value; other dtypes are skipped."""
+    if isinstance(tensors, dict):
+        tensors = tensors.values()
+    flags = [~torch.isfinite(t).all() for t in tensors
+             if t is not None and t.is_floating_point()]
+    if not flags:
+        return torch.tensor(False)
+    return torch.stack(flags).any().cpu()
+
+
+def grad_health(loss: torch.Tensor | None = None, grads=None, params=None
+                ) -> torch.Tensor:
+    """i32 [] bitmask over the update-side quantities; every argument
+    optional (None contributes nothing). `grads` and `params` are
+    iterables of tensors or dicts of them."""
+    mask = torch.tensor(0, dtype=torch.int32)
+    if loss is not None:
+        mask = mask | _bit(~torch.isfinite(loss.detach().cpu()),
+                           H_NONFINITE_LOSS)
+    if grads is not None:
+        mask = mask | _bit(tree_nonfinite(grads), H_NONFINITE_GRAD)
+    if params is not None:
+        mask = mask | _bit(tree_nonfinite(params), H_NONFINITE_PARAM)
+    return mask

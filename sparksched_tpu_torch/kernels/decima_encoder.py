@@ -11,6 +11,15 @@ until the weights change). The edgeless fallback is reduced per lane
 over ALL of that lane's jobs, so it is computed here, before the
 launch, and handed to the kernel (a job's warps see one job only): a call
 on the card makes two launches, that reduction and the kernel.
+
+`decima_node_encoder_bwd` is the gradient of the same function with
+respect to the three MLPs' weights and biases, given the gradient of h:
+the kernel of `csrc/decima_encoder_bwd.cu` on a CUDA tensor, autograd
+through the plain version (`decima_node_encoder_bwd_ref`) on a CPU
+tensor. `DecimaNodeEncoderFn` joins the two directions for autograd: its
+forward runs the forward wrapper and saves only the inputs (the
+recomputation `jax.checkpoint` gives the JAX package), its backward runs
+the backward wrapper; x, adj and the masks take no gradient.
 """
 
 from __future__ import annotations
@@ -178,3 +187,134 @@ def decima_node_encoder(x, adj, node_level, node_mask, w: EncoderWeights,
 
 
 decima_node_encoder.launches = 0
+
+
+def encoder_params(w: EncoderWeights) -> list[torch.Tensor]:
+    """The layers' tensors in the packed order: per MLP (prep, msg,
+    update), per layer, weight [out,in] then bias."""
+    return [t for ls in (w.prep, w.msg, w.update) for pair in ls
+            for t in pair]
+
+
+def unpack_grad(w: EncoderWeights, g: torch.Tensor) -> list[torch.Tensor]:
+    """A gradient in the packed layout (each layer's W.T then b) as
+    tensors shaped like `encoder_params(w)`."""
+    out, off = [], 0
+    for layers in (w.prep, w.msg, w.update):
+        for wt, b in layers:
+            o, i = wt.shape
+            out.append(g[off:off + i * o].view(i, o).t())
+            off += i * o
+            out.append(g[off:off + o])
+            off += o
+    return out
+
+
+def decima_node_encoder_bwd_ref(x, adj, node_level, node_mask,
+                                w: EncoderWeights, num_levels: int,
+                                negative_slope: float, grad_h: torch.Tensor
+                                ) -> list[torch.Tensor]:
+    """Plain backward: autograd through `decima_node_encoder_ref`.
+    Returns the gradients of `encoder_params(w)`, in that order."""
+    params = [t.detach().requires_grad_(True) for t in encoder_params(w)]
+    it = iter(params)
+    layers = [[(next(it), next(it)) for _ in ls]
+              for ls in (w.prep, w.msg, w.update)]
+    wg = EncoderWeights(*layers, packed=w.packed, spec=w.spec)
+    with torch.enable_grad():
+        h = decima_node_encoder_ref(x, adj, node_level, node_mask, wg,
+                                    num_levels, negative_slope)
+        grads = torch.autograd.grad(h, params, grad_h, allow_unused=True)
+    return [torch.zeros_like(p) if g is None else g
+            for p, g in zip(params, grads)]
+
+
+@functools.cache
+def _bwd_launcher():
+    from .build import load
+
+    fn = load("decima_encoder_bwd").decima_node_encoder_bwd_launch
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci,
+                   ci, ctypes.c_float, ctypes.POINTER(ci), ci, vp]
+    fn.restype = ci
+    return fn
+
+
+BWD_BLOCKS_PER_SM = 3  # ~71 KB of shared memory a block at the flagship widths
+
+
+def decima_node_encoder_bwd(x, adj, node_level, node_mask, w: EncoderWeights,
+                            num_levels: int, negative_slope: float,
+                            grad_h: torch.Tensor) -> list[torch.Tensor]:
+    """Gradients of `encoder_params(w)` given dL/dh: the backward kernel
+    and its fixed-order reduction on a CUDA tensor (one call counted in
+    `decima_node_encoder_bwd.launches`), the plain version on a CPU
+    tensor."""
+    _check(x, adj, node_level, node_mask, w)
+    b, k, s, f = x.shape
+    d = int(w.prep[-1][0].shape[0])
+    if (grad_h.dtype != torch.float32 or tuple(grad_h.shape) != (b, k, s, d)
+            or grad_h.device != x.device):
+        raise ValueError(f"grad_h: want float32 {(b, k, s, d)} on "
+                         f"{x.device}, got {grad_h.dtype} "
+                         f"{tuple(grad_h.shape)} on {grad_h.device}")
+    if x.device.type == "cpu":
+        return decima_node_encoder_bwd_ref(
+            x, adj, node_level, node_mask, w, num_levels, negative_slope,
+            grad_h,
+        )
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    if s > 32:
+        raise ValueError(f"the kernel takes at most 32 stage slots, got {s}")
+    fn = _bwd_launcher()
+    grad_h = grad_h.contiguous()
+    s_nl = min(num_levels, s) if num_levels else s
+    edgeless = edgeless_per_lane(adj).contiguous()
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    blocks = min(b * k, BWD_BLOCKS_PER_SM * sms)
+    n = w.packed.numel()
+    partials = torch.empty((max(blocks, 1), n), dtype=torch.float32,
+                           device=x.device)
+    grad = torch.empty(n, dtype=torch.float32, device=x.device)
+    spec_c = w.spec.ctypes.data_as(ctypes.POINTER(ctypes.c_int))
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = fn(x.data_ptr(), adj.data_ptr(), node_level.data_ptr(),
+            node_mask.data_ptr(), edgeless.data_ptr(), w.packed.data_ptr(),
+            grad_h.data_ptr(), partials.data_ptr(), grad.data_ptr(), b, k, s,
+            f, d, s_nl, float(negative_slope), spec_c, blocks, stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"decima_node_encoder_bwd launch failed (cudaGetLastError={rc})"
+        )
+    decima_node_encoder_bwd.launches += 1
+    return unpack_grad(w, grad)
+
+
+decima_node_encoder_bwd.launches = 0
+
+
+class DecimaNodeEncoderFn(torch.autograd.Function):
+    """The NodeEncoder for autograd: `apply(x, adj, node_level, node_mask,
+    w, num_levels, negative_slope, *encoder_params(w))`. The forward
+    launches the forward wrapper and saves only its inputs; the backward
+    recomputes inside the backward wrapper (the kernel on the card, the
+    plain version on the CPU) and returns the parameters' gradients."""
+
+    @staticmethod
+    def forward(ctx, x, adj, node_level, node_mask, w, num_levels,
+                negative_slope, *params):
+        ctx.save_for_backward(x, adj, node_level, node_mask)
+        ctx.w, ctx.num_levels, ctx.slope = w, num_levels, negative_slope
+        return decima_node_encoder(x, adj, node_level, node_mask, w,
+                                   num_levels, negative_slope)
+
+    @staticmethod
+    def backward(ctx, grad_h):
+        x, adj, node_level, node_mask = ctx.saved_tensors
+        grads = decima_node_encoder_bwd(
+            x, adj, node_level, node_mask, ctx.w, ctx.num_levels, ctx.slope,
+            grad_h.contiguous(),
+        )
+        return (None,) * 7 + tuple(grads)

@@ -15,6 +15,8 @@ accept a batch of keys in the leading dimensions.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 _M32 = 0xFFFFFFFF
@@ -157,3 +159,45 @@ def choice(key: torch.Tensor, n: int, p: torch.Tensor) -> torch.Tensor:
     r = cum[..., -1:] * (1.0 - uniform(key)[..., None])
     return torch.searchsorted(cum.contiguous(), r.contiguous())[..., 0].to(
         torch.int32)
+
+
+_TINY = float(torch.finfo(torch.float32).tiny)
+
+
+def gumbel(key: torch.Tensor, shape: tuple[int, ...] = ()) -> torch.Tensor:
+    """`jax.random.gumbel(key, shape)` in float32, jax's default mode
+    "low": `-log(-log(u))` with `u = uniform(key, shape, tiny, 1)`. XLA's
+    and torch's float32 `log` may differ in the last ulp."""
+    bits = random_bits(key, shape)
+    fbits = ((bits >> 9) | 0x3F800000).to(torch.int32)
+    floats = fbits.view(torch.float32) - 1.0
+    # uniform(minval=tiny, maxval=1): floats * (1 - tiny) + tiny, where
+    # 1 - tiny rounds to 1 in float32
+    u = torch.clamp_min(floats * (1.0 - _TINY) + _TINY, _TINY)
+    return -torch.log(-torch.log(u))
+
+
+def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """`jax.random.categorical(key, logits)` over the last axis, one draw
+    per key: `logits` is float32 `key.shape[:-1] + [n]`; returns int64 of
+    shape `key.shape[:-1]` (Gumbel-max; ties go to the first index, as
+    `jnp.argmax`)."""
+    g = gumbel(key, (logits.shape[-1],))
+    return torch.argmax(g + logits, dim=-1)
+
+
+def permutation(key: torch.Tensor, n: int) -> torch.Tensor:
+    """`jax.random.permutation(key, n)` per key: int64 of shape
+    `key.shape[:-1] + [n]`. jax sorts `arange(n)` by fresh 32-bit keys
+    `ceil(3 ln n / ln(2^32 - 1))` times, each round on a new split of the
+    key, with a stable sort; the bits are random_bits', the sort is
+    `torch.sort(stable=True)` on the words as int64."""
+    rounds = int(math.ceil(3 * math.log(max(1, n)) / math.log(2**32 - 1)))
+    x = torch.arange(n, dtype=torch.int64, device=key.device).expand(
+        tuple(key.shape[:-1]) + (n,))
+    for _ in range(rounds):
+        keys = split(key)
+        key, sub = keys[..., 0, :], keys[..., 1, :]
+        order = torch.sort(random_bits(sub, (n,)), dim=-1, stable=True)
+        x = torch.gather(x, -1, order.indices)
+    return x

@@ -5,8 +5,8 @@
   padded `Observation`s (leading lane axis). `stage_idx` is a flat padded
   node index (job * max_stages + stage, or -1 for "no selection"). The
   heuristics take `(rng, obs)` with one key per lane, as the JAX
-  package's policies do (`run_flat`'s `policy_fn`); Decima's greedy
-  `policy(obs)` takes no key.
+  package's policies do (`run_flat`'s `policy_fn`); Decima's
+  `policy(rng, obs)` takes one key for the batch (None when greedy).
 """
 
 from __future__ import annotations

@@ -9,8 +9,13 @@ version on the CPU); the other dense layers stay `nn.Linear`. Parameter
 names follow the flax tree (`mlp_prep.dense_0.weight`, ...), so
 `params_from_flax` carries weights across from the JAX package.
 
-Waiting for later slices: `compute_dtype="bfloat16"`, stochastic
-sampling (serving is greedy), `evaluate_actions` and the msgpack
+Sampling is greedy (serving) or stochastic (collection: Gumbel-max with
+`prng.categorical`, the JAX key layout); `evaluate_actions` gives the
+log-probs and normalised entropies the PPO update differentiates, with
+the NodeEncoder's gradient from its own backward kernel
+(`kernels.decima_encoder.DecimaNodeEncoderFn`).
+
+Waiting for later slices: `compute_dtype="bfloat16"` and the msgpack
 checkpoint loader.
 """
 
@@ -22,9 +27,11 @@ from typing import Any, Callable
 import torch
 from torch import nn
 
+from .. import prng
 from ..config import resolve_device
 from ..env.observe import Observation
 from ..kernels.decima_encoder import (
+    DecimaNodeEncoderFn,
     EncoderWeights,
     decima_node_encoder,
     pack_weights,
@@ -236,10 +243,22 @@ class DecimaNet(nn.Module):
         return self._enc_w
 
     def encode(self, f: DecimaFeatures) -> torch.Tensor:
-        """NodeEncoder h_node [B,J,S,D] through the kernel wrapper."""
+        """NodeEncoder h_node [B,J,S,D] through the kernel wrapper; with
+        grad enabled through `DecimaNodeEncoderFn`, whose backward is the
+        encoder's backward kernel (its plain version on the CPU)."""
+        w = self.encoder_weights()
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for ls in (w.prep, w.msg, w.update)
+                for pair in ls for t in pair):
+            return DecimaNodeEncoderFn.apply(
+                f.x, f.adj, f.node_level, f.node_mask, w, self.num_levels,
+                self.slope,
+                *(t for ls in (w.prep, w.msg, w.update)
+                  for pair in ls for t in pair),
+            )
         return decima_node_encoder(
-            f.x, f.adj, f.node_level, f.node_mask, self.encoder_weights(),
-            self.num_levels, self.slope,
+            f.x, f.adj, f.node_level, f.node_mask, w, self.num_levels,
+            self.slope,
         )
 
     def forward(self, f: DecimaFeatures):
@@ -298,29 +317,39 @@ class DecimaAction:
     num_exec: torch.Tensor  # i32[B] 0-based parallelism choice
 
 
-def sample_action(stage_scores, exec_scores, f: DecimaFeatures,
-                  deterministic: bool = True):
-    """Greedy action per lane: masked argmax of the stage head, then of
-    the chosen job's exec head. Returns (DecimaAction, lgprob[B])."""
-    if not deterministic:
-        raise NotImplementedError(
-            "stochastic sampling (jax.random.categorical parity) is not "
-            "ported yet; serving is greedy"
-        )
+def sample_action(rng, stage_scores, exec_scores, f: DecimaFeatures,
+                  deterministic: bool = False):
+    """Autoregressive action per lane: the stage by a masked softmax over
+    every schedulable node, then the executor count from the chosen
+    job's exec head; both by Gumbel-max on the lane's key (`rng` [B,2],
+    split into the stage and the exec key as the JAX package does), or
+    with `deterministic` both by the masked argmax (`rng` unused, may be
+    None). Returns (DecimaAction, lgprob[B]), the log-probability of the
+    chosen action."""
     b, j_cap, s_cap = f.stage_mask.shape
     rows = torch.arange(b, device=stage_scores.device)
     flat_mask = f.stage_mask.reshape(b, -1)
     flat_scores = stage_scores.reshape(b, -1)
     logp_stage = masked_log_softmax(flat_scores, flat_mask)
     valid = flat_mask.any(1)
-    pick = torch.argmax(torch.where(flat_mask, flat_scores, NEG_INF), 1)
+    stage_logits = torch.where(flat_mask, flat_scores, NEG_INF)
+    if deterministic:
+        pick = torch.argmax(stage_logits, 1)
+    else:
+        keys = prng.split(rng)
+        k_stage, k_exec = keys[:, 0], keys[:, 1]
+        pick = prng.categorical(k_stage, stage_logits)
     stage_flat = torch.where(valid, pick, -1).to(_i32)
     job = torch.where(valid, stage_flat // s_cap, -1).to(_i32)
     jc = torch.clamp_min(job, 0).long()
     e_mask = f.exec_mask[rows, jc]
     e_scores = exec_scores[rows, jc]
     logp_exec = masked_log_softmax(e_scores, e_mask)
-    exec_pick = torch.argmax(torch.where(e_mask, e_scores, NEG_INF), 1)
+    exec_logits = torch.where(e_mask, e_scores, NEG_INF)
+    if deterministic:
+        exec_pick = torch.argmax(exec_logits, 1)
+    else:
+        exec_pick = prng.categorical(k_exec, exec_logits)
     k = torch.where(e_mask.any(1), exec_pick, 0).to(_i32)
     lgprob = torch.where(
         valid,
@@ -329,6 +358,29 @@ def sample_action(stage_scores, exec_scores, f: DecimaFeatures,
         0.0,
     )
     return DecimaAction(stage_idx=stage_flat, job_idx=job, num_exec=k), lgprob
+
+
+def evaluate_actions(stage_scores, exec_scores, f: DecimaFeatures,
+                     action: DecimaAction, num_executors: int):
+    """Log-prob and normalised entropy of one stored action per item
+    ([B] leading): the entropy of both heads over
+    `log(max(N * nodes, 2))`; both 0 where the action chose no stage."""
+    b = f.stage_mask.shape[0]
+    rows = torch.arange(b, device=stage_scores.device)
+    flat_mask = f.stage_mask.reshape(b, -1)
+    logp_stage = masked_log_softmax(stage_scores.reshape(b, -1), flat_mask)
+    jc = torch.clamp_min(action.job_idx, 0).long()
+    e_mask = f.exec_mask[rows, jc]
+    logp_exec = masked_log_softmax(exec_scores[rows, jc], e_mask)
+    lgprob = (logp_stage[rows, torch.clamp_min(action.stage_idx, 0).long()]
+              + logp_exec[rows, action.num_exec.long()])
+    ent = masked_entropy(logp_stage, flat_mask) + masked_entropy(
+        logp_exec, e_mask)
+    num_nodes = f.node_mask.sum((1, 2))
+    ent = ent / torch.log(
+        torch.clamp_min(num_executors * num_nodes, 2).to(torch.float32))
+    valid = action.stage_idx >= 0
+    return torch.where(valid, lgprob, 0.0), torch.where(valid, ent, 0.0)
 
 
 # --------------------------------------------------------------------------
@@ -409,12 +461,16 @@ class DecimaScheduler(TrainableScheduler):
         return scatter_job_scores(ss, es, ids, j_cap)
 
     @torch.no_grad()
-    def batch_policy(self, obs: Observation, deterministic: bool = True):
-        """Policy over a [B] observation stack in ONE net evaluation.
-        Returns (stage_idx[B], num_exec_1based[B], aux)."""
+    def batch_policy(self, rng, obs: Observation,
+                     deterministic: bool = False):
+        """Policy over a [B] observation stack in ONE net evaluation;
+        `rng` is one key, split into one per lane (None when
+        `deterministic`). Returns (stage_idx[B], num_exec_1based[B],
+        aux)."""
         f = self.features(obs)
         stage_scores, exec_scores = self.score(f)
-        action, lgprob = sample_action(stage_scores, exec_scores, f,
+        keys = None if deterministic else prng.split(rng, f.job_mask.shape[0])
+        action, lgprob = sample_action(keys, stage_scores, exec_scores, f,
                                        deterministic)
         return action.stage_idx, action.num_exec + 1, {
             "lgprob": lgprob,
@@ -422,21 +478,33 @@ class DecimaScheduler(TrainableScheduler):
             "num_exec_k": action.num_exec,
         }
 
-    def policy(self, obs: Observation, deterministic: bool = True):
+    def policy(self, rng, obs: Observation, deterministic: bool = False):
         """Single-session policy: `obs` has a leading axis of 1."""
-        return self.batch_policy(obs, deterministic)
+        return self.batch_policy(rng, obs, deterministic)
 
     def serve_param_policies(self, deterministic: bool = True):
         """The `(policy_fn, batch_policy_fn)` pair the session store
-        serves through, each `fn(obs)`. The weights are the module's
-        live parameters: `SessionStore.set_params` swaps them in place."""
+        serves through, each `fn(obs)`, greedy by default. The weights
+        are the module's live parameters: `SessionStore.set_params`
+        swaps them in place."""
+        if not deterministic:
+            raise NotImplementedError("the session store serves greedy "
+                                      "decisions")
         return (
-            lambda o: self.policy(o, deterministic),
-            lambda o: self.batch_policy(o, deterministic),
+            lambda o: self.policy(None, o, True),
+            lambda o: self.batch_policy(None, o, True),
         )
 
+    def evaluate_actions(self, feats: DecimaFeatures, actions: DecimaAction):
+        """Log-probs and normalised entropies of stored actions over
+        [B]-leading features, through the full-width net (the PPO
+        update's evaluation; differentiable)."""
+        stage_scores, exec_scores = self.net(feats)
+        return evaluate_actions(stage_scores, exec_scores, feats, actions,
+                                self.num_executors)
+
     def schedule(self, obs: Observation):
-        si, ne, info = self.policy(obs)
+        si, ne, info = self.policy(None, obs, True)
         return ({"stage_idx": int(si[0]), "num_exec": int(ne[0])},
                 {k: v[0].item() for k, v in info.items()})
 

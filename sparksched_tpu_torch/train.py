@@ -1,0 +1,24 @@
+"""Training entry point of the port:
+
+    python -m sparksched_tpu_torch.train -f config/decima_tpch.yaml
+
+runs the config's trainer on the card; `--device cpu` runs it on the CPU
+(without a card and without that flag it raises)."""
+
+from __future__ import annotations
+
+from .config import load, make_parser
+from .trainers import make_trainer
+
+
+def main(argv: list[str] | None = None) -> None:
+    parser = make_parser()
+    parser.add_argument("--device", default="cuda",
+                        help="cuda (the default) or cpu")
+    args = parser.parse_args(argv)
+    trainer = make_trainer(load(args.filename), device=args.device)
+    trainer.train()
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,254 @@
+"""Rollout collection (counterpart of `sparksched_tpu/trainers/rollout.py`:
+`StoredObs`, `store_obs`, `stored_to_observation`, `Rollout`,
+`_zero_stored`, `_flat_collect_single_eval` in its sync form and
+`collect_flat_sync_batch`).
+
+The single-eval collector runs one decision row per iteration over the
+whole lane batch: one `observe`, ONE batched policy evaluation
+(`batch_policy_fn(key, obs)`), `decide_micro_step` acting on it, then
+`drain_to_decision` up to every lane's next decision. The key chain per
+row is the JAX package's (`split(k, 4)`, then one key per lane of the
+decide and of the drain key). Each lane's decisions are written in place
+into fixed `[B, T]` buffers allocated once on the device; row T of each
+buffer is scratch, where writes past T (JAX's dropped scatters) land.
+A span's reward goes to the slot of the lane's latest decision.
+
+The JAX scan runs exactly T rows. This loop leaves as soon as no lane can
+decide again (every lane done or stuck): each later row would change no
+leaf of the `Rollout` — a done lane is frozen, a stuck lane's queue is
+empty, its rewards are 0 and its health bits repeat — at the price of one
+host sync per row. The asynchronous form (`rollout_duration`,
+`collect_flat_async_batch`), the per-lane and `core.step` collectors and
+the telemetry counters are not ported.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from .. import prng
+from ..config import EnvParams
+from ..env.flat_loop import (
+    M_DECIDE,
+    _lane_done,
+    aux_action_fields,
+    decide_micro_step,
+    drain_to_decision,
+    init_loop_state,
+)
+from ..env.health import reward_health, state_health
+from ..env.observe import Observation, observe
+from ..env.state import EnvState, topo_levels
+from ..workload.bank import WorkloadBank
+
+_i32 = torch.int32
+
+
+@dataclasses.dataclass
+class StoredObs:
+    """The per-step record an `Observation` is rebuilt from; leading axes
+    as stored (`[B,T]` in a `Rollout`). The adjacency is not stored: it
+    comes from the job's template."""
+
+    remaining: torch.Tensor  # i32[...,J,S]
+    duration: torch.Tensor  # f32[...,J,S]
+    schedulable: torch.Tensor  # bool[...,J,S]
+    node_mask: torch.Tensor  # bool[...,J,S]
+    job_mask: torch.Tensor  # bool[...,J]
+    job_template: torch.Tensor  # i32[...,J]
+    exec_supplies: torch.Tensor  # i32[...,J]
+    num_committable: torch.Tensor  # i32[...]
+    source_job: torch.Tensor  # i32[...]
+
+    def map(self, fn) -> "StoredObs":
+        return StoredObs(**{f.name: fn(getattr(self, f.name))
+                            for f in dataclasses.fields(self)})
+
+
+def store_obs(obs: Observation, state: EnvState) -> StoredObs:
+    """The record of `obs` ([B] lanes), taken from `state`."""
+    return StoredObs(
+        remaining=torch.where(obs.node_mask, state.stage_remaining, 0).to(
+            _i32),
+        duration=obs.nodes[..., 1],
+        schedulable=obs.schedulable,
+        node_mask=obs.node_mask,
+        job_mask=obs.job_mask,
+        job_template=state.job_template.to(_i32),
+        exec_supplies=obs.exec_supplies.to(_i32),
+        num_committable=obs.num_committable.to(_i32),
+        source_job=obs.source_job.to(_i32),
+    )
+
+
+def stored_to_observation(bank: WorkloadBank, so: StoredObs) -> Observation:
+    """The padded Observation a stored step ([N] leading) was taken from:
+    `adj` from the bank's template adjacency masked to the active nodes,
+    `node_level` recomputed from it."""
+    nm = so.node_mask
+    adj = bank.adj[so.job_template.long()] & nm[..., :, None] & nm[..., None, :]
+    nodes = torch.stack([
+        so.remaining.to(torch.float32),
+        so.duration.to(torch.float32),
+        so.schedulable.to(torch.float32),
+    ], dim=-1)
+    return Observation(
+        nodes=nodes,
+        node_mask=nm,
+        job_mask=so.job_mask,
+        schedulable=so.schedulable,
+        frontier=torch.zeros_like(so.schedulable),
+        adj=adj,
+        node_level=topo_levels(nm, adj),
+        exec_supplies=so.exec_supplies,
+        num_committable=so.num_committable,
+        source_job=so.source_job,
+        wall_time=torch.zeros(nm.shape[0], device=nm.device),
+    )
+
+
+@dataclasses.dataclass
+class Rollout:
+    """Each lane's fixed-length rollout, `[B,T]` per-step fields."""
+
+    obs: StoredObs  # [B,T,...]
+    stage_idx: torch.Tensor  # i32[B,T] flat padded node index (-1 = none)
+    job_idx: torch.Tensor  # i32[B,T]
+    num_exec_k: torch.Tensor  # i32[B,T] 0-based exec choice
+    lgprob: torch.Tensor  # f32[B,T]
+    reward: torch.Tensor  # f32[B,T]
+    # wall_times[:, k] = time of obs k; wall_times[:, T] = final time
+    wall_times: torch.Tensor  # f32[B,T+1]
+    valid: torch.Tensor  # bool[B,T]
+    resets: torch.Tensor  # bool[B,T]
+    final_state: EnvState  # [B]
+    final_reset_count: torch.Tensor  # i32[B]
+
+    @property
+    def num_steps(self) -> torch.Tensor:
+        return self.valid.sum(-1)
+
+
+def zero_stored(params: EnvParams, lead: tuple[int, ...],
+                device) -> StoredObs:
+    """Zeroed records with leading axes `lead`: the collector's buffers,
+    zero in every field as the JAX collector's (its `_zero_stored` gives
+    only the shapes and dtypes)."""
+    j, s = params.max_jobs, params.max_stages
+
+    def z(*shape, dtype=_i32):
+        return torch.zeros(lead + shape, dtype=dtype, device=device)
+
+    return StoredObs(
+        remaining=z(j, s), duration=z(j, s, dtype=torch.float32),
+        schedulable=z(j, s, dtype=torch.bool),
+        node_mask=z(j, s, dtype=torch.bool), job_mask=z(j, dtype=torch.bool),
+        job_template=z(j), exec_supplies=z(j), num_committable=z(),
+        source_job=z(),
+    )
+
+
+def collect_flat_sync_batch(params: EnvParams, bank: WorkloadBank,
+                            batch_policy_fn, rng: torch.Tensor,
+                            num_steps: int, states: EnvState, *,
+                            event_bulk: bool = True, bulk_events: int = 8,
+                            fulfill_bulk: bool = True, bulk_cycles: int = 1,
+                            bulk_fused: bool = True, health: bool = False,
+                            counts: dict | None = None):
+    """One episode per lane from the freshly reset `states` ([B]), one
+    policy evaluation per decision row, at most `num_steps` (T) decisions
+    per lane recorded. `batch_policy_fn(key, obs)` returns per-lane
+    `(stage_idx, num_exec_1based, aux)`; `rng` is one key. Returns the
+    `Rollout`, and with `health` also the per-lane i32 health mask
+    (`state_health` over each row's drained state against the row's
+    start, OR `reward_health` of the row's reward). `counts`, when
+    given, receives the rows run (`rows`)."""
+    T = int(num_steps)
+    ls = init_loop_state(states)
+    env = ls.env
+    B = env.wall_time.shape[0]
+    dev = env.wall_time.device
+    s_cap = params.max_stages
+    rows = torch.arange(B, device=dev)
+    # the buffers, once: T rows plus the scratch row T
+    obs_buf = zero_stored(params, (B, T + 1), dev)
+    obs_fields = [f.name for f in dataclasses.fields(StoredObs)]
+
+    def zeros(dtype):
+        return torch.zeros((B, T + 1), dtype=dtype, device=dev)
+
+    b_stage, b_job, b_k = zeros(_i32), zeros(_i32), zeros(_i32)
+    b_lgprob, b_reward, b_walls = (zeros(torch.float32) for _ in range(3))
+    b_resets = zeros(_i32)
+    hm = torch.zeros(B, dtype=_i32, device=dev)
+    k = rng
+    t_ref = env.wall_time
+    ndec = torch.zeros(B, dtype=_i32, device=dev)
+    n_rows = 0
+    for _ in range(T):
+        n_rows += 1
+        keys = prng.split(k, 4)
+        k, k_pol, k_dec, k_drain = keys[0], keys[1], keys[2], keys[3]
+        env0 = ls.env
+        wall0 = env0.wall_time
+        obs = observe(params, env0)
+        stage_idx, num_exec, aux = batch_policy_fn(k_pol, obs)
+        lgprob, job, kk = aux_action_fields(aux, stage_idx, num_exec, s_cap)
+        lgprob = torch.broadcast_to(
+            torch.as_tensor(lgprob, dtype=torch.float32, device=dev), (B,))
+        ls2, (decided, rw1, dt1, rs1) = decide_micro_step(
+            params, bank, ls, stage_idx.to(_i32), num_exec.to(_i32),
+            prng.split(k_dec, B), False, fulfill_bulk,
+        )
+        t_ref = torch.where(decided, wall0, t_ref)
+        ls3, (rw2, dt2, rs2) = drain_to_decision(
+            params, bank, ls2, prng.split(k_drain, B), False, event_bulk,
+            bulk_events, bulk_cycles, t_ref, bulk_fused,
+        )
+        reward = rw1 + rw2
+        reset = rs1 | rs2
+        if health:
+            hm = hm | state_health(ls3.env, env0, reset) | reward_health(
+                reward)
+        # the decision's record, in place; slot T is the scratch row
+        slot = torch.where(decided & (ndec < T), ndec, T).long()
+        stored = store_obs(obs, env0)
+        for name in obs_fields:
+            getattr(obs_buf, name)[rows, slot] = getattr(stored, name)
+        b_stage[rows, slot] = stage_idx.to(_i32)
+        b_job[rows, slot] = job.to(_i32)
+        b_k[rows, slot] = kk.to(_i32)
+        b_lgprob[rows, slot] = lgprob
+        b_walls[rows, slot] = wall0
+        ndec = ndec + decided.to(_i32)
+        # the span's reward belongs to the latest decision's slot
+        rslot = torch.where((ndec > 0) & (ndec <= T), ndec - 1, T).long()
+        b_reward[rows, rslot] += reward
+        b_resets[rows, rslot] = torch.maximum(b_resets[rows, rslot],
+                                              reset.to(_i32))
+        ls = ls3
+        if not bool(((ls.mode == M_DECIDE) & ~_lane_done(ls.env)).any()):
+            break  # every later row would change nothing
+    if counts is not None:
+        counts["rows"] = n_rows
+
+    valid = torch.arange(T, device=dev)[None, :] < torch.clamp_max(ndec, T)[
+        :, None]
+    final_t = ls.env.wall_time
+    walls = torch.where(valid, b_walls[:, :T], final_t[:, None])
+    ro = Rollout(
+        obs=obs_buf.map(lambda a: a[:, :T]),
+        stage_idx=torch.where(valid, b_stage[:, :T], -1),
+        job_idx=b_job[:, :T],
+        num_exec_k=b_k[:, :T],
+        lgprob=b_lgprob[:, :T],
+        reward=b_reward[:, :T],
+        wall_times=torch.cat([walls, final_t[:, None]], 1),
+        valid=valid,
+        resets=b_resets[:, :T] > 0,
+        final_state=ls.env,
+        final_reset_count=ls.episodes,
+    )
+    return (ro, hm) if health else ro

@@ -227,3 +227,170 @@ def make_case(name: str, b: int, k: int, s: int, f: int, seed: int):
     elif name == "dead_jobs":
         mask[:, 1::2] = False
     return x, adj, lvl, mask
+
+
+def bwd_ref64(x, adj, lvl, mask, w, num_levels, slope, g):
+    """The NodeEncoder's plain backward evaluated in float64 (x, weights
+    and dL/dh cast): the reference the backward kernel is held to on the
+    card, where the float32 plain backward can stray further from exact
+    than the kernel at thousands of jobs."""
+    from sparksched_tpu_torch.kernels.decima_encoder import (
+        EncoderWeights,
+        decima_node_encoder_bwd_ref,
+    )
+
+    w64 = EncoderWeights(*([(a.double(), b.double()) for a, b in ls]
+                           for ls in (w.prep, w.msg, w.update)),
+                         packed=w.packed, spec=w.spec)
+    return decima_node_encoder_bwd_ref(x.double(), adj, lvl, mask, w64,
+                                       num_levels, slope, g.double())
+
+
+# -------------------------------------------------------------------------
+# The training slice: a small Decima model on both sides, and Rollouts as
+# named numpy leaves in the JAX pytree's order.
+
+MINI_AGENT = dict(
+    embed_dim=8,
+    gnn_mlp_kwargs={"hid_dims": [16, 8], "act_cls": "LeakyReLU",
+                    "act_kwargs": {"negative_slope": 0.2}},
+    policy_mlp_kwargs={"hid_dims": [16, 16], "act_cls": "Tanh"},
+)
+
+
+def decima_pair(num_executors: int, scale: float = 0.3, **kw):
+    """(JAX DecimaScheduler, port DecimaScheduler on the CPU) with the
+    JAX init's weights scaled by `scale` carried to the port. The scale
+    keeps the Tanh heads out of saturation, where two float32
+    implementations may order near-tied choices differently."""
+    import jax
+
+    from sparksched_tpu.schedulers import DecimaScheduler as JaxDecima
+    from sparksched_tpu_torch.schedulers import (
+        DecimaScheduler,
+        params_from_flax,
+    )
+
+    args = dict(MINI_AGENT, num_executors=num_executors, **kw)
+    js = JaxDecima(**args)
+    js.params = jax.tree_util.tree_map(lambda a: a * scale, js.params)
+    ts = DecimaScheduler(**args, device="cpu")
+    ts.load_params(params_from_flax(
+        jax.tree_util.tree_map(np.asarray, js.params)))
+    return js, ts
+
+
+def port_rollout_leaves(ro) -> list[tuple[str, np.ndarray]]:
+    """(name, numpy) of every leaf of a port Rollout, in the JAX
+    Rollout's pytree order; the rng words as uint32."""
+    import dataclasses
+
+    out = [(f"obs.{f.name}", getattr(ro.obs, f.name).cpu().numpy())
+           for f in dataclasses.fields(ro.obs)]
+    for name in ("stage_idx", "job_idx", "num_exec_k", "lgprob", "reward",
+                 "wall_times", "valid", "resets"):
+        out.append((name, getattr(ro, name).cpu().numpy()))
+    for f in dataclasses.fields(ro.final_state):
+        a = getattr(ro.final_state, f.name).cpu().numpy()
+        if f.name == "rng":
+            a = a.astype(np.uint32)
+        out.append((f"final_state.{f.name}", a))
+    out.append(("final_reset_count", ro.final_reset_count.cpu().numpy()))
+    return out
+
+
+def port_rollout_from_jax(jro):
+    """The port Rollout holding the values of a JAX Rollout ([B] lanes;
+    the rng words as int64)."""
+    import dataclasses
+
+    from sparksched_tpu_torch.env.state import EnvState
+    from sparksched_tpu_torch.trainers.rollout import Rollout, StoredObs
+
+    def t(a, name=""):
+        a = np.asarray(a)
+        if name == "rng":
+            a = a.astype(np.int64)
+        return torch.from_numpy(np.ascontiguousarray(a))
+
+    obs = StoredObs(**{f.name: t(getattr(jro.obs, f.name))
+                       for f in dataclasses.fields(StoredObs)})
+    env = EnvState(**{f.name: t(getattr(jro.final_state, f.name), f.name)
+                      for f in dataclasses.fields(EnvState)})
+    return Rollout(
+        obs=obs, final_state=env,
+        **{k: t(getattr(jro, k)) for k in (
+            "stage_idx", "job_idx", "num_exec_k", "lgprob", "reward",
+            "wall_times", "valid", "resets", "final_reset_count")})
+
+
+def mini_train_cfg(**trainer) -> dict:
+    """The small training config of the slice's tests: 5 executors, 6 job
+    slots on the synthetic bank, 2 sequence groups x 2 lanes, T = 48,
+    2 epochs x 3 minibatches, the flagship's PPO and Adam settings, the
+    flat single-eval engine and the health block."""
+    return {
+        "trainer": {
+            "trainer_cls": "PPO", "num_iterations": 2, "num_sequences": 2,
+            "num_rollouts": 2, "seed": 42, "num_epochs": 2,
+            "num_batches": 3, "clip_range": 0.2, "target_kl": 0.01,
+            "entropy_coeff": 0.04, "beta_discount": 5.0e-3,
+            "opt_cls": "Adam", "opt_kwargs": {"lr": 3.0e-4},
+            "max_grad_norm": 0.5, "rollout_steps": 48,
+            "rollout_engine": "flat", "flat_single_eval": True,
+            "artifacts_dir": "test_artifacts/torch_train",
+            "checkpointing_freq": 1000,
+        } | trainer,
+        "agent": {"agent_cls": "DecimaScheduler", "job_bucket": 3,
+                  **MINI_AGENT},
+        "env": {"num_executors": 5, "job_arrival_cap": 6,
+                "moving_delay": 2000.0, "mean_time_limit": 2.0e7,
+                "job_arrival_rate": 4.0e-5, "warmup_delay": 1000.0},
+        "health": {"enabled": True},
+        "obs": {"runlog": False, "memory": False},
+    }
+
+
+
+# Adam divides each gradient by its running RMS: at eps 1e-8 an element
+# whose gradient sits near rounding level (the policy heads' output
+# biases have an exact gradient of 0, since log-softmax and entropy are
+# invariant to a shift of all scores; the heads' hidden units sum
+# near-cancelling terms over nodes and executor rows) steps along float32
+# noise, in the JAX update as in the port. At eps 1e-2 and lr 3e-2 a step
+# is linear in the gradient, which makes the change of every parameter a
+# strict check of the loss, the minibatches and the optimizer.
+POLICY_HEADS = ("mlp_stage.", "mlp_exec.")
+LINEAR_ADAM = {"lr": 3.0e-2, "eps": 1.0e-2}
+
+
+def assert_update_close(want: dict, got: dict, p0: dict, steps: int,
+                        lr: float, linear: bool, skip: tuple = ()) -> float:
+    """Parameters after an update (`got`, name -> tensor) against the
+    reference's (`want`), both from `p0`. With `linear` (LINEAR_ADAM):
+    every parameter's change within rtol 1e-4 / atol 1e-7 per applied
+    step of the reference's change (a step there is lr / eps = 3 times
+    the gradient, whose float32 rounding reaches ~3e-8 where its exact
+    value is 0). Otherwise every parameter within rtol 1e-4 /
+    atol 1e-6, but the policy heads within Adam's step bound, 2 lr per
+    applied step. Parameters whose names start with a prefix in `skip`
+    are not compared. Returns the worst error over its tolerance."""
+    assert set(want) == set(got)
+    worst = 0.0
+    for k, g in got.items():
+        if skip and k.startswith(skip):
+            continue
+        a = g.detach().cpu().double()
+        b = torch.as_tensor(np.asarray(want[k])).double()
+        if linear:
+            base = p0[k].detach().cpu().double()
+            a, b = a - base, b - base
+            tol = 1e-7 * steps + 1e-4 * b.abs()
+        elif k.startswith(POLICY_HEADS):
+            tol = torch.full_like(b, 2 * lr * steps)
+        else:
+            tol = 1e-6 + 1e-4 * b.abs()
+        ratio = float(((a - b).abs() / tol).max())
+        assert ratio <= 1.0, f"{k}: {ratio:.3g}x its tolerance"
+        worst = max(worst, ratio)
+    return worst

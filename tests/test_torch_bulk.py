@@ -5,7 +5,11 @@
   JAX pass under `jax.vmap`: all 61 LoopState leaves and the returned
   counts, with `stop_at_limit` on time limits that fall inside the run.
   The states come from the JAX flat engine (sequential, fair policy) and
-  are carried across leaf for leaf.
+  are carried across leaf for leaf. `_bulk_fulfill` also runs on the
+  rarer states of a random-policy run where an executor leaves a
+  job-pool source before a later candidate starts on that same job, with
+  a duration sampler pinned to the job-local executor count (the real
+  bank's intervals hide a count off by one there).
 - (`apply_and_drain` over whole episodes is in `test_torch_drain.py`.)
 - `core.step` with `bulk=True/False` against JAX `core.step`.
 - The port's bulk engine against its own sequential engine with the
@@ -417,3 +421,73 @@ def test_run_flat_bulk_matches_sequential(fixture):
                if n not in ("bulked", "mode")]
         assert not bad, f"{name}: {bad}"
         assert int(a.bulked.sum()) > 0
+
+
+def _job_pool_leaver_states():
+    """Lanes of a JAX random-policy run (sequential engine, auto-reset)
+    at the start of a fulfillment phase whose source is a job pool and
+    where an executor of that job is sent elsewhere before a later
+    candidate's commitment lands on the job itself: the candidate's
+    job-local executor count must not include the leaver."""
+    from sparksched_tpu.schedulers import random_policy as j_random
+
+    jp, jb, tp, tb = _synthetic()
+
+    def pol(rng, obs):
+        return (*j_random(rng, obs), {})
+
+    @jax.jit
+    def mstep(ls, keys):
+        return jax.vmap(lambda l, k: jfl.micro_step(
+            jp, jb, pol, l, k, auto_reset=True, event_bulk=False,
+            fulfill_bulk=False))(ls, keys)
+
+    hits = []
+    for seed, steps in ((0, 34), (1, 20)):
+        keys = jax.random.split(jax.random.PRNGKey(seed), LANES)
+        js = jax.vmap(lambda k: jfl.init_loop_state(jcore.reset(jp, jb, k)))(
+            keys)
+        for i in range(steps):
+            js = mstep(js, jax.random.split(
+                jax.random.PRNGKey(1000 * seed + i), LANES))
+        host = jax.device_get(js)
+        for b in range(LANES):
+            ls = _lane(host, b)
+            env, n = ls.env, int(ls.num_idle)
+            if not (ls.mode == jfl.M_FULFILL and ls.fulfill_k == 0 and n
+                    and env.source_job >= 0 and env.source_stage < 0):
+                continue
+            dj = np.asarray(env.cm_dst_job)[np.asarray(ls.slot_order)[:n]]
+            ejob = np.asarray(env.exec_job)[np.asarray(ls.exec_order)[:n]]
+            leaver = (dj >= 0) & (ejob >= 0) & (ejob != dj)
+            same = dj == int(env.source_job)
+            if any(same[k] and leaver[:k].any() for k in range(n)):
+                hits.append(ls)
+    return jp, jb, tp, tb, hits
+
+
+def test_bulk_fulfill_counts_earlier_leavers_from_a_job_pool(monkeypatch):
+    jp, jb, tp, tb, hits = _job_pool_leaver_states()
+    assert len(hits) >= 2
+    jsamp, tsamp = _det_samplers(1.0)
+
+    def jax_sampler(params, bank, u2, template, stage, num_local, *rest):
+        return jsamp(params, bank, u2, template, stage, num_local, *rest) + (
+            1000.0 * num_local.astype(jnp.float32))
+
+    def port_sampler(params, bank, u2, template, stage, num_local, *rest):
+        return tsamp(params, bank, u2, template, stage, num_local, *rest) + (
+            1000.0 * num_local.to(torch.float32))
+
+    monkeypatch.setattr(jcore, "sample_task_duration", jax_sampler)
+    monkeypatch.setattr(core, "sample_task_duration", port_sampler)
+    jls = _stack(hits)
+    tls = port_from_jax(jls)
+    jenv, jm = jax.vmap(lambda l: jcore._bulk_fulfill(
+        jp, jb, l.env, l.num_idle, l.exec_order, l.slot_order))(jls)
+    tenv, tm = core._bulk_fulfill(tp, tb, tls.env, tls.num_idle,
+                                  tls.exec_order, tls.slot_order)
+    assert np.array_equal(np.asarray(jm), tm.numpy())
+    assert bool((tm > 1).all())
+    _assert_same(jls.replace(env=jenv), tls.replace(env=tenv), 1e-6,
+                 "_bulk_fulfill (job-pool leavers)")

@@ -164,7 +164,7 @@ def test_greedy_actions_equal_with_compaction_and_fallback(obs_pair, job_bucket)
     assert 4 < busiest <= 20 < J
     js, ts = _pair(scale=0.3, job_bucket=job_bucket)
     ja = js.batch_policy(jax.random.PRNGKey(0), jo, deterministic=True)
-    ta = ts.batch_policy(to)
+    ta = ts.batch_policy(None, to, deterministic=True)
     for a, b in zip(ja[:2], ta[:2]):
         assert np.array_equal(np.asarray(a), b.numpy())
     for k in ("job_idx", "num_exec_k"):
@@ -180,3 +180,4 @@ def test_greedy_actions_equal_with_compaction_and_fallback(obs_pair, job_bucket)
     np.testing.assert_allclose(es[m].numpy(), fe[m].numpy(), rtol=1e-5, atol=1e-6)
     jss, jes = js.score(js.params, jax.vmap(js.features)(jo))
     np.testing.assert_allclose(ss.numpy(), np.asarray(jss), rtol=1e-4, atol=1e-5)
+

@@ -1,8 +1,10 @@
 """The port's PRNG (`sparksched_tpu_torch/prng.py`) against jax.random's
 default threefry2x32 with partitionable bits: keys, bits, uniforms,
-integers and weighted choices must be equal; exponentials agree within
-rtol 1e-6 (XLA's and torch's float32 log1p may differ in the last
-ulp)."""
+integers, weighted choices, permutations (1 and 2 sort rounds, batched
+keys as the PPO minibatches draw them) and categorical draws must be
+equal; exponentials and Gumbel noise agree within rtol 1e-6 (XLA's and
+torch's float32 log1p and log may differ in the last ulp; the
+uniforms under them are equal)."""
 
 from __future__ import annotations
 
@@ -104,3 +106,36 @@ def test_randint_with_per_key_bounds():
         k, (), 1, h, dtype=jnp.int32))(keys, jnp.asarray(hi)))
     t = prng.randint(_k(keys), (), 1, torch.from_numpy(hi))
     assert np.array_equal(j, t.numpy())
+
+
+@pytest.mark.parametrize("n", [1, 5, 48, 60, 9600])
+def test_permutation_bits_equal(n):
+    """ceil(3 ln n / ln(2^32 - 1)) stable-sort rounds: 0 at n = 1, 1 up
+    to n = 1,625, 2 at 9,600 (the flagship's rollout_steps)."""
+    for seed in SEEDS[:3]:
+        jk = jax.random.PRNGKey(seed)
+        assert np.array_equal(np.asarray(jax.random.permutation(jk, n)),
+                              prng.permutation(prng.PRNGKey(seed), n).numpy())
+    # [E, B] keys as the PPO update derives them: split, then fold_in
+    ek = jax.random.split(jax.random.fold_in(jax.random.PRNGKey(3), 13), 3)
+    jl = jax.vmap(lambda k: jax.vmap(lambda b: jax.random.fold_in(k, b))(
+        jnp.arange(4)))(ek)
+    want = jax.vmap(jax.vmap(lambda k: jax.random.permutation(k, n)))(jl)
+    tl = torch.stack([prng.fold_in(_k(ek), b) for b in range(4)], 1)
+    assert torch.equal(_k(jl), tl)
+    assert np.array_equal(np.asarray(want), prng.permutation(tl, n).numpy())
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_gumbel_and_categorical_match_jax(seed):
+    keys = jax.random.split(jax.random.PRNGKey(seed), 16)
+    g = np.asarray(jax.vmap(lambda k: jax.random.gumbel(k, (37,)))(keys))
+    tg = prng.gumbel(_k(keys), (37,)).numpy()
+    np.testing.assert_allclose(tg, g, rtol=1e-6, atol=1e-6)
+    logits = np.random.default_rng(seed).standard_normal((16, 37)).astype(
+        np.float32)
+    logits[:, ::3] = -1e30  # masked entries, as the Decima heads mask
+    want = np.asarray(jax.vmap(jax.random.categorical)(keys, logits))
+    got = prng.categorical(_k(keys), torch.from_numpy(logits)).numpy()
+    assert np.array_equal(got, want)
+    assert (got % 3 != 0).all()

@@ -158,6 +158,7 @@ from sparksched_tpu_torch.config import EnvParams
 from sparksched_tpu_torch.schedulers import DecimaScheduler
 from sparksched_tpu_torch.serve import SessionStore
 from sparksched_tpu_torch.workload import make_workload_bank
+import sparksched_tpu_torch.train, sparksched_tpu_torch.trainers
 bank = make_workload_bank(5, device="cpu")
 params = EnvParams(num_executors=5, max_jobs=6, max_stages=bank.max_stages,
                    max_levels=bank.max_stages)
