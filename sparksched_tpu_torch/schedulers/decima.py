@@ -482,14 +482,11 @@ class DecimaScheduler(TrainableScheduler):
         """Single-session policy: `obs` has a leading axis of 1."""
         return self.batch_policy(rng, obs, deterministic)
 
-    def serve_param_policies(self, deterministic: bool = True):
-        """The `(policy_fn, batch_policy_fn)` pair the session store
-        serves through, each `fn(obs)`, greedy by default. The weights
-        are the module's live parameters: `SessionStore.set_params`
-        swaps them in place."""
-        if not deterministic:
-            raise NotImplementedError("the session store serves greedy "
-                                      "decisions")
+    def serve_param_policies(self):
+        """The greedy `(policy_fn, batch_policy_fn)` pair the session
+        store serves through, each `fn(obs)`. The weights are the
+        module's live parameters: `SessionStore.set_params` swaps them in
+        place."""
         return (
             lambda o: self.policy(None, o, True),
             lambda o: self.batch_policy(None, o, True),

@@ -13,7 +13,7 @@ quarantines the session: it is never served again (decide/step raise
 Waiting for later slices: the host pager (`hot_capacity`), slot groups
 and the pipelined window, the harvester, the dp mesh, record/ring
 trajectories, metrics and tracing, the batching fronts, and stochastic
-serving (`deterministic=False`); the store serves greedy decisions.
+serving; the store serves greedy decisions.
 """
 
 from __future__ import annotations
@@ -113,7 +113,7 @@ class SessionStore:
         self._calls = 2
         self.params_version = 0
 
-        pol, bpol = scheduler.serve_param_policies(deterministic=True)
+        pol, bpol = scheduler.serve_param_policies()
         self._decide1 = serve_decide_fn(params, bank, pol, self.knobs)
         self._decidek = serve_decide_batch_fn(
             params, bank, bpol, self.max_batch, self.knobs

@@ -14,9 +14,11 @@ The advantage mean and variance and the count n come first, over the
 whole minibatch; the KL stop is decided from the accumulated KL before
 `step()`. A minibatch not applied (the KL stop, the health gate) calls no
 `step()`, so Adam's moments and count stay as they were. After the KL
-stop the remaining minibatches are not evaluated (the JAX scan evaluates
-them and discards all but their health bits: those bits are not
-gathered here).
+stop the remaining minibatches are still evaluated, loss and gradients,
+when the health gate is on: as in the JAX scan, their health bits join
+the update's mask (a non-finite loss or gradient there makes the
+trainer retry the iteration) and nothing else of them is kept. With the
+gate off they are skipped.
 """
 
 from __future__ import annotations
@@ -85,6 +87,8 @@ class PPO(Trainer):
         health = 0
         applied = chunks = 0
         for k in range(mb_idx.shape[0]):
+            if stopped and not self.health_enabled:
+                break
             idx = mb_idx[k]  # [B, mbs]
             mbs = idx.shape[1]
             w = (torch.gather(valid, 1, idx) & mb_ok[k][None, :]).reshape(-1)
@@ -127,9 +131,7 @@ class PPO(Trainer):
                                    ).detach()
                 chunks += 1
             loss = pl_sum + ent_coeff * ent_sum
-            kl = float(kl_sum)
-            kl_bad = self.target_kl is not None and kl > 1.5 * self.target_kl
-            do_update = not kl_bad
+            mb_mask = 0
             if self.health_enabled:
                 mb_mask = int(grad_health(loss=loss, grads=[
                     p.grad for p in params]))
@@ -137,18 +139,18 @@ class PPO(Trainer):
                     # every row's advantage is non-finite: the JAX loss
                     # (and its gradient) is, whatever rows have weight
                     mb_mask |= H_NONFINITE_LOSS | H_NONFINITE_GRAD
-                do_update = do_update and mb_mask == 0
                 health |= mb_mask
-            if do_update:
+            if stopped:  # past the KL stop: only its health bits count
+                continue
+            kl = float(kl_sum)
+            stopped = self.target_kl is not None and kl > 1.5 * self.target_kl
+            if not stopped and mb_mask == 0:
                 opt.step()
                 applied += 1
             sums["policy_loss"] += float(pl_sum)
             sums["entropy_loss"] += float(ent_sum)
             sums["kl"] += kl
             sums["count"] += 1.0
-            if kl_bad:  # the JAX scan applies no later minibatch
-                stopped = True
-                break
         for p in params:
             p.grad = None
         n = max(sums["count"], 1.0)

@@ -130,3 +130,31 @@ def test_skip_gate_spec():
     assert stats["health_mask"] == 0 and stats["minibatches_applied"] > 0
     assert st.opt_state.count == stats["minibatches_applied"]
     assert any(not torch.equal(v, p0[k]) for k, v in st.params.items())
+
+
+def test_health_bits_after_kl_stop_match_jax():
+    """With `target_kl` tiny the update stops at an early minibatch; a
+    NaN old log-prob in a later minibatch of the first epoch applies
+    nothing but still raises the loss and gradient bits in the JAX
+    scan's health mask, and so in the port's."""
+    jt, jst, jro = _jax_side()
+    jt.target_kl = 1e-6
+    tt, tst, tro = _port(target_kl=1e-6)
+    _, clean = tt._update(tst, tro)
+    stop = int(clean["minibatches_applied"])  # the minibatch that stopped
+    assert clean["kl_stopped"] == 1.0 and stop + 1 < tt.num_batches
+    B, T = tro.reward.shape
+    mb_idx, _ = tt.minibatch_indices(tst.rng, B, T)
+    ts = [int(t) for t in mb_idx[stop + 1, 0] if t < T and tro.valid[0, t]]
+    assert ts
+    lg = np.asarray(jro.lgprob).copy()
+    lg[0, ts[0]] = np.nan
+    jro = jro.replace(lgprob=jax.numpy.asarray(lg))
+    _, jstats = jax.jit(jt._update)(jst, jro)
+    tt, tst, tro = _port(target_kl=1e-6)
+    tro.lgprob = tro.lgprob.clone()
+    tro.lgprob[0, ts[0]] = float("nan")
+    _, stats = tt._update(tst, tro)
+    assert stats["minibatches_applied"] == stop
+    assert stats["health_mask"] & H_NONFINITE_LOSS
+    assert stats["health_mask"] == int(jstats["health_mask"])

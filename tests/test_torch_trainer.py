@@ -7,8 +7,11 @@
   `_update` per iteration with the keys its `train()` derives; the port
   runs `train()`. After each of 2 iterations the parameters agree
   within rtol 1e-4 / atol 1e-6 but the policy heads, held to Adam's
-  step bound (`assert_update_close`, see `test_torch_ppo.py`),
-  and the iteration's episode lengths and valid decisions are equal.
+  step bound (`assert_update_close`, see `test_torch_ppo.py`), and the
+  iteration's episode lengths and valid decisions are equal. The same
+  again at the linear Adam (eps 1e-2, lr 3e-2), where every parameter's
+  change, the heads' too, is held to the JAX change within rtol 1e-4 /
+  atol 1e-7 per applied step.
 - `python -m sparksched_tpu_torch.train -f <config> --device cpu` trains
   on the CPU; without `--device` it asks for the card and raises where
   there is none.
@@ -27,11 +30,10 @@ from sparksched_tpu_torch import train as train_cli
 from sparksched_tpu_torch.schedulers import params_from_flax
 from sparksched_tpu_torch.trainers import make_trainer
 
-from ._torch_parity import assert_update_close, mini_train_cfg
+from ._torch_parity import LINEAR_ADAM, assert_update_close, mini_train_cfg
 
 
-def test_two_iterations_match_jax_trainer():
-    cfg = mini_train_cfg()
+def _two_iterations(cfg: dict, linear: bool) -> None:
     jt = jax_make_trainer(cfg)
     jt.scheduler.params = jax.tree_util.tree_map(lambda a: a * 0.3,
                                                  jt.scheduler.params)
@@ -49,18 +51,30 @@ def test_two_iterations_match_jax_trainer():
 
     tt = make_trainer(cfg, device="cpu")
     tt.scheduler.load_params(carried)
+    p0 = {k: torch.as_tensor(v) for k, v in carried.items()}
     port_iters = []
     tt.train(callback=lambda i, state, stats: port_iters.append(
         ({k: v.detach().clone() for k, v in state.params.items()}, stats)))
     assert len(port_iters) == 2
     steps = 0
+    lr = cfg["trainer"]["opt_kwargs"]["lr"]
     for (jp, jvalid), (tp, stats) in zip(jax_iters, port_iters):
         assert stats["health_mask"] == 0
         assert stats["decisions"] == jvalid.sum()
         assert stats["episode_length"] == pytest.approx(jvalid.mean())
         steps += int(stats["minibatches_applied"])
         want = params_from_flax(jax.tree_util.tree_map(np.asarray, jp))
-        assert_update_close(want, tp, None, steps, 3e-4, linear=False)
+        assert_update_close(want, tp, p0, steps, lr, linear=linear)
+
+
+def test_two_iterations_match_jax_trainer():
+    _two_iterations(mini_train_cfg(), linear=False)
+
+
+def test_two_iterations_match_jax_trainer_linear_adam():
+    """The same at the linear Adam, where every parameter's change, the
+    policy heads' too, is held to the reference's change."""
+    _two_iterations(mini_train_cfg(opt_kwargs=LINEAR_ADAM), linear=True)
 
 
 def test_cli_trains_on_cpu_and_asks_for_the_card(tmp_path, capsys):
