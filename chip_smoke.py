@@ -31,8 +31,11 @@ adversarial inputs of `make_case` in
 topological order, edges into nodes outside node_mask, jobs with no
 valid node but with edges, `num_levels` 3, job counts from a single
 job to more blocks than the card holds at once); the backward kernel on
-the same cases and on update chunks of real rollout features, against
-the plain backward evaluated in float64.
+the same cases and on update chunks of 16, 256 and 1,024 real rollout
+observations, against the plain backward evaluated in float64 with each
+LeakyReLU on the branch of the kernel's float32 forward (the error
+against the plain float64 backward on its own branches reported beside),
+and the same bits on a rerun at the timed chunks.
 
 Phases, in order: `build`, `kernel_vs_plain`, `serve` (4 x 64 decisions
 at SERVE_KNOBS), `serve_knobs_off` (2 x 64), `card_vs_cpu` (4 sessions x
@@ -48,7 +51,9 @@ Each phase prints one JSON line. Before the last line come the
 `{"kernels": [...]}` line (per kernel: launches on the main path, max
 abs error against the plain version, the kernel's own time from
 torch.profiler at an update chunk, taken after the main path, the plain
-version's time and the least time the card could take) and the card's
+version's time and the least time the card could take; for the
+backward also its time, bound and scratch bytes at both timed chunks)
+and the card's
 name and power limit from nvidia-smi; the last line is
 `{"ok": true, "device": {...}}`. Any failed phase exits non-zero
 without that line, as does a run with no CUDA card or without the
@@ -98,8 +103,18 @@ BWD_RTOL, BWD_ATOL = 1e-4, 1e-6
 # float32 ulp is ~1e-5, so TOL (absolute) holds only the serve and
 # stress cases (weights x WEIGHT_SCALE).
 FWD_RTOL, FWD_ATOL = 1e-6, 1e-6
-BWD_CHUNKS = (16, 256)  # update-chunk features: observations per chunk
-CHUNK_TIMED = "update_chunk_256"
+BWD_CHUNKS = (16, 256, 1024)  # update-chunk features: observations per chunk
+CHUNK_TIMED = "update_chunk_256"  # the forward's and the kernels line's shape
+BWD_TIMED = ("update_chunk_256", "update_chunk_1024")
+# every kernel a backward call launches (the live list, the warps, the
+# two fixed-order reductions)
+BWD_KERNELS = ("live_count_kernel", "live_list_kernel",
+               "decima_node_encoder_bwd_kernel", "reduce_warps_kernel",
+               "reduce_groups_kernel")
+# the float64 plain backward runs this many items at a time, and the
+# float32 plain backward (one call) only up to this many: at [1024, 200,
+# 20] its autograd graph holds ~50 GB
+REF_LANES, PLAIN_MAX_ITEMS = 64, 256
 # H100 SXM peaks (NVIDIA data sheet): HBM3 rate and FP32 outside the
 # tensor cores (the kernel runs plain FP32 FMAs)
 HBM_BYTES_PER_S = 3.35e12
@@ -171,7 +186,8 @@ def phase_build() -> None:
     t0 = time.perf_counter()
     build.build_all()
     ptxas = {n: [ln.strip() for ln in log.splitlines()
-                 if "registers" in ln or "spill" in ln or "smem" in ln]
+                 if "entry function" in ln or "registers" in ln
+                       or "spill" in ln or "smem" in ln]
              for n, log in build.build_log.items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "sources": list(build.SOURCES), "ptxas": ptxas})
@@ -361,7 +377,7 @@ def phase_kernel_alone(cases: dict, calls: dict, sched, chunk,
     """Each kernel's own device time from torch.profiler, failing when the
     profiler has no record of it: the forward at the serve path's shapes
     and at an update chunk (with its plain version and bound there), the
-    backward (its kernel and the fixed-order reduction) at that chunk. It
+    backward (every kernel of a call) at the update chunks of BWD_TIMED. It
     runs after the main paths, so that no profiler session in this
     process comes before their host-clock numbers."""
     from sparksched_tpu_torch.kernels.decima_encoder import (
@@ -383,20 +399,18 @@ def phase_kernel_alone(cases: dict, calls: dict, sched, chunk,
         lambda: decima_node_encoder(*ins, *args), 20,
         "decima_node_encoder_kernel")
     cases[CHUNK_TIMED] = cases.get(CHUNK_TIMED, {}) | fwd
-    b = bwd[CHUNK_TIMED]
-    b["ms"], b["wrapper_device_ms"] = kernel_ms(
-        b["call"], 10, ("decima_node_encoder_bwd_kernel",
-                        "reduce_partials_kernel"))
+    for b in bwd.values():
+        b["ms"], b["wrapper_device_ms"] = kernel_ms(b["call"], 10,
+                                                    BWD_KERNELS)
     emit({"phase": "kernel_alone", "kernel": "decima_node_encoder",
           "ms": {n: cases[n]["ms"] for n in (*TIMED, CHUNK_TIMED)},
           "wrapper_device_ms": {n: cases[n]["wrapper_device_ms"]
                                 for n in (*TIMED, CHUNK_TIMED)},
           "update_chunk": fwd})
     emit({"phase": "kernel_alone", "kernel": "decima_node_encoder_bwd",
-          "shape": list(chunk.x.shape), "ms": b["ms"],
-          "wrapper_device_ms": b["wrapper_device_ms"],
-          "wrapper_ms": b["wrapper_ms"], "plain_ms": b["plain_ms"],
-          "bound_ms": b["bound_ms"], "bound_by": b["bound_by"]})
+          "kernels": list(BWD_KERNELS),
+          "chunks": {n: {k: v for k, v in b.items() if k != "call"}
+                     for n, b in bwd.items()}})
 
 
 # ---------------------------------------------------------------------------
@@ -795,11 +809,16 @@ def phase_fwd_train(trainer, chunks: dict, cases: dict) -> None:
 
 def phase_bwd_kernel(sched, checks: dict, chunks: dict):
     """The backward kernel against the float64 plain backward on the
-    stress cases and on update-chunk features, each with a seeded dL/dh
-    (the float32 plain backward's error against it reported beside); the
-    wrapper and the float32 plain version timed on the timed update
-    chunk. Returns (per timed chunk: the call and the numbers, the worst
-    max abs error)."""
+    stress cases and on update-chunk features, each with a seeded dL/dh:
+    held to it with each LeakyReLU derivative on the branch of the
+    kernel's float32 forward (`bwd_ref64_pinned`; a float32 evaluation can
+    take the other branch where a pre-activation lies within its rounding
+    of 0), with the kernel's error against the plain float64 backward on
+    its own branches, and the float32 plain backward's (up to
+    PLAIN_MAX_ITEMS items), reported beside; on the chunks of BWD_TIMED a
+    rerun must give the same bits, and the wrapper and the float32 plain
+    version (up to PLAIN_MAX_ITEMS items) are timed. Returns (per timed
+    chunk: the call and the numbers, the worst max abs error)."""
     import torch
 
     from sparksched_tpu_torch.kernels.decima_encoder import (
@@ -821,39 +840,59 @@ def phase_bwd_kernel(sched, checks: dict, chunks: dict):
         g = torch.randn((b, k, s, d), device="cuda", generator=gen)
         got = decima_node_encoder_bwd(*ins, w, nl, net.slope, g)
         torch.cuda.synchronize()
-        ref = parity_helpers().bwd_ref64(*ins, w, nl, net.slope, g)
+        ref = parity_helpers().bwd_ref64_pinned(*ins, w, nl, net.slope, g,
+                                                lanes=REF_LANES)
         err, ratio = bwd_err(got, ref)
-        # the float32 plain backward against the same reference
-        _, plain32 = bwd_err(
-            decima_node_encoder_bwd_ref(*ins, w, nl, net.slope, g), ref)
+        # the plain backward in float64 with its own branches, and the
+        # float32 plain backward against it
+        ref_plain = parity_helpers().bwd_ref64(*ins, w, nl, net.slope, g,
+                                               lanes=REF_LANES)
+        _, ratio_plain = bwd_err(got, ref_plain)
+        plain32 = None
+        if b <= PLAIN_MAX_ITEMS:
+            _, plain32 = bwd_err(
+                decima_node_encoder_bwd_ref(*ins, w, nl, net.slope, g),
+                ref_plain)
         cases[name] = {"shape": list(ins[0].shape), "num_levels": nl,
                        "max_abs_err": err, "err_over_tol": ratio,
+                       "plain64_err_over_tol": ratio_plain,
                        "plain32_err_over_tol": plain32}
         if not ratio <= 1.0:
             raise AssertionError(f"decima_node_encoder_bwd {name}: error "
                                  f"{err} is {ratio:.3g}x its tolerance")
     timed = {}
-    for name in (CHUNK_TIMED,):
+    for name in BWD_TIMED:
         f = chunks[name]
         ins = (f.x, f.adj, f.node_level, f.node_mask)
         g = torch.randn(tuple(f.x.shape[:3]) + (d,), device="cuda",
                         generator=gen)
+        call = functools.partial(decima_node_encoder_bwd, *ins, w,
+                                 net.num_levels, net.slope, g)
+        a, b = call(), call()  # a rerun gives the same bits
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(a, b)):
+            raise AssertionError(f"decima_node_encoder_bwd {name}: a rerun "
+                                 "gave other bits")
         timed[name] = {
-            "call": functools.partial(decima_node_encoder_bwd, *ins, w,
-                                      net.num_levels, net.slope, g),
-            "wrapper_ms": cuda_ms(lambda: decima_node_encoder_bwd(
-                *ins, w, net.num_levels, net.slope, g), 10),
+            "call": call, "shape": list(f.x.shape), "same_bits": True,
+            "scratch_bytes": decima_node_encoder_bwd.scratch_bytes,
+            "wrapper_ms": cuda_ms(call, 10),
             "plain_ms": cuda_ms(lambda: decima_node_encoder_bwd_ref(
-                *ins, w, net.num_levels, net.slope, g), 3),
+                *ins, w, net.num_levels, net.slope, g), 3)
+            if f.x.shape[0] <= PLAIN_MAX_ITEMS else None,
         } | bound(*bwd_work(f, net))
         cases[name].update({k: v for k, v in timed[name].items()
                             if k != "call"})
     emit({"phase": "bwd_kernel_vs_plain", "kernel": "decima_node_encoder_bwd",
           "tolerance": f"{BWD_RTOL} * max|ref| + {BWD_ATOL}, against the "
-                       "float64 plain backward",
+                       "float64 plain backward on the kernel's LeakyReLU "
+                       "branches",
           "worst_err_over_tol": max(c["err_over_tol"] for c in cases.values()),
+          "worst_plain64_err_over_tol": max(
+              c["plain64_err_over_tol"] for c in cases.values()),
           "worst_plain32_err_over_tol": max(
-              c["plain32_err_over_tol"] for c in cases.values()),
+              c["plain32_err_over_tol"] for c in cases.values()
+              if c["plain32_err_over_tol"] is not None),
           "cases": cases,
           "seconds": time.perf_counter() - t_phase})
     return timed, max(c["max_abs_err"] for c in cases.values())
@@ -972,7 +1011,8 @@ def phase_train() -> dict:
 def phase_train_kernels(train: dict) -> dict:
     """A profiled `_update` on the last training iteration's rollout:
     both encoder kernels must be in torch.profiler's records of the
-    update (each counted at its mean duration). Returns update-chunk
+    update, the backward with every kernel of a call (each counted at its
+    mean duration; a call's mean is their sum). Returns update-chunk
     features for phase_bwd_kernel."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -991,15 +1031,22 @@ def phase_train_kernels(train: dict) -> dict:
         if e.device_type == torch.autograd.DeviceType.CUDA:
             by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
     out = {}
-    for kernel, match in (("decima_node_encoder", "decima_node_encoder_kernel"),
-                          ("decima_node_encoder_bwd",
-                           "decima_node_encoder_bwd_kernel")):
-        recs = [t for n, ts in by_name.items() if match in n for t in ts]
-        if not recs:
-            raise AssertionError(f"torch.profiler recorded no {kernel} in "
-                                 "the update")
-        out[kernel] = {"records": len(recs), "mean_ms": sum(recs) / len(recs)
-                       / 1e3}
+    main = "decima_node_encoder_bwd_kernel"
+    for kernel, names in (("decima_node_encoder",
+                           ("decima_node_encoder_kernel",)),
+                          ("decima_node_encoder_bwd", BWD_KERNELS)):
+        means = {}
+        for match in names:
+            recs = [t for n, ts in by_name.items() if match in n for t in ts]
+            if not recs:
+                raise AssertionError(f"torch.profiler recorded no {match} "
+                                     "in the update")
+            means[match] = (len(recs), sum(recs) / len(recs) / 1e3)
+        # one launch of each per call: a call's mean is the sum of means
+        out[kernel] = {"records": means.get(main, means[names[0]])[0],
+                       "mean_ms": sum(m for _, m in means.values()),
+                       "by_kernel_mean_ms": {n: m for n, (_, m)
+                                             in means.items()}}
     emit({"phase": "train_update_profile", "rollout_steps": TRAIN_STEPS,
           "decisions": int(ro.valid.sum()), "kernels": out})
     return chunks
@@ -1131,6 +1178,9 @@ def main() -> int:
         return 1
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     fwd, bw = cases[CHUNK_TIMED], bwd[CHUNK_TIMED]
+    bw_at = {n: {k: b[k] for k in ("shape", "ms", "bound_ms", "bound_by",
+                                   "plain_ms", "scratch_bytes")}
+             for n, b in bwd.items()}
     emit({"kernels": [{
         "name": "decima_node_encoder",
         "route": "cuda",
@@ -1155,6 +1205,8 @@ def main() -> int:
         "bound_ms": bw["bound_ms"],
         "bound_by": bw["bound_by"],
         "library_ms": None,
+        "scratch_bytes": max(b["scratch_bytes"] for b in bw_at.values()),
+        "at": bw_at,
     }]})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {

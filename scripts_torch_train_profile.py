@@ -205,8 +205,11 @@ def main() -> int:
            "max_memory_allocated": torch.cuda.max_memory_allocated()}
     ev = cuda_events(uprof)
     for key, names in (("encoder_fwd", ("decima_node_encoder_kernel",)),
-                       ("encoder_bwd", ("decima_node_encoder_bwd_kernel",
-                                        "reduce_partials_kernel"))):
+                       ("encoder_bwd", ("live_count_kernel",
+                                        "live_list_kernel",
+                                        "decima_node_encoder_bwd_kernel",
+                                        "reduce_warps_kernel",
+                                        "reduce_groups_kernel"))):
         for nm in names:
             ts = [e.time_range.elapsed_us() for e in ev if nm in e.name]
             upd[f"{key}:{nm}"] = {

@@ -231,26 +231,30 @@ def decima_node_encoder_bwd_ref(x, adj, node_level, node_mask,
 
 @functools.cache
 def _bwd_launcher():
+    """(scratch query, launch) of the built backward library."""
     from .build import load
 
-    fn = load("decima_encoder_bwd").decima_node_encoder_bwd_launch
+    lib = load("decima_encoder_bwd")
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci,
-                   ci, ctypes.c_float, ctypes.POINTER(ci), ci, vp]
+    scratch = lib.decima_node_encoder_bwd_scratch
+    scratch.argtypes = [ci] * 5 + [ctypes.POINTER(ci), ci,
+                                   ctypes.POINTER(ctypes.c_longlong)]
+    scratch.restype = ci
+    fn = lib.decima_node_encoder_bwd_launch
+    fn.argtypes = [vp] * 8 + [ctypes.c_longlong, vp] + [ci] * 6 + [
+        ctypes.c_float, ctypes.POINTER(ci), ci, vp]
     fn.restype = ci
-    return fn
-
-
-BWD_BLOCKS_PER_SM = 3  # ~71 KB of shared memory a block at the flagship widths
+    return scratch, fn
 
 
 def decima_node_encoder_bwd(x, adj, node_level, node_mask, w: EncoderWeights,
                             num_levels: int, negative_slope: float,
                             grad_h: torch.Tensor) -> list[torch.Tensor]:
-    """Gradients of `encoder_params(w)` given dL/dh: the backward kernel
-    and its fixed-order reduction on a CUDA tensor (one call counted in
-    `decima_node_encoder_bwd.launches`), the plain version on a CPU
-    tensor."""
+    """Gradients of `encoder_params(w)` given dL/dh: on a CUDA tensor the
+    live-job list, the backward kernel and its fixed-order reductions
+    (one call counted in `decima_node_encoder_bwd.launches`; the scratch
+    it took, in bytes, in `decima_node_encoder_bwd.scratch_bytes`), the
+    plain version on a CPU tensor."""
     _check(x, adj, node_level, node_mask, w)
     b, k, s, f = x.shape
     d = int(w.prep[-1][0].shape[0])
@@ -268,31 +272,34 @@ def decima_node_encoder_bwd(x, adj, node_level, node_mask, w: EncoderWeights,
         raise ValueError(f"unsupported device {x.device}")
     if s > 32:
         raise ValueError(f"the kernel takes at most 32 stage slots, got {s}")
-    fn = _bwd_launcher()
+    query, fn = _bwd_launcher()
     grad_h = grad_h.contiguous()
     s_nl = min(num_levels, s) if num_levels else s
     edgeless = edgeless_per_lane(adj).contiguous()
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    blocks = min(b * k, BWD_BLOCKS_PER_SM * sms)
-    n = w.packed.numel()
-    partials = torch.empty((max(blocks, 1), n), dtype=torch.float32,
-                           device=x.device)
-    grad = torch.empty(n, dtype=torch.float32, device=x.device)
     spec_c = w.spec.ctypes.data_as(ctypes.POINTER(ctypes.c_int))
+    nbytes = ctypes.c_longlong()
+    if query(b, k, s, f, d, spec_c, sms, ctypes.byref(nbytes)) != 0:
+        raise ValueError("the backward kernel does not take these widths")
+    scratch = torch.empty(nbytes.value, dtype=torch.uint8, device=x.device)
+    grad = torch.empty(w.packed.numel(), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = fn(x.data_ptr(), adj.data_ptr(), node_level.data_ptr(),
             node_mask.data_ptr(), edgeless.data_ptr(), w.packed.data_ptr(),
-            grad_h.data_ptr(), partials.data_ptr(), grad.data_ptr(), b, k, s,
-            f, d, s_nl, float(negative_slope), spec_c, blocks, stream)
+            grad_h.data_ptr(), scratch.data_ptr(), nbytes.value,
+            grad.data_ptr(), b, k, s, f, d, s_nl, float(negative_slope),
+            spec_c, sms, stream)
     if rc != 0:
         raise RuntimeError(
             f"decima_node_encoder_bwd launch failed (cudaGetLastError={rc})"
         )
     decima_node_encoder_bwd.launches += 1
+    decima_node_encoder_bwd.scratch_bytes = nbytes.value
     return unpack_grad(w, grad)
 
 
 decima_node_encoder_bwd.launches = 0
+decima_node_encoder_bwd.scratch_bytes = 0
 
 
 class DecimaNodeEncoderFn(torch.autograd.Function):

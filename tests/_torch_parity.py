@@ -250,18 +250,129 @@ def fwd_ref64(x, adj, lvl, mask, w, num_levels, slope):
                                    num_levels, slope)
 
 
-def bwd_ref64(x, adj, lvl, mask, w, num_levels, slope, g):
+def bwd_ref64(x, adj, lvl, mask, w, num_levels, slope, g, lanes=None):
     """The NodeEncoder's plain backward evaluated in float64 (x, weights
     and dL/dh cast): the reference the backward kernel is held to on the
     card, where the float32 plain backward can stray further from exact
-    than the kernel at thousands of jobs."""
+    than the kernel at thousands of jobs. With `lanes`, evaluated that
+    many items at a time and summed (the items are independent: the
+    edgeless fallback is per item), which bounds its memory."""
     from sparksched_tpu_torch.kernels.decima_encoder import (
         decima_node_encoder_bwd_ref,
     )
 
-    return decima_node_encoder_bwd_ref(x.double(), adj, lvl, mask,
-                                       _weights64(w), num_levels, slope,
-                                       g.double())
+    w64 = _weights64(w)
+    step = lanes or x.shape[0]
+    total = None
+    for i in range(0, x.shape[0], step):
+        sl = slice(i, i + step)
+        part = decima_node_encoder_bwd_ref(
+            x[sl].double(), adj[sl], lvl[sl], mask[sl], w64, num_levels,
+            slope, g[sl].double())
+        total = part if total is None else [a + b for a, b in
+                                            zip(total, part)]
+    return total
+
+
+def _fma32(a, w, c):
+    """fmaf(a, w, c) of float32 tensors, rounded once: the product of two
+    float32s is exact in float64, so is the sum but in rare halfway
+    cases."""
+    return (a.double() * w.double() + c.double()).float()
+
+
+def _pinned_mlp(layers32, layers64, a32, a64, slope):
+    """One MLP in two precisions side by side: float32 as the backward
+    kernel computes it (each output = bias, then one fmaf per input in
+    input order), float64 for autograd, whose LeakyReLU takes the branch
+    the float32 pre-activation takes."""
+    s32 = torch.tensor(slope, dtype=torch.float32, device=a32.device)
+    for i, ((w32, b32), (w64, b64)) in enumerate(zip(layers32, layers64)):
+        z32 = b32.expand(*a32.shape[:-1], b32.shape[0])
+        for k in range(w32.shape[1]):
+            z32 = _fma32(a32[..., k:k + 1], w32[:, k], z32)
+        z64 = a64 @ w64.T + b64
+        if i < len(layers32) - 1:
+            keep = z32 >= 0
+            a32 = torch.where(keep, z32, s32 * z32)
+            a64 = torch.where(keep, z64, slope * z64)
+        else:
+            a32, a64 = z32, z64
+    return a32, a64
+
+
+def _pinned_items(x, adj, lvl, mask, w, w64, nl, slope, g):
+    """The output of the NodeEncoder on these items in float64, through the
+    backward kernel's structure (row passes over all rows; per level,
+    deepest first, the update of its nodes from the children's current
+    messages, then their msg when the level is >= 1), each LeakyReLU on the
+    branch of the kernel's float32 forward; contracted with g."""
+    from sparksched_tpu_torch.kernels.decima_encoder import edgeless_per_lane
+
+    def mlp(name, a32, a64):
+        return _pinned_mlp(getattr(w, name), w64[name], a32, a64, slope)
+
+    x64 = x.double()
+    hc = adj.any(-1)[..., None]
+    U = adj.any(-1) & (lvl >= 0) & (lvl < nl)
+    hin32, hin64 = mlp("prep", x, x64)
+    u32, u64 = mlp("update", hin32, hin64)
+    hv32 = torch.where(hc, 0.0, u32)
+    hv64 = torch.where(hc, 0.0, u64)
+    m32, m64 = mlp("msg", hv32, hv64)
+    adj64 = adj.double()
+    for level in range(nl - 1, -1, -1):
+        P = (U & (lvl == level))[..., None]
+        if not bool(P.any()):
+            continue
+        agg32 = torch.zeros_like(m32)  # children in order, from 0
+        for c in range(adj.shape[-1]):
+            agg32 = agg32 + torch.where(adj[..., c:c + 1],
+                                        m32[..., c:c + 1, :], 0.0)
+        y32, y64 = mlp("update", agg32, adj64 @ m64)
+        hv32 = torch.where(P, hin32 + y32, hv32)
+        hv64 = torch.where(P, hin64 + y64, hv64)
+        if level >= 1:
+            f32, f64 = mlp("msg", hv32, hv64)
+            m32 = torch.where(P, f32, m32)
+            m64 = torch.where(P, f64, m64)
+    el = edgeless_per_lane(adj)[:, None, None, None]
+    out = torch.where(mask[..., None], torch.where(el, hin64, hv64), 0.0)
+    return (out * g.double()).sum()
+
+
+def bwd_ref64_pinned(x, adj, lvl, mask, w, num_levels, slope, g, lanes=64):
+    """The NodeEncoder's plain backward in float64 with each LeakyReLU's
+    derivative taken on the branch the backward kernel's float32 forward
+    takes (recomputed here in the kernel's order of operations): the
+    exact gradient of the kernel's own branch pattern. Against this the
+    kernel differs only by rounding. Against `bwd_ref64` a float32
+    evaluation also differs wherever a pre-activation lies within its
+    rounding of 0, which at ~10^5 live jobs happens a few dozen times and
+    moves a gradient element by up to several times 1e-4 of its tensor's
+    largest (the float32 plain backward as much as the kernel). Evaluated
+    `lanes` items at a time and summed."""
+    from sparksched_tpu_torch.kernels.decima_encoder import encoder_params
+
+    s = x.shape[2]
+    nl = min(num_levels, s) if num_levels else s
+    total = None
+    for i in range(0, x.shape[0], lanes):
+        sl = slice(i, i + lanes)
+        params = [t.detach().double().requires_grad_(True)
+                  for t in encoder_params(w)]
+        it = iter(params)
+        w64 = {name: [(next(it), next(it)) for _ in getattr(w, name)]
+               for name in ("prep", "msg", "update")}
+        with torch.enable_grad():
+            loss = _pinned_items(x[sl], adj[sl], lvl[sl], mask[sl], w, w64,
+                                 nl, slope, g[sl])
+            part = torch.autograd.grad(loss, params, allow_unused=True)
+        part = [torch.zeros_like(p) if d is None else d
+                for p, d in zip(params, part)]
+        total = part if total is None else [a + b for a, b in
+                                            zip(total, part)]
+    return total
 
 
 # -------------------------------------------------------------------------

@@ -6,7 +6,8 @@ NodeEncoder within 1e-5, its backward within 1e-4 * max|ref| + 1e-6 per
 gradient tensor against the plain backward evaluated in float64 (at
 these random weights and 1,603 jobs the kernel and the float32 plain
 backward disagreed, and the float64 evaluation sided with the kernel)
-and bit-equal from run to run. Run
+and bit-equal from run to run, up to [1024, 200] jobs half of them dead;
+an all-dead batch gives exactly 0. Run
 there with `python -m pytest --noconftest -m cuda tests/test_torch_cuda.py`
 (`--noconftest`: the suite's conftest imports JAX, which the card's
 machine need not have)."""
@@ -25,7 +26,7 @@ from sparksched_tpu_torch.kernels.decima_encoder import (
     pack_weights,
 )
 
-from ._torch_parity import CASES, bwd_ref64, make_case
+from ._torch_parity import CASES, bwd_ref64, bwd_ref64_pinned, make_case
 
 pytestmark = pytest.mark.cuda
 
@@ -153,6 +154,72 @@ def test_bwd_kernel_matches_plain_version_on_adversarial_cases(
     assert all(torch.equal(a, c) for a, c in zip(got, again))
 
 
+@pytest.mark.parametrize("dims,s", [
+    (([5, 16, 8, 8], [8, 16, 8, 8], [8, 16, 8, 8]), 20),  # embed 8, hid [16, 8]
+    (([5, 24, 12], [12, 40, 12], [12, 12]), 32),  # a 40-wide layer, 32 slots
+    (([5, 16], [16, 16], [16, 16]), 3),  # one-layer MLPs, 3 slots
+])
+def test_bwd_kernel_matches_plain_version_at_other_widths(card, dims, s):
+    """Widths outside the repo's configurations: the padded layouts, a
+    one-layer update MLP (its aggregation kept in the hidden buffer), S
+    not a multiple of 4 (the adjacency read a byte at a time)."""
+    x, adj, lvl, mask = make_case("random_levels", 3, 7, s, 5, seed=s)
+    adj[0] = False
+    gen = torch.Generator().manual_seed(s)
+    w = pack_weights(*(_layers(gen, d, card) for d in dims))
+    ins = [torch.from_numpy(a).to(card) for a in (x, adj, lvl, mask)]
+    g = torch.randn(3, 7, s, dims[0][-1], generator=gen).to(card)
+    for num_levels in (0, 3):
+        got = decima_node_encoder_bwd(*ins, w, num_levels, 0.2, g)
+        torch.cuda.synchronize()
+        ref = bwd_ref64(*ins, w, num_levels, 0.2, g)
+        assert _grad_err(got, ref) <= 1.0
+
+
+def _flagship_weights(card):
+    gen = torch.Generator().manual_seed(7)
+    return gen, pack_weights(_layers(gen, [5, 32, 16, 16], card),
+                             _layers(gen, [16, 32, 16, 16], card),
+                             _layers(gen, [16, 32, 16, 16], card))
+
+
+def test_bwd_kernel_at_the_update_chunk_with_dead_jobs(card):
+    """[1024, 200] jobs, every other one dead (the live list compacts
+    102,400 jobs, each of the card's warps takes dozens): within
+    tolerance of the float64 plain backward on the kernel's LeakyReLU
+    branches (`bwd_ref64_pinned`, 64 items at a time), and a rerun gives
+    the same bits. Against the plain float64 backward on its own branches
+    neither the kernel nor the float32 plain backward stays within the
+    tolerance at this size: a few dozen of the ~3.5e8 pre-activations lie
+    within float32 rounding of 0, and each that a float32 evaluation puts
+    on the other branch moves a weight gradient by several times 1e-4 of
+    its tensor's largest element."""
+    x, adj, lvl, mask = make_case("dead_jobs", 1024, 200, 20, 5, seed=11)
+    gen, w = _flagship_weights(card)
+    ins = [torch.from_numpy(a).to(card) for a in (x, adj, lvl, mask)]
+    g = torch.randn(1024, 200, 20, 16, generator=gen).to(card)
+    got = decima_node_encoder_bwd(*ins, w, 0, 0.2, g)
+    torch.cuda.synchronize()
+    ref = bwd_ref64_pinned(*ins, w, 0, 0.2, g, lanes=64)
+    assert _grad_err(got, ref) <= 1.0
+    again = decima_node_encoder_bwd(*ins, w, 0, 0.2, g)
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+
+
+def test_bwd_kernel_all_dead_batch_is_exactly_zero(card):
+    """No job with a valid node (edges, NaN inputs and gradients kept):
+    every gradient element is exactly 0."""
+    x, adj, lvl, mask = make_case("dag", 8, 32, 20, 5, seed=1)
+    mask[:] = False
+    x[:] = float("nan")
+    gen, w = _flagship_weights(card)
+    ins = [torch.from_numpy(a).to(card) for a in (x, adj, lvl, mask)]
+    g = torch.full((8, 32, 20, 16), float("nan"), device=card)
+    got = decima_node_encoder_bwd(*ins, w, 0, 0.2, g)
+    torch.cuda.synchronize()
+    assert all(bool((t == 0).all()) for t in got)
+
+
 def test_encoder_function_gradients_on_card_match_cpu(card):
     """`DecimaNodeEncoderFn` on the card (both kernels) against the same
     function on the CPU (the plain versions under autograd)."""
@@ -163,7 +230,11 @@ def test_encoder_function_gradients_on_card_match_cpu(card):
     g = torch.randn(4, 9, 20, 16, generator=gen)
     grads = {}
     for dev in ("cpu", "cuda"):
-        ls = [[(w.to(dev).requires_grad_(True), b.to(dev).requires_grad_(True))
+        # detached copies: leaves on each device (`.to("cpu")` of a CPU
+        # tensor would return the tensor itself, and its CUDA copy would then
+        # be a non-leaf without a .grad)
+        ls = [[(w.detach().to(dev).requires_grad_(True),
+                b.detach().to(dev).requires_grad_(True))
                for w, b in mlp] for mlp in layers]
         w = pack_weights(*ls)
         ins = [torch.from_numpy(a).to(dev) for a in (x, adj, lvl, mask)]

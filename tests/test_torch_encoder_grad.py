@@ -6,12 +6,16 @@
   `evaluate_actions`: every parameter's gradient within rtol 1e-4 /
   atol 1e-6, on real features, on a batch with edgeless items, on levels
   that are no topological order and at `num_levels` 3.
-- The backward kernel's algorithm (`csrc/decima_encoder_bwd.cu`: two
-  versions of each node, the reverse level sweep, the message gradients
-  scattered to the version each child sent), replayed in PyTorch job by
-  job, against the plain backward on the seeded stress cases of
-  `make_case` within 1e-4 * max|ref| + 1e-6 — the tolerance the card
-  holds the kernel to.
+- The backward kernel's schedule (`csrc/decima_encoder_bwd.cu`: the
+  live-job list, a warp per job taking slots w, w + W, ..., the row
+  passes and the level steps with the two versions of each node and the
+  reverse level sweep, the level rows recorded, each MLP's weight
+  gradient taken once per job, the warps' accumulators summed in groups
+  in a fixed order), replayed in PyTorch, against the plain backward on
+  the seeded stress cases of `make_case` within 1e-4 * max|ref| + 1e-6 —
+  the tolerance the card holds the kernel to — over several warp and
+  group counts with live and dead jobs interleaved, and with a NaN in x
+  on a masked row, whose NaN pattern must be the plain backward's.
 """
 
 from __future__ import annotations
@@ -154,114 +158,184 @@ def test_function_saves_inputs_and_uses_the_backward_wrapper():
 
 
 # -------------------------------------------------------------------------
-# the kernel's algorithm, replayed in PyTorch
+# the kernel's schedule, replayed in PyTorch
+#
+# `decima_node_encoder_bwd_kernel` (csrc/decima_encoder_bwd.cu): the live
+# jobs in job order; warp w of W takes the live slots w, w + W, ...; per
+# job the row passes over all S rows (a lane per row: here a batch over
+# rows), the level steps over their own rows, the level rows' inputs,
+# pre-activations and deltas recorded; each MLP's weight gradient taken
+# once per job over its S rows then its recorded level rows, added to the
+# warp's accumulator; the accumulators summed in groups of `group` warps in
+# warp order, then the groups in order.
 
 
-def _mlp_fwd(layers, a, slope):
+def _act(z, slope):
+    return torch.where(z >= 0, z, slope * z)
+
+
+def _fwd(layers, a, slope):
+    """An MLP's output and its layers' pre-activations (the last one is the
+    output)."""
     pre = []
     for i, (w, b) in enumerate(layers):
-        y = a @ w.T + b
-        if i < len(layers) - 1:
-            pre.append(y)
-            a = torch.where(y >= 0, y, slope * y)
-        else:
-            a = y
-    return a, pre
+        z = (a if i == 0 else _act(pre[-1], slope)) @ w.T + b
+        pre.append(z)
+    return pre[-1], pre
 
 
-def _mlp_bwd(layers, inp, pre, g, gw, slope):
-    """Manual backward of one MLP application (as `mlp_bwd`): adds the
-    weight/bias gradients into gw (list of pairs), returns d input."""
+def _bwd(layers, inp, pre, g, slope):
+    """The deltas of each layer (dL/d pre-activation) and the input
+    gradient of one MLP application."""
+    deltas = [None] * len(layers)
     delta = g
     for i in range(len(layers) - 1, -1, -1):
-        w, _ = layers[i]
-        a = inp if i == 0 else torch.where(pre[i - 1] >= 0, pre[i - 1],
-                                           slope * pre[i - 1])
-        gw[i][0].add_(delta.T @ a)
-        gw[i][1].add_(delta.sum(0))
-        gin = delta @ w
+        deltas[i] = delta
+        gin = delta @ layers[i][0]
         if i > 0:
             delta = gin * torch.where(pre[i - 1] >= 0, 1.0, slope)
-    return gin
+    return deltas, gin
 
 
-def _kernel_bwd_replay(x, adj, lvl, mask, w, num_levels, slope, g):
-    """`decima_node_encoder_bwd_kernel`, job by job."""
+def _rows(layers, inp, pre, deltas, slope):
+    """Per layer (input rows, delta rows) of one MLP application."""
+    return [(inp if i == 0 else _act(pre[i - 1], slope), deltas[i])
+            for i in range(len(layers))]
+
+
+def _dw(dense, level):
+    """A job's weight gradient of one MLP: per layer, the sum over the
+    dense rows, then over the level rows in node order."""
+    out = []
+    for i, (a, d) in enumerate(dense):
+        gw, gb = d.T @ a, d.sum(0)
+        for rows in level:
+            la, ld = rows[i]
+            gw, gb = gw + ld.T @ la, gb + ld.sum(0)
+        out += [gw, gb]
+    return out
+
+
+def _job_replay(xs, a, lv, valid, el, w, nl, slope, gj):
+    """One warp's job: its (prep, msg, update) weight-gradient sums."""
+    hc = a.any(1)
+    gh = torch.where(valid[:, None], gj, 0.0)
+    hin, p_prep = _fwd(w.prep, xs, slope)
+    if el:  # prep alone carries the gradient
+        d, _ = _bwd(w.prep, xs, p_prep, gh, slope)
+        return (_dw(_rows(w.prep, xs, p_prep, d, slope), []),
+                [torch.zeros_like(t) for ls in w.msg for t in ls],
+                [torch.zeros_like(t) for ls in w.update for t in ls])
+    U = hc & (lv >= 0) & (lv < nl)
+    u0, _ = _fwd(w.update, hin, slope)
+    hv = torch.where(hc[:, None], 0.0, u0)
+    m, _ = _fwd(w.msg, hv, slope)
+    levels = sorted({int(v) for v in lv[U]})
+    rec_u, rec_m = {}, {}  # node -> (input, pre-activations), then deltas
+    for lvl in reversed(levels):  # deepest first
+        P = torch.nonzero(U & (lv == lvl)).reshape(-1)
+        agg = a[P].float() @ m  # the children's current messages
+        y, pre = _fwd(w.update, agg, slope)
+        rec_u[lvl] = [P, agg, pre]
+        hv = hv.clone()
+        hv[P] = hin[P] + y
+        if lvl >= 1:  # a level-0 node's msg(h_fin) is never read
+            y, pre = _fwd(w.msg, hv[P], slope)
+            rec_m[lvl] = [P, hv[P], pre]
+            m = m.clone()
+            m[P] = y
+    gm = torch.zeros_like(m)
+    for lvl in levels:  # the reverse sweep
+        P, agg, pre = rec_u[lvl]
+        if lvl >= 1:
+            _, inp, pre_m = rec_m[lvl]
+            d, gin = _bwd(w.msg, inp, pre_m, gm[P], slope)
+            rec_m[lvl].append(d)
+            gh = gh.clone()
+            gh[P] = gh[P] + gin
+            gm[P] = 0.0  # from now on the h0 messages' gradient
+        d, gagg = _bwd(w.update, agg, pre, gh[P], slope)
+        rec_u[lvl].append(d)
+        gm = gm + a[P].float().T @ gagg  # scatter along the edges
+    # the level rows in node order, per MLP
+    lvl_u = sorted(((int(p), (agg[i:i + 1], [z[i:i + 1] for z in pre],
+                              [t[i:i + 1] for t in d]))
+                    for P, agg, pre, d in rec_u.values()
+                    for i, p in enumerate(P.tolist())))
+    lvl_m = sorted(((int(p), (inp[i:i + 1], [z[i:i + 1] for z in pre],
+                              [t[i:i + 1] for t in d]))
+                    for P, inp, pre, d in rec_m.values()
+                    for i, p in enumerate(P.tolist())))
+
+    def level_rows(layers, recs):
+        return [_rows(layers, inp, pre, d, slope) for _, (inp, pre, d) in recs]
+
+    h0 = torch.where(hc[:, None], 0.0, hv)
+    _, pre = _fwd(w.msg, h0, slope)
+    d, gin = _bwd(w.msg, h0, pre, gm, slope)
+    g_msg = _dw(_rows(w.msg, h0, pre, d, slope), level_rows(w.msg, lvl_m))
+    gh = torch.where(hc[:, None], gh, gh + gin)
+    _, pre = _fwd(w.update, hin, slope)
+    d, gin = _bwd(w.update, hin, pre, torch.where(hc[:, None], 0.0, gh),
+                  slope)
+    g_upd = _dw(_rows(w.update, hin, pre, d, slope),
+                level_rows(w.update, lvl_u))
+    g_hin = torch.where(U[:, None], gh, 0.0) + gin
+    d, _ = _bwd(w.prep, xs, p_prep, g_hin, slope)
+    return _dw(_rows(w.prep, xs, p_prep, d, slope), []), g_msg, g_upd
+
+
+def _kernel_bwd_replay(x, adj, lvl, mask, w, num_levels, slope, g,
+                       warps=8, group=2):
+    """`decima_node_encoder_bwd` as the kernel schedules it, with `warps`
+    warps and accumulators summed `group` at a time."""
     b, k, s, _ = x.shape
     nl = min(num_levels, s) if num_levels else s
     el_lane = edgeless_per_lane(adj)
-    gws = [[[torch.zeros_like(wt), torch.zeros_like(bt)] for wt, bt in ls]
-           for ls in (w.prep, w.msg, w.update)]
-    gprep, gmsg, gupd = gws
-    for i in range(b):
-        for j in range(k):
-            V = mask[i, j]
-            if not bool(V.any()):
-                continue
-            xs, a, lv = x[i, j], adj[i, j], lvl[i, j]
-            gj = torch.where(V[:, None], g[i, j], 0.0)
-            hin, a_prep = _mlp_fwd(w.prep, xs, slope)
-            if bool(el_lane[i]):
-                _mlp_bwd(w.prep, xs, a_prep, gj, gprep, slope)
-                continue
-            hc = a.any(1)
-            U = hc & (lv >= 0) & (lv < nl)
-            u0, a_u0 = _mlp_fwd(w.update, hin, slope)
-            h0 = torch.where(hc[:, None], 0.0, u0)
-            m0, a_m0 = _mlp_fwd(w.msg, h0, slope)
-            hf = torch.zeros_like(h0)
-            mf = torch.zeros_like(h0)
-            agg = torch.zeros_like(h0)
-            saved = {}
-            for lvl_ in range(nl - 1, -1, -1):
-                P = U & (lv == lvl_)
-                if not bool(P.any()):
-                    continue
-                fin = U & (lv > lvl_)
-                msgs = torch.where(fin[:, None], mf, m0)
-                agg[P] = (a.float() @ msgs)[P]
-                u, a_uf = _mlp_fwd(w.update, agg[P], slope)
-                hf[P] = hin[P] + u
-                m, a_mf = _mlp_fwd(w.msg, hf[P], slope)
-                mf[P] = m
-                saved[lvl_] = (a_uf, a_mf)
-            g_hf = torch.where(U[:, None], gj, 0.0)
-            g_h0 = torch.where(U[:, None], 0.0, gj)
-            g_hin = torch.zeros_like(h0)
-            g_m0 = torch.zeros_like(h0)
-            g_mf = torch.zeros_like(h0)
-            for lvl_ in range(nl):
-                P = U & (lv == lvl_)
-                if not bool(P.any()):
-                    continue
-                a_uf, a_mf = saved[lvl_]
-                g_hf[P] += _mlp_bwd(w.msg, hf[P], a_mf, g_mf[P], gmsg, slope)
-                g_hin[P] += g_hf[P]
-                g_agg = torch.zeros_like(h0)
-                g_agg[P] = _mlp_bwd(w.update, agg[P], a_uf, g_hf[P], gupd,
-                                    slope)
-                fin = U & (lv > lvl_)
-                scat = a.float().T @ (g_agg * P[:, None])
-                g_mf += torch.where(fin[:, None], scat, 0.0)
-                g_m0 += torch.where(fin[:, None], 0.0, scat)
-            g_h0 += _mlp_bwd(w.msg, h0, a_m0, g_m0, gmsg, slope)
-            g_h0 = torch.where(hc[:, None], 0.0, g_h0)
-            g_hin += _mlp_bwd(w.update, hin, a_u0, g_h0, gupd, slope)
-            _mlp_bwd(w.prep, xs, a_prep, g_hin, gprep, slope)
-    return [t for ls in gws for pair in ls for t in pair]
+    live = torch.nonzero(mask.reshape(b * k, s).any(1)).reshape(-1).tolist()
+    zero = [torch.zeros_like(t) for t in encoder_params(w)]
+    accs = []
+    for wi in range(min(warps, len(live))):
+        acc = list(zero)
+        for slot in range(wi, len(live), warps):
+            i, j = divmod(live[slot], k)
+            parts = _job_replay(x[i, j], adj[i, j], lvl[i, j], mask[i, j],
+                                bool(el_lane[i]), w, nl, slope, g[i, j])
+            acc = [t + u for t, u in zip(acc, [t for p in parts for t in p])]
+        accs.append(acc)
+    total = list(zero)
+    for g0 in range(0, max(len(accs), 1), group):
+        part = list(zero)
+        for acc in accs[g0:g0 + group]:
+            part = [t + u for t, u in zip(part, acc)]
+        total = [t + u for t, u in zip(total, part)]
+    return total
+
+
+def _case_inputs(case, b, k, seed):
+    x, adj, lvl, mask = (torch.from_numpy(a) for a in
+                         make_case(case, b, k, S, 5, seed=seed))
+    adj = adj.clone()
+    adj[0] = False  # an edgeless item beside edged ones
+    g = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (b, k, S, 8)).astype(np.float32))
+    return x, adj, lvl, mask, g
+
+
+def _assert_replay_close(got, ref, w):
+    for p, a, b in zip(encoder_params(w), got, ref):
+        assert a.shape == p.shape
+        tol = 1e-4 * float(b.abs().max()) + 1e-6
+        assert float((a - b).abs().max()) <= tol
+    assert any(float(r.abs().max()) > 0 for r in ref)
 
 
 @pytest.mark.parametrize("case", CASES)
 @pytest.mark.parametrize("num_levels", [0, 3])
 def test_kernel_algorithm_matches_plain_backward(case, num_levels):
     _, ts = _pair(num_levels)
-    x, adj, lvl, mask = (torch.from_numpy(a) for a in
-                         make_case(case, 3, 4, S, 5, seed=5))
-    adj = adj.clone()
-    adj[0] = False  # an edgeless item beside edged ones
+    x, adj, lvl, mask, g = _case_inputs(case, 3, 4, seed=5)
     w = ts.net.encoder_weights()
-    g = torch.from_numpy(np.random.default_rng(2).standard_normal(
-        (3, 4, S, 8)).astype(np.float32))
     ref = decima_node_encoder_bwd_ref(x, adj, lvl, mask, w, num_levels,
                                       ts.net.slope, g)
     # on a CPU tensor the wrapper is the plain version
@@ -271,8 +345,54 @@ def test_kernel_algorithm_matches_plain_backward(case, num_levels):
     with torch.no_grad():
         got = _kernel_bwd_replay(x, adj, lvl, mask, w, num_levels,
                                  ts.net.slope, g)
-    for p, a, b in zip(encoder_params(w), got, ref):
-        assert a.shape == p.shape
-        tol = 1e-4 * float(b.abs().max()) + 1e-6
-        assert float((a - b).abs().max()) <= tol
-    assert any(float(r.abs().max()) > 0 for r in ref)
+    _assert_replay_close(got, ref, w)
+
+
+@pytest.mark.parametrize("warps,group", [(1, 1), (3, 2), (5, 2), (40, 3)])
+def test_kernel_schedule_partitions_live_jobs(warps, group):
+    """Live and dead jobs interleaved (every other job dead, an edgeless
+    lane) over more live jobs than warps and more warps than one group:
+    each warp takes several jobs, the groups split the warps; the sum in
+    that order matches the plain backward, and dead jobs add exactly 0."""
+    _, ts = _pair(3)
+    x, adj, lvl, mask, g = _case_inputs("dead_jobs", 5, 6, seed=9)
+    w = ts.net.encoder_weights()
+    live = int(mask.reshape(30, S).any(1).sum())
+    assert warps < live or warps > 2 * live
+    ref = decima_node_encoder_bwd_ref(x, adj, lvl, mask, w, 3, ts.net.slope,
+                                      g)
+    with torch.no_grad():
+        got = _kernel_bwd_replay(x, adj, lvl, mask, w, 3, ts.net.slope, g,
+                                 warps=warps, group=group)
+        # the dead jobs' inputs do not enter the sum at all
+        dead = ~mask.any(-1)
+        x2 = torch.where(dead[..., None, None], float("nan"), x)
+        g2 = torch.where(dead[..., None, None], float("nan"), g)
+        again = _kernel_bwd_replay(x2, adj, lvl, mask, w, 3, ts.net.slope,
+                                   g2, warps=warps, group=group)
+    _assert_replay_close(got, ref, w)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_kernel_schedule_nan_pattern_matches_plain_backward(case):
+    """A NaN in x on a masked row of a live job on an edged lane: the NaN
+    pattern of every gradient tensor is the plain backward's (0 x NaN is
+    NaN; nothing is pruned by the mask or a zero delta)."""
+    _, ts = _pair(0)
+    x, adj, lvl, mask, g = _case_inputs(case, 3, 4, seed=5)
+    mask = mask.clone()
+    mask[1, 2, 3] = False
+    assert bool(mask[1, 2].any()) and bool(adj[1].any())
+    x = x.clone()
+    x[1, 2, 3, 1] = float("nan")
+    w = ts.net.encoder_weights()
+    ref = decima_node_encoder_bwd_ref(x, adj, lvl, mask, w, 0, ts.net.slope,
+                                      g)
+    with torch.no_grad():
+        got = _kernel_bwd_replay(x, adj, lvl, mask, w, 0, ts.net.slope, g)
+    assert any(bool(torch.isnan(r).any()) for r in ref)
+    assert any(bool(torch.isfinite(r).any()) for r in ref)
+    for a, b in zip(got, ref):
+        assert torch.equal(torch.isnan(a), torch.isnan(b))
+        assert torch.equal(torch.isinf(a), torch.isinf(b))
