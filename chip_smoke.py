@@ -9,7 +9,7 @@ drives the port's paths at the flagship shape of `config/decima_tpch.yaml`
 (50 executors, 200-job cap, 20 stage slots; Decima embed 16, GNN [32,16],
 policy [64,64], job_bucket 32) and checks them. The main path is PPO
 training as the config runs it (16 lanes, the flat single-eval collector,
-3 epochs x 10 minibatches), 2 iterations with `rollout_steps` cut to 256,
+3 epochs x 10 minibatches), 2 iterations with `rollout_steps` cut to 128,
 through `make_trainer(...).train()`: health 0, parameters finite and
 changed, both encoder kernels launched (forward in collection and update,
 backward in the update) and no plain version called. The earlier paths
@@ -19,7 +19,14 @@ default engine knobs (`SERVE_KNOBS`) and with the bulk knobs off
 block), the card's decisions against the CPU port's, and whole
 fair-policy episodes through `run_flat` (16 lanes, auto-reset) with the
 card's lanes held against the CPU port's. Training on 2 lanes is held
-against the CPU port too.
+against the CPU port too. Training also runs with the config's `obs:`
+block and its checkpoints (cadences cut to fire within the 2
+iterations), its artifacts in a temporary directory, never the
+checkout's `artifacts/`; a 2-lane run resumed from its train state is
+compared with an uninterrupted one; the JAX package's trained
+`models/decima/model_tpu.msgpack` is evaluated on held-out seeds
+against the fair heuristic (the first trained-weights check, the card
+against the CPU port); and the telemetry's cost is measured.
 
 The forward kernel is held against its plain version on the serve
 path's inputs, on training's (a collection row of the trained rollout
@@ -43,12 +50,17 @@ at SERVE_KNOBS), `serve_knobs_off` (2 x 64), `card_vs_cpu` (4 sessions x
 replayed on the CPU), `train` (the main path; a `train_iteration` line
 per iteration), `train_update_profile` (torch.profiler over an update:
 both kernels recorded), `kernel_vs_plain_train` (the forward at
-training's shapes), `bwd_kernel_vs_plain`, `kernel_alone` and
+training's shapes), `bwd_kernel_vs_plain`, `kernel_alone`,
 `train_parity` (one collection per device, updated at the config's
-Adam and at a linear Adam).
+Adam and at a linear Adam), `train_resume` (2 lanes, T = 64: 2
+iterations against 1 + a resume), `eval_trained` (8 held-out seeds on
+the card, 2 of them on the CPU; the forward kernel at trained weights
+against the float64 plain forward) and `telemetry_cost` (16 lanes x 32
+rows, telemetry off and on: launches per row and rows per second).
 
 Each phase prints one JSON line. Before the last line come the
-`{"kernels": [...]}` line (per kernel: launches on the main path, max
+`{"kernels": [...]}` line (per kernel: launches on the main path and
+on each path of this script that runs it (`launches_by_path`), max
 abs error against the plain version, the kernel's own time from
 torch.profiler at an update chunk, taken after the main path, the plain
 version's time and the least time the card could take; for the
@@ -68,6 +80,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 
@@ -91,9 +104,27 @@ TOL = 1e-5
 # stress cases: (B, K) per `make_case` case, each at num_levels 0 and 3
 STRESS_SHAPES = ((1, 1), (1, 3), (3, 86), (7, 229))
 TIMED = ("B8_K32", "B8_K200")  # the serve path's shapes
-# the training phases: the flagship config, rollout_steps cut to 256
-TRAIN_ITERS, TRAIN_STEPS = 2, 256
+# the training phases: the flagship config, rollout_steps cut to 128
+# (256 until PR 6, cut to keep the whole run near its earlier length)
+TRAIN_ITERS, TRAIN_STEPS = 2, 128
 PARITY_LANES, PARITY_STEPS = 2, 64  # card vs CPU training
+# the train phase's checkpoint cadences, cut so that they fire within its
+# TRAIN_ITERS iterations (the config: checkpointing_freq 50,
+# health.checkpoint_every 25)
+TRAIN_CKPT_FREQ, TRAIN_STATE_EVERY = 2, 1
+RESUME_LANES, RESUME_STEPS = 2, 64  # 2 iterations against 1 + resume 1
+# trained weights: the JAX package's TPU-trained model, greedy on the
+# held-out seeds of `python -m sparksched_tpu_torch.evaluate` (full
+# 600-decision episodes), the first EVAL_CPU_SEEDS replayed on the CPU
+EVAL_MODEL = os.path.join(HERE, "models", "decima", "model_tpu.msgpack")
+EVAL_SEEDS, EVAL_CPU_SEEDS = 8, 2
+# telemetry's cost: lanes and rows of the flagship collection, off and
+# on, and the rows whose launches torch.profiler counts (its processing
+# of ~25k records a row stalls a window much longer than this)
+TELEMETRY_LANES, TELEMETRY_ROWS, PROFILED_ROWS = 16, 32, 4
+# trainer artifacts (checkpoints, train states, run logs) go below this
+# temporary directory, never into the checkout's artifacts/
+TMP_ROOT: str | None = None
 # the backward kernel: per gradient tensor, max abs error against the
 # float64 plain backward <= BWD_RTOL * max|ref| + BWD_ATOL
 BWD_RTOL, BWD_ATOL = 1e-4, 1e-6
@@ -747,64 +778,81 @@ def phase_fwd_train(trainer, chunks: dict, cases: dict) -> None:
     max|ref| + FWD_ATOL, the float32 plain version's error against it
     and the kernel's against the float32 plain version reported beside.
     Each case's error goes into `cases`; one over its tolerance fails."""
-    import torch
 
-    from sparksched_tpu_torch.kernels.decima_encoder import (
-        decima_node_encoder,
-        decima_node_encoder_ref,
-    )
-    from sparksched_tpu_torch.schedulers.decima import compact_features
     from sparksched_tpu_torch.trainers.ppo import UPDATE_CHUNK
-    from sparksched_tpu_torch.trainers.rollout import stored_to_observation
 
     t_phase = time.perf_counter()
     sched, ro = trainer.scheduler, trainer.last_rollout
     net = sched.net
-    w = net.encoder_weights()
-
-    def row(t):
-        so = ro.obs.map(lambda a: a[:, t])
-        return sched.features(stored_to_observation(trainer.bank, so))
-
-    steps = torch.nonzero(ro.valid.any(0)).reshape(-1).tolist()
-    todo = {"collection_row_full": row(steps[-1])}
-    for t in reversed(steps):  # the latest row every lane fits compacted
-        f = row(t)
-        if int(f.job_mask.sum(1).max()) <= sched.job_bucket:
-            todo["collection_row_compact"] = compact_features(
-                f, sched.job_bucket)[0]
-            break
+    todo = collection_rows(sched, trainer.bank, ro, sched.job_bucket)
     todo |= chunks
     todo[f"update_chunk_{UPDATE_CHUNK}"] = update_chunk_features(
         trainer, ro, UPDATE_CHUNK)
     out = {}
     for name, f in todo.items():
-        ins = tuple(a.contiguous()
-                    for a in (f.x, f.adj, f.node_level, f.node_mask))
-        args = (w, net.num_levels, net.slope)
-        with torch.no_grad():
-            got = decima_node_encoder(*ins, *args)
-            ref32 = decima_node_encoder_ref(*ins, *args)
-            ref = parity_helpers().fwd_ref64(*ins, *args)
-        tol = FWD_RTOL * float(ref.abs().max()) + FWD_ATOL
-        err = float((got.double() - ref).abs().max())
-        out[name] = {
-            "shape": list(f.x.shape), "num_levels": net.num_levels,
-            "max_abs_err": err, "err_over_tol": err / tol,
-            "max_abs_ref": float(ref.abs().max()),
-            "plain32_err_over_tol": float(
-                (ref32.double() - ref).abs().max()) / tol,
-            "err_vs_plain32": float((got - ref32).abs().max())}
+        out[name] = fwd_vs_ref64(name, f, net)
         cases[name] = cases.get(name, {}) | out[name]
-        if not err <= tol:
-            raise AssertionError(f"decima_node_encoder {name}: max abs err "
-                                 f"{err} is {err / tol:.3g}x its tolerance")
     if "collection_row_compact" not in out:
         raise AssertionError("no collection row fits the job bucket")
     emit({"phase": "kernel_vs_plain_train", "kernel": "decima_node_encoder",
           "tolerance": f"{FWD_RTOL} * max|ref| + {FWD_ATOL}, against the "
                        "float64 plain forward",
           "cases": out, "seconds": time.perf_counter() - t_phase})
+
+
+def collection_rows(sched, bank, ro, bucket: int) -> dict:
+    """The features of two rows of a collection (all lanes at one step):
+    the last row with a decision at full width, and the latest row where
+    every lane's live jobs fit `bucket`, compacted to it as the collector
+    runs the net."""
+    import torch
+
+    from sparksched_tpu_torch.schedulers.decima import compact_features
+    from sparksched_tpu_torch.trainers.rollout import stored_to_observation
+
+    def row(t):
+        so = ro.obs.map(lambda a: a[:, t])
+        return sched.features(stored_to_observation(bank, so))
+
+    steps = torch.nonzero(ro.valid.any(0)).reshape(-1).tolist()
+    out = {"collection_row_full": row(steps[-1])}
+    for t in reversed(steps):
+        f = row(t)
+        if int(f.job_mask.sum(1).max()) <= bucket:
+            out["collection_row_compact"] = compact_features(f, bucket)[0]
+            break
+    return out
+
+
+def fwd_vs_ref64(name: str, f, net) -> dict:
+    """The forward kernel on features `f` against the plain forward in
+    float64, within FWD_RTOL * max|ref| + FWD_ATOL (failing beyond it),
+    the float32 plain version's error reported beside."""
+    import torch
+
+    from sparksched_tpu_torch.kernels.decima_encoder import (
+        decima_node_encoder,
+        decima_node_encoder_ref,
+    )
+
+    ins = tuple(a.contiguous()
+                for a in (f.x, f.adj, f.node_level, f.node_mask))
+    args = (net.encoder_weights(), net.num_levels, net.slope)
+    with torch.no_grad():
+        got = decima_node_encoder(*ins, *args)
+        ref32 = decima_node_encoder_ref(*ins, *args)
+        ref = parity_helpers().fwd_ref64(*ins, *args)
+    tol = FWD_RTOL * float(ref.abs().max()) + FWD_ATOL
+    err = float((got.double() - ref).abs().max())
+    if not err <= tol:
+        raise AssertionError(f"decima_node_encoder {name}: max abs err "
+                             f"{err} is {err / tol:.3g}x its tolerance")
+    return {"shape": list(f.x.shape), "num_levels": net.num_levels,
+            "max_abs_err": err, "err_over_tol": err / tol,
+            "max_abs_ref": float(ref.abs().max()),
+            "plain32_err_over_tol": float(
+                (ref32.double() - ref).abs().max()) / tol,
+            "err_vs_plain32": float((got - ref32).abs().max())}
 
 
 def phase_bwd_kernel(sched, checks: dict, chunks: dict):
@@ -903,12 +951,15 @@ def phase_bwd_kernel(sched, checks: dict, chunks: dict):
 # ---------------------------------------------------------------------------
 
 
-def train_cfg(**trainer) -> dict:
-    """config/decima_tpch.yaml with `trainer` keys replaced."""
+def train_cfg(artifacts_dir: str | None = None, **trainer) -> dict:
+    """config/decima_tpch.yaml with `trainer` keys replaced and the
+    trainer's artifacts in `artifacts_dir`, by default a new temporary
+    directory (below TMP_ROOT when it is set)."""
     from sparksched_tpu_torch.config import load
 
     cfg = load(CONFIG)
-    cfg["trainer"] = cfg["trainer"] | trainer
+    art = artifacts_dir or tempfile.mkdtemp(prefix="train_", dir=TMP_ROOT)
+    cfg["trainer"] = cfg["trainer"] | {"artifacts_dir": art} | trainer
     return cfg
 
 
@@ -940,9 +991,13 @@ class PlainCalls:
 
 def phase_train() -> dict:
     """The flagship config through `make_trainer(...).train()` on the
-    card, TRAIN_ITERS iterations at rollout_steps TRAIN_STEPS: one line
-    per iteration, the gates, and both encoder kernels' launches counted
-    from 0 over the phase."""
+    card, TRAIN_ITERS iterations at rollout_steps TRAIN_STEPS, with the
+    config's `obs:` block (run log, telemetry, memory) and its checkpoint
+    cadences cut to fire within the phase (`checkpointing_freq`
+    TRAIN_CKPT_FREQ, `health.checkpoint_every` TRAIN_STATE_EVERY), the
+    artifacts in a temporary directory: one line per iteration, the gates
+    (`check_train_artifacts` among them), and both encoder kernels'
+    launches counted from 0 over the training run."""
     import math
 
     import torch
@@ -954,10 +1009,18 @@ def phase_train() -> dict:
     from sparksched_tpu_torch.trainers import make_trainer
 
     t_phase = time.perf_counter()
-    cfg = train_cfg(num_iterations=TRAIN_ITERS, rollout_steps=TRAIN_STEPS)
+    cfg = train_cfg(num_iterations=TRAIN_ITERS, rollout_steps=TRAIN_STEPS,
+                    checkpointing_freq=TRAIN_CKPT_FREQ)
+    base = train_cfg(cfg["trainer"]["artifacts_dir"])
+    cuts = {k: [base["trainer"][k], cfg["trainer"][k]] for k in (
+        "num_iterations", "rollout_steps", "checkpointing_freq")}
+    cuts["health.checkpoint_every"] = [base["health"]["checkpoint_every"],
+                                       TRAIN_STATE_EVERY]
+    cfg["health"]["checkpoint_every"] = TRAIN_STATE_EVERY
     trainer = make_trainer(cfg, device="cuda")
     p0 = {k: v.detach().clone()
           for k, v in trainer.scheduler.net.named_parameters()}
+    pre_update = [p0]  # the parameters before each iteration's update
     lines = []
 
     def report(i, state, stats):
@@ -966,9 +1029,12 @@ def phase_train() -> dict:
             "collect_seconds", "rows", "decisions", "update_seconds",
             "minibatches_applied", "kl_stopped", "update_chunks",
             "policy_loss", "entropy", "approx_kl_div", "health_mask",
-            "max_memory_allocated", "episode_length", "avg_num_jobs")})
+            "max_memory_allocated", "episode_length", "avg_num_jobs",
+            "telemetry_decisions")})
         line["decisions_per_s"] = stats["decisions"] / stats["collect_seconds"]
         lines.append(line)
+        pre_update.append({k: v.detach().clone()
+                           for k, v in state.params.items()})
         emit(line)
 
     torch.cuda.reset_peak_memory_stats()
@@ -988,6 +1054,10 @@ def phase_train() -> dict:
     for line in lines:
         if line["health_mask"] != 0:
             raise AssertionError(f"health mask {line['health_mask']}")
+        if line["telemetry_decisions"] != line["decisions"]:
+            raise AssertionError(
+                f"telemetry counted {line['telemetry_decisions']} decisions, "
+                f"the rollout holds {line['decisions']}")
         for k in ("policy_loss", "entropy", "approx_kl_div"):
             if not math.isfinite(line[k]):
                 raise AssertionError(f"{k} = {line[k]}")
@@ -998,14 +1068,77 @@ def phase_train() -> dict:
                 for k, v in params.items())
     if not moved > 0:
         raise AssertionError("training changed no parameter")
+    artifacts = check_train_artifacts(trainer, state, pre_update)
     out = {"phase": "train", "iterations": TRAIN_ITERS,
            "rollout_steps": TRAIN_STEPS, "lanes": trainer.num_envs,
-           "encoder_launches": launches, "plain_encoder_calls": plain.n,
-           "max_param_change": moved,
+           "cuts": cuts, "encoder_launches": launches,
+           "plain_encoder_calls": plain.n, "max_param_change": moved,
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "artifacts": artifacts,
            "seconds": time.perf_counter() - t_phase, "card": card_line()}
     emit(out)
     return {"trainer": trainer, "state": state, "launches": launches}
+
+
+def _sha_ok(path: str) -> dict:
+    """A train-state generation against its meta file: digest, stamp and
+    iteration."""
+    import hashlib
+
+    with open(path + ".meta.json") as fp:
+        meta = json.load(fp)
+    with open(path, "rb") as fp:
+        digest = hashlib.sha256(fp.read()).hexdigest()
+    if digest != meta["sha256"] or meta["prng_impl"] != "threefry2x32":
+        raise AssertionError(f"{path}: digest or prng_impl does not check "
+                             f"({meta})")
+    return {"iteration": meta["iteration"], "sha256_ok": True}
+
+
+def check_train_artifacts(trainer, state, pre_update: list) -> dict:
+    """What the train phase left in its artifacts directory: the best
+    model of the first TRAIN_CKPT_FREQ iterations (`model.msgpack`,
+    loaded into a fresh card `DecimaScheduler`, must equal the parameters
+    before the best iteration's update, bit for bit) with `state.json`,
+    the train state and its previous generation (each digest checks, and
+    the newest loads back to the trained state), and a run log holding
+    the record kinds the trainer writes on a healthy run."""
+    import glob
+
+    import torch
+
+    from sparksched_tpu_torch.schedulers import DecimaScheduler
+
+    art = trainer.artifacts_dir
+    ckpt = os.path.join(art, "checkpoints", str(TRAIN_CKPT_FREQ))
+    with open(os.path.join(ckpt, "state.json")) as fp:
+        best = json.load(fp)
+    agent = {k: v for k, v in train_cfg(art)["agent"].items()
+             if k != "agent_cls"}
+    loaded = DecimaScheduler(trainer.params_env.num_executors,
+                             state_dict_path=os.path.join(ckpt,
+                                                          "model.msgpack"),
+                             device="cuda", **agent)
+    want = pre_update[best["iteration"]]
+    for k, v in loaded.params.items():
+        if not torch.equal(v, want[k]):
+            raise AssertionError(f"model.msgpack {k} differs from the "
+                                 "best iteration's pre-update parameters")
+    ts = os.path.join(art, "train_state.msgpack")
+    gens = {os.path.basename(p): _sha_ok(p) for p in (ts, ts + ".1")}
+    restored = trainer.load_train_state(ts)
+    if restored.iteration != TRAIN_ITERS or not all(
+            torch.equal(v, state.params[k])
+            for k, v in restored.params.items()):
+        raise AssertionError("train_state.msgpack does not load back to the "
+                             "trained state")
+    logs = glob.glob(os.path.join(art, "runlog", "*.jsonl"))
+    kinds = sorted({json.loads(x)["ev"] for p in logs for x in open(p)})
+    need = {"run_start", "span", "telemetry", "memory", "scalars", "run_end"}
+    if len(logs) != 1 or not need <= set(kinds):
+        raise AssertionError(f"run log {logs} holds {kinds}, not {need}")
+    return {"best": best, "train_state": gens, "runlog_kinds": kinds,
+            "model_equals_pre_update_params": True}
 
 
 def phase_train_kernels(train: dict) -> dict:
@@ -1135,6 +1268,393 @@ def phase_train_parity(parity) -> None:
           "seconds": time.perf_counter() - t_phase})
 
 
+# ---------------------------------------------------------------------------
+# phase 8: training resumed from a train state
+# ---------------------------------------------------------------------------
+
+
+def _first_unequal(a: dict, b: dict, prefix: str = "") -> str | None:
+    """The path of the first leaf of two nested dicts of arrays that is
+    not bit-equal, or None."""
+    import numpy as np
+
+    for k in a:
+        x, y = a[k], b[k]
+        if isinstance(x, dict):
+            hit = _first_unequal(x, y, f"{prefix}{k}/")
+            if hit:
+                return hit
+        elif not np.array_equal(np.asarray(x), np.asarray(y)):
+            return prefix + k
+    return None
+
+
+def _update_nondeterminism(trainer, state, ro) -> dict:
+    """Two `_update`s of one state on one rollout: whether they give the
+    same bits, and the ops PyTorch names as lacking a deterministic
+    implementation on the card (its warnings under
+    `use_deterministic_algorithms(True, warn_only=True)`)."""
+    import warnings
+
+    import torch
+
+    snap = state.snapshot()
+    outs = []
+    for _ in range(2):
+        state.restore(snap)
+        state, _ = trainer._update(state, ro)
+        outs.append({k: v.detach().clone() for k, v in state.params.items()})
+    same = all(torch.equal(outs[0][k], outs[1][k]) for k in outs[0])
+    state.restore(snap)
+    ops = set()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            trainer._update(state, ro)
+            torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+        state.restore(snap)
+    for w in caught:
+        msg = str(w.message)
+        if "deterministic" in msg:
+            ops.add(msg.split(" does not have")[0].strip())
+    return {"update_rerun_bit_equal": same,
+            "nondeterministic_ops": sorted(ops)}
+
+
+def phase_train_resume() -> dict:
+    """RESUME_LANES lanes at rollout_steps RESUME_STEPS on the card: 2
+    uninterrupted iterations against 1 iteration, a fresh trainer, and a
+    resume from the first run's `train_state.msgpack` for the second.
+    Reports whether the parameters and Adam's moments are bit-equal and,
+    where not, the first tensor that differs, whether the second
+    iteration's collections are equal, and what makes the update differ
+    (a rerun of one update, the ops PyTorch names as nondeterministic).
+    Held as the card-vs-CPU training check holds the card: parameters
+    within rtol 1e-4 / atol 1e-6, the policy heads per tensor
+    (`assert_update_close`); Adam's step counts and the schedule's count
+    equal. Both encoder kernels must be launched on this path and no
+    plain version called."""
+    import torch
+
+    from sparksched_tpu_torch.kernels.decima_encoder import (
+        decima_node_encoder,
+        decima_node_encoder_bwd,
+    )
+    from sparksched_tpu_torch.trainers import make_trainer
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="resume_", dir=TMP_ROOT)
+
+    def trainer_at(name: str, iterations: int):
+        cfg = train_cfg(os.path.join(root, name), num_sequences=1,
+                        num_rollouts=RESUME_LANES,
+                        rollout_steps=RESUME_STEPS,
+                        num_iterations=iterations)
+        return make_trainer(cfg, device="cuda")
+
+    applied = []
+    decima_node_encoder.launches = 0
+    decima_node_encoder_bwd.launches = 0
+    with PlainCalls() as plain:
+        ta = trainer_at("full", 2)
+        p0 = {k: v.detach().cpu().clone()
+              for k, v in ta.scheduler.params.items()}
+        sa = ta.train(callback=lambda i, s, st: applied.append(
+            int(st["minibatches_applied"])))
+        trainer_at("stopped", 1).train()
+        tc = trainer_at("stopped", 1)
+        sc = tc.train(resume_from=os.path.join(root, "stopped",
+                                               "train_state.msgpack"))
+        torch.cuda.synchronize()
+    launches = {"decima_node_encoder": decima_node_encoder.launches,
+                "decima_node_encoder_bwd": decima_node_encoder_bwd.launches}
+    if plain.n or min(launches.values()) <= 0:
+        raise AssertionError(f"resume path: launches {launches}, plain "
+                             f"calls {plain.n}")
+    full, resumed = ta.train_state_tree(sa), tc.train_state_tree(sc)
+    first = _first_unequal(full, resumed)
+    out = {"phase": "train_resume", "lanes": RESUME_LANES,
+           "rollout_steps": RESUME_STEPS, "iterations": 2,
+           "bit_equal": first is None, "first_unequal": first,
+           "params_bit_equal": _first_unequal(
+               full["params"], resumed["params"]) is None,
+           "moments_bit_equal": _first_unequal(
+               full["opt_state"], resumed["opt_state"]) is None,
+           "encoder_launches": launches, "plain_encoder_calls": plain.n}
+    runlogs = os.listdir(os.path.join(root, "stopped", "runlog"))
+    kinds = {json.loads(x)["ev"] for p in runlogs
+             for x in open(os.path.join(root, "stopped", "runlog", p))}
+    if "resume" not in kinds:
+        raise AssertionError(f"the resumed run log holds {sorted(kinds)}")
+    if first is not None:
+        ra, rc = ta.last_rollout, tc.last_rollout
+        out["collection_equal"] = all(
+            torch.equal(getattr(ra, k), getattr(rc, k)) for k in (
+                "stage_idx", "num_exec_k", "valid", "lgprob", "reward"))
+        out |= _update_nondeterminism(tc, sc, rc)
+    if (full["opt_state"]["count"] != resumed["opt_state"]["count"]
+            or _first_unequal(full["opt_state"]["step"],
+                              resumed["opt_state"]["step"])):
+        raise AssertionError("resume: Adam's step counts differ")
+    lr = ta.train_cfg["opt_kwargs"]["lr"]
+    out["worst_param_err_over_tol"] = parity_helpers().assert_update_close(
+        {k: v.detach().cpu().numpy() for k, v in sa.params.items()},
+        sc.params, p0,
+        sum(applied), lr, linear=False, heads_per_tensor=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 9: trained weights — the held-out evaluation
+# ---------------------------------------------------------------------------
+
+
+# the card's and the CPU's float32 arithmetic may round a value of the
+# engine (a log, an exp, a sum) an ulp or so apart
+ENGINE_FLOAT_RTOL = 1e-6
+
+
+def _first_divergence(card, cpu, lanes: int) -> dict | None:
+    """Where the card's rollout and the CPU's first part over the first
+    `lanes` lanes, decision by decision: in what a decision saw (each
+    stored observation field and the wall time, `kind` "obs", with the
+    largest absolute and relative difference there) or, with the
+    observations equal through that decision, in the action taken
+    (`kind` "action"). None when every lane agrees throughout."""
+    import dataclasses
+
+    import torch
+
+    for lane in range(lanes):
+        n = int(min(card.valid[lane].sum(), cpu.valid[lane].sum()))
+        fields = [(f"obs.{f.name}", getattr(card.obs, f.name)[lane, :n],
+                   getattr(cpu.obs, f.name)[lane, :n])
+                  for f in dataclasses.fields(card.obs)]
+        fields.append(("wall_times", card.wall_times[lane, :n],
+                       cpu.wall_times[lane, :n]))
+        first = None
+        for name, a, b in fields:
+            a = a.cpu()
+            bad = (a != b).reshape(n, -1).any(1)
+            if bool(bad.any()):
+                d = int(bad.nonzero()[0])
+                if first is None or d < first["decision"]:
+                    x, y = a[d].double(), b[d].double()
+                    diff = float((x - y).abs().max())
+                    first = {"lane": lane, "decision": d, "kind": "obs",
+                             "what": name, "float": a.is_floating_point(),
+                             "abs_diff": diff,
+                             "rel_diff": diff / max(float(y.abs().max()),
+                                                    1e-30)}
+        for name in ("stage_idx", "num_exec_k"):
+            bad = getattr(card, name)[lane, :n].cpu() != getattr(
+                cpu, name)[lane, :n]
+            if bool(bad.any()):
+                d = int(bad.nonzero()[0])
+                if first is None or d < first["decision"]:
+                    first = {"lane": lane, "decision": d, "kind": "action",
+                             "what": name}
+        if first is None and not torch.equal(card.valid[lane].cpu(),
+                                             cpu.valid[lane]):
+            first = {"lane": lane, "decision": n, "kind": "episode_length",
+                     "what": "valid"}
+        if first is not None:
+            return first
+    return None
+
+
+def _score_gap_at(ro, div: dict, bank_cpu) -> dict:
+    """The card's and the CPU's scores on one recorded observation (the
+    CPU rollout's, at `div`'s lane and decision): how far apart the two
+    evaluations of the trained net are there."""
+    import torch
+
+    from sparksched_tpu_torch import evaluate as ev
+    from sparksched_tpu_torch.trainers.rollout import stored_to_observation
+
+    so = ro.obs.map(lambda a: a[div["lane"], div["decision"]][None])
+    out = {}
+    for dev in ("cpu", "cuda"):
+        params, bank = ev.eval_env(dev)
+        sched = ev.make_decima(EVAL_MODEL, params, dev)
+        obs = stored_to_observation(bank, so.map(lambda a: a.to(dev)))
+        with torch.no_grad():
+            f = sched.features(obs)
+            out[dev] = [t.cpu().double() for t in (
+                sched.net.encode(f), *sched.score(f))]
+    names = ("node_embedding", "stage_scores", "exec_scores")
+    return {f"{n}_card_vs_cpu": float((a - b).abs().max())
+            for n, a, b in zip(names, out["cuda"], out["cpu"])}
+
+
+def phase_eval_trained() -> dict:
+    """`sparksched_tpu_torch.evaluate` with the JAX package's TPU-trained
+    `model_tpu.msgpack` on the card: EVAL_SEEDS held-out seeds, fair and
+    greedy Decima, full episodes. The first EVAL_CPU_SEEDS seeds are run
+    again by the CPU port and compared decision by decision: with every
+    observation and action equal, the avg JCTs must agree within rtol
+    1e-6. Where they part, the first difference is reported and must be
+    explained: an action taken on equal observations must be a near-tied
+    greedy choice (its top two scores closer than `evaluate.TIE_GAP` on
+    the CPU), an observation must first differ in a float (a duration or
+    the wall time) by at most ENGINE_FLOAT_RTOL relative, the card's and
+    the CPU's float32 rounding apart; anything else fails.
+    The forward kernel is held to the float64 plain forward at these
+    trained weights on a collection row at full width and compacted. The
+    forward kernel must be launched on the card's evaluation and no plain
+    version called there."""
+    import numpy as np
+
+    from sparksched_tpu_torch import evaluate as ev
+    from sparksched_tpu_torch.kernels.decima_encoder import (
+        decima_node_encoder,
+    )
+
+    t_phase = time.perf_counter()
+    decima_node_encoder.launches = 0
+    with PlainCalls() as plain:
+        res = ev.evaluate(EVAL_MODEL, EVAL_SEEDS, device="cuda")
+    launches = decima_node_encoder.launches
+    if plain.n or launches <= 0:
+        raise AssertionError(f"evaluation: {launches} forward launches, "
+                             f"{plain.n} plain calls")
+    card_s = time.perf_counter() - t_phase
+    for name in ("fair", "decima"):
+        if not res[name]["all_done"]:
+            raise AssertionError(f"{name}: an episode did not finish")
+    t_cpu = time.perf_counter()
+    cpu = ev.evaluate(EVAL_MODEL, seeds=res["seeds"][:EVAL_CPU_SEEDS],
+                      device="cpu")
+    cpu_s = time.perf_counter() - t_cpu
+    params_cpu, bank_cpu = ev.eval_env("cpu")
+    parity = {}
+    for name in ("fair", "decima"):
+        a = np.array(res[name]["avg_jct_s"][:EVAL_CPU_SEEDS])
+        b = np.array(cpu[name]["avg_jct_s"])
+        div = _first_divergence(res["rollouts"][name],
+                                cpu["rollouts"][name], EVAL_CPU_SEEDS)
+        rec = {"equal": div is None, "first_divergence": div,
+               "avg_jct_rel_err": float(np.max(np.abs(a - b) / b))}
+        if div is not None:
+            if div["kind"] == "action" and name == "decima":
+                ro = cpu["rollouts"][name]
+                gaps = ev.greedy_gaps(
+                    ev.make_decima(EVAL_MODEL, params_cpu, "cpu"),
+                    bank_cpu, ro)
+                div["gap"] = float(
+                    gaps[int(ro.valid[:div["lane"]].sum()) + div["decision"]]
+                    .min())
+                div |= _score_gap_at(ro, div, bank_cpu)
+                explained = div["gap"] < ev.TIE_GAP
+            else:
+                explained = (div["kind"] == "obs" and div["float"]
+                             and div["rel_diff"] <= ENGINE_FLOAT_RTOL)
+            if not explained:
+                raise AssertionError(f"eval card vs cpu ({name}): first "
+                                     f"divergence {div}")
+        elif not rec["avg_jct_rel_err"] <= 1e-6:
+            raise AssertionError(f"eval card vs cpu ({name}): avg JCT "
+                                 f"differs by {rec['avg_jct_rel_err']}")
+        parity[name] = rec
+    params, bank = ev.eval_env("cuda")
+    dec = ev.make_decima(EVAL_MODEL, params, "cuda")
+    rows = collection_rows(dec, bank, res["rollouts"]["decima"], 8)
+    fwd = {n: fwd_vs_ref64(n, f, dec.net) for n, f in rows.items()}
+    if "collection_row_compact" not in fwd:
+        raise AssertionError("no evaluation row fits 8 live jobs")
+    out = {"phase": "eval_trained", "model": os.path.relpath(EVAL_MODEL, HERE),
+           "seeds": res["seeds"], "steps": res["steps"],
+           "fair_mean_avg_jct_s": res["fair"]["mean_avg_jct_s"],
+           "decima_mean_avg_jct_s": res["decima"]["mean_avg_jct_s"],
+           "decima_wins": res["decima_wins"],
+           "decima_vs_fair": res["decima_vs_fair"],
+           "decisions": {n: res[n]["decisions"] for n in ("fair", "decima")},
+           "near_ties": res["decima"]["near_ties"],
+           "near_ties_by_head": res["decima"]["near_ties_by_head"],
+           "exact_ties": res["decima"]["exact_ties"],
+           "min_gap": res["decima"]["min_gap"], "tie_gap": ev.TIE_GAP,
+           "card_vs_cpu": parity, "fwd_vs_plain64": fwd,
+           "encoder_launches": launches, "plain_encoder_calls": plain.n,
+           "card_seconds": card_s, "cpu_seconds": cpu_s,
+           "seconds": time.perf_counter() - t_phase}
+    emit(out)
+    return {"decima_node_encoder": launches}
+
+
+# ---------------------------------------------------------------------------
+# phase 10: what the telemetry costs
+# ---------------------------------------------------------------------------
+
+
+def phase_telemetry_cost() -> None:
+    """TELEMETRY_LANES lanes x TELEMETRY_ROWS rows of the flagship
+    collection from the same keys, telemetry off and on: over the first
+    PROFILED_ROWS rows (off first, which also warms up), the kernel
+    launches and device kernel records per row that torch.profiler sees;
+    then rows per second on the host clock, no profiler, in the order
+    off, on, on, off. Reported, not gated; every collection must give the
+    same rollout."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from sparksched_tpu_torch import prng
+    from sparksched_tpu_torch.trainers import make_trainer
+
+    t_phase = time.perf_counter()
+    groups = TELEMETRY_LANES // 4
+    trainer = make_trainer(train_cfg(num_sequences=groups, num_rollouts=4,
+                                     rollout_steps=TELEMETRY_ROWS),
+                           device="cuda")
+
+    def collect(on: bool, rows: int = TELEMETRY_ROWS):
+        trainer.obs_telemetry = on
+        trainer.rollout_steps = rows
+        counts: dict = {}
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ro, _ = trainer._collect(0, prng.PRNGKey(SEED, "cuda"), counts)
+        torch.cuda.synchronize()
+        return ro, counts, time.perf_counter() - t
+
+    out = {}
+    for mode in ("off", "on"):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _, pcounts, _ = collect(mode == "on", PROFILED_ROWS)
+        ev = prof.events()
+        launches = sum(e.name in ("cudaLaunchKernel", "cuLaunchKernel",
+                                  "cudaLaunchKernelExC") for e in ev)
+        kernels = sum(e.device_type == torch.autograd.DeviceType.CUDA
+                      for e in ev)
+        prows = pcounts["rows"]
+        out[mode] = {"profiled_rows": prows,
+                     "kernel_launches_per_row": launches / prows,
+                     "device_records_per_row": kernels / prows,
+                     "rows_per_s": []}
+    first = None
+    for mode in ("off", "on", "on", "off"):
+        ro, counts, secs = collect(mode == "on")
+        out[mode]["rows_per_s"].append(counts["rows"] / secs)
+        if mode == "on":
+            out[mode]["telemetry_decisions"] = int(
+                counts["telemetry"].decide_steps.sum())
+        first = first or ro
+        if not all(torch.equal(getattr(first, k), getattr(ro, k))
+                   for k in ("stage_idx", "num_exec_k", "valid", "lgprob",
+                             "reward", "wall_times")):
+            raise AssertionError("telemetry changed the collection")
+    emit({"phase": "telemetry_cost", "lanes": TELEMETRY_LANES,
+          "rows": TELEMETRY_ROWS, "same_rollout": True, **out,
+          "launches_per_row_added": out["on"]["kernel_launches_per_row"]
+          - out["off"]["kernel_launches_per_row"],
+          "seconds": time.perf_counter() - t_phase})
+
+
 def main() -> int:
     import torch
 
@@ -1152,7 +1672,10 @@ def main() -> int:
         print("chip_smoke: sparksched_tpu_torch is not the checkout's",
               file=sys.stderr)
         return 2
+    global TMP_ROOT
     t_start = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    TMP_ROOT = tmp.name
     try:
         emit({"phase": "env", "python": sys.version.split()[0],
               "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -1173,9 +1696,15 @@ def main() -> int:
         bwd, bwd_err_max = phase_bwd_kernel(tsched, checks, chunks)
         phase_kernel_alone(cases, calls, tsched, chunks[CHUNK_TIMED], bwd)
         phase_train_parity(parity_helpers())
+        paths = {"train": train["launches"],
+                 "train_resume": phase_train_resume(),
+                 "eval_trained": phase_eval_trained()}
+        phase_telemetry_cost()
     except Exception:
         traceback.print_exc()
         return 1
+    finally:
+        tmp.cleanup()
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     fwd, bw = cases[CHUNK_TIMED], bwd[CHUNK_TIMED]
     bw_at = {n: {k: b[k] for k in ("shape", "ms", "bound_ms", "bound_by",
@@ -1187,6 +1716,8 @@ def main() -> int:
         "source": "sparksched_tpu_torch/csrc/decima_encoder.cu",
         "replaces": "sparksched_tpu/schedulers/decima.py:284",
         "launches": train["launches"]["decima_node_encoder"],
+        "launches_by_path": {p: n["decima_node_encoder"]
+                             for p, n in paths.items()},
         "max_abs_err": max(c["max_abs_err"] for c in cases.values()),
         "ms": fwd["ms"],
         "plain_ms": fwd["plain_ms"],
@@ -1199,6 +1730,9 @@ def main() -> int:
         "source": "sparksched_tpu_torch/csrc/decima_encoder_bwd.cu",
         "replaces": "sparksched_tpu/schedulers/decima.py:706",
         "launches": train["launches"]["decima_node_encoder_bwd"],
+        "launches_by_path": {p: n["decima_node_encoder_bwd"]
+                             for p, n in paths.items()
+                             if "decima_node_encoder_bwd" in n},
         "max_abs_err": bwd_err_max,
         "ms": bw["ms"],
         "plain_ms": bw["plain_ms"],

@@ -28,6 +28,7 @@ import torch
 
 from .. import prng
 from ..config import EnvParams
+from ..obs.telemetry import add as _tm_add
 from ..workload.bank import WorkloadBank
 from ..workload.sampling import sample_job_sequence, sample_task_duration
 from .state import (
@@ -644,13 +645,16 @@ def _bulk_fulfill(params: EnvParams, bank: WorkloadBank, state: EnvState,
 
 
 def _fulfill_from_source(params: EnvParams, bank: WorkloadBank,
-                         state: EnvState, active, bulk: bool = True
-                         ) -> EnvState:
+                         state: EnvState, active, bulk: bool = True,
+                         telemetry=None):
     """Match the source pool's idle executors against its outstanding
     commitments in insertion order, on the lanes in `active`
     (`core.step`'s fulfillment phase). With `bulk`, the simple prefix is
     consumed in one `_bulk_fulfill` pass and only the backup-scheduling
-    tail runs one candidate at a time."""
+    tail runs one candidate at a time. Returns the state, and with
+    `telemetry` `(state, telemetry)`: the bulk hits and each one-at-a-time
+    fulfillment counted."""
+    track = telemetry is not None
     n = state.exec_job.shape[1]
     idle = state.source_pool_mask() & ~state.exec_executing
     num_idle = _i(torch.where(active, idle.sum(1), 0))
@@ -665,12 +669,14 @@ def _fulfill_from_source(params: EnvParams, bank: WorkloadBank,
     if bulk:
         state, k = _bulk_fulfill(params, bank, state, num_idle, exec_order,
                                  slot_order)
+        telemetry = _tm_add(telemetry, bulk_fulfill_hits=k)
     else:
         k = torch.zeros_like(num_idle)
     while True:
         on = k < num_idle
         if not bool(on.any()):
-            return state
+            return (state, telemetry) if track else state
+        telemetry = _tm_add(telemetry, fulfill_steps=on)
         e = _g(exec_order, k)
         quirk = state.source_job_id()
         st, rk, rj, rs = _fulfill_commitment_phase_a(
@@ -1455,27 +1461,46 @@ def _round_tail(params: EnvParams, st: EnvState, on: torch.Tensor
 
 def _resume_simulation(params: EnvParams, bank: WorkloadBank,
                        state: EnvState, active: torch.Tensor,
-                       bulk: bool = True, bulk_events: int = 8) -> EnvState:
+                       bulk: bool = True, bulk_events: int = 8,
+                       telemetry=None):
     """Pop events on the lanes in `active` until a new round is ready or
     the queue drains. With `bulk`, each iteration first runs the
     relaunch cascade and the arrival burst, then still pops the
     run-cutting event when the skipped between-event tail is a no-op
     (`num_committable() == 0`). A lane whose loop has ended keeps its
-    state, as under the JAX package's vmapped while loop."""
+    state, as under the JAX package's vmapped while loop. Returns the
+    state, and with `telemetry` `(state, telemetry)`: each lane's own
+    iterations (`loop_iters`, `drain_iters`), its pops by kind and the
+    bulk passes' events."""
+    track = telemetry is not None
     while True:
         cond = active & _has_pending_event(state) & ~state.round_ready
         if not bool(cond.any()):
-            return state
+            return (state, telemetry) if track else state
         st = state
+        bulk_counts = {}
         if bulk:
             st, nb1 = _bulk_relaunch(params, bank, st, cond,
                                      max_events=bulk_events)
             st, nb2 = _bulk_ready(params, bank, st, cond)
             single = ((nb1 + nb2) == 0) | (st.num_committable() == 0)
+            if track:
+                bulk_counts = dict(bulk_relaunch_events=nb1,
+                                   bulk_ready_events=nb2,
+                                   bulk_passes=(nb1 + nb2) > 0)
         else:
             single = torch.ones_like(cond)
-        st, rk, rj, rs, arg, quirk, _, _ = _pop_event(params, st,
-                                                      cond & single)
+        st, rk, rj, rs, arg, quirk, popped, kind = _pop_event(
+            params, st, cond & single)
+        if track:
+            telemetry = _tm_add(
+                telemetry, cond, loop_iters=cond, drain_iters=cond,
+                event_steps=popped,
+                ev_job_arrival=popped & (kind == EV_JOB_ARRIVAL),
+                ev_task_finished=popped & (kind == EV_TASK_FINISHED),
+                ev_exec_ready=popped & (kind == EV_EXECUTOR_READY),
+                **bulk_counts,
+            )
         ak, tj, ts = _resolve_action(params, st, rk, arg, rj, rs, quirk)
         st = _apply_action(params, bank, st, ak, arg, tj, ts)
         st, _ = _round_tail(params, st, torch.ones_like(cond))
@@ -1628,30 +1653,43 @@ def _clear_round(st: EnvState, en: torch.Tensor) -> EnvState:
 
 def step(params: EnvParams, bank: WorkloadBank, state: EnvState,
          stage_idx: torch.Tensor, num_exec: torch.Tensor, *,
-         bulk: bool = True, bulk_events: int = 8):
+         bulk: bool = True, bulk_events: int = 8, telemetry=None):
     """One decision step per lane: commit, and when the round is over
     fulfil the commitments and run the event loop to the next round.
-    Returns (state, reward, terminated, truncated). `bulk=False` runs
-    the fulfillment phase and the event loop one candidate / event at a
-    time; the two modes' rng streams differ."""
+    Returns (state, reward, terminated, truncated), and with `telemetry`
+    the counters as a fifth element (decisions and finished rounds on
+    live lanes, fulfillments, event-loop iterations and events).
+    `bulk=False` runs the fulfillment phase and the event loop one
+    candidate / event at a time; the two modes' rng streams differ."""
+    track = telemetry is not None
+    live = ~(state.terminated | state.truncated) if track else None
     state = _commit_decision(params, state, stage_idx, num_exec)
     round_continues = (
         (state.num_committable() > 0) & state.schedulable.any((1, 2))
     )
     active = ~round_continues
     state = _commit_remaining(state, active)
-    state = _fulfill_from_source(params, bank, state, active, bulk=bulk)
+    if track:
+        telemetry = _tm_add(telemetry, live, decide_steps=live,
+                            commit_rounds=active)
+        state, telemetry = _fulfill_from_source(params, bank, state, active,
+                                                bulk, telemetry)
+    else:
+        state = _fulfill_from_source(params, bank, state, active, bulk=bulk)
     state = _clear_round(state, active)
     t_old = state.wall_time
     active_old = state.job_active
-    state = _resume_simulation(params, bank, state, active, bulk=bulk,
-                               bulk_events=bulk_events)
+    out = _resume_simulation(params, bank, state, active, bulk=bulk,
+                             bulk_events=bulk_events, telemetry=telemetry)
+    state, telemetry = out if track else (out, None)
     reward = torch.where(
         active, -_compute_jobtime(params, state, t_old, active_old), 0.0
     )
     terminated = state.all_jobs_complete
     truncated = state.wall_time >= state.time_limit
     state = state.replace(terminated=terminated, truncated=truncated)
+    if track:
+        return state, reward, terminated, truncated, telemetry
     return state, reward, terminated, truncated
 
 

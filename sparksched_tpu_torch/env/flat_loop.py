@@ -17,8 +17,11 @@ lane (`[B,2]`) where the JAX package takes one per vmapped lane. A
 condition holds and keeps the others unchanged (the vmapped while's
 per-lane carry select); a `lax.switch` over the mode becomes the
 branches applied in turn, each masked to its own lanes; a `lax.scan`
-over groups becomes a Python loop. The trajectory records
-(`record=True`), `reset_fn` and telemetry are not ported.
+over groups becomes a Python loop. Each function takes the optional
+`telemetry` counters (`obs.telemetry.Telemetry`) and then returns them
+as a trailing element, advanced as the JAX package advances them; the
+default None counts nothing and runs nothing extra. The trajectory
+records (`record=True`) and `reset_fn` are not ported.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ import torch
 
 from .. import prng
 from ..config import EnvParams
+from ..obs.telemetry import add as _tm_add
 from ..workload.bank import WorkloadBank
 from . import core
 from .core import (
@@ -54,7 +58,13 @@ from .core import (
     select_env,
 )
 from .observe import observe
-from .state import BIG_SEQ, EnvState
+from .state import (
+    BIG_SEQ,
+    EV_EXECUTOR_READY,
+    EV_JOB_ARRIVAL,
+    EV_TASK_FINISHED,
+    EnvState,
+)
 
 _i32 = torch.int32
 
@@ -163,15 +173,18 @@ def _reset_key(rng: torch.Tensor, auto_reset: bool):
 
 def _bulk_cycle_chain(params: EnvParams, bank: WorkloadBank, env: EnvState,
                       is_event: torch.Tensor, bulk_events: int,
-                      bulk_cycles: int, bulk_fused: bool = True):
+                      bulk_cycles: int, bulk_fused: bool = True,
+                      split: bool = False):
     """`bulk_cycles` chained bulk passes on the lanes in `is_event`: each
     cycle one `_bulk_events_fused` pass, or without `bulk_fused` the
     relaunch cascade and the arrival burst. A cycle after the first runs
     only where the between-event tail it skips would be a no-op
     (`num_committable() == 0`, wall clock inside the episode limit).
     A pass that no lane runs is skipped: it would change nothing.
-    Returns (env, events consumed[B])."""
+    Returns (env, events consumed[B]), with `split` (the telemetry's
+    need) also the relaunch and the ready events among them."""
     nb = _full(env.wall_time, 0)
+    nb_rel, nb_rdy = nb, nb
     for i in range(bulk_cycles):
         on = is_event if i == 0 else (
             is_event
@@ -196,7 +209,39 @@ def _bulk_cycle_chain(params: EnvParams, bank: WorkloadBank, env: EnvState,
                 stop_at_limit=True,
             )
         nb = nb + nb1 + nb2
-    return env, nb
+        if split:
+            nb_rel, nb_rdy = nb_rel + nb1, nb_rdy + nb2
+    return (env, nb, nb_rel, nb_rdy) if split else (env, nb)
+
+
+def _bulk_phase(params, bank, ls: "LoopState", is_ev, event_bulk: bool,
+                bulk_events: int, bulk_cycles: int, bulk_fused: bool,
+                split: bool, nb=None):
+    """The bulk passes of a micro-step on the EVENT lanes `is_ev`:
+    (ls, nb, nb_rel, nb_rdy), the split only with `split` (else None).
+    Without `event_bulk` nothing runs and the counts are the given
+    `nb`."""
+    if not event_bulk:
+        return ls, nb, nb, nb
+    out = _bulk_cycle_chain(params, bank, ls.env, is_ev, bulk_events,
+                            bulk_cycles, bulk_fused, split)
+    env_b, nb = out[0], out[1]
+    rel, rdy = (out[2], out[3]) if split else (None, None)
+    return ls.replace(env=env_b, bulked=ls.bulked + nb), nb, rel, rdy
+
+
+def _event_counts(nb, nb_rel, nb_rdy, popped, kind) -> dict:
+    """The event counters of a micro-step: events consumed, the bulk
+    passes' share by kind, and the single pop by kind."""
+    return dict(
+        loop_iters=nb + popped,
+        bulk_relaunch_events=nb_rel,
+        bulk_ready_events=nb_rdy,
+        bulk_passes=nb > 0,
+        ev_job_arrival=popped & (kind == EV_JOB_ARRIVAL),
+        ev_task_finished=popped & (kind == EV_TASK_FINISHED),
+        ev_exec_ready=popped & (kind == EV_EXECUTOR_READY),
+    )
 
 
 def _fused_pop_gate(env: EnvState, nb: torch.Tensor) -> torch.Tensor:
@@ -278,33 +323,35 @@ def _event_branch(params: EnvParams, ls: LoopState, en: torch.Tensor,
                   nb: torch.Tensor):
     """One event pop + handling on the lanes in `en` (EVENT mode), gated
     by `_fused_pop_gate` over the `nb` events the bulk passes consumed.
-    Returns (ls, rk, rj, rs, e, quirk)."""
-    st, rk, rj, rs, arg, quirk, _, _ = _pop_event(
+    Returns (ls, rk, rj, rs, e, quirk, popped, kind)."""
+    st, rk, rj, rs, arg, quirk, popped, kind = _pop_event(
         params, ls.env, en & _fused_pop_gate(ls.env, nb)
     )
-    return ls.replace(env=st), rk, rj, rs, arg, quirk
+    return ls.replace(env=st), rk, rj, rs, arg, quirk, popped, kind
 
 
 def _work_branches(params: EnvParams, ls: LoopState, is_ful, is_ev, nb,
                    quirk):
     """The FULFILL and EVENT branches, each masked to its own lanes, and
-    the move request of every lane's branch: (ls, rk, rj, rs, e, quirk).
-    A lane in neither mode keeps `quirk` and requests nothing."""
+    the move request of every lane's branch: (ls, (rk, rj, rs, e,
+    quirk), popped, kind). A lane in neither mode keeps `quirk` and
+    requests nothing; only EVENT lanes pop."""
     ls, rk, rj, rs, e, quirk_f = _fulfill_branch(ls, is_ful)
     quirk = torch.where(is_ful, quirk_f, quirk)
-    ls, rk_e, rj_e, rs_e, arg, quirk_e = _event_branch(params, ls, is_ev, nb)
+    ls, rk_e, rj_e, rs_e, arg, quirk_e, popped, kind = _event_branch(
+        params, ls, is_ev, nb)
     rk = torch.where(is_ev, rk_e, rk)
     rj = torch.where(is_ev, rj_e, rj)
     rs = torch.where(is_ev, rs_e, rs)
     e = torch.where(is_ev, arg, torch.where(is_ful, e, 0)).to(_i32)
     quirk = torch.where(is_ev, quirk_e, quirk)
-    return ls, rk, rj, rs, e, quirk
+    return ls, (rk, rj, rs, e, quirk), popped, kind
 
 
 def _finish_micro_step(params: EnvParams, bank: WorkloadBank, ls: LoopState,
                        ls2: LoopState, rk, rj, rs, e, quirk, t_ref,
                        k_reset=None, auto_reset: bool = False,
-                       fulfill_bulk: bool = False):
+                       fulfill_bulk: bool = False, telemetry=None):
     """Shared micro-step tail: the bulk fulfillment of a round that just
     finished (`fulfill_bulk`), move resolution/application, round
     clearing and readiness, episode end. `ls` is the pre-step state
@@ -312,7 +359,8 @@ def _finish_micro_step(params: EnvParams, bank: WorkloadBank, ls: LoopState,
     it), `ls2` the state after the mode branch. With `auto_reset`, a
     lane whose episode ended restarts from `core.reset` on its key of
     `k_reset`. Returns (ls, (reward, dt, reset)) — the JAX `record=True`
-    form, measured on the pre-reset state."""
+    form, measured on the pre-reset state — and with `telemetry` the
+    counters, the bulk fulfillment's hits added on lanes live at entry."""
     st = ls2.env
     if fulfill_bulk:
         want = (ls.mode == M_DECIDE) & (ls2.mode == M_FULFILL)
@@ -320,6 +368,9 @@ def _finish_micro_step(params: EnvParams, bank: WorkloadBank, ls: LoopState,
             ni = torch.where(want, ls2.num_idle, 0)
             st, k0 = _bulk_fulfill(params, bank, st, ni, ls2.exec_order,
                                    ls2.slot_order)
+            if telemetry is not None:
+                telemetry = _tm_add(telemetry, ~_lane_done(ls.env),
+                                    bulk_fulfill_hits=k0)
             complete = want & (k0 >= ls2.num_idle)
             st = _clear_round(st, complete)
             ls2 = ls2.replace(
@@ -360,28 +411,31 @@ def _finish_micro_step(params: EnvParams, bank: WorkloadBank, ls: LoopState,
         mode=mode,
         episodes=ls2.episodes + (done & ~was_done).to(_i32),
     )
-    return out, rec
+    return (out, rec, telemetry) if telemetry is not None else (out, rec)
 
 
 def micro_step(params: EnvParams, bank: WorkloadBank, policy_fn,
                ls: LoopState, rng: torch.Tensor, auto_reset: bool = True,
                compute_levels: bool = True, event_bulk: bool = True,
                bulk_events: int = 8, fulfill_bulk: bool = False,
-               bulk_cycles: int = 1, bulk_fused: bool = True) -> LoopState:
+               bulk_cycles: int = 1, bulk_fused: bool = True,
+               telemetry=None):
     """One unit of work per lane: EVENT lanes first run the bulk passes
     (`event_bulk`), then every lane runs its mode's branch — DECIDE asks
     `policy_fn(keys, obs)` for `(stage_idx, num_exec, aux)` and commits,
     FULFILL fulfils one commitment, EVENT pops one event (fused pop) —
-    and the shared tail. `rng` holds one key per lane."""
+    and the shared tail. `rng` holds one key per lane. Returns the new
+    LoopState, and with `telemetry` `(ls, telemetry)`: every live lane
+    counts its micro-step by entry mode, its events and a finished
+    round."""
+    track = telemetry is not None
     keys = prng.split(rng)
     k_pol, k_reset = keys[:, 0], keys[:, 1]
     ls0 = ls  # pre-bulk state: the freeze path must restore exactly this
     is_ev = ls.mode == M_EVENT
-    nb = _full(ls.mode, 0)
-    if event_bulk:
-        env_b, nb = _bulk_cycle_chain(params, bank, ls.env, is_ev,
-                                      bulk_events, bulk_cycles, bulk_fused)
-        ls = ls.replace(env=env_b, bulked=ls.bulked + nb)
+    ls, nb, nb_rel, nb_rdy = _bulk_phase(params, bank, ls, is_ev, event_bulk,
+                                         bulk_events, bulk_cycles, bulk_fused,
+                                         track, _full(ls.mode, 0))
     is_dec = ls.mode == M_DECIDE
     is_ful = ls.mode == M_FULFILL
 
@@ -395,55 +449,81 @@ def micro_step(params: EnvParams, bank: WorkloadBank, policy_fn,
                                num_exec.to(_i32), fulfill_bulk)
         ls2 = select(is_dec, ls_d, ls)
         quirk = torch.where(is_dec, ls_d.env.source_job_id(), quirk)
-    ls2, *req = _work_branches(params, ls2, is_ful, is_ev, nb, quirk)
-    out, _ = _finish_micro_step(params, bank, ls0, ls2, *req, None, k_reset,
-                                auto_reset, fulfill_bulk)
-    return out
+    ls2, req, popped, kind = _work_branches(params, ls2, is_ful, is_ev, nb,
+                                            quirk)
+    out = _finish_micro_step(params, bank, ls0, ls2, *req, None, k_reset,
+                             auto_reset, fulfill_bulk, telemetry)
+    if not track:
+        return out[0]
+    is_dec0 = ls0.mode == M_DECIDE
+    telemetry = _tm_add(
+        out[2], ~_lane_done(ls0.env),
+        decide_steps=is_dec0, fulfill_steps=ls0.mode == M_FULFILL,
+        event_steps=is_ev, commit_rounds=is_dec0 & (ls2.mode != M_DECIDE),
+        **_event_counts(nb, nb_rel, nb_rdy, popped, kind),
+    )
+    return out[0], telemetry
 
 
 def event_micro_step(params: EnvParams, bank: WorkloadBank, ls: LoopState,
                      rng: torch.Tensor, auto_reset: bool = True,
                      event_bulk: bool = True, bulk_events: int = 8,
-                     bulk_cycles: int = 1, bulk_fused: bool = True
-                     ) -> LoopState:
+                     bulk_cycles: int = 1, bulk_fused: bool = True,
+                     telemetry=None):
     """One EVENT-only micro-step: lanes in EVENT mode run the bulk
     passes, pop one event and the shared tail; every other lane is left
-    exactly as it was (rng and counters included)."""
+    exactly as it was (rng and counters included). With `telemetry`
+    returns `(ls, telemetry)`, live EVENT lanes counted."""
+    track = telemetry is not None
     is_event = ls.mode == M_EVENT
     if not bool(is_event.any()):
-        return ls
+        return (ls, telemetry) if track else ls
     k_reset = _reset_key(rng, auto_reset)
     ls0 = ls.replace(mode=torch.full_like(ls.mode, M_EVENT))
     if event_bulk:
-        env_b, nb = _bulk_cycle_chain(params, bank, ls.env, is_event,
-                                      bulk_events, bulk_cycles, bulk_fused)
-        ls = ls.replace(env=env_b, bulked=ls.bulked + nb)
-        pop_on = is_event & _fused_pop_gate(env_b, nb)
+        ls, nb, nb_rel, nb_rdy = _bulk_phase(params, bank, ls, is_event,
+                                             True, bulk_events, bulk_cycles,
+                                             bulk_fused, track)
+        pop_on = is_event & _fused_pop_gate(ls.env, nb)
     else:
+        nb = nb_rel = nb_rdy = _full(ls.mode, 0) if track else None
         pop_on = is_event
-    st, rk, rj, rs, arg, quirk, _, _ = _pop_event(params, ls.env, pop_on)
+    st, rk, rj, rs, arg, quirk, popped, kind = _pop_event(params, ls.env,
+                                                          pop_on)
     ls_ev = ls.replace(mode=torch.full_like(ls.mode, M_EVENT), env=st)
     out, _ = _finish_micro_step(params, bank, ls0, ls_ev, rk, rj, rs, arg,
                                 quirk, None, k_reset, auto_reset)
-    return select(is_event, out, ls)
+    final = select(is_event, out, ls)
+    if not track:
+        return final
+    telemetry = _tm_add(
+        telemetry, is_event & ~_lane_done(ls0.env), event_steps=is_event,
+        **_event_counts(nb, nb_rel, nb_rdy, popped, kind),
+    )
+    return final, telemetry
 
 
 def decide_micro_step(params: EnvParams, bank: WorkloadBank, ls: LoopState,
                       stage_idx, num_exec, rng: torch.Tensor,
                       auto_reset: bool = True, fulfill_bulk: bool = False,
-                      t_ref=None):
+                      t_ref=None, telemetry=None):
     """One DECIDE micro-step driven by a precomputed decision per lane;
     lanes not in DECIDE mode are left exactly as they were. Returns
-    `(ls, (decided, reward, dt, reset))`."""
+    `(ls, (decided, reward, dt, reset))`, and with `telemetry` the
+    counters as a third element: the decisions, the rounds they finish
+    and the bulk fulfillment's hits (the tail runs on every live lane, as
+    in the JAX package)."""
     is_dec = ls.mode == M_DECIDE
     k_reset = _reset_key(rng, auto_reset)
     ls0 = ls.replace(mode=torch.zeros_like(ls.mode))
     ls2 = _apply_decision(params, ls0, stage_idx, num_exec, fulfill_bulk)
     zero = torch.zeros_like(ls.mode)
-    out_ls, (rw, dt, rs_) = _finish_micro_step(
+    out = _finish_micro_step(
         params, bank, ls0, ls2, zero + RQ_NONE, zero - 1, zero - 1, zero,
         ls2.env.source_job_id(), t_ref, k_reset, auto_reset, fulfill_bulk,
+        telemetry,
     )
+    out_ls, (rw, dt, rs_) = out[0], out[1]
     was_done = _lane_done(ls.env)
     decided = is_dec & ~was_done
     final = select(is_dec, out_ls, ls)
@@ -453,53 +533,70 @@ def decide_micro_step(params: EnvParams, bank: WorkloadBank, ls: LoopState,
         torch.where(is_dec, dt, 0.0),
         is_dec & rs_,
     )
-    return final, rec
+    if telemetry is None:
+        return final, rec
+    telemetry = _tm_add(out[2], decided, decide_steps=decided,
+                        commit_rounds=ls2.mode != M_DECIDE)
+    return final, rec, telemetry
 
 
 def drain_micro_step(params: EnvParams, bank: WorkloadBank, ls: LoopState,
                      rng: torch.Tensor, auto_reset: bool = True,
                      event_bulk: bool = True, bulk_events: int = 8,
                      bulk_cycles: int = 1, t_ref=None,
-                     bulk_fused: bool = True, masked: bool = True):
+                     bulk_fused: bool = True, masked: bool = True,
+                     telemetry=None, count_on: torch.Tensor | None = None):
     """One non-policy micro-step: FULFILL and EVENT lanes advance as in
     `micro_step` (bulk passes and fused pop included); DECIDE lanes are
     rolled back unless `masked=False` (legal only where the caller
     discards their result, as `drain_to_decision` does). Returns
-    `(ls, (reward, dt, reset))`."""
+    `(ls, (reward, dt, reset))`, and with `telemetry` the counters as a
+    third element: live FULFILL / EVENT lanes counted, only those in
+    `count_on` when it is given (the drain loop's lanes, which then also
+    count a drain iteration)."""
+    track = telemetry is not None
     active = ls.mode != M_DECIDE
     k_reset = _reset_key(rng, auto_reset)
     ls0 = ls
     is_ev = ls.mode == M_EVENT
     is_ful = ls.mode == M_FULFILL
-    nb = _full(ls.mode, 0)
-    if event_bulk:
-        env_b, nb = _bulk_cycle_chain(params, bank, ls.env, is_ev,
-                                      bulk_events, bulk_cycles, bulk_fused)
-        ls = ls.replace(env=env_b, bulked=ls.bulked + nb)
-    ls2, *req = _work_branches(params, ls, is_ful, is_ev, nb,
-                               ls.env.source_job_id())
+    ls, nb, nb_rel, nb_rdy = _bulk_phase(params, bank, ls, is_ev, event_bulk,
+                                         bulk_events, bulk_cycles, bulk_fused,
+                                         track, _full(ls.mode, 0))
+    ls2, req, popped, kind = _work_branches(params, ls, is_ful, is_ev, nb,
+                                            ls.env.source_job_id())
     out, (rw, dt, rs_) = _finish_micro_step(params, bank, ls0, ls2, *req,
                                             t_ref, k_reset, auto_reset)
-    if not masked:
-        return out, (rw, dt, rs_)
-    return select(active, out, ls0), (
-        torch.where(active, rw, 0.0),
-        torch.where(active, dt, 0.0),
-        active & rs_,
-    )
+    if track:
+        on = active & ~_lane_done(ls0.env)
+        extra = {}
+        if count_on is not None:
+            on = on & count_on
+            extra["drain_iters"] = on
+        telemetry = _tm_add(
+            telemetry, on, fulfill_steps=is_ful, event_steps=is_ev,
+            **_event_counts(nb, nb_rel, nb_rdy, popped, kind), **extra,
+        )
+    if masked:
+        out = select(active, out, ls0)
+        rw, dt, rs_ = (torch.where(active, rw, 0.0),
+                       torch.where(active, dt, 0.0), active & rs_)
+    return (out, (rw, dt, rs_), telemetry) if track else (out, (rw, dt, rs_))
 
 
 def drain_to_decision(params: EnvParams, bank: WorkloadBank, ls: LoopState,
                       rng: torch.Tensor, auto_reset: bool = True,
                       event_bulk: bool = True, bulk_events: int = 8,
                       bulk_cycles: int = 1, t_ref=None,
-                      bulk_fused: bool = True):
+                      bulk_fused: bool = True, telemetry=None):
     """Drain each lane's non-decision work — FULFILL leftovers and the
     event run — until it can DECIDE again, its episode is over or its
     queue is drained, accumulating the span's reward/dt/reset. With
     `auto_reset` each iteration splits the lane's key (a lane whose
     loop has ended keeps its key). Returns `(ls, (reward, dt,
-    reset))`."""
+    reset))`, and with `telemetry` the counters as a third element
+    (each lane counts its own iterations in `drain_iters`)."""
+    track = telemetry is not None
     zero = torch.zeros_like(ls.env.wall_time)
     rw, dt = zero, zero.clone()
     rs = torch.zeros_like(ls.env.round_ready)
@@ -514,15 +611,19 @@ def drain_to_decision(params: EnvParams, bank: WorkloadBank, ls: LoopState,
         if auto_reset:  # the key chain only feeds auto-reset draws
             keys = prng.split(k)
             k, sub = _w(cond, keys[:, 0], k), keys[:, 1]
-        nxt, (r, d, re) = drain_micro_step(
+        out = drain_micro_step(
             params, bank, ls, sub, auto_reset, event_bulk, bulk_events,
             bulk_cycles, t_ref, bulk_fused, masked=False,
+            telemetry=telemetry, count_on=cond if track else None,
         )
+        nxt, (r, d, re) = out[0], out[1]
+        if track:
+            telemetry = out[2]
         ls = select(cond, nxt, ls)
         rw = torch.where(cond, rw + r, rw)
         dt = torch.where(cond, dt + d, dt)
         rs = torch.where(cond, rs | re, rs)
-    return ls, (rw, dt, rs)
+    return (ls, (rw, dt, rs), telemetry) if track else (ls, (rw, dt, rs))
 
 
 def apply_and_drain(params: EnvParams, bank: WorkloadBank, ls: LoopState,
@@ -530,25 +631,30 @@ def apply_and_drain(params: EnvParams, bank: WorkloadBank, ls: LoopState,
                     auto_reset: bool = False, event_bulk: bool = True,
                     bulk_events: int = 8, fulfill_bulk: bool = True,
                     bulk_cycles: int = 1, bulk_fused: bool = True,
-                    **unknown):
+                    telemetry=None, **unknown):
     """One precomputed decision per lane applied and drained to the next
     decision point: `decide_micro_step` then `drain_to_decision`, with
     the discount reference at each lane's wall time on entry and the
     lane's key split between them. The engine knobs default as in the
     JAX package; any other keyword is refused (`core.check_knobs`).
-    Returns `(ls, (decided, reward, dt, reset))`."""
+    Returns `(ls, (decided, reward, dt, reset))`, and with `telemetry`
+    the counters as a third element."""
     core.check_knobs(unknown)
+    track = telemetry is not None
     keys = prng.split(rng)
     t_ref = ls.env.wall_time
-    ls2, (decided, rw1, dt1, rs1) = decide_micro_step(
+    out = decide_micro_step(
         params, bank, ls, stage_idx, num_exec, keys[:, 0], auto_reset,
-        fulfill_bulk, t_ref,
+        fulfill_bulk, t_ref, telemetry,
     )
-    ls3, (rw2, dt2, rs2) = drain_to_decision(
+    ls2, (decided, rw1, dt1, rs1) = out[0], out[1]
+    out = drain_to_decision(
         params, bank, ls2, keys[:, 1], auto_reset, event_bulk, bulk_events,
-        bulk_cycles, t_ref, bulk_fused,
+        bulk_cycles, t_ref, bulk_fused, out[2] if track else None,
     )
-    return ls3, (decided, rw1 + rw2, dt1 + dt2, rs1 | rs2)
+    ls3, (rw2, dt2, rs2) = out[0], out[1]
+    rec = (decided, rw1 + rw2, dt1 + dt2, rs1 | rs2)
+    return (ls3, rec, out[2]) if track else (ls3, rec)
 
 
 def run_flat(params: EnvParams, bank: WorkloadBank, policy_fn,
@@ -558,23 +664,27 @@ def run_flat(params: EnvParams, bank: WorkloadBank, policy_fn,
              event_bulk: bool = True, bulk_events: int = 8,
              fulfill_bulk: bool = False, bulk_cycles: int = 1,
              loop_state: LoopState | None = None,
-             bulk_fused: bool = True) -> LoopState:
+             bulk_fused: bool = True, telemetry=None):
     """`num_groups` micro-step groups per lane, each one `micro_step`
     plus `event_burst - 1` `event_micro_step`s, from a freshly reset
     `state` or, to continue an earlier run, from `loop_state`. `rng`
-    holds one key per lane; each micro-step splits it."""
+    holds one key per lane; each micro-step splits it. Returns the
+    LoopState, and with `telemetry` `(ls, telemetry)`."""
+    track = telemetry is not None
     ls = init_loop_state(state) if loop_state is None else loop_state
     k = rng
     for _ in range(num_groups):
         keys = prng.split(k)
         k = keys[:, 0]
-        ls = micro_step(params, bank, policy_fn, ls, keys[:, 1], auto_reset,
-                        compute_levels, event_bulk, bulk_events,
-                        fulfill_bulk, bulk_cycles, bulk_fused)
+        out = micro_step(params, bank, policy_fn, ls, keys[:, 1], auto_reset,
+                         compute_levels, event_bulk, bulk_events,
+                         fulfill_bulk, bulk_cycles, bulk_fused, telemetry)
+        ls, telemetry = out if track else (out, None)
         for _ in range(event_burst - 1):
             keys = prng.split(k)
             k = keys[:, 0]
-            ls = event_micro_step(params, bank, ls, keys[:, 1], auto_reset,
-                                  event_bulk, bulk_events, bulk_cycles,
-                                  bulk_fused)
-    return ls
+            out = event_micro_step(params, bank, ls, keys[:, 1], auto_reset,
+                                   event_bulk, bulk_events, bulk_cycles,
+                                   bulk_fused, telemetry)
+            ls, telemetry = out if track else (out, None)
+    return (ls, telemetry) if track else ls

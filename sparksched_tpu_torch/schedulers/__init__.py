@@ -2,7 +2,11 @@
 the interfaces, a string-keyed factory, the two heuristics and Decima."""
 
 from .base import Scheduler, TrainableScheduler  # noqa: F401
-from .decima import DecimaScheduler, params_from_flax  # noqa: F401
+from .decima import (  # noqa: F401
+    DecimaScheduler,
+    load_state_dict_file,
+    params_from_flax,
+)
 from .heuristics import (  # noqa: F401
     RandomScheduler,
     RoundRobinScheduler,

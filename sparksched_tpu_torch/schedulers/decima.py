@@ -391,7 +391,10 @@ def evaluate_actions(stage_scores, exec_scores, f: DecimaFeatures,
 class DecimaScheduler(TrainableScheduler):
     """Decima scheduler over a `DecimaNet` on `device` (the card unless
     the caller asks for the CPU). Weights come from `torch.manual_seed(
-    seed)` or, through `load_params`, from the JAX package's flax tree."""
+    seed)`, from a model file (`state_dict_path`: the JAX package's
+    flax-msgpack `model.msgpack` or a reference torch `.pt`, see
+    `load_state_dict_file`) or, through `load_params`, from a state
+    dict."""
 
     def __init__(self, num_executors: int, embed_dim: int = 16,
                  gnn_mlp_kwargs: dict[str, Any] | None = None,
@@ -405,11 +408,6 @@ class DecimaScheduler(TrainableScheduler):
         if compute_dtype not in (None, "float32"):
             raise NotImplementedError(
                 "compute_dtype=bfloat16 is not ported yet (ROADMAP queue A)"
-            )
-        if state_dict_path:
-            raise NotImplementedError(
-                "checkpoint loading is not ported yet (ROADMAP queue A: "
-                "the msgpack checkpoint loader)"
             )
         self.name = "Decima"
         self.num_executors = int(num_executors)
@@ -432,6 +430,9 @@ class DecimaScheduler(TrainableScheduler):
             )
         self.net = net.to(self.device).eval()
         self.net.requires_grad_(False)
+        if state_dict_path:
+            self.name += f":{state_dict_path}"
+            self.load_params(load_state_dict_file(state_dict_path))
 
     @property
     def params(self) -> dict[str, torch.Tensor]:
@@ -524,3 +525,46 @@ def params_from_flax(tree) -> dict[str, torch.Tensor]:
             out[f"{key}.bias"] = torch.from_numpy(
                 np.asarray(leaf["bias"], np.float32).copy())
     return out
+
+
+# the reference torch checkpoint's module names -> the net's (the JAX
+# package's `_TORCH_TO_FLAX`)
+_TORCH_TO_PORT = {
+    "encoder.node_encoder.mlp_prep": "mlp_prep",
+    "encoder.node_encoder.mlp_msg": "mlp_msg",
+    "encoder.node_encoder.mlp_update": "mlp_update",
+    "encoder.dag_encoder.mlp": "mlp_dag",
+    "encoder.global_encoder.mlp": "mlp_glob",
+    "stage_policy_network.mlp_score": "mlp_stage",
+    "exec_policy_network.mlp_score": "mlp_exec",
+}
+
+
+def state_dict_from_torch(sd: dict) -> dict[str, torch.Tensor]:
+    """The port's state dict from a reference torch checkpoint's, as the
+    JAX package's `load_torch_state_dict` maps it: the Linear layers of
+    each `Sequential` (its even indices) become `dense_0, dense_1, ...`
+    in index order. Torch and the port both keep weights as [out,in]."""
+    out: dict[str, torch.Tensor] = {}
+    for tname, pname in _TORCH_TO_PORT.items():
+        seq = sorted({int(k[len(tname) + 1:].split(".")[0])
+                      for k in sd if k.startswith(tname + ".")})
+        for li, si in enumerate(seq):
+            for kind in ("weight", "bias"):
+                out[f"{pname}.dense_{li}.{kind}"] = torch.as_tensor(
+                    sd[f"{tname}.{si}.{kind}"], dtype=torch.float32
+                ).detach().cpu().clone()
+    return out
+
+
+def load_state_dict_file(path: str) -> dict[str, torch.Tensor]:
+    """A model file as the port's state dict: a `.pt` reference torch
+    checkpoint (loaded with `weights_only=True`, never unpickled), else
+    a flax-msgpack file (`model.msgpack`) through the port's codec."""
+    if path.endswith(".pt"):
+        return state_dict_from_torch(
+            torch.load(path, map_location="cpu", weights_only=True))
+    from ..serialization import from_bytes
+
+    with open(path, "rb") as fp:
+        return params_from_flax(from_bytes(fp.read()))

@@ -17,9 +17,12 @@ The JAX scan runs exactly T rows. This loop leaves as soon as no lane can
 decide again (every lane done or stuck): each later row would change no
 leaf of the `Rollout` — a done lane is frozen, a stuck lane's queue is
 empty, its rewards are 0 and its health bits repeat — at the price of one
-host sync per row. The asynchronous form (`rollout_duration`,
-`collect_flat_async_batch`), the per-lane and `core.step` collectors and
-the telemetry counters are not ported.
+host sync per row. With the optional telemetry counters the loop leaves
+early only once every lane is done: the JAX package's decide step runs
+its bulk fulfillment on every live lane, and a stuck lane's later rows
+may count its hits. The asynchronous form (`rollout_duration`,
+`collect_flat_async_batch`) and the per-lane and `core.step` collectors
+are not ported.
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ from ..env.flat_loop import (
 from ..env.health import reward_health, state_health
 from ..env.observe import Observation, observe
 from ..env.state import EnvState, topo_levels
+from ..obs.telemetry import orr as _tm_orr
 from ..workload.bank import WorkloadBank
 
 _i32 = torch.int32
@@ -156,7 +160,7 @@ def collect_flat_sync_batch(params: EnvParams, bank: WorkloadBank,
                             event_bulk: bool = True, bulk_events: int = 8,
                             fulfill_bulk: bool = True, bulk_cycles: int = 1,
                             bulk_fused: bool = True, health: bool = False,
-                            counts: dict | None = None):
+                            counts: dict | None = None, telemetry=None):
     """One episode per lane from the freshly reset `states` ([B]), one
     policy evaluation per decision row, at most `num_steps` (T) decisions
     per lane recorded. `batch_policy_fn(key, obs)` returns per-lane
@@ -164,7 +168,9 @@ def collect_flat_sync_batch(params: EnvParams, bank: WorkloadBank,
     `Rollout`, and with `health` also the per-lane i32 health mask
     (`state_health` over each row's drained state against the row's
     start, OR `reward_health` of the row's reward). `counts`, when
-    given, receives the rows run (`rows`)."""
+    given, receives the rows run (`rows`). With `telemetry` (the lanes'
+    counters, `obs.telemetry.Telemetry`) the counters advanced over the
+    collection are returned last, the health mask ORed into them."""
     T = int(num_steps)
     ls = init_loop_state(states)
     env = ls.env
@@ -198,15 +204,20 @@ def collect_flat_sync_batch(params: EnvParams, bank: WorkloadBank,
         lgprob, job, kk = aux_action_fields(aux, stage_idx, num_exec, s_cap)
         lgprob = torch.broadcast_to(
             torch.as_tensor(lgprob, dtype=torch.float32, device=dev), (B,))
-        ls2, (decided, rw1, dt1, rs1) = decide_micro_step(
+        out = decide_micro_step(
             params, bank, ls, stage_idx.to(_i32), num_exec.to(_i32),
-            prng.split(k_dec, B), False, fulfill_bulk,
+            prng.split(k_dec, B), False, fulfill_bulk, telemetry=telemetry,
         )
+        ls2, (decided, rw1, dt1, rs1) = out[0], out[1]
         t_ref = torch.where(decided, wall0, t_ref)
-        ls3, (rw2, dt2, rs2) = drain_to_decision(
+        out = drain_to_decision(
             params, bank, ls2, prng.split(k_drain, B), False, event_bulk,
             bulk_events, bulk_cycles, t_ref, bulk_fused,
+            out[2] if telemetry is not None else None,
         )
+        ls3, (rw2, dt2, rs2) = out[0], out[1]
+        if telemetry is not None:
+            telemetry = out[2]
         reward = rw1 + rw2
         reset = rs1 | rs2
         if health:
@@ -229,7 +240,10 @@ def collect_flat_sync_batch(params: EnvParams, bank: WorkloadBank,
         b_resets[rows, rslot] = torch.maximum(b_resets[rows, rslot],
                                               reset.to(_i32))
         ls = ls3
-        if not bool(((ls.mode == M_DECIDE) & ~_lane_done(ls.env)).any()):
+        live = ~_lane_done(ls.env)
+        if telemetry is None:
+            live = live & (ls.mode == M_DECIDE)
+        if not bool(live.any()):
             break  # every later row would change nothing
     if counts is not None:
         counts["rows"] = n_rows
@@ -251,4 +265,7 @@ def collect_flat_sync_batch(params: EnvParams, bank: WorkloadBank,
         final_state=ls.env,
         final_reset_count=ls.episodes,
     )
-    return (ro, hm) if health else ro
+    ret = (ro, hm) if health else (ro,)
+    if telemetry is not None:
+        ret += (_tm_orr(telemetry, health_mask=hm) if health else telemetry,)
+    return ret[0] if len(ret) == 1 else ret

@@ -13,13 +13,19 @@ retry) and the collector's `fold_in(iteration key, 7)`.
 Ported: `rollout_engine: flat` with `flat_single_eval` in sync mode, the
 Adam optimizer (`lr_anneal`, global-norm clipping as optax writes it),
 `fixed_sequences`, `entropy_anneal`, `beta_discount` or the differential
-returns, and the health block's rollback-and-retry (reseed, backoff). Not
-ported yet (the trainer names the keys it ignores when it starts):
+returns, the health block (rollback-and-retry with reseed and backoff,
+the `straggler_ratio_max` quarantine, `checkpoint_every` / `keep`),
+checkpoints and resume (`checkpointing_freq`: the best pre-update
+parameters as a flax-msgpack `model.msgpack` either package loads;
+`save_train_state` / `load_train_state` / `train(resume_from=)`, the
+train state written with the port's codec under the JAX package's file
+names) and the `obs:` block's run log, telemetry and memory samples.
+Not ported yet (the trainer names the keys it ignores when it starts):
 asynchronous collection (`rollout_duration`) and the `core` engine (both
-raise), checkpoints (`checkpointing_freq`, `health.checkpoint_every` /
-`keep`, `save_train_state` / `load_train_state`), the observability
-block (`obs:`), chaos injection and `fast_prng` (the port has only the
-threefry stream).
+raise), TensorBoard and the profiler, `obs.trace_iteration` /
+`trace_dir` / `slo`, chaos injection and `fast_prng` (the port has only
+the threefry stream). A train state of the JAX package does not load
+here (its optax tree differs); model files load both ways.
 """
 
 from __future__ import annotations
@@ -27,6 +33,11 @@ from __future__ import annotations
 import abc
 import copy
 import dataclasses
+import hashlib
+import json
+import os
+import os.path as osp
+import shutil
 import time
 from typing import Any
 
@@ -36,8 +47,13 @@ import torch
 from .. import metrics, prng
 from ..config import EnvParams, env_params_from_cfg, resolve_device
 from ..env import core
-from ..env.health import RETRYABLE_MASK, describe_mask
+from ..env.health import H_STRAGGLER, RETRYABLE_MASK, describe_mask
+from ..obs.memory import device_memory_stats
+from ..obs.runlog import RunLog, emit
+from ..obs.telemetry import summarize, telemetry_zeros
 from ..schedulers import TrainableScheduler, make_scheduler
+from ..schedulers.decima import params_from_flax
+from ..serialization import from_bytes, params_to_flax, to_bytes
 from ..workload import make_workload_bank
 from .baselines import group_baselines
 from .returns import (
@@ -144,9 +160,16 @@ class TrainState:
 
 
 # config keys whose machinery the port does not have yet
-_UNPORTED_TRAIN = ("checkpointing_freq", "use_tensorboard", "profiling",
-                   "profile_trace_dir")
-_UNPORTED_HEALTH = ("checkpoint_every", "keep", "straggler_ratio_max")
+_UNPORTED_TRAIN = ("use_tensorboard", "profiling", "profile_trace_dir")
+_UNPORTED_OBS = ("trace_iteration", "trace_dir", "slo")
+OBS_KEYS = frozenset({"runlog", "telemetry", "memory", "runlog_max_bytes"}
+                     | set(_UNPORTED_OBS))
+HEALTH_KEYS = frozenset({"enabled", "max_retries", "backoff_seconds",
+                         "checkpoint_every", "keep", "straggler_ratio_max"})
+# the PRNG the port runs (the stamp of its train states)
+PRNG_IMPL = "threefry2x32"
+# update stats the JAX package's `scalars` records do not carry
+_PORT_ONLY_STATS = ("minibatches_applied", "kl_stopped", "update_chunks")
 
 
 class Trainer(abc.ABC):
@@ -155,7 +178,8 @@ class Trainer(abc.ABC):
     def __init__(self, agent_cfg: CfgType, env_cfg: CfgType,
                  train_cfg: CfgType, health_cfg: CfgType | None = None,
                  device: str | torch.device = "cuda",
-                 unported: list[str] | None = None) -> None:
+                 unported: list[str] | None = None,
+                 obs_cfg: CfgType | None = None) -> None:
         self.device = resolve_device(device)
         unported = list(unported or [])
         if train_cfg.get("rollout_duration") is not None:
@@ -176,6 +200,26 @@ class Trainer(abc.ABC):
         self.num_sequences: int = int(train_cfg["num_sequences"])
         self.num_rollouts: int = int(train_cfg["num_rollouts"])
         self.num_envs = self.num_sequences * self.num_rollouts
+        self.artifacts_dir: str = str(train_cfg.get("artifacts_dir",
+                                                    "artifacts"))
+        self.checkpointing_freq = int(train_cfg.get("checkpointing_freq",
+                                                    50))
+
+        # the obs: block (runlog: true | false | path, runlog_max_bytes,
+        # telemetry, memory), validated like the JAX package's
+        oc = dict(obs_cfg or {})
+        if set(oc) - OBS_KEYS:
+            raise ValueError(
+                f"unknown obs: config key(s) {sorted(set(oc) - OBS_KEYS)} "
+                f"— known keys: {sorted(OBS_KEYS)}")
+        self.obs_runlog = oc.get("runlog", True)
+        rmb = oc.get("runlog_max_bytes")
+        self.obs_runlog_max_bytes = int(rmb) if rmb else None
+        self.obs_telemetry = bool(oc.get("telemetry", False))
+        self.obs_memory = bool(oc.get("memory", True))
+        unported += [f"obs.{k}" for k in _UNPORTED_OBS
+                     if oc.get(k) is not None]
+        self._runlog: RunLog | None = None
 
         self.entropy_anneal = train_cfg.get("entropy_anneal")
         if self.entropy_anneal and "final" not in self.entropy_anneal:
@@ -187,10 +231,19 @@ class Trainer(abc.ABC):
         self.fixed_sequences = bool(train_cfg.get("fixed_sequences", False))
 
         hc = dict(health_cfg or {})
+        if set(hc) - HEALTH_KEYS:
+            raise ValueError(
+                f"unknown health: config key(s) {sorted(set(hc) - HEALTH_KEYS)}"
+                f" — known keys: {sorted(HEALTH_KEYS)}")
         self.health_enabled = bool(hc.get("enabled", health_cfg is not None))
         self.health_max_retries = int(hc.get("max_retries", 2))
         self.health_backoff = float(hc.get("backoff_seconds", 1.0))
-        unported += [f"health.{k}" for k in _UNPORTED_HEALTH if k in hc]
+        self.health_checkpoint_every = int(hc.get("checkpoint_every", 0))
+        self.checkpoint_keep = int(hc.get("keep", 2))
+        srm = hc.get("straggler_ratio_max")
+        self.health_straggler_max = None if srm is None else float(srm)
+        if self.health_enabled:  # as in the JAX package
+            self.obs_telemetry = True
 
         if ("reward_buff_cap" in train_cfg) == ("beta_discount" in train_cfg):
             raise ValueError(
@@ -286,17 +339,26 @@ class Trainer(abc.ABC):
     def _collect(self, iteration: int, rng: torch.Tensor,
                  counts: dict | None = None):
         """One iteration's rollouts from fresh episodes: `(Rollout,
-        health mask[B] or None)`."""
+        health mask[B] or None)`. `counts`, when given, receives the rows
+        run (`rows`) and, with telemetry on, the lanes' counters
+        (`telemetry`)."""
         seq_rngs, lane_rngs = self.lane_keys(iteration)
         states = core.reset_pair(self.params_env, self.bank, seq_rngs,
                                  lane_rngs)
+        tm = (telemetry_zeros(self.num_envs, self.device)
+              if self.obs_telemetry else None)
         out = collect_flat_sync_batch(
             self.params_env, self.bank,
             lambda k, obs: self.scheduler.batch_policy(k, obs),
             prng.fold_in(rng, 7), self.rollout_steps, states,
-            health=self.health_enabled, counts=counts,
+            health=self.health_enabled, counts=counts, telemetry=tm,
             **self.flat_batch_knobs,
         )
+        if tm is not None:
+            *out, tm = out
+            if counts is not None:
+                counts["telemetry"] = tm
+            out = out[0] if len(out) == 1 else tuple(out)
         return out if self.health_enabled else (out, None)
 
     def _returns_and_baselines(self, state: TrainState, ro: Rollout):
@@ -329,15 +391,34 @@ class Trainer(abc.ABC):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def train(self, callback=None) -> TrainState:
-        """Run `num_iterations` iterations from the scheduler's weights.
-        With the health block on, an iteration whose rollout or update
-        trips a retryable sentinel is rolled back to the state before it,
-        reseeded and run again after an exponential backoff, at most
-        `max_retries` times. `callback(i, state, stats)`, when given, is
-        called after each iteration."""
-        state = self.init_state()
-        for i in range(state.iteration, state.iteration + self.num_iterations):
+    def train(self, resume_from: str | None = None,
+              callback=None) -> TrainState:
+        """Run `num_iterations` more iterations from the scheduler's
+        weights or, with `resume_from`, from a saved train state (see
+        `load_train_state`). With the health block on, an iteration whose
+        rollout or update trips a retryable sentinel is rolled back to the
+        state before it, reseeded and run again after an exponential
+        backoff, at most `max_retries` times; a straggler ratio over
+        `straggler_ratio_max` is quarantined (a `health` record, no
+        retry). Every `checkpointing_freq` iterations the best pre-update
+        parameters by `avg_num_jobs` go to
+        `checkpoints/<i+1>/model.msgpack` with `state.json`; every
+        `health.checkpoint_every` iterations, and always at the end, the
+        train state to `train_state.msgpack`. `callback(i, state, stats)`,
+        when given, is called after each iteration."""
+        self._setup(fresh=resume_from is None)
+        if resume_from:
+            state = self.load_train_state(resume_from)
+            emit(f"Resumed from {resume_from} at iteration "
+                 f"{state.iteration}.")
+            if self._runlog is not None:
+                self._runlog.write("resume", path=resume_from,
+                                   iteration=state.iteration)
+        else:
+            state = self.init_state()
+        best: dict[str, Any] | None = None
+        start = state.iteration
+        for i in range(start, start + self.num_iterations):
             last_good = state.snapshot()
             attempt = 0
             while True:
@@ -351,53 +432,360 @@ class Trainer(abc.ABC):
                 ro, hm = self._collect(state.iteration, state.rng, counts)
                 self._sync()
                 t1 = time.perf_counter()
+                self._span(f"iter {i + 1} collect", t1 - t0)
                 state, stats = self._update(state, ro)
                 self._sync()
                 t2 = time.perf_counter()
+                self._span(f"iter {i + 1} update", t2 - t1)
+                tm = counts.get("telemetry")
+                tsum = summarize(tm) if tm is not None else None
                 health_mask = 0
                 if self.health_enabled:
                     health_mask = int(np.bitwise_or.reduce(
                         hm.cpu().numpy()))
                     health_mask |= int(stats.get("health_mask", 0))
+                    if (self.health_straggler_max is not None
+                            and tsum is not None
+                            and tsum["straggler_ratio"]
+                            > self.health_straggler_max):
+                        health_mask |= H_STRAGGLER
                 if health_mask & RETRYABLE_MASK:
-                    if attempt >= self.health_max_retries:
+                    if not self._record_health_and_retry(i, attempt,
+                                                         health_mask):
                         raise RuntimeError(
                             f"iteration {i + 1} still unhealthy "
                             f"({describe_mask(health_mask)}) after "
-                            f"{attempt} retries — refusing to train on a "
-                            "poisoned state")
-                    delay = self.health_backoff * (2.0 ** attempt)
-                    print(f"[health] iteration {i + 1} attempt {attempt}: "
-                          f"{describe_mask(health_mask)} -> rollback_retry "
-                          f"after {delay:.3g} s", flush=True)
+                            f"{attempt} retr"
+                            f"{'y' if attempt == 1 else 'ies'} — refusing "
+                            "to train on a poisoned state")
                     state.restore(last_good)
-                    time.sleep(delay)
                     attempt += 1
                     continue
+                if health_mask:  # non-retryable bits: quarantine
+                    self._record_health(i, attempt, health_mask,
+                                        action="quarantine")
                 break
             state.iteration += 1
+            roll_stats = self._rollout_stats(ro)
+            avg = float(stats.get("avg_num_jobs_est")
+                        or roll_stats["avg_num_jobs"])
+            if best is None or avg < best["avg_num_jobs"]:
+                best = {
+                    "iteration": i,
+                    "avg_num_jobs": round(avg, 3),
+                    "params": params_to_flax(last_good["params"]),
+                    "completed_job_count": int(
+                        roll_stats["num_completed_jobs"]),
+                }
+            if (i + 1) % self.checkpointing_freq == 0:
+                self._checkpoint(i, best)
+                best = None
+
+            scalars = {k: float(v) for k, v in stats.items()
+                       if v is not None and k not in (
+                           "avg_num_jobs_est", "health_mask")
+                       + _PORT_ONLY_STATS}
+            scalars["collect_seconds"] = t1 - t0
+            scalars["update_seconds"] = t2 - t1
+            if self.health_enabled:
+                scalars["health_mask"] = float(health_mask)
+                scalars["health_retries"] = float(attempt)
+            if tsum is not None:
+                if self._runlog is not None:
+                    self._runlog.telemetry(tsum, iteration=i)
+                for k in ("straggler_ratio", "micro_per_decision",
+                          "events_per_decision"):
+                    scalars[k] = tsum[k]
+            if self.obs_memory:
+                mem = device_memory_stats(self.device)
+                if mem is not None:
+                    if self._runlog is not None:
+                        self._runlog.memory(mem, iteration=i)
+                    scalars["mem_bytes_in_use"] = mem["bytes_in_use"]
+                    scalars["mem_peak_bytes"] = mem["peak_bytes_in_use"]
+            if self._runlog is not None:
+                self._runlog.scalars(i, scalars | roll_stats)
+            if (self.health_enabled and self.health_checkpoint_every
+                    and (i + 1) % self.health_checkpoint_every == 0):
+                self.save_train_state(
+                    state, osp.join(self.artifacts_dir, "train_state.msgpack"))
+
             host = {k: float(v) for k, v in stats.items()
                     if v is not None and k not in ("avg_num_jobs_est",
                                                    "health_mask")}
-            host.update(self._rollout_stats(ro))
+            host.update(roll_stats)
             host.update(
                 iteration=float(i), collect_seconds=t1 - t0,
                 update_seconds=t2 - t1, rows=float(counts.get("rows", 0)),
                 decisions=float(ro.valid.sum()),
                 health_mask=float(health_mask),
                 health_retries=float(attempt))
+            if tsum is not None:
+                host["telemetry_decisions"] = float(tsum["decisions"])
             if self.device.type == "cuda":
                 host["max_memory_allocated"] = float(
                     torch.cuda.max_memory_allocated(self.device))
             self.stats_log.append(host)
             self.last_rollout = ro
-            avg = stats.get("avg_num_jobs_est")
-            avg = float(avg) if avg is not None else host["avg_num_jobs"]
-            print(f"Iteration {i + 1} complete. Avg. # jobs: {avg:.3f}",
-                  flush=True)
+            emit(f"Iteration {i + 1} complete. Avg. # jobs: {avg:.3f}")
             if callback is not None:
                 callback(i, state, host)
+        self._cleanup(state)
         return state
+
+    # ------------------------------------------------------------------
+    # health recording
+    # ------------------------------------------------------------------
+
+    def _span(self, name: str, secs: float) -> None:
+        if self._runlog is not None:
+            self._runlog.span_event(name, secs)
+
+    def _record_health(self, i: int, attempt: int, mask: int, action: str,
+                       **fields: Any) -> None:
+        """A runlog `health` record and a console line."""
+        if self._runlog is not None:
+            self._runlog.health(mask, iteration=i, attempt=attempt,
+                                action=action, **fields)
+        emit(f"[health] iteration {i + 1} attempt {attempt}: "
+             f"{describe_mask(mask) or [hex(mask)]} -> {action}")
+
+    def _record_health_and_retry(self, i: int, attempt: int,
+                                 mask: int) -> bool:
+        """Record a tripped sentinel and decide: True means "back off
+        (slept here) and run the iteration again", False that the retry
+        budget is spent."""
+        if attempt >= self.health_max_retries:
+            self._record_health(i, attempt, mask, action="gave_up")
+            if self._runlog is not None:
+                self._runlog.write("recovery", iteration=i, attempt=attempt,
+                                   action="gave_up", mask=int(mask),
+                                   bits=describe_mask(mask))
+            return False
+        delay = self.health_backoff * (2.0 ** attempt)
+        self._record_health(i, attempt, mask, action="rollback_retry",
+                            backoff_seconds=round(delay, 3))
+        if self._runlog is not None:
+            self._runlog.write("recovery", iteration=i, attempt=attempt,
+                               action="rollback_retry", mask=int(mask),
+                               bits=describe_mask(mask),
+                               backoff_seconds=round(delay, 3))
+        time.sleep(delay)
+        return True
+
+    # ------------------------------------------------------------------
+    # artifacts: checkpoints, train states, the run log
+    # ------------------------------------------------------------------
+
+    def _setup(self, fresh: bool = True) -> None:
+        """The artifacts and checkpoint directories (the latter emptied on
+        a fresh run) and the run log with its `run_start` record."""
+        os.makedirs(self.artifacts_dir, exist_ok=True)
+        self.checkpointing_dir = osp.join(self.artifacts_dir, "checkpoints")
+        if fresh:
+            shutil.rmtree(self.checkpointing_dir, ignore_errors=True)
+        os.makedirs(self.checkpointing_dir, exist_ok=True)
+        if self.obs_runlog and self._runlog is None:
+            if isinstance(self.obs_runlog, str):
+                self._runlog = RunLog(self.obs_runlog,
+                                      max_bytes=self.obs_runlog_max_bytes)
+            else:
+                self._runlog = RunLog.create(
+                    self.artifacts_dir, max_bytes=self.obs_runlog_max_bytes)
+            self._runlog.write(
+                "run_start", trainer=type(self).__name__,
+                num_iterations=self.num_iterations, num_envs=self.num_envs,
+                rollout_steps=self.rollout_steps, rollout_engine="flat",
+                telemetry=self.obs_telemetry, memory=self.obs_memory,
+                seed=self.seed)
+
+    def _cleanup(self, state: TrainState) -> None:
+        """The final train state, always, and the run log's `run_end`."""
+        self.save_train_state(
+            state, osp.join(self.artifacts_dir, "train_state.msgpack"))
+        if self._runlog is not None:
+            self._runlog.close(iteration=state.iteration)
+            self._runlog = None
+        emit("\nTraining complete.")
+
+    def _checkpoint(self, i: int, best: dict[str, Any]) -> None:
+        """`checkpoints/<i+1>/model.msgpack` (the best parameters, the JAX
+        package's layout) and `state.json` (iteration, avg_num_jobs,
+        completed_job_count)."""
+        d = osp.join(self.checkpointing_dir, f"{i + 1}")
+        os.makedirs(d, exist_ok=True)
+        with open(osp.join(d, "model.msgpack"), "wb") as fp:
+            fp.write(to_bytes(best["params"]))
+        with open(osp.join(d, "state.json"), "w") as fp:
+            json.dump({k: v for k, v in best.items() if k != "params"}, fp)
+
+    def train_state_tree(self, state: TrainState) -> dict:
+        """The train state as nested dicts of numpy arrays: the parameters
+        in the JAX package's layout, `ClippedAdam`'s count (the learning
+        rate schedule's position) and torch Adam's per-parameter `step`,
+        `exp_avg` and `exp_avg_sq`, the rng key (uint32[2]), the
+        differential-returns window and the iteration."""
+        opt = state.opt_state
+        names = list(state.params)
+        moments: dict[str, dict] = {"step": {}, "exp_avg": {},
+                                    "exp_avg_sq": {}}
+        by_param = opt.opt.state
+        for name in names:
+            st = by_param.get(state.params[name])
+            if not st:
+                continue
+            for k in moments:
+                moments[k][name] = np.asarray(
+                    torch.as_tensor(st[k]).detach().cpu().numpy())
+        buf = None
+        if state.buf is not None:
+            buf = {"dt": state.buf.dt.cpu().numpy(),
+                   "r": state.buf.r.cpu().numpy(),
+                   "ptr": state.buf.ptr.cpu().numpy()}
+        return {
+            "params": params_to_flax(state.params),
+            "opt_state": {"count": int(opt.count), **moments},
+            "rng": state.rng.cpu().numpy().astype(np.uint32),
+            "buf": buf,
+            "iteration": int(state.iteration),
+        }
+
+    def _state_from_tree(self, tree: dict) -> TrainState:
+        """The TrainState a `train_state_tree` holds, the parameters
+        loaded into the scheduler's net and the moments onto its
+        device. Raises (ValueError, KeyError, TypeError) on a tree of
+        another shape, before anything is loaded."""
+        sd = params_from_flax(tree["params"])
+        own = dict(self.scheduler.net.named_parameters())
+        if set(sd) != set(own) or any(sd[k].shape != own[k].shape
+                                      for k in own):
+            raise ValueError("the parameters do not match the net")
+        ost = tree["opt_state"]
+        moments = {}
+        for i, name in enumerate(own):
+            if name in ost["exp_avg"]:
+                moments[i] = {
+                    "step": torch.tensor(np.asarray(ost["step"][name],
+                                                    np.float32)),
+                    "exp_avg": torch.from_numpy(np.asarray(
+                        ost["exp_avg"][name], np.float32)),
+                    "exp_avg_sq": torch.from_numpy(np.asarray(
+                        ost["exp_avg_sq"][name], np.float32)),
+                }
+        rng = np.asarray(tree["rng"], np.uint32)
+        if rng.shape != (2,):
+            raise ValueError(f"rng of shape {rng.shape}, not a threefry key")
+        buf = tree["buf"]
+        if (buf is None) != (not self.reward_buff_cap):
+            raise ValueError("the returns window does not match the config")
+        self.scheduler.load_params(sd)
+        state = self.init_state()
+        template = state.opt_state.opt.state_dict()
+        state.opt_state.load_state_dict({
+            "count": int(ost["count"]),
+            "opt": {"state": moments,
+                    "param_groups": template["param_groups"]},
+        })
+        state.rng = torch.from_numpy(rng.astype(np.int64)).to(self.device)
+        if buf is not None:
+            state.buf = AvgNumJobsBuffer(
+                dt=torch.from_numpy(np.asarray(buf["dt"], np.float32)).to(
+                    self.device),
+                r=torch.from_numpy(np.asarray(buf["r"], np.float32)).to(
+                    self.device),
+                ptr=torch.as_tensor(np.asarray(buf["ptr"]),
+                                    dtype=torch.int32, device=self.device))
+        state.iteration = int(tree["iteration"])
+        return state
+
+    def save_train_state(self, state: TrainState, path: str,
+                         keep: int | None = None) -> None:
+        """Atomic, digest-stamped, keep-last-K train-state write: the
+        state's bytes (`train_state_tree` through the port's codec) to a
+        tmp file, fsynced, then the earlier generations rotated (`path.1`
+        the previous one, up to `keep - 1`; a torn generation is dropped,
+        never promoted over an intact one) and `os.replace` into place,
+        with `path.meta.json` holding `prng_impl`, `sha256` and
+        `iteration`."""
+        keep = self.checkpoint_keep if keep is None else int(keep)
+        data = to_bytes(self.train_state_tree(state))
+        meta = {"prng_impl": PRNG_IMPL,
+                "sha256": hashlib.sha256(data).hexdigest(),
+                "iteration": int(state.iteration)}
+
+        def fsync_write(target: str, payload, mode: str) -> None:
+            tmp = target + ".tmp"
+            with open(tmp, mode) as fp:
+                fp.write(payload)
+                fp.flush()
+                os.fsync(fp.fileno())
+            os.replace(tmp, target)
+
+        for g in range(keep - 1, 0, -1):
+            src = path if g == 1 else f"{path}.{g - 1}"
+            if not osp.exists(src):
+                continue
+            if not _intact(src):
+                emit(f"[checkpoint] discarding torn generation {src} "
+                     "instead of rotating it over an intact one")
+                os.remove(src)
+                if osp.exists(src + ".meta.json"):
+                    os.remove(src + ".meta.json")
+                continue
+            os.replace(src, f"{path}.{g}")
+            if osp.exists(src + ".meta.json"):
+                os.replace(src + ".meta.json", f"{path}.{g}.meta.json")
+        fsync_write(path, data, "wb")
+        fsync_write(path + ".meta.json", json.dumps(meta), "w")
+
+    def load_train_state(self, path: str) -> TrainState:
+        """A verified load with fallback: each generation (`path`,
+        `path.1`, ...) is checked against its meta digest and decoded; a
+        torn or unreadable one is skipped (a console line and a runlog
+        `recovery` record name what was skipped). A `prng_impl` other
+        than the port's raises at once: that is the config, not a torn
+        file. Nothing is unpickled."""
+        candidates = [path] + [f"{path}.{g}"
+                               for g in range(1, max(self.checkpoint_keep, 2))]
+        errors: list[str] = []
+        for cand in candidates:
+            if not osp.exists(cand):
+                continue
+            digest = None
+            meta_path = cand + ".meta.json"
+            if osp.exists(meta_path):
+                with open(meta_path) as fp:
+                    meta = json.load(fp)
+                saved = meta.get("prng_impl", PRNG_IMPL)
+                if saved != PRNG_IMPL:
+                    raise ValueError(
+                        f"train state {cand} was saved under PRNG impl "
+                        f"{saved!r} but the port runs {PRNG_IMPL!r} (it "
+                        "has no fast_prng stream); resume it in the package "
+                        "that wrote it")
+                digest = meta.get("sha256")
+            with open(cand, "rb") as fp:
+                data = fp.read()
+            if digest is not None and (
+                    hashlib.sha256(data).hexdigest() != digest):
+                errors.append(f"{cand}: sha256 mismatch (torn write?)")
+                continue
+            try:
+                restored = self._state_from_tree(from_bytes(data))
+            except (ValueError, KeyError, TypeError) as e:
+                errors.append(f"{cand}: {e}")
+                continue
+            if errors:
+                emit(f"[checkpoint] fell back to {cand} — skipped: "
+                     + "; ".join(errors))
+                if self._runlog is not None:
+                    self._runlog.write("recovery",
+                                       action="checkpoint_fallback",
+                                       loaded=cand, skipped=errors)
+            return restored
+        raise ValueError(
+            f"could not restore {path}: no intact generation among "
+            f"{candidates} ({'; '.join(errors) or 'none found'})")
 
     def _rollout_stats(self, ro: Rollout) -> dict[str, float]:
         fs = ro.final_state
@@ -416,11 +804,29 @@ class Trainer(abc.ABC):
         }
 
 
+def _intact(gen: str) -> bool:
+    """Does a train-state generation match its meta digest? One without
+    a digest passes."""
+    meta_p = gen + ".meta.json"
+    if not osp.exists(meta_p):
+        return True
+    try:
+        with open(meta_p) as fp:
+            want = json.load(fp).get("sha256")
+        if want is None:
+            return True
+        with open(gen, "rb") as fp:
+            return hashlib.sha256(fp.read()).hexdigest() == want
+    except (OSError, ValueError):
+        return False
+
+
 def make_trainer(cfg: CfgType, device: str | torch.device = "cuda"
                  ) -> Trainer:
-    """String-keyed factory over `cfg["trainer"]["trainer_cls"]` (PPO).
-    The top-level `obs:`, `chaos:` and `parallel:` blocks are not ported:
-    their keys are named as ignored when the trainer starts."""
+    """String-keyed factory over `cfg["trainer"]["trainer_cls"]` (PPO),
+    with the top-level `health:` and `obs:` blocks. The `chaos:` and
+    `parallel:` blocks are not ported: their keys are named as ignored
+    when the trainer starts."""
     from .ppo import PPO
 
     registry = {"PPO": PPO}
@@ -428,8 +834,8 @@ def make_trainer(cfg: CfgType, device: str | torch.device = "cuda"
     if name not in registry:
         raise ValueError(f"'{name}' is not a valid trainer (the port has "
                          f"{sorted(registry)}).")
-    unported = [f"{blk}.{k}" for blk in ("obs", "chaos", "parallel")
+    unported = [f"{blk}.{k}" for blk in ("chaos", "parallel")
                 for k in (cfg.get(blk) or {})]
     return registry[name](cfg["agent"], cfg["env"], cfg["trainer"],
                           health_cfg=cfg.get("health"), device=device,
-                          unported=unported)
+                          unported=unported, obs_cfg=cfg.get("obs"))

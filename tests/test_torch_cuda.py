@@ -7,7 +7,13 @@ gradient tensor against the plain backward evaluated in float64 (at
 these random weights and 1,603 jobs the kernel and the float32 plain
 backward disagreed, and the float64 evaluation sided with the kernel)
 and bit-equal from run to run, up to [1024, 200] jobs half of them dead;
-an all-dead batch gives exactly 0. Run
+an all-dead batch gives exactly 0. Model files and train states on the
+card: the JAX package's trained `model_tpu.msgpack` loaded through the
+port's codec gives the CPU's parameters and, on observations of a
+held-out episode, the CPU's scores within 1e-4 relative to their scale;
+a train state saved by a card trainer after one iteration loads into a
+fresh card trainer with every byte equal and Adam's moments on the
+card. Run
 there with `python -m pytest --noconftest -m cuda tests/test_torch_cuda.py`
 (`--noconftest`: the suite's conftest imports JAX, which the card's
 machine need not have)."""
@@ -242,3 +248,64 @@ def test_encoder_function_gradients_on_card_match_cpu(card):
         (h * g.to(dev)).sum().backward()
         grads[dev] = [p.grad.cpu() for p in encoder_params(w)]
     assert _grad_err(grads["cuda"], grads["cpu"]) <= 1.0
+
+
+FLAGSHIP_AGENT = dict(
+    embed_dim=16,
+    gnn_mlp_kwargs={"hid_dims": [32, 16], "act_cls": "LeakyReLU",
+                    "act_kwargs": {"negative_slope": 0.2}},
+    policy_mlp_kwargs={"hid_dims": [64, 64], "act_cls": "Tanh"},
+)
+
+
+def test_model_file_loads_onto_the_card(card):
+    import os
+
+    from sparksched_tpu_torch import evaluate as ev
+    from sparksched_tpu_torch.schedulers import DecimaScheduler
+    from sparksched_tpu_torch.trainers.rollout import stored_to_observation
+
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "models", "decima", "model_tpu.msgpack")
+    on_card = DecimaScheduler(10, state_dict_path=path, device=card,
+                              **FLAGSHIP_AGENT)
+    on_cpu = DecimaScheduler(10, state_dict_path=path, device="cpu",
+                             **FLAGSHIP_AGENT)
+    for k, v in on_cpu.params.items():
+        assert on_card.params[k].device.type == "cuda"
+        assert torch.equal(on_card.params[k].cpu(), v), k
+    params, bank = ev.eval_env("cpu")
+    res = ev.evaluate(path, seeds=[ev.HELD_OUT_BASE], steps=40, device="cpu")
+    ro = res["rollouts"]["decima"]
+    so = ro.obs.map(lambda a: a[ro.valid])
+    obs = stored_to_observation(bank, so)
+    with torch.no_grad():
+        want = on_cpu.score(on_cpu.features(obs))
+        got = on_card.score(on_card.features(
+            type(obs)(**{k: v.to(card) for k, v in vars(obs).items()})))
+    for a, b in zip(got, want):
+        assert float((a.cpu() - b).abs().max()) <= 1e-4 * float(
+            b.abs().max()) + 1e-6
+
+
+def test_train_state_round_trip_on_the_card(card, tmp_path):
+    from sparksched_tpu_torch.serialization import to_bytes
+    from sparksched_tpu_torch.trainers import make_trainer
+
+    from ._torch_parity import mini_train_cfg
+
+    cfg = mini_train_cfg(num_iterations=1, rollout_steps=16,
+                         num_sequences=1, artifacts_dir=str(tmp_path),
+                         reward_buff_cap=100)
+    del cfg["trainer"]["beta_discount"]
+    trainer = make_trainer(cfg, device=card)
+    state = trainer.train()
+    fresh = make_trainer(cfg, device=card)
+    restored = fresh.load_train_state(str(tmp_path / "train_state.msgpack"))
+    assert restored.iteration == 1
+    assert (to_bytes(fresh.train_state_tree(restored))
+            == to_bytes(trainer.train_state_tree(state)))
+    moments = restored.opt_state.opt.state
+    assert moments and all(st["exp_avg"].device.type == "cuda"
+                           for st in moments.values())
+    assert restored.buf.dt.device.type == "cuda"

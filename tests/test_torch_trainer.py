@@ -33,7 +33,7 @@ from sparksched_tpu_torch.trainers import make_trainer
 from ._torch_parity import LINEAR_ADAM, assert_update_close, mini_train_cfg
 
 
-def _two_iterations(cfg: dict, linear: bool) -> None:
+def _two_iterations(cfg: dict, linear: bool, art) -> None:
     jt = jax_make_trainer(cfg)
     jt.scheduler.params = jax.tree_util.tree_map(lambda a: a * 0.3,
                                                  jt.scheduler.params)
@@ -49,6 +49,7 @@ def _two_iterations(cfg: dict, linear: bool) -> None:
         jst = st.replace(iteration=st.iteration + 1)
         jax_iters.append((jst.params, np.asarray(ro.valid).sum(-1)))
 
+    cfg["trainer"]["artifacts_dir"] = str(art)
     tt = make_trainer(cfg, device="cpu")
     tt.scheduler.load_params(carried)
     p0 = {k: torch.as_tensor(v) for k, v in carried.items()}
@@ -67,19 +68,20 @@ def _two_iterations(cfg: dict, linear: bool) -> None:
         assert_update_close(want, tp, p0, steps, lr, linear=linear)
 
 
-def test_two_iterations_match_jax_trainer():
-    _two_iterations(mini_train_cfg(), linear=False)
+def test_two_iterations_match_jax_trainer(tmp_path):
+    _two_iterations(mini_train_cfg(), linear=False, art=tmp_path)
 
 
-def test_two_iterations_match_jax_trainer_linear_adam():
+def test_two_iterations_match_jax_trainer_linear_adam(tmp_path):
     """The same at the linear Adam, where every parameter's change, the
     policy heads' too, is held to the reference's change."""
-    _two_iterations(mini_train_cfg(opt_kwargs=LINEAR_ADAM), linear=True)
+    _two_iterations(mini_train_cfg(opt_kwargs=LINEAR_ADAM), linear=True,
+                    art=tmp_path)
 
 
 def test_cli_trains_on_cpu_and_asks_for_the_card(tmp_path, capsys):
     cfg = mini_train_cfg(num_iterations=1, rollout_steps=12,
-                         num_sequences=1)
+                         num_sequences=1, artifacts_dir=str(tmp_path / "art"))
     path = tmp_path / "tiny.yaml"
     path.write_text(yaml.safe_dump(cfg))
     train_cli.main(["-f", str(path), "--device", "cpu"])
@@ -89,7 +91,7 @@ def test_cli_trains_on_cpu_and_asks_for_the_card(tmp_path, capsys):
             train_cli.main(["-f", str(path)])
 
 
-def test_health_retry_rolls_back_and_reseeds(monkeypatch):
+def test_health_retry_rolls_back_and_reseeds(monkeypatch, tmp_path):
     """A rollout whose health mask trips a retryable bit: the iteration
     is rolled back to the state before it (parameters and Adam), run
     again on `fold_in(fold_in(PRNGKey(seed), i), 90_000 + attempt)`
@@ -98,7 +100,7 @@ def test_health_retry_rolls_back_and_reseeds(monkeypatch):
     from sparksched_tpu_torch.env.health import H_NONFINITE_REWARD
 
     cfg = mini_train_cfg(num_iterations=1, rollout_steps=12,
-                         num_sequences=1)
+                         num_sequences=1, artifacts_dir=str(tmp_path))
     cfg["health"] = {"enabled": True, "backoff_seconds": 0.0,
                      "max_retries": 2}
     tt = make_trainer(cfg, device="cpu")
