@@ -45,7 +45,15 @@ against the plain float64 backward on its own branches reported beside),
 and the same bits on a rerun at the timed chunks.
 
 Phases, in order: `build`, `kernel_vs_plain`, `serve` (4 x 64 decisions
-at SERVE_KNOBS), `serve_knobs_off` (2 x 64), `card_vs_cpu` (4 sessions x
+at SERVE_KNOBS), `serve_knobs_off` (2 x 64), `serve_front` (the config's
+documented `serve:` block, 64 sessions over 32 device slots in 2 groups,
+built by `store_from_config`, driven by `run_open_loop` at 40 requests/s
+from 64 tenants, 480 requests through each of the continuous, pipelined
+and linger fronts; then the page round trip on the card and two
+closed-loop replays held bit-equal: paged grouped against unpaged
+one-group, pipelined against synchronous), `serve_http` (a `ServeServer`
+on 127.0.0.1 in front of the paged store; a `ServeClient`'s 8 x 16
+decisions bit-equal to an in-process store's), `card_vs_cpu` (4 sessions x
 16 decisions), `run_flat_fair` (16 lanes x 128 groups, two lanes
 replayed on the CPU), `train` (the main path; a `train_iteration` line
 per iteration), `train_update_profile` (torch.profiler over an update:
@@ -53,7 +61,7 @@ both kernels recorded), `kernel_vs_plain_train` (the forward at
 training's shapes), `bwd_kernel_vs_plain`, `kernel_alone`,
 `train_parity` (one collection per device, updated at the config's
 Adam and at a linear Adam), `train_resume` (2 lanes, T = 64: 2
-iterations against 1 + a resume), `eval_trained` (8 held-out seeds on
+iterations against 1 + a resume), `eval_trained` (4 held-out seeds on
 the card, 2 of them on the CPU; the forward kernel at trained weights
 against the float64 plain forward) and `telemetry_cost` (16 lanes x 32
 rows, telemetry off and on: launches per row and rows per second).
@@ -117,7 +125,9 @@ RESUME_LANES, RESUME_STEPS = 2, 64  # 2 iterations against 1 + resume 1
 # held-out seeds of `python -m sparksched_tpu_torch.evaluate` (full
 # 600-decision episodes), the first EVAL_CPU_SEEDS replayed on the CPU
 EVAL_MODEL = os.path.join(HERE, "models", "decima", "model_tpu.msgpack")
-EVAL_SEEDS, EVAL_CPU_SEEDS = 8, 2
+# (4 seeds, cut from 8 to keep the whole run near 900 s with the serving
+# phases added)
+EVAL_SEEDS, EVAL_CPU_SEEDS = 4, 2
 # telemetry's cost: lanes and rows of the flagship collection, off and
 # on, and the rows whose launches torch.profiler counts (its processing
 # of ~25k records a row stalls a window much longer than this)
@@ -568,6 +578,321 @@ def phase_serve(params, bank, sched, name: str, knobs, rounds: int,
     }
     emit(out)
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 3b: serving as the config deploys it (the paged, grouped store,
+# the three fronts under open-loop load) and the HTTP front
+# ---------------------------------------------------------------------------
+
+# the config's documented `serve:` block (commented in
+# config/decima_tpch.yaml): capacity 64, max_batch 8, hot_capacity 32
+# (half the sessions paged to host RAM), 2 slot groups, pager-aware
+# admission; the front knobs per run below
+SERVE_BLOCK = {"capacity": CAPACITY, "max_batch": MAX_BATCH,
+               "hot_capacity": 32, "groups": 2, "pager_aware": True,
+               "deterministic": True, "donate": True, "seed": 0}
+SERVE_FRONTS = {
+    "continuous": {"front": "continuous", "metrics": True, "trace": True},
+    "pipelined": {"front": "pipelined", "depth": 2, "prefetch": True},
+    "linger": {"front": "linger", "linger_ms": 2},
+}
+# open-loop load: 64 tenants, Poisson arrivals at 40 requests/s (about
+# 45% of the synchronous decide_batch's 88.75 decisions/s on the card),
+# 480 requests per front
+LOAD_TENANTS, LOAD_RPS, LOAD_REQUESTS = 64, 40.0, 480
+REPLAY_ROUNDS = 2  # closed-loop replay: rounds over the 64 sessions
+HTTP_SESSIONS, HTTP_DECISIONS = 8, 16
+
+
+def _check_no_plain_and_launched(name: str, launches: int, plain: int,
+                                 device: str) -> None:
+    if device != "cuda":  # a CPU rehearsal runs the plain version
+        return
+    if plain:
+        raise AssertionError(f"{name}: {plain} plain encoder calls")
+    if launches <= 0:
+        raise AssertionError(f"{name}: no decima_node_encoder launch")
+
+
+def _slot_bytes(ls, lane: int) -> list:
+    from sparksched_tpu_torch.env.flat_loop import leaves
+
+    return [(n, str(v.dtype), v[lane].cpu().numpy().tobytes())
+            for n, v in leaves(ls)]
+
+
+def _page_round_trip(store) -> dict:
+    """Page a hot session out and back in on the card, once through the
+    pinned host copy (drained first) and once device-side (paged back in
+    before the drain): the slot must come back bit for bit on every
+    leaf."""
+    out = {}
+    for how in ("host", "device"):
+        sid = next(s for s in range(store.capacity) if store.is_hot(s))
+        slot = int(store._slot_of[sid])
+        g, local = divmod(slot, store.group_slots)
+        before = _slot_bytes(store._stores[g], local)
+        store._page_out(slot)
+        store._free_slots[g].append(slot)
+        if how == "host":
+            store._drain_writebacks(wait=True)
+            if store._cold[sid].dev is not None:
+                raise AssertionError("page-out kept its device copy")
+        [back] = store._ensure_hot([sid])
+        g, local = divmod(back, store.group_slots)
+        if _slot_bytes(store._stores[g], local) != before:
+            raise AssertionError(f"page round trip ({how}) changed "
+                                 f"session {sid}")
+        out[how] = {"session": sid, "leaves": len(before),
+                    "bytes": sum(len(b) for _, _, b in before)}
+    return out
+
+
+def _replay_batches(store) -> list:
+    """The fixed admission sequence of the replays: REPLAY_ROUNDS rounds
+    over every group's sessions in chunks of max_batch, the groups
+    taking turns (so consecutive batches live in different groups)."""
+    chunks = []
+    for g in range(store.groups):
+        sids = [s for s in range(store.capacity)
+                if store.session_group(s) == g]
+        chunks.append([sids[i:i + store.max_batch]
+                       for i in range(0, len(sids), store.max_batch)])
+    one = [b for turn in zip(*chunks) for b in turn]
+    return one * REPLAY_ROUNDS
+
+
+def phase_serve_front(params, bank, sched, device: str = "cuda") -> dict:
+    """The `serve:` block's stores built by `store_from_config`, each
+    driven by `run_open_loop` through one front (continuous with metrics
+    and tracing, pipelined at depth 2 with prefetch, linger at 2 ms);
+    then the checks: every request resolved and reconciled, health 0,
+    the kernel launched and no plain version called, the page round
+    trip bit-exact, and the closed-loop replays (paged grouped against
+    unpaged one-group; pipelined against synchronous) bit-equal."""
+    import numpy as np
+    import torch
+
+    from sparksched_tpu_torch.env.flat_loop import take_slot
+    from sparksched_tpu_torch.env.observe import observe
+    from sparksched_tpu_torch.kernels.decima_encoder import (
+        decima_node_encoder,
+        decima_node_encoder_ref,
+    )
+    from sparksched_tpu_torch.obs.metrics import hist_summary
+    from sparksched_tpu_torch.schedulers.decima import compact_features
+    from sparksched_tpu_torch.serve import (
+        SessionStore,
+        front_from_config,
+        generate_arrivals,
+        run_open_loop,
+        store_from_config,
+    )
+
+    t_phase = time.perf_counter()
+    arrivals = generate_arrivals(LOAD_RPS, LOAD_REQUESTS, LOAD_TENANTS,
+                                 seed=SEED)
+    stores, runs = {}, {}
+    for name, knobs in SERVE_FRONTS.items():
+        cfg = SERVE_BLOCK | knobs
+        stores[name] = store_from_config(cfg, params, bank, sched,
+                                         device=device)
+        # the front takes the store's registry and the trace switch as
+        # overrides (`front_from_config` reads neither from the block)
+        stores[name]._front = front_from_config(
+            cfg, stores[name], metrics=stores[name].metrics,
+            trace=bool(cfg.get("trace")))
+    if device == "cuda":
+        torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t_phase
+    decima_node_encoder.launches = 0  # this path's launches only
+    with PlainCalls() as plain:
+        for name, store in stores.items():
+            t = time.perf_counter()
+            runs[name] = run_open_loop(store, store._front, arrivals,
+                                       session_seed=20_000)
+            runs[name]["seconds"] = time.perf_counter() - t
+    launches = decima_node_encoder.launches
+    _check_no_plain_and_launched("serve_front", launches, plain.n, device)
+    rows = {}
+    for name, out in runs.items():
+        st = stores[name]
+        if not (out["requests"] == LOAD_REQUESTS
+                == out["completed"] + out["capacity_rejections"]
+                and out["errors"] == 0):
+            raise AssertionError(f"serve_front {name}: requests do not "
+                                 f"reconcile: {out['reconcile']}")
+        if st.stats["serve_quarantines"]:
+            raise AssertionError(f"serve_front {name}: "
+                                 f"{st.stats['serve_quarantines']} "
+                                 "quarantines")
+        lat = np.array(out["samples_ms"])
+        rows[name] = {
+            "front": out["front"], "requests": out["requests"],
+            "completed": out["completed"],
+            "capacity_rejections": out["capacity_rejections"],
+            "offered_rps": out["offered_rps"],
+            "achieved_rps": out["achieved_rps"],
+            "latency_p50_ms": float(np.percentile(lat, 50)),
+            "latency_p99_ms": float(np.percentile(lat, 99)),
+            "hist": hist_summary(out["hist"]),
+            "makespan_s": out["makespan_s"],
+            "session_rotations": out["session_rotations"],
+            "page_ins": st.stats["serve_page_ins"],
+            "page_outs": st.stats["serve_page_outs"],
+            "prefetches": st.stats["serve_prefetches"],
+            "batch_calls": st.stats["serve_batch_calls"],
+            "decisions": st.stats["serve_decisions"],
+            "inflight_peak": st.stats["serve_inflight_peak"],
+            "wall_split": dict(st.wall_split),
+            "seconds": out["seconds"],
+        }
+    cont = stores["continuous"]
+    rows["continuous"]["metrics_counters"] = dict(cont.metrics.counters)
+    crit = stores["continuous"]._front.critpath
+    rows["continuous"]["critpath"] = crit.snapshot() if crit else None
+    # the kernel against its plain version on this path's inputs: the
+    # first MAX_BATCH hot slots of the continuous run's group 0
+    st0 = cont._stores[0]
+    lanes = take_slot(st0, torch.arange(MAX_BATCH, device=st0.mode.device))
+    f_full = sched.features(observe(params, lanes.env))
+    f_k, _ = compact_features(f_full, sched.job_bucket)
+    net = sched.net
+    errs = {}
+    for nm, f in (("compact", f_k), ("full", f_full)):
+        ins = (f.x, f.adj, f.node_level, f.node_mask)
+        args = (net.encoder_weights(), net.num_levels, net.slope)
+        out = decima_node_encoder(*ins, *args)
+        ref = decima_node_encoder_ref(*ins, *args)
+        errs[nm] = {"shape": list(f.x.shape),
+                    "max_abs_err": float((out - ref).abs().max())}
+        if not errs[nm]["max_abs_err"] <= TOL:
+            raise AssertionError(f"serve_front kernel vs plain ({nm}): "
+                                 f"{errs[nm]}")
+    # closed-loop replays of one fixed admission sequence
+    paged = store_from_config(SERVE_BLOCK, params, bank, sched,
+                              device=device)
+    pipe = store_from_config(SERVE_BLOCK, params, bank, sched,
+                             device=device)
+    flat = SessionStore(params, bank, sched, capacity=CAPACITY,
+                        max_batch=MAX_BATCH, seed=0, device=device)
+    for st in (paged, pipe, flat):
+        sids = [st.create(seed=30_000 + i) for i in range(CAPACITY)]
+        if sids != list(range(CAPACITY)):
+            raise AssertionError("replay stores numbered sessions apart")
+    round_trip = _page_round_trip(paged)
+    flat._calls = pipe._calls = paged._calls
+    batches = _replay_batches(paged)
+    got = [r.to_dict() for b in batches for r in paged.decide_batch(b)]
+    want = [r.to_dict() for b in batches for r in flat.decide_batch(b)]
+    if got != want:
+        raise AssertionError("replay: the paged grouped store's decisions "
+                             "differ from the unpaged one-group store's")
+    piped = []
+    for i in range(0, len(batches), pipe.groups):  # one batch per group
+        for b in batches[i:i + pipe.groups]:
+            pipe.dispatch_batch(b)
+        for call in pipe.harvest(wait=True):
+            piped += [r.to_dict() for r in call.results]
+    if piped != got:
+        raise AssertionError("replay: the pipelined window's decisions "
+                             "differ from the synchronous store's")
+    for st in (paged, pipe, flat):
+        if st.stats["serve_quarantines"]:
+            raise AssertionError("replay: a session was quarantined")
+    out = {"phase": "serve_front", "block": SERVE_BLOCK,
+           "fronts": SERVE_FRONTS, "tenants": LOAD_TENANTS,
+           "offered_rps": LOAD_RPS, "requests_per_front": LOAD_REQUESTS,
+           "runs": rows, "encoder_launches": launches,
+           "plain_encoder_calls": plain.n, "kernel_vs_plain": errs,
+           "tolerance": TOL, "page_round_trip": round_trip,
+           "replay": {"batches": len(batches), "decisions": len(got),
+                      "paged_grouped_eq_unpaged": True,
+                      "pipelined_eq_synchronous": True,
+                      "decided": sum(d["decided"] for d in got),
+                      "paged_page_ins": paged.stats["serve_page_ins"],
+                      "pipe_inflight_peak":
+                          pipe.stats["serve_inflight_peak"]},
+           "hot_set_advice": (paged.hot_set_advice(candidates=(32, 64, 1024))
+                              if device == "cuda" else None),
+           "setup_s": setup_s, "seconds": time.perf_counter() - t_phase,
+           "card": card_line() if device == "cuda" else "cpu"}
+    emit(out)
+    return {"decima_node_encoder": launches,
+            "max_abs_err": max(e["max_abs_err"] for e in errs.values())}
+
+
+def phase_serve_http(params, bank, sched, device: str = "cuda") -> dict:
+    """A `ServeServer` on 127.0.0.1 (an ephemeral port) in front of the
+    `serve:` block's paged store and continuous front; a `ServeClient`
+    creates HTTP_SESSIONS sessions and asks HTTP_DECISIONS decisions of
+    each, one request at a time, and every decision must equal an
+    in-process twin store's at the same seeds bit for bit; `/healthz`
+    and `/metrics` must answer."""
+    from sparksched_tpu_torch.kernels.decima_encoder import decima_node_encoder
+    from sparksched_tpu_torch.obs.metrics import MetricsRegistry
+    from sparksched_tpu_torch.serve import front_from_config, store_from_config
+    from sparksched_tpu_torch.serve.server import ServeClient, ServeServer
+
+    t_phase = time.perf_counter()
+    cfg = SERVE_BLOCK | {"front": "continuous", "metrics": True}
+    store = store_from_config(cfg, params, bank, sched, device=device)
+    twin = store_from_config(SERVE_BLOCK, params, bank, sched, device=device)
+    server = ServeServer(store, front_from_config(cfg, store,
+                                                 metrics=store.metrics),
+                         host="127.0.0.1", port=0,
+                         metrics=MetricsRegistry()).start()
+    try:
+        with ServeClient("127.0.0.1", server.port) as client:
+            decima_node_encoder.launches = 0  # this path's launches only
+            with PlainCalls() as plain:
+                t = time.perf_counter()
+                sids = [client.create(seed=40_000 + i, tenant=i)
+                        for i in range(HTTP_SESSIONS)]
+                wire = []
+                for _ in range(HTTP_DECISIONS):
+                    for sid in sids:
+                        tk = client.submit(sid)
+                        client.flush()
+                        if tk.error is not None:
+                            raise AssertionError(f"serve_http: {tk.error}")
+                        wire.append(tk.result.to_dict())
+                wire_s = time.perf_counter() - t
+            launches = decima_node_encoder.launches
+            _check_no_plain_and_launched("serve_http", launches, plain.n,
+                                         device)
+            health = client.healthz()
+            metrics = client.metrics_text()
+            for sid in sids:
+                client.close(sid)
+    finally:
+        server.stop()
+    if [twin.create(seed=40_000 + i)
+            for i in range(HTTP_SESSIONS)] != sids:
+        raise AssertionError("serve_http: session ids differ")
+    local = [twin.decide(sid).to_dict()
+             for _ in range(HTTP_DECISIONS) for sid in sids]
+    bad = next((i for i, (a, b) in enumerate(zip(wire, local))
+                if {k: a[k] for k in b} != b), None)
+    if bad is not None or len(wire) != len(local):
+        raise AssertionError(f"serve_http: decision {bad} differs from "
+                             "the in-process store's")
+    if not (health.get("ok") and "serve_http_requests" in metrics
+            and "serve_requests_total" in metrics):
+        raise AssertionError("serve_http: /healthz or /metrics")
+    if any(d["health_mask"] for d in wire):
+        raise AssertionError("serve_http: a decision tripped health")
+    out = {"phase": "serve_http", "sessions": HTTP_SESSIONS,
+           "decisions": len(wire), "equal_in_process": True,
+           "decided": sum(d["decided"] for d in wire),
+           "wire_decisions_per_s": len(wire) / wire_s,
+           "healthz": health, "metrics_bytes": len(metrics),
+           "encoder_launches": launches, "plain_encoder_calls": plain.n,
+           "seconds": time.perf_counter() - t_phase,
+           "card": card_line() if device == "cuda" else "cpu"}
+    emit(out)
+    return {"decima_node_encoder": launches}
 
 
 # ---------------------------------------------------------------------------
@@ -1687,6 +2012,8 @@ def main() -> int:
         phase_serve(params, bank, sched, "serve", None, ROUNDS)
         phase_serve(params, bank, sched, "serve_knobs_off", KNOBS_OFF,
                     ROUNDS_OFF)
+        front = phase_serve_front(params, bank, sched)
+        http = phase_serve_http(params, bank, sched)
         phase_parity(agent, sched)
         phase_run_flat()
         train = phase_train()
@@ -1696,7 +2023,8 @@ def main() -> int:
         bwd, bwd_err_max = phase_bwd_kernel(tsched, checks, chunks)
         phase_kernel_alone(cases, calls, tsched, chunks[CHUNK_TIMED], bwd)
         phase_train_parity(parity_helpers())
-        paths = {"train": train["launches"],
+        paths = {"serve_front": front, "serve_http": http,
+                 "train": train["launches"],
                  "train_resume": phase_train_resume(),
                  "eval_trained": phase_eval_trained()}
         phase_telemetry_cost()
@@ -1718,7 +2046,8 @@ def main() -> int:
         "launches": train["launches"]["decima_node_encoder"],
         "launches_by_path": {p: n["decima_node_encoder"]
                              for p, n in paths.items()},
-        "max_abs_err": max(c["max_abs_err"] for c in cases.values()),
+        "max_abs_err": max([c["max_abs_err"] for c in cases.values()]
+                           + [front["max_abs_err"]]),
         "ms": fwd["ms"],
         "plain_ms": fwd["plain_ms"],
         "bound_ms": fwd["bound_ms"],

@@ -114,3 +114,40 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r}")
     return dev
+
+
+# the top-level `serve:` YAML block's keys, the JAX package's surface:
+# `serve/session.py:store_from_config`, `front_from_config` and
+# `serve/server.py:server_from_config` fail on any other key, and on a
+# key whose feature the port has not ported yet
+SERVE_KEYS = frozenset({
+    "capacity",  # sessions the store admits (one live cluster per tenant)
+    "max_batch",  # batch width K of the batched serve program
+    "linger_ms",  # bounded linger window (the `front: linger` partner)
+    "deterministic",  # greedy serving (default True)
+    "donate",  # in-place slot updates (the port's only layout)
+    "seed",  # base key for session resets and sampling
+    "trace",  # per-request span stamps + run-log `trace` records
+    "metrics",  # attach an obs.metrics.MetricsRegistry to the store
+    "front",  # batching front: continuous (default) | pipelined | linger
+    "hot_capacity",  # device slots; < capacity pages idle sessions to host
+    "shard_dp",  # shard the store over a dp mesh (not ported)
+    "record",  # per-decision trajectory records (not ported)
+    "pager_aware",  # continuous front: prefer hot sessions in batches
+    "ring",  # device-resident trajectory ring depth (not ported)
+    "ring_drain",  # the ring's drain cadence (not ported)
+    "groups",  # slot groups (the in-flight window's width)
+    "depth",  # `front: pipelined` in-flight window depth (default: groups)
+    "harvester",  # background thread materializing outputs
+    "prefetch",  # pipelined front: page predicted-next sessions ahead
+    "host",  # HTTP front bind address (default 127.0.0.1)
+    "port",  # HTTP front port (0 = ephemeral, reported back)
+    "replicas",  # serve-fleet width behind a router (not ported)
+    "quota_sessions",  # per-tenant live-session quota (0 = unlimited)
+    "quota_inflight",  # per-tenant outstanding-decide quota (0 = unlimited)
+    "collect",  # fleet collector (not ported)
+    "collect_period_s",  # its scrape period (not ported)
+    "slo",  # the burn-rate SLO block (not ported)
+    "attribution",  # critical-path analyzer on the front (default: trace)
+    "hostprof",  # sampling host profiler (not ported)
+})

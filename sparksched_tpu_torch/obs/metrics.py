@@ -1,0 +1,448 @@
+"""Streaming serving metrics: log-bucketed histograms and a small
+counter/gauge/histogram registry (counterpart of
+`sparksched_tpu/obs/metrics.py`; host-only code, copied).
+
+`StreamingHistogram` keeps geometric (log-spaced) buckets, so any
+quantile is recoverable from O(buckets) integers with a bounded
+RELATIVE error (half a bucket width, ~6% at the default growth), and
+two histograms merge by adding counts. Count / sum / min / max are
+exact.
+
+`MetricsRegistry` is the instrument panel the serving front writes
+into: monotone counters (flush reasons, quarantines, page-ins and
+page-outs, capacity rejections), gauges and named histograms (queue
+depth, batch occupancy, waits, per-span latencies). Exporters:
+`to_prometheus()` (the text exposition `/metrics` serves) and
+`snapshot()` (a JSON-safe dict for `RunLog.metrics`). One
+registry-wide lock makes it safe to bump from the serve pump and the
+HTTP client threads while it is scraped.
+
+`percentile_block` (exact sample percentiles) and `hist_summary` (the
+O(buckets) companion) are the latency blocks the serve summaries
+stamp; `interleaved_ab` and `paired_ab_pct` are the A/B protocols an
+instrumentation-overhead claim is measured with.
+"""
+
+from __future__ import annotations
+
+import math
+import threading
+from typing import Any, Iterable
+
+# default bucket geometry: growth 1.12 spans 1e-4 .. 1e7 (ms-scale
+# latencies, but unit-agnostic) in ~224 buckets; max relative
+# quantile error is half a bucket, (sqrt(1.12)-1) ~= 5.8%
+DEFAULT_LO = 1e-4
+DEFAULT_HI = 1e7
+DEFAULT_GROWTH = 1.12
+
+PERCENTILE_KEYS = ("p50", "p90", "p99", "p999")
+_QS = {"p50": 50.0, "p90": 90.0, "p99": 99.0, "p999": 99.9}
+
+
+class StreamingHistogram:
+    """Mergeable log-bucketed histogram: O(buckets) memory regardless
+    of sample count, quantiles within half a bucket of relative error,
+    exact count/sum/min/max. Values <= 0 or < `lo` land in the
+    underflow bucket (reported as `lo`), values >= `hi` in overflow
+    (reported as the observed max)."""
+
+    __slots__ = ("lo", "hi", "growth", "_log_growth", "n", "counts",
+                 "count", "total", "min", "max")
+
+    def __init__(self, lo: float = DEFAULT_LO, hi: float = DEFAULT_HI,
+                 growth: float = DEFAULT_GROWTH) -> None:
+        if not (0 < lo < hi and growth > 1.0):
+            raise ValueError(
+                f"need 0 < lo < hi and growth > 1, got lo={lo} "
+                f"hi={hi} growth={growth}"
+            )
+        self.lo = float(lo)
+        self.hi = float(hi)
+        self.growth = float(growth)
+        self._log_growth = math.log(self.growth)
+        self.n = int(math.ceil(
+            math.log(self.hi / self.lo) / self._log_growth
+        ))
+        # index 0 = underflow, 1..n = log buckets, n+1 = overflow
+        self.counts = [0] * (self.n + 2)
+        self.count = 0
+        self.total = 0.0
+        self.min = math.inf
+        self.max = -math.inf
+
+    # -- ingest --------------------------------------------------------
+
+    def _index(self, v: float) -> int:
+        if v < self.lo:
+            return 0
+        if v >= self.hi:
+            return self.n + 1
+        return 1 + int(math.log(v / self.lo) / self._log_growth)
+
+    def add(self, v: float) -> None:
+        v = float(v)
+        self.counts[self._index(v)] += 1
+        self.count += 1
+        self.total += v
+        if v < self.min:
+            self.min = v
+        if v > self.max:
+            self.max = v
+
+    def add_many(self, values: Iterable[float]) -> None:
+        for v in values:
+            self.add(v)
+
+    def merge(self, other: "StreamingHistogram") -> "StreamingHistogram":
+        """Add `other`'s counts into self (same bucket geometry only —
+        merging differently-bucketed histograms would silently shift
+        quantiles)."""
+        if (self.lo, self.hi, self.growth) != (
+                other.lo, other.hi, other.growth):
+            raise ValueError(
+                "cannot merge histograms with different bucket "
+                f"geometry: {(self.lo, self.hi, self.growth)} vs "
+                f"{(other.lo, other.hi, other.growth)}"
+            )
+        for i, c in enumerate(other.counts):
+            self.counts[i] += c
+        self.count += other.count
+        self.total += other.total
+        self.min = min(self.min, other.min)
+        self.max = max(self.max, other.max)
+        return self
+
+    def copy(self) -> "StreamingHistogram":
+        """Independent snapshot with the same geometry and counts —
+        what the fleet collector stores per scrape so `delta` can
+        recover a window's distribution later."""
+        h = StreamingHistogram(self.lo, self.hi, self.growth)
+        h.counts = list(self.counts)
+        h.count = self.count
+        h.total = self.total
+        h.min = self.min
+        h.max = self.max
+        return h
+
+    def delta(self, prev: "StreamingHistogram | None") -> "StreamingHistogram":
+        """Windowed view: the histogram of samples added AFTER `prev`
+        was snapshotted (per-bucket count subtraction, clamped at 0 so
+        a reset/rolled counter degrades to the full cumulative view
+        rather than going negative). min/max of the window are not
+        recoverable from cumulative extremes, so the window's extremes
+        are estimated from its own nonzero bucket edges, clamped into
+        the cumulative [min, max]."""
+        if prev is None:
+            return self.copy()
+        if (self.lo, self.hi, self.growth) != (
+                prev.lo, prev.hi, prev.growth):
+            raise ValueError(
+                "cannot delta histograms with different bucket "
+                f"geometry: {(self.lo, self.hi, self.growth)} vs "
+                f"{(prev.lo, prev.hi, prev.growth)}"
+            )
+        h = StreamingHistogram(self.lo, self.hi, self.growth)
+        h.counts = [max(0, a - b)
+                    for a, b in zip(self.counts, prev.counts)]
+        h.count = sum(h.counts)
+        h.total = max(0.0, self.total - prev.total)
+        if h.count:
+            nz = [i for i, c in enumerate(h.counts) if c]
+            lo_i, hi_i = nz[0], nz[-1]
+            wmin = self.lo if lo_i == 0 else h._edge(lo_i)
+            wmax = self.max if hi_i == self.n + 1 else (
+                h._edge(hi_i) * self.growth
+            )
+            h.min = min(max(wmin, self.min), self.max)
+            h.max = min(max(wmax, self.min), self.max)
+        return h
+
+    # -- read ----------------------------------------------------------
+
+    def _edge(self, i: int) -> float:
+        """Lower edge of log bucket i (1-based)."""
+        return self.lo * self.growth ** (i - 1)
+
+    def quantile(self, q: float) -> float:
+        """Approximate q-quantile (q in [0, 1]): geometric midpoint of
+        the bucket holding the rank, clamped to [min, max] observed."""
+        if self.count == 0:
+            return 0.0
+        rank = max(1, int(math.ceil(q * self.count)))
+        cum = 0
+        for i, c in enumerate(self.counts):
+            cum += c
+            if cum >= rank:
+                if i == 0:
+                    est = self.lo
+                elif i == self.n + 1:
+                    est = self.max
+                else:
+                    est = self._edge(i) * math.sqrt(self.growth)
+                return min(max(est, self.min), self.max)
+        return self.max
+
+    def count_above(self, bound: float) -> int:
+        """Samples strictly in buckets whose LOWER edge is >= `bound`
+        (the SLO monitor's bad-event counter: requests over the latency
+        bound). Bucketed, so at most one bucket (~12% band at the
+        default growth) of samples straddling `bound` is miscounted —
+        the burn-rate rules tolerate that by design."""
+        if self.count == 0:
+            return 0
+        bad = self.counts[self.n + 1]  # overflow is always above
+        for i in range(1, self.n + 1):
+            if self._edge(i) >= bound:
+                bad += self.counts[i]
+        if bound <= self.lo:
+            bad += self.counts[0]
+        return bad
+
+    @property
+    def mean(self) -> float:
+        return self.total / self.count if self.count else 0.0
+
+    def summary(self, suffix: str = "") -> dict[str, Any]:
+        """JSON-safe summary block. `suffix` decorates the quantile
+        keys (e.g. "_ms" -> p50_ms), matching the latency-row dialect."""
+        out: dict[str, Any] = {
+            "count": self.count,
+            "mean" + suffix: round(self.mean, 4),
+            "min" + suffix: round(self.min, 4) if self.count else 0.0,
+            "max" + suffix: round(self.max, 4) if self.count else 0.0,
+        }
+        for k in PERCENTILE_KEYS:
+            out[k + suffix] = round(self.quantile(_QS[k] / 100.0), 4)
+        out["scheme"] = {
+            "lo": self.lo, "growth": self.growth, "buckets": self.n + 2,
+            "max_rel_err": round(math.sqrt(self.growth) - 1.0, 4),
+        }
+        return out
+
+    def nonzero_buckets(self) -> list[tuple[float, int]]:
+        """(upper-edge, count) pairs for every non-empty bucket —
+        the compact serialized form."""
+        out = []
+        for i, c in enumerate(self.counts):
+            if c == 0:
+                continue
+            if i == 0:
+                le = self.lo
+            elif i == self.n + 1:
+                le = math.inf
+            else:
+                le = self._edge(i) * self.growth
+            out.append((le, c))
+        return out
+
+
+class MetricsRegistry:
+    """Named counters / gauges / histograms for the serving front.
+    Zero-cost when absent: every instrumented call site holds
+    `metrics: MetricsRegistry | None` and skips on None."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self.counters: dict[str, float] = {}
+        self.gauges: dict[str, float] = {}
+        self.hists: dict[str, StreamingHistogram] = {}
+
+    def counter(self, name: str, inc: float = 1) -> None:
+        with self._lock:
+            self.counters[name] = self.counters.get(name, 0) + inc
+
+    def gauge(self, name: str, value: float) -> None:
+        with self._lock:
+            self.gauges[name] = float(value)
+
+    def observe(self, name: str, value: float) -> None:
+        with self._lock:
+            h = self.hists.get(name)
+            if h is None:
+                h = self.hists[name] = StreamingHistogram()
+            h.add(value)
+
+    def merge(self, other: "MetricsRegistry") -> "MetricsRegistry":
+        """Fold another registry in (counters add, gauges last-wins,
+        histograms merge) — the multi-worker aggregation path.
+
+        The two locks are taken SEQUENTIALLY (copy out of `other`,
+        then fold into `self`), never nested — nesting two locks of
+        the same class is exactly the order-inversion shape the
+        concurrency pass forbids."""
+        with other._lock:
+            counters = dict(other.counters)
+            gauges = dict(other.gauges)
+            hists = []
+            for k, h in other.hists.items():
+                clone = StreamingHistogram(h.lo, h.hi, h.growth)
+                clone.merge(h)
+                hists.append((k, clone))
+        with self._lock:
+            for k, v in counters.items():
+                self.counters[k] = self.counters.get(k, 0) + v
+            self.gauges.update(gauges)
+            for k, clone in hists:
+                if k in self.hists:
+                    self.hists[k].merge(clone)
+                else:
+                    self.hists[k] = clone
+        return self
+
+    # -- exporters -----------------------------------------------------
+
+    def snapshot(self) -> dict[str, Any]:
+        """JSON-safe dict — the JSONL exporter's payload (write via
+        `RunLog.metrics`, one `metrics` record per snapshot)."""
+        with self._lock:
+            return {
+                "counters": {k: self.counters[k]
+                             for k in sorted(self.counters)},
+                "gauges": {k: self.gauges[k]
+                           for k in sorted(self.gauges)},
+                "hists": {k: self.hists[k].summary()
+                          for k in sorted(self.hists)},
+            }
+
+    def to_prometheus(self, prefix: str = "",
+                      labels: dict[str, str] | None = None,
+                      types: bool = True) -> str:
+        """Prometheus text exposition format. Histogram lines are
+        cumulative `_bucket{le="..."}` over the FULL fixed bucket set
+        (every scrape exposes the same `le` series — a bucket
+        appearing mid-run would start a new timeseries and break
+        `rate()`/`histogram_quantile()` across scrapes) plus the
+        mandatory `le="+Inf"`, `_sum` and `_count`.
+
+        `labels` stamps every series with a fixed label set (the fleet
+        exposition's `replica="N"` slicing); `types=False`
+        suppresses the `# TYPE` header lines so labeled per-replica
+        blocks can follow an already-typed merged block without
+        duplicate metadata."""
+        lines: list[str] = []
+        lbl = ""
+        if labels:
+            lbl = ",".join(
+                f'{k}="{v}"' for k, v in sorted(labels.items())
+            )
+
+        def _name(k: str) -> str:
+            k = prefix + k
+            return "".join(
+                c if c.isalnum() or c == "_" else "_" for c in k
+            )
+
+        def _series(n: str, extra: str = "") -> str:
+            parts = ",".join(p for p in (lbl, extra) if p)
+            return f"{n}{{{parts}}}" if parts else n
+
+        with self._lock:
+            for k in sorted(self.counters):
+                n = _name(k)
+                if types:
+                    lines.append(f"# TYPE {n} counter")
+                lines.append(f"{_series(n)} {self.counters[k]:g}")
+            for k in sorted(self.gauges):
+                n = _name(k)
+                if types:
+                    lines.append(f"# TYPE {n} gauge")
+                lines.append(f"{_series(n)} {self.gauges[k]:g}")
+            for k in sorted(self.hists):
+                h = self.hists[k]
+                n = _name(k)
+                if types:
+                    lines.append(f"# TYPE {n} histogram")
+                cum = 0
+                # underflow's upper bound is `lo`, then every
+                # log-bucket edge; overflow folds into the +Inf line
+                for i in range(h.n + 1):
+                    cum += h.counts[i]
+                    le = h.lo if i == 0 else h._edge(i) * h.growth
+                    edge = 'le="%g"' % le
+                    lines.append(
+                        f"{_series(n + '_bucket', edge)} {cum}"
+                    )
+                inf_edge = 'le="+Inf"'
+                lines.append(
+                    f"{_series(n + '_bucket', inf_edge)} {h.count}"
+                )
+                lines.append(f"{_series(n + '_sum')} {h.total:g}")
+                lines.append(f"{_series(n + '_count')} {h.count}")
+        return "\n".join(lines) + "\n"
+
+    def export_prometheus(self, path: str, prefix: str = "") -> None:
+        with open(path, "w") as fp:
+            fp.write(self.to_prometheus(prefix))
+
+
+def interleaved_ab(arm_off, arm_on, warmups: int = 2, reps: int = 5
+                   ) -> tuple[float, float, float]:
+    """The interleaved-median A/B protocol: warm both arms, then
+    alternate timed reps so box-level drift hits both equally, and
+    compare medians.
+    `arm_off`/`arm_on` are zero-arg callables returning one rep's
+    seconds. Returns (median_off, median_on, overhead_pct). ONE
+    implementation wherever an instrumentation overhead is claimed."""
+    for _ in range(warmups):
+        arm_off()
+        arm_on()
+    offs, ons = [], []
+    for _ in range(reps):
+        offs.append(arm_off())
+        ons.append(arm_on())
+    offs.sort()
+    ons.sort()
+    t_off, t_on = offs[len(offs) // 2], ons[len(ons) // 2]
+    return t_off, t_on, 100.0 * (t_on - t_off) / t_off
+
+
+def paired_ab_pct(offs: list[float], ons: list[float]) -> float:
+    """Overhead percent from PAIRED interleaved reps: the median of
+    per-pair ratios (on_i / off_i - 1). For run-granularity A/Bs —
+    few, expensive reps — monotone box drift moves BOTH arms of a
+    pair together, so pairing cancels it, while the median-of-arms
+    form (`interleaved_ab`, right for many fast reps) aliases the
+    drift into whichever arm's median lands later. ONE implementation
+    wherever a run-level A/B is claimed."""
+    assert len(offs) == len(ons) and offs, (len(offs), len(ons))
+    ratios = sorted(
+        on / off - 1.0 for off, on in zip(offs, ons)
+    )
+    return 100.0 * ratios[len(ratios) // 2]
+
+
+# ---------------------------------------------------------------------------
+# shared quantile helpers: the latency rows' percentile block (EXACT
+# sample percentiles) plus the streaming-histogram companion block.
+# ---------------------------------------------------------------------------
+
+
+def percentile_block(samples: Iterable[float], reps: int | None = None,
+                     suffix: str = "_ms") -> dict[str, Any]:
+    """Exact percentile block over retained samples (the JAX
+    package's latency-row schema: p50/p90/p99/mean/max + reps)."""
+    import numpy as np
+
+    a = np.asarray(list(samples), dtype=np.float64)
+    return {
+        "p50" + suffix: round(float(np.percentile(a, 50)), 4),
+        "p90" + suffix: round(float(np.percentile(a, 90)), 4),
+        "p99" + suffix: round(float(np.percentile(a, 99)), 4),
+        "mean" + suffix: round(float(a.mean()), 4),
+        "max" + suffix: round(float(a.max()), 4),
+        "reps": int(reps if reps is not None else a.size),
+    }
+
+
+def hist_summary(samples: Iterable[float] | StreamingHistogram,
+                 suffix: str = "_ms") -> dict[str, Any]:
+    """The O(buckets) `hist` block: a StreamingHistogram summary of the
+    same samples (or of an already-streaming histogram), stamped NEXT
+    TO the exact block so readers can check the approximation and
+    million-request rows can drop the exact one."""
+    if isinstance(samples, StreamingHistogram):
+        return samples.summary(suffix)
+    h = StreamingHistogram()
+    h.add_many(samples)
+    return h.summary(suffix)

@@ -20,6 +20,10 @@ kind) and `t` (unix seconds). The kinds the trainer writes:
   fallback past a torn generation;
 - `resume`: a train state resumed (`path`, `iteration`).
 
+The serving stack writes `trace` (one request's span walk), `params_swap`
+(a serving-weights swap or rollback), `metrics` (a `MetricsRegistry`
+snapshot) and `tail_exemplar` (a slow request's critical path).
+
 Every record is flushed when written. Open run logs are closed with a
 `run_end` carrying a `teardown` reason from an `atexit` hook and, when
 the process has no SIGTERM handler of its own, from a chained one.
@@ -167,6 +171,46 @@ class RunLog:
         """A device-memory sample, its keys top-level."""
         fields = {} if iteration is None else {"iteration": int(iteration)}
         self.write("memory", **(dict(stats) | fields))
+
+    def trace(self, trace_id: str, spans_ms: dict[str, float],
+              **fields: Any) -> None:
+        """One served request's span walk: `spans_ms` maps phase name to
+        its offset in ms from submit; `total_ms` is the `reply` offset."""
+        total = spans_ms.get("reply")
+        self.write(
+            "trace", trace_id=trace_id,
+            spans={k: round(float(v), 4) for k, v in spans_ms.items()},
+            total_ms=None if total is None else round(float(total), 4),
+            **fields,
+        )
+
+    def params_swap(self, version: int, prev_version: int,
+                    action: str = "swap", reason: str | None = None,
+                    **fields: Any) -> None:
+        """A serving-weights swap (`action` "swap") or a revert to the
+        last-good version ("rollback")."""
+        if reason is not None:
+            fields["reason"] = reason
+        self.write("params_swap", version=int(version),
+                   prev_version=int(prev_version), action=action, **fields)
+
+    def metrics(self, snapshot: dict[str, Any],
+                iteration: int | None = None, **fields: Any) -> None:
+        """A `MetricsRegistry.snapshot()`, nested under `snapshot`."""
+        if iteration is not None:
+            fields["iteration"] = int(iteration)
+        self.write("metrics", snapshot=snapshot, **fields)
+
+    def tail_exemplar(self, trace_id: str | None, wall_ms: float,
+                      segments: dict[str, float], **fields: Any) -> None:
+        """One of an attribution window's slowest requests, its
+        critical-path segments summing to `wall_ms`."""
+        self.write(
+            "tail_exemplar", trace_id=trace_id,
+            wall_ms=round(float(wall_ms), 4),
+            segments={k: round(float(v), 4) for k, v in segments.items()},
+            **fields,
+        )
 
     def close(self, **fields: Any) -> None:
         if self._closed:

@@ -1,0 +1,142 @@
+"""Runtime thread-ownership assertions (counterpart of
+`sparksched_tpu/ownership.py`).
+
+`assert_owner(obj, role)` at the serving stack's entry points checks,
+under real threads, that each single-owner structure (the session
+store, the batching fronts, the HTTP server's pump state) is driven by
+one thread. The main thread is ownership-polymorphic (it builds
+everything and drives the whole stack in single-threaded runs), so
+`assert_owner` passes on `MainThread`. For any other thread:
+
+- if the thread's NAME is a known role (the spawn sites name their
+  threads `serve-pump`, `serve-http`, `serve-harvester`,
+  `serve-client-<i>`, ...), the asserted role must match;
+- independently, the first non-main thread through an entry point
+  binds `(object, role)`; a DIFFERENT live non-main thread hitting the
+  same entry point later is a violation.
+
+The checks are off unless `SPARKSCHED_DEBUG_OWNERSHIP=1` (read once at
+import) or `set_debug(True)`; off, a call is one global load and a
+return.
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+from typing import Any
+
+ENV_FLAG = "SPARKSCHED_DEBUG_OWNERSHIP"
+
+_enabled: bool = os.environ.get(ENV_FLAG, "") == "1"
+
+# Role vocabulary (the JAX package's).
+# `serve-client` matches by prefix (workers are `serve-client-<i>`).
+ROLE_NAMES = (
+    "serve-pump",
+    "serve-http",
+    "serve-harvester",
+    "serve-client",
+    "online-learner",
+    "fleet-collector",
+    "host-profiler",
+)
+
+_guard = threading.Lock()
+# (id(obj), role) -> (thread_object, thread_name, class_name). The
+# Thread OBJECT, not its ident: the OS reuses idents, so a fresh
+# thread can inherit a dead owner's ident and silently impersonate it.
+_bindings: dict[tuple[int, str], tuple[threading.Thread, str, str]] = {}
+# every violation ever recorded (also raised); tests assert this
+# stays empty across a clean threaded run
+violations: list[dict[str, Any]] = []
+
+
+class OwnershipViolation(AssertionError):
+    """A single-owner structure was driven by the wrong thread."""
+
+
+def debug_enabled() -> bool:
+    return _enabled
+
+
+def set_debug(on: bool) -> None:
+    """Flip the runtime checks (tests; production uses the env var)."""
+    global _enabled
+    _enabled = bool(on)
+
+
+def reset() -> None:
+    """Drop all bindings and recorded violations (test isolation)."""
+    with _guard:
+        _bindings.clear()
+        violations.clear()
+
+
+def _role_of_thread(name: str) -> str | None:
+    for r in ROLE_NAMES:
+        if name == r or name.startswith(r + "-"):
+            return r
+    return None
+
+
+def _violate(obj: Any, roles: tuple[str, ...], t: threading.Thread,
+             why: str, bound_to: str | None = None) -> None:
+    rec = {
+        "class": type(obj).__name__,
+        "roles": roles,
+        "thread": t.name,
+        "why": why,
+        "bound_to": bound_to,
+    }
+    with _guard:
+        violations.append(rec)
+    raise OwnershipViolation(
+        f"{type(obj).__name__} entry point owned by role(s) "
+        f"{'/'.join(roles)} driven from thread {t.name!r}: {why}"
+    )
+
+
+def assert_owner(obj: Any, *roles: str) -> None:
+    """Assert the calling thread owns `obj` in one of `roles`.
+
+    No-op unless SPARKSCHED_DEBUG_OWNERSHIP=1 (or `set_debug(True)`).
+    The main thread always passes (see module docstring). Bindings
+    are per (object, primary role); a binding whose thread has since
+    exited is released, so sequential handoff (stop one thread, start
+    another) never trips.
+    """
+    if not _enabled:
+        return
+    t = threading.current_thread()
+    if t.name == "MainThread":
+        return
+    named = _role_of_thread(t.name)
+    if named is not None and named not in roles:
+        _violate(obj, roles, t,
+                 f"thread is the {named!r} role, not an owner")
+    key = (id(obj), roles[0])
+    bound = _bindings.get(key)
+    if bound is None:
+        with _guard:
+            bound = _bindings.setdefault(
+                key, (t, t.name, type(obj).__name__)
+            )
+    if bound[0] is t:
+        return
+    # a dead previous owner releases the binding (sequential handoff)
+    if bound[0].is_alive():
+        _violate(obj, roles, t,
+                 "second live thread entered a single-owner "
+                 "entry point", bound_to=bound[1])
+    with _guard:
+        _bindings[key] = (t, t.name, type(obj).__name__)
+
+
+def owner_snapshot() -> dict[tuple[str, str], set[str]]:
+    """(class_name, role) -> set of thread names observed owning it."""
+    out: dict[tuple[str, str], set[str]] = {}
+    with _guard:
+        for (_oid, role), (_thread, name, cls) in _bindings.items():
+            out.setdefault((cls, role), set()).add(name)
+    return out

@@ -468,9 +468,18 @@ class DecimaScheduler(TrainableScheduler):
         `rng` is one key, split into one per lane (None when
         `deterministic`). Returns (stage_idx[B], num_exec_1based[B],
         aux)."""
+        keys = (None if deterministic
+                else prng.split(rng, obs.job_mask.shape[0]))
+        return self.lane_policy(keys, obs, deterministic)
+
+    @torch.no_grad()
+    def lane_policy(self, keys, obs: Observation,
+                    deterministic: bool = False):
+        """`batch_policy` with the lanes' keys given (`keys` [B,2], each
+        lane's key as the JAX package's vmapped `policy` takes it; None
+        when `deterministic`)."""
         f = self.features(obs)
         stage_scores, exec_scores = self.score(f)
-        keys = None if deterministic else prng.split(rng, f.job_mask.shape[0])
         action, lgprob = sample_action(keys, stage_scores, exec_scores, f,
                                        deterministic)
         return action.stage_idx, action.num_exec + 1, {
@@ -483,15 +492,18 @@ class DecimaScheduler(TrainableScheduler):
         """Single-session policy: `obs` has a leading axis of 1."""
         return self.batch_policy(rng, obs, deterministic)
 
-    def serve_param_policies(self):
-        """The greedy `(policy_fn, batch_policy_fn)` pair the session
-        store serves through, each `fn(obs)`. The weights are the
-        module's live parameters: `SessionStore.set_params` swaps them in
-        place."""
-        return (
-            lambda o: self.policy(None, o, True),
-            lambda o: self.batch_policy(None, o, True),
-        )
+    def serve_param_policies(self, deterministic: bool = True):
+        """The `(policy_fn, batch_policy_fn)` pair the session store
+        serves through, each `fn(keys, obs)` with one policy key per
+        lane (`keys` [B,2]; unused when `deterministic`). The single
+        path's lane takes the call's policy key itself, as the JAX
+        package's unbatched `policy` does; the batched path's lanes take
+        the K-way split of it (`serve/aot.py`). The weights are the
+        module's live parameters: `SessionStore.set_params` swaps them
+        in place."""
+        fn = (lambda k, o: self.lane_policy(None, o, True)) if deterministic \
+            else (lambda k, o: self.lane_policy(k, o, False))
+        return fn, fn
 
     def evaluate_actions(self, feats: DecimaFeatures, actions: DecimaAction):
         """Log-probs and normalised entropies of stored actions over

@@ -10,11 +10,20 @@ work.
 
 A decision: gather the session(s), observe, run the policy (or take the
 caller's forced action), `apply_and_drain` to the next decision point
-with the engine knobs (`SERVE_KNOBS` by default) and the call's key,
-compute the health sentinel over the post-drain state and the span
-reward, scatter back. Padding slots of a batch carry index C: they are
-never computed or written, and their outputs are masked (`valid` off),
-where the JAX package clamps their gathers and drops their scatters.
+with the engine knobs (`SERVE_KNOBS` by default), compute the health
+sentinel over the post-drain state and the span reward, scatter back.
+The call's key splits into (policy, engine) as the JAX programs split
+it; the batched program's lanes take the K-way splits of each. Padding
+slots of a batch carry index C: they are never computed or written, and
+their outputs are masked (`valid` off), where the JAX package clamps
+their gathers and drops their scatters.
+
+The programs sync with the host inside the drain, so a call returns
+once its device work is issued and nearly done. What the pipelined
+window defers is the copy of the outputs to the host (`HostCopy`:
+pinned buffers, a non-blocking copy and an event), and the pager's
+page-out (`ColdSlot`: `take_slot` into an independent device buffer,
+then a non-blocking copy to pinned host memory).
 """
 
 from __future__ import annotations
@@ -32,6 +41,7 @@ from ..env.flat_loop import (
     apply_and_drain,
     aux_action_fields,
     take_slot,
+    tree_map,
     write_slot,
 )
 from ..env.health import reward_health, state_health
@@ -70,12 +80,13 @@ SERVE_KNOBS: dict[str, Any] = {
 
 
 def _decide(params: EnvParams, bank: WorkloadBank, policy_fn: Callable,
-            ls: LoopState, k_env, force_stage, force_nexec, use_force,
-            knobs: dict[str, Any]):
+            ls: LoopState, k_pol, k_env, force_stage, force_nexec,
+            use_force, knobs: dict[str, Any]):
     """Decisions for a batch of sessions (the JAX `_decide_one`, over a
-    lane axis): observe -> policy (or the forced action under
-    `use_force`) -> apply_and_drain with one key of `k_env` per lane ->
-    health. The greedy policy takes no key."""
+    lane axis): observe -> policy with one key of `k_pol` per lane (or
+    the forced action under `use_force`) -> apply_and_drain with one
+    key of `k_env` per lane -> health. A greedy policy ignores its
+    keys."""
     env0 = ls.env
     was_done = _lane_done(env0)
     s_cap = params.max_stages
@@ -87,7 +98,7 @@ def _decide(params: EnvParams, bank: WorkloadBank, policy_fn: Callable,
         lgprob = torch.zeros(force_stage.shape, device=force_stage.device)
         job = torch.zeros_like(force_stage)
     else:
-        stage_idx, num_exec, aux = policy_fn(observe(params, env0))
+        stage_idx, num_exec, aux = policy_fn(k_pol, observe(params, env0))
         lgprob, job, _ = aux_action_fields(aux, stage_idx, num_exec, s_cap)
     stage_idx = torch.where(use_force, force_stage, stage_idx).to(_i32)
     num_exec = torch.where(use_force, force_nexec, num_exec).to(_i32)
@@ -138,9 +149,9 @@ def serve_decide_fn(params: EnvParams, bank: WorkloadBank,
         def t(v, dtype):
             return torch.tensor([v], dtype=dtype, device=dev)
 
-        k_env = prng.split(key)[1:]
+        k_pol, k_env = prng.split(key)[:, None]
         ls2, out = _decide(
-            params, bank, policy_fn, ls, k_env, t(force_stage, _i32),
+            params, bank, policy_fn, ls, k_pol, k_env, t(force_stage, _i32),
             t(force_nexec, _i32), t(use_force, torch.bool), kn,
         )
         write_slot(store, idx, ls2)
@@ -156,7 +167,8 @@ def serve_decide_batch_fn(params: EnvParams, bank: WorkloadBank,
     [K]`. ONE batched policy evaluation over the gathered sessions, then
     the batched apply-and-drain, batch position i on the i-th key of the
     engine key's K-way split (the JAX program's); the store is updated
-    in place. Slots equal to C are padding."""
+    in place. Slots equal to C are padding. A stochastic policy samples
+    lane i on the i-th key of the policy key's K-way split."""
     K = int(batch)
     kn = SERVE_KNOBS | (knobs or {})
 
@@ -173,10 +185,10 @@ def serve_decide_batch_fn(params: EnvParams, bank: WorkloadBank,
             raise ValueError("a batch needs at least one real slot")
         ls = take_slot(store, real)
         pos = valid.nonzero()[:, 0]
-        k_env = prng.split(prng.split(key)[1], K)[pos]
+        k_pol, k_env = (prng.split(k, K)[pos] for k in prng.split(key))
         no = torch.zeros(n, dtype=_i32, device=dev)
         ls2, out = _decide(
-            params, bank, batch_policy_fn, ls, k_env, no, no,
+            params, bank, batch_policy_fn, ls, k_pol, k_env, no, no,
             torch.zeros(n, dtype=torch.bool, device=dev), kn,
         )
         write_slot(store, real, ls2)
@@ -196,3 +208,81 @@ def serve_decide_batch_fn(params: EnvParams, bank: WorkloadBank,
         )
 
     return fn
+
+
+def _pinned_like(t: torch.Tensor) -> torch.Tensor:
+    return torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+
+
+class HostCopy:
+    """A served call's outputs on their way to the host. On the card the
+    copy goes into pinned buffers with `non_blocking=True` and an event
+    recorded after it: `ready()` asks the event (no host sync),
+    `numpy()` waits on it. On the CPU the outputs already are host
+    tensors. `numpy()` issues no device op, so a harvester thread may
+    call it."""
+
+    __slots__ = ("_host", "_event")
+
+    def __init__(self, out: ServeOut) -> None:
+        vals = vars(out)
+        if out.valid.device.type == "cuda":
+            self._host = {k: _pinned_like(v).copy_(v, non_blocking=True)
+                          for k, v in vals.items()}
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._host, self._event = dict(vals), None
+
+    def ready(self) -> bool:
+        return self._event is None or self._event.query()
+
+    def numpy(self) -> dict:
+        if self._event is not None:
+            self._event.synchronize()
+        return {k: v.numpy() for k, v in self._host.items()}
+
+
+class ColdSlot:
+    """One paged-out session: the exact served view of its slot
+    (`take_slot`, the serve programs' gather) in an independent device
+    buffer, and on the card a pinned host copy started behind it. Until
+    `drain` drops the device buffer, a page-in takes it directly (a
+    device-to-device round trip); after, it copies the host buffers
+    back. Every leaf is copied with `copy_` at its own dtype, so the
+    round trip is bit-exact. On the CPU the gather itself is the host
+    copy."""
+
+    __slots__ = ("dev", "host", "_event")
+
+    def __init__(self, store: LoopState, local: int) -> None:
+        dev = take_slot(store, torch.tensor([local],
+                                            device=store.mode.device))
+        if store.mode.device.type == "cuda":
+            self.dev = dev
+            self.host = tree_map(
+                lambda a: _pinned_like(a).copy_(a, non_blocking=True), dev)
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self.dev, self.host, self._event = None, dev, None
+
+    def ready(self) -> bool:
+        return self._event is None or self._event.query()
+
+    def drain(self) -> None:
+        """Free the device copy once the host copy has landed (waits for
+        it)."""
+        if self._event is not None:
+            self._event.synchronize()
+            self._event = None
+        self.dev = None
+
+    def source(self, device: torch.device) -> LoopState:
+        """The slot to write back on a page-in."""
+        if self.dev is not None:
+            return self.dev
+        if device.type == "cuda":
+            return tree_map(lambda a: a.to(device, non_blocking=True),
+                            self.host)
+        return self.host

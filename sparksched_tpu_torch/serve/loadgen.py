@@ -1,0 +1,339 @@
+"""Open-loop load generation for the decision-serving stack
+(counterpart of `sparksched_tpu/serve/loadgen.py`; host-only code,
+copied).
+
+Arrivals come from the world on their own clock: when offered load
+exceeds capacity the queue, and the tail, grow. This module
+
+- precomputes a SEEDED, deterministic arrival schedule, a list of
+  (arrival_time_s, tenant) pairs, from `poisson` (exponential
+  inter-arrivals at the offered rate) or `mmpp` (a 2-state
+  Markov-modulated Poisson process whose long-run mean rate equals the
+  offered rate), from numpy's seeded generator: the same arrays as
+  the JAX package's;
+- drives a `SessionStore` and a batching front against the wall clock,
+  NEVER back-pressured: a request's latency is measured from its
+  SCHEDULED arrival, so time spent waiting because the server (or the
+  driving loop) was busy counts against the server;
+- keeps the latency distribution in a `StreamingHistogram`
+  (O(buckets)), with `slo_ms` counted exactly.
+
+Sessions: one live session per tenant; a session that finishes its
+episode (or is quarantined) is closed and re-created with a fresh
+deterministic seed, so a run can outlive any single episode.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Any
+
+import numpy as np
+
+from ..obs.metrics import StreamingHistogram
+
+ARRIVAL_PROCESSES = ("poisson", "mmpp")
+
+
+def _poisson_times(rate_rps: float, n: int, rng) -> np.ndarray:
+    return np.cumsum(rng.exponential(1.0 / rate_rps, size=n))
+
+
+def _mmpp_times(
+    rate_rps: float,
+    n: int,
+    rng,
+    burst_factor: float,
+    burst_fraction: float,
+    burst_dwell_s: float,
+) -> np.ndarray:
+    """2-state MMPP with long-run mean rate == `rate_rps`: the chain
+    spends `burst_fraction` of time in the burst state at
+    `burst_factor` x the base rate. Inter-arrival draws are memoryless,
+    so resampling the wait when the modulating chain switches states
+    is exact, not an approximation."""
+    if not 0.0 < burst_fraction < 1.0:
+        raise ValueError(
+            f"burst_fraction must be in (0, 1), got {burst_fraction}"
+        )
+    if burst_factor <= 1.0:
+        raise ValueError(
+            f"burst_factor must be > 1 (else use poisson), got "
+            f"{burst_factor}"
+        )
+    base = rate_rps / (1.0 - burst_fraction
+                       + burst_fraction * burst_factor)
+    rates = (base, base * burst_factor)
+    dwell = (
+        burst_dwell_s * (1.0 - burst_fraction) / burst_fraction,
+        burst_dwell_s,
+    )
+    out = np.empty(n, dtype=np.float64)
+    t, k, state = 0.0, 0, 0
+    t_switch = rng.exponential(dwell[0])
+    while k < n:
+        dt = rng.exponential(1.0 / rates[state])
+        if t + dt >= t_switch:
+            t = t_switch
+            state ^= 1
+            t_switch = t + rng.exponential(dwell[state])
+            continue
+        t += dt
+        out[k] = t
+        k += 1
+    return out
+
+
+def generate_arrivals(
+    rate_rps: float,
+    num_requests: int,
+    num_tenants: int,
+    *,
+    process: str = "poisson",
+    seed: int = 0,
+    burst_factor: float = 8.0,
+    burst_fraction: float = 0.1,
+    burst_dwell_s: float = 0.5,
+) -> list[tuple[float, int]]:
+    """The deterministic open-loop schedule: `num_requests`
+    (arrival_time_s, tenant) pairs at offered load `rate_rps` over
+    `num_tenants` tenants (uniform tenant assignment). Same arguments
+    => identical schedule, byte for byte — the generator is the
+    experiment's seed, not a source of run-to-run noise."""
+    if rate_rps <= 0 or num_requests <= 0 or num_tenants <= 0:
+        raise ValueError(
+            f"need positive rate/requests/tenants, got {rate_rps}/"
+            f"{num_requests}/{num_tenants}"
+        )
+    if process not in ARRIVAL_PROCESSES:
+        raise ValueError(
+            f"unknown arrival process {process!r}; known: "
+            f"{ARRIVAL_PROCESSES}"
+        )
+    rng = np.random.default_rng(seed)
+    if process == "poisson":
+        times = _poisson_times(rate_rps, num_requests, rng)
+    else:
+        times = _mmpp_times(
+            rate_rps, num_requests, rng, burst_factor, burst_fraction,
+            burst_dwell_s,
+        )
+    tenants = rng.integers(0, num_tenants, size=num_requests)
+    return [(float(t), int(w)) for t, w in zip(times, tenants)]
+
+
+def run_open_loop(
+    store,
+    batcher,
+    arrivals: list[tuple[float, int]],
+    *,
+    slo_ms: float | None = None,
+    session_seed: int = 10_000,
+    keep_samples: bool = True,
+    poll_sleep_s: float = 2e-4,
+    on_poll=None,
+) -> dict[str, Any]:
+    """Drive the schedule against the wall clock and return the run
+    summary. One session per tenant is created up front (rotated on
+    episode end / quarantine); requests whose scheduled arrival has
+    passed are submitted immediately — arrivals are never delayed by
+    outstanding replies (open loop). Latency is measured from the
+    SCHEDULED arrival to the harvest of the reply, in ms.
+
+    `batcher` is either front: the loop speaks only
+    `submit`/`poll`/`flush`/`pending`. Under the `ContinuousBatcher`
+    the per-iteration `poll()` IS the continuous-batching engine —
+    each call re-fills the width-K slot with whatever arrived while
+    the previous compiled call was in flight; under the `MicroBatcher`
+    it is the linger-window check. The summary records which front ran
+    (`front`), so paired A/B rows are self-describing.
+
+    Returns a dict with exact counters (`requests` scheduled ==
+    `completed` served + `capacity_rejections` turned away at submit;
+    `errors` and `good` partition within `completed`), the throughput
+    view (`offered_rps`, `achieved_rps` = served replies/s,
+    `goodput_rps` = SLO-satisfying replies per second of run), the
+    latency `hist` over the served set (a StreamingHistogram;
+    summarize with `.summary("_ms")`), session-rotation accounting
+    (generation-guarded: a stale end-of-episode reply from a rotated
+    session never closes its replacement), and —
+    when `keep_samples` — the raw per-request `samples_ms` for exact
+    percentiles (turn it off for million-request runs; the histogram
+    alone is O(buckets)).
+
+    `on_poll`: an optional zero-arg callable invoked once
+    per loop iteration, BETWEEN serve calls — the hook the
+    online loop hangs `ParamBus.pump` on, so hot param swaps land
+    mid-run under live traffic without the loop knowing about
+    them.
+
+    Client mode: `store` and `batcher` are duck-typed, so
+    passing a `serve.server.ServeClient` as BOTH drives a remote
+    server over the wire with the SAME loop — latency still clocked
+    from SCHEDULED arrival, so network + queueing time counts against
+    the server exactly like host time does in-process. The summary's
+    `reconcile` block pins the rejection accounting either way:
+    requests == served + rejected, with the per-request
+    `serve_requests_rejected` counter delta equal to the summary's
+    rejection count and distinct from the store's per-create
+    `serve_capacity_rejections`."""
+    n = len(arrivals)
+    if n == 0:
+        raise ValueError("empty arrival schedule")
+    if getattr(batcher, "front_name", "") == "http":
+        # push-based wire front: poll() is a no-op and replies are
+        # resolved by the client's worker threads, so a hot 0.2 ms
+        # poll loop would only steal (possibly the single) core from
+        # them — in-process fronts keep the tight loop because their
+        # poll() IS the batching engine
+        poll_sleep_s = max(poll_sleep_s, 2e-3)
+    # reconciliation baselines: the registry may be shared
+    # across runs, so the double-count check below is on DELTAS
+    metrics = getattr(store, "metrics", None)
+    rej0 = (0 if metrics is None
+            else metrics.counters.get("serve_requests_rejected", 0))
+    stats = getattr(store, "stats", None)
+    cap0 = (stats.get("serve_capacity_rejections", 0)
+            if isinstance(stats, dict) else None)
+    tenants = sorted({w for _, w in arrivals})
+    sessions: dict[int, int | None] = {
+        w: store.create(seed=session_seed + w) for w in tenants
+    }
+    # per-tenant session GENERATION: slot ids are reused by the store
+    # (create() takes the first free slot, usually the one a rotation
+    # just freed), so a stale done-reply can carry the same sid as the
+    # fresh session — only a reply from the CURRENT generation may
+    # rotate, or the second of two queued end-of-episode replies would
+    # close the zero-decision replacement
+    gen: dict[int, int] = {w: 0 for w in tenants}
+    hist = StreamingHistogram()
+    samples: list[float] | None = [] if keep_samples else None
+    inflight: list[tuple[int, int, float, Any]] = []
+    i = completed = errors = good = rotations = rejections = 0
+    t0 = time.perf_counter()
+    try:
+        while i < n or inflight:
+            now = time.perf_counter() - t0
+            while i < n and arrivals[i][0] <= now:
+                sched_t, tenant = arrivals[i]
+                i += 1
+                sid = sessions[tenant]
+                if sid is None:
+                    # tenant lost its slot to capacity exhaustion; the
+                    # request is REJECTED (its own counter — never
+                    # `completed`, so achieved_rps and the latency
+                    # blocks describe only actually-served decisions).
+                    # Mirrored into the registry per REQUEST
+                    # (`serve_requests_rejected`) — distinct from the
+                    # store's `serve_capacity_rejections`, which
+                    # counts failed create() calls, one per rotation
+                    # attempt, not turned-away traffic.
+                    rejections += 1
+                    m = getattr(store, "metrics", None)
+                    if m is not None:
+                        m.counter("serve_requests_rejected")
+                    continue
+                inflight.append(
+                    (tenant, gen[tenant], sched_t, batcher.submit(sid))
+                )
+            if on_poll is not None:
+                on_poll()
+            batcher.poll()
+            if i >= n and batcher.pending:
+                # the schedule is exhausted: no co-riders are coming,
+                # so drain rather than wait out the linger window
+                batcher.flush()
+            still: list[tuple[int, int, float, Any]] = []
+            for tenant, g, sched_t, tk in inflight:
+                if not tk.ready:
+                    still.append((tenant, g, sched_t, tk))
+                    continue
+                lat_ms = ((time.perf_counter() - t0) - sched_t) * 1e3
+                completed += 1
+                hist.add(lat_ms)
+                if samples is not None:
+                    samples.append(lat_ms)
+                if tk.error is not None:
+                    errors += 1
+                    continue
+                if slo_ms is None or lat_ms <= slo_ms:
+                    good += 1
+                r = tk.result
+                # rotate only on a CURRENT-generation reply (slot ids
+                # are reused, so comparing sids is not enough): a
+                # stale done-reply from the pre-rotation episode must
+                # not close the replacement (or a None slot)
+                if (r.done or r.health_mask) and g == gen[tenant]:
+                    store.close(tk.session_id)
+                    rotations += 1
+                    gen[tenant] += 1
+                    try:
+                        sessions[tenant] = store.create(
+                            seed=session_seed + tenant
+                            + 1000 * rotations
+                        )
+                    except RuntimeError:
+                        sessions[tenant] = None
+            inflight = still
+            if not inflight and i < n:
+                dt = arrivals[i][0] - (time.perf_counter() - t0)
+                if dt > 0:
+                    time.sleep(min(dt, 0.01))
+            elif inflight:
+                time.sleep(poll_sleep_s)
+    finally:
+        for sid in sessions.values():
+            if sid is not None:
+                store.close(sid)
+    makespan = time.perf_counter() - t0
+    # the reconciliation pin: every scheduled request is EITHER served
+    # (`completed`, which `errors`/`good` partition) or turned away
+    # (`rejections`) — never both, never neither — and the per-request
+    # `serve_requests_rejected` counter moves in lockstep with the
+    # summary while staying DISTINCT from the store's per-create
+    # `serve_capacity_rejections` (whose unit is failed create()
+    # calls: rotation attempts, not turned-away traffic).
+    assert completed + rejections == n, (
+        f"open-loop accounting broke: {completed} served + "
+        f"{rejections} rejected != {n} scheduled"
+    )
+    reconcile: dict[str, Any] = {
+        "requests": n,
+        "served": completed,
+        "rejected_requests": rejections,
+        "distinct_counters": True,
+    }
+    if metrics is not None:
+        rej_delta = (
+            metrics.counters.get("serve_requests_rejected", 0) - rej0
+        )
+        assert rej_delta == rejections, (
+            f"serve_requests_rejected moved by {rej_delta} but the "
+            f"run rejected {rejections} request(s) — the per-request "
+            "and per-create rejection counters have been conflated"
+        )
+        reconcile["serve_requests_rejected"] = rej_delta
+    if cap0 is not None:
+        reconcile["serve_capacity_rejections"] = (
+            stats.get("serve_capacity_rejections", 0) - cap0
+        )
+    out: dict[str, Any] = {
+        "requests": n,
+        "front": getattr(batcher, "front_name", "unknown"),
+        "completed": completed,
+        "errors": errors,
+        "good": good,
+        "slo_ms": slo_ms,
+        "tenants": len(tenants),
+        "makespan_s": round(makespan, 4),
+        "offered_rps": round(n / max(arrivals[-1][0], 1e-9), 2),
+        "achieved_rps": round(completed / makespan, 2),
+        "goodput_rps": round(good / makespan, 2),
+        "session_rotations": rotations,
+        "capacity_rejections": rejections,
+        "reconcile": reconcile,
+        "hist": hist,
+    }
+    if samples is not None:
+        out["samples_ms"] = samples
+    return out

@@ -531,3 +531,51 @@ def assert_update_close(want: dict, got: dict, p0: dict, steps: int,
         assert ratio <= 1.0, f"{k}: {ratio:.3g}x its tolerance"
         worst = max(worst, ratio)
     return worst
+
+
+SERVE_AGENT = dict(embed_dim=8, gnn_mlp_kwargs={"hid_dims": [16]},
+                   policy_mlp_kwargs={"hid_dims": [16]}, job_bucket=4)
+SERVE_INT_FIELDS = ("session_id", "stage_idx", "job_idx", "num_exec",
+                    "decided", "done", "health_mask", "batched",
+                    "params_version")
+SERVE_FLOAT_FIELDS = ("lgprob", "reward", "dt", "wall_time")
+
+
+def serve_setup():
+    """The serving tests' small setup (tests/test_serve.py: 5 executors,
+    6 jobs, embed 8, job_bucket 4, the weights scaled by 0.3 and carried
+    across): ((JAX params, bank, scheduler), (port params, bank,
+    scheduler on the CPU))."""
+    from sparksched_tpu.config import EnvParams as JaxParams
+    from sparksched_tpu.workload import make_workload_bank as jax_bank
+    from sparksched_tpu_torch.config import EnvParams
+    from sparksched_tpu_torch.workload import make_workload_bank
+
+    jp = JaxParams(num_executors=5, max_jobs=6, max_stages=20, max_levels=20,
+                   mean_time_limit=None)
+    jb = jax_bank(jp.num_executors, jp.max_stages)
+    jp = jp.replace(max_stages=jb.max_stages, max_levels=jb.max_stages)
+    js, ts = decima_pair(5, **SERVE_AGENT)
+    tp = EnvParams(num_executors=5, max_jobs=6, max_stages=jp.max_stages,
+                   max_levels=jp.max_levels)
+    tb = make_workload_bank(5, tp.max_stages, device="cpu")
+    return (jp, jb, js), (tp, tb, ts)
+
+
+def assert_same_result(a, b, same_sid: bool = True) -> None:
+    """One served decision of the JAX package (`a`) against the port's
+    (`b`): integers and bools equal (the session ids too unless
+    `same_sid` is off), floats within rtol 1e-5 (atol 1e-6 near
+    zero)."""
+    for k in SERVE_INT_FIELDS[0 if same_sid else 1:]:
+        assert getattr(a, k) == getattr(b, k), (k, a.to_dict(), b.to_dict())
+    for k in SERVE_FLOAT_FIELDS:
+        np.testing.assert_allclose(getattr(b, k), getattr(a, k), rtol=1e-5,
+                                   atol=1e-6, err_msg=k)
+
+
+def slot_bytes(ls, lane: int) -> list[tuple[str, str, bytes]]:
+    """(name, dtype, raw bytes) of every leaf of one lane of a port
+    LoopState: equal lists mean bit-equal slots, NaNs included."""
+    return [(name, str(v.dtype), v[lane].cpu().numpy().tobytes())
+            for name, v in tfl.leaves(ls)]

@@ -13,7 +13,9 @@ port's codec gives the CPU's parameters and, on observations of a
 held-out episode, the CPU's scores within 1e-4 relative to their scale;
 a train state saved by a card trainer after one iteration loads into a
 fresh card trainer with every byte equal and Adam's moments on the
-card. Run
+card. The paged, grouped session store on the card: the page round trip
+through pinned host memory bit-exact, the in-flight window equal to
+`decide_batch` bit for bit, and the CPU store's decisions. Run
 there with `python -m pytest --noconftest -m cuda tests/test_torch_cuda.py`
 (`--noconftest`: the suite's conftest imports JAX, which the card's
 machine need not have)."""
@@ -309,3 +311,67 @@ def test_train_state_round_trip_on_the_card(card, tmp_path):
     assert moments and all(st["exp_avg"].device.type == "cuda"
                            for st in moments.values())
     assert restored.buf.dt.device.type == "cuda"
+
+
+def _serve_stack(dev):
+    from sparksched_tpu_torch.config import EnvParams
+    from sparksched_tpu_torch.schedulers import DecimaScheduler
+    from sparksched_tpu_torch.workload import make_workload_bank
+
+    bank = make_workload_bank(5, device=dev)
+    params = EnvParams(num_executors=5, max_jobs=6,
+                       max_stages=bank.max_stages,
+                       max_levels=bank.max_stages)
+    sched = DecimaScheduler(5, embed_dim=8, gnn_mlp_kwargs={"hid_dims": [16]},
+                            policy_mlp_kwargs={"hid_dims": [16]},
+                            job_bucket=4, device=dev)
+    sched.load_params({k: v.cpu() * 0.3 for k, v in sched.params.items()})
+    return params, bank, sched
+
+
+def test_paged_grouped_store_on_the_card(card):
+    """The paged, grouped store on the card: a page-out through pinned
+    host memory and back is bit-exact on every leaf, the in-flight
+    window equals `decide_batch` bit for bit, and the decisions equal the
+    CPU store's (integers equal, floats within 1e-5 relative)."""
+    from sparksched_tpu_torch.serve import SessionStore
+
+    from ._torch_parity import slot_bytes
+
+    def store(dev):
+        p, b, s = _serve_stack(dev)
+        return SessionStore(p, b, s, capacity=8, hot_capacity=4, groups=2,
+                            max_batch=2, seed=0, device=dev)
+
+    gpu, twin, cpu = store("cuda"), store("cuda"), store("cpu")
+    sids = [gpu.create(seed=10 + i) for i in range(8)]
+    assert [twin.create(seed=10 + i) for i in range(8)] == sids
+    assert [cpu.create(seed=10 + i) for i in range(8)] == sids
+    sid = next(s for s in sids if gpu.is_hot(s))
+    slot = int(gpu._slot_of[sid])
+    g, local = divmod(slot, gpu.group_slots)
+    before = slot_bytes(gpu._stores[g], local)
+    gpu._page_out(slot)
+    gpu._free_slots[g].append(slot)
+    gpu._drain_writebacks(wait=True)
+    assert gpu._cold[sid].dev is None
+    assert slot_bytes(gpu._cold[sid].host, 0) == before
+    [back] = gpu._ensure_hot([sid])
+    g, local = divmod(back, gpu.group_slots)
+    assert slot_bytes(gpu._stores[g], local) == before
+    groups = [[s for s in sids if gpu.session_group(s) == g][:2]
+              for g in (0, 1)]
+    for _ in range(3):
+        calls = [gpu.dispatch_batch(b) for b in groups]
+        gpu.harvest(wait=True)
+        want = [r for b in groups for r in twin.decide_batch(b)]
+        host = [r for b in groups for r in cpu.decide_batch(b)]
+        got = [r for c in calls for r in c.results]
+        assert [r.to_dict() for r in got] == [r.to_dict() for r in want]
+        for a, b in zip(got, host):
+            for k in ("stage_idx", "job_idx", "num_exec", "decided", "done",
+                      "health_mask"):
+                assert getattr(a, k) == getattr(b, k), k
+            for k in ("lgprob", "reward", "dt", "wall_time"):
+                assert getattr(a, k) == pytest.approx(getattr(b, k),
+                                                      rel=1e-5, abs=1e-5)

@@ -156,9 +156,14 @@ sys.modules["jax"] = None
 sys.modules["flax"] = None
 from sparksched_tpu_torch.config import EnvParams
 from sparksched_tpu_torch.schedulers import DecimaScheduler
-from sparksched_tpu_torch.serve import SessionStore
+from sparksched_tpu_torch.serve import (
+    ContinuousBatcher, MicroBatcher, SessionStore, front_from_config,
+    generate_arrivals, run_open_loop, store_from_config)
+from sparksched_tpu_torch.serve.server import ServeClient, ServeServer
 from sparksched_tpu_torch.workload import make_workload_bank
 import sparksched_tpu_torch.train, sparksched_tpu_torch.trainers
+import sparksched_tpu_torch.obs.critpath, sparksched_tpu_torch.obs.metrics
+import sparksched_tpu_torch.serve.loadgen, sparksched_tpu_torch.ownership
 bank = make_workload_bank(5, device="cpu")
 params = EnvParams(num_executors=5, max_jobs=6, max_stages=bank.max_stages,
                    max_levels=bank.max_stages)
@@ -166,6 +171,17 @@ sched = DecimaScheduler(5, embed_dim=8, job_bucket=4, device="cpu")
 store = SessionStore(params, bank, sched, capacity=2, max_batch=2, device="cpu")
 r = store.decide(store.create(seed=1))
 assert r.decided and r.health_mask == 0
+cfg = {"capacity": 4, "max_batch": 2, "hot_capacity": 2, "front": "pipelined",
+       "trace": True, "metrics": True}
+paged = store_from_config(cfg, params, bank, sched, device="cpu")
+front = front_from_config(cfg, paged)
+out = run_open_loop(paged, front, generate_arrivals(200.0, 6, 3, seed=1))
+assert out["completed"] == 6
+with ServeServer(paged, front) as server:
+    with ServeClient("127.0.0.1", server.port) as client:
+        tk = client.submit(client.create(seed=2))
+        client.flush()
+        assert tk.error is None
 loaded = [m for m in sys.modules
           if m == "sparksched_tpu" or m.startswith("sparksched_tpu.")]
 assert not loaded, loaded
@@ -209,3 +225,10 @@ def test_entry_points_raise_without_a_card():
     sched = DecimaScheduler(5, device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         SessionStore(EnvParams(num_executors=5), bank, sched)
+    from sparksched_tpu_torch.serve import store_from_config
+    from sparksched_tpu_torch.serve.server import server_from_config
+
+    for build in (store_from_config, server_from_config):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build({"capacity": 2, "max_batch": 2},
+                  EnvParams(num_executors=5), bank, sched)
