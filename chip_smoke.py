@@ -53,7 +53,15 @@ and linger fronts; then the page round trip on the card and two
 closed-loop replays held bit-equal: paged grouped against unpaged
 one-group, pipelined against synchronous), `serve_http` (a `ServeServer`
 on 127.0.0.1 in front of the paged store; a `ServeClient`'s 8 x 16
-decisions bit-equal to an in-process store's), `card_vs_cpu` (4 sessions x
+decisions bit-equal to an in-process store's), `online` (the config's
+documented `online:` block over the `serve:` block with the record path
+and a 32-record device ring, 960 requests at 40 requests/s from 16
+tenants, the learner in the background on its own stream and swaps on
+`on_poll`: at least 3 updates accepted and published, one version a
+call and never going back, every decided record through the ring and
+none dropped; then a replay through a ring store and a per-decision
+store giving bit-equal trajectories, and one learner update on the card
+against the same update on the CPU), `card_vs_cpu` (4 sessions x
 16 decisions), `run_flat_fair` (16 lanes x 128 groups, two lanes
 replayed on the CPU), `train` (the main path; a `train_iteration` line
 per iteration), `train_update_profile` (torch.profiler over an update:
@@ -63,7 +71,7 @@ training's shapes), `bwd_kernel_vs_plain`, `kernel_alone`,
 Adam and at a linear Adam), `train_resume` (2 lanes, T = 64: 2
 iterations against 1 + a resume), `eval_trained` (4 held-out seeds on
 the card, 2 of them on the CPU; the forward kernel at trained weights
-against the float64 plain forward) and `telemetry_cost` (16 lanes x 32
+against the float64 plain forward) and `telemetry_cost` (16 lanes x 16
 rows, telemetry off and on: launches per row and rows per second).
 
 Each phase prints one JSON line. Before the last line come the
@@ -131,7 +139,8 @@ EVAL_SEEDS, EVAL_CPU_SEEDS = 4, 2
 # telemetry's cost: lanes and rows of the flagship collection, off and
 # on, and the rows whose launches torch.profiler counts (its processing
 # of ~25k records a row stalls a window much longer than this)
-TELEMETRY_LANES, TELEMETRY_ROWS, PROFILED_ROWS = 16, 32, 4
+# 16 rows (32 before the `online` phase took their time)
+TELEMETRY_LANES, TELEMETRY_ROWS, PROFILED_ROWS = 16, 16, 4
 # trainer artifacts (checkpoints, train states, run logs) go below this
 # temporary directory, never into the checkout's artifacts/
 TMP_ROOT: str | None = None
@@ -893,6 +902,270 @@ def phase_serve_http(params, bank, sched, device: str = "cuda") -> dict:
            "card": card_line() if device == "cuda" else "cpu"}
     emit(out)
     return {"decima_node_encoder": launches}
+
+
+# the online loop: the config's documented `online:` block, over the
+# serve: block with the record path and a 32-record device ring (the
+# default cadence is then 16); open-loop load from 16 tenants at 40
+# requests/s, 960 requests (about 60 decisions a session, so each
+# completes one or two 32-decision segments and the learner sees >= 3
+# batches of 4)
+ONLINE_BLOCK = {"max_trajectories": 64, "max_steps": 32,
+                "batch_trajectories": 4, "min_decisions": 2,
+                "max_param_lag": 4, "swap_every": 1,
+                "probation_decisions": 32, "max_quarantine_rate": 0.5,
+                "learner": {"num_epochs": 2, "num_batches": 2}, "seed": 0}
+ONLINE_RING = 32
+ONLINE_TENANTS, ONLINE_RPS, ONLINE_REQUESTS = 16, 40.0, 960
+ONLINE_MIN_UPDATES = 3
+ONLINE_REPLAY_ROUNDS = 6  # the ring-vs-per-decision replay's rounds
+ONLINE_TOL = {"rtol": 1e-4, "atol": 1e-6}  # tests/test_torch_ppo.py's TOL
+TRAJ_FIELDS = ("stage_idx", "job_idx", "num_exec_k", "lgprob", "reward",
+               "wall_times", "params_version")
+
+
+def _traj_key(tr) -> tuple:
+    return (tr.session_id, float(tr.wall_times[0]))
+
+
+def _trajs_equal(a: list, b: list) -> str | None:
+    """Where two lists of trajectories differ (bit for bit, the records
+    included), or None."""
+    import dataclasses
+
+    if len(a) != len(b):
+        return f"{len(a)} trajectories against {len(b)}"
+    for i, (x, y) in enumerate(zip(sorted(a, key=_traj_key),
+                                   sorted(b, key=_traj_key))):
+        if (x.session_id, x.length, x.done) != (y.session_id, y.length,
+                                                y.done):
+            return f"trajectory {i}: session/length/done"
+        for f in TRAJ_FIELDS:
+            if getattr(x, f).tobytes() != getattr(y, f).tobytes():
+                return f"trajectory {i}: {f}"
+        for f in dataclasses.fields(x.obs):
+            xa, ya = getattr(x.obs, f.name), getattr(y.obs, f.name)
+            if xa.dtype != ya.dtype or xa.tobytes() != ya.tobytes():
+                return f"trajectory {i}: obs.{f.name}"
+    return None
+
+
+def phase_online(params, bank, agent, device: str = "cuda") -> dict:
+    """The serve -> learn -> serve loop as the config documents it: a
+    record-on ring store built by `store_from_config`, the `online:`
+    block by `online_from_config`, `run_open_loop` with `on_poll=
+    bus.pump` while the learner runs in the background on its own
+    stream. Fails unless >= ONLINE_MIN_UPDATES updates were accepted and
+    published, the served versions never go back and each call's
+    results share one, every decided result reached the ring and none
+    was dropped, both kernels launched and no plain version ran. Then
+    one deterministic schedule replayed through a ring store and a
+    `ring: 0` per-decision store must give bit-equal trajectories, and
+    one learner update on the card must agree with the same update on
+    the CPU (`ONLINE_TOL`; the policy heads to Adam's step bound)."""
+    import numpy as np
+    import torch
+
+    from sparksched_tpu_torch.kernels.decima_encoder import (
+        decima_node_encoder,
+        decima_node_encoder_bwd,
+    )
+    from sparksched_tpu_torch.online import (
+        OnlineLearner,
+        TrajectoryBuffer,
+        make_learner_trainer,
+        online_from_config,
+    )
+    from sparksched_tpu_torch.serve import (
+        front_from_config,
+        generate_arrivals,
+        run_open_loop,
+        store_from_config,
+    )
+
+    t_phase = time.perf_counter()
+    agent_cfg = {"agent_cls": "DecimaScheduler"} | agent
+    cfg = SERVE_BLOCK | {"front": "continuous", "record": True,
+                         "ring": ONLINE_RING}
+    # its own weights: the bus swaps them in place
+    store = store_from_config(cfg, params, bank,
+                              make_scheduler(params, agent, device),
+                              device=device)
+    front = front_from_config(cfg, store)
+    buffer, learner, bus = online_from_config(ONLINE_BLOCK, store, agent_cfg)
+    warm_s = learner.warmup()
+    arrivals = generate_arrivals(ONLINE_RPS, ONLINE_REQUESTS, ONLINE_TENANTS,
+                                 seed=SEED)
+    # each call's result versions, in order (the continuous front serves
+    # every batch through decide_batch)
+    calls: list[list[int]] = []
+    call_ms: dict[int, list[float]] = {}  # version -> its calls' ms
+    decided = [0]
+    serve_batch = store.decide_batch
+
+    def logged(sids):
+        t = time.perf_counter()
+        rs = serve_batch(sids)
+        call_ms.setdefault(rs[0].params_version, []).append(
+            (time.perf_counter() - t) * 1e3)
+        calls.append([r.params_version for r in rs])
+        decided[0] += sum(r.decided for r in rs)
+        return rs
+
+    store.decide_batch = logged
+    ingest_ms: list[float] = []
+    ingest = store._ring_ingest
+
+    def timed_ingest(g, snap):
+        t = time.perf_counter()
+        ingest(g, snap)
+        ingest_ms.append((time.perf_counter() - t) * 1e3)
+
+    store._ring_ingest = timed_ingest
+    if device == "cuda":
+        torch.cuda.synchronize()
+    decima_node_encoder.launches = 0  # this path's launches only
+    decima_node_encoder_bwd.launches = 0
+    with PlainCalls() as plain:
+        learner.start_background()
+        t = time.perf_counter()
+        try:
+            run = run_open_loop(store, front, arrivals, session_seed=50_000,
+                                on_poll=bus.pump)
+        finally:
+            learner.stop()
+        run_s = time.perf_counter() - t
+        t = time.perf_counter()
+        store.drain_ring(wait=True)
+        drain_s = time.perf_counter() - t
+        bus.pump()  # the last publish, if one is pending
+    fwd, bwd = decima_node_encoder.launches, decima_node_encoder_bwd.launches
+    if learner.error is not None:
+        raise AssertionError(f"online: the learner thread raised "
+                             f"{learner.error!r}")
+    _check_no_plain_and_launched("online", fwd, plain.n, device)
+    if device == "cuda" and bwd <= 0:
+        raise AssertionError("online: no decima_node_encoder_bwd launch")
+    st = store.stats
+    accepted = [h for h in learner.history if h["accepted"]]
+    if (learner.stats["learner_published"] < ONLINE_MIN_UPDATES
+            or len(accepted) < ONLINE_MIN_UPDATES):
+        raise AssertionError(
+            f"online: {len(accepted)} accepted / "
+            f"{learner.stats['learner_published']} published updates "
+            f"(< {ONLINE_MIN_UPDATES}); buffer {buffer.stats}")
+    if any(len(set(c)) != 1 for c in calls):
+        raise AssertionError("online: a call's results carry two versions")
+    flat = [v for c in calls for v in c]
+    if any(b < a for a, b in zip(flat, flat[1:])) or flat[-1] < 1:
+        raise AssertionError(f"online: params_version not monotone or "
+                             f"never swapped: {sorted(set(flat))}")
+    if st["serve_ring_records"] != decided[0] or st["serve_ring_dropped"]:
+        raise AssertionError(
+            f"online: ring records {st['serve_ring_records']} / dropped "
+            f"{st['serve_ring_dropped']} against {decided[0]} decided")
+    if st["serve_quarantines"] or not (
+            run["requests"] == run["completed"] + run["capacity_rejections"]
+            and run["errors"] == 0):
+        raise AssertionError(f"online: quarantines {st['serve_quarantines']}"
+                             f" or requests do not reconcile: "
+                             f"{run['reconcile']}")
+    lat = np.array(run["samples_ms"])
+
+    # the ring path against the per-decision path on one fixed schedule
+    replay_sched = make_scheduler(params, agent, device)
+    bufs, rstores = [], []
+    for ring in (ONLINE_RING, 0):
+        buf = TrajectoryBuffer(capacity=10 ** 6, max_steps=32,
+                               min_decisions=2)
+        rs = store_from_config(SERVE_BLOCK | {"record": True, "ring": ring},
+                               params, bank, replay_sched, device=device,
+                               collector=buf)
+        if [rs.create(seed=60_000 + i)
+                for i in range(CAPACITY)] != list(range(CAPACITY)):
+            raise AssertionError("online replay: session ids differ")
+        bufs.append(buf)
+        rstores.append(rs)
+    rstores[1]._calls = rstores[0]._calls
+    batches = _replay_batches(rstores[0])
+    batches = (batches[:len(batches) // REPLAY_ROUNDS]
+               * ONLINE_REPLAY_ROUNDS)
+    res = []
+    for rs in rstores:
+        res.append([r.to_dict() for b in batches for r in rs.decide_batch(b)])
+        for sid in range(CAPACITY):
+            rs.close(sid)
+        rs.drain_ring(wait=True)
+    if res[0] != res[1]:
+        raise AssertionError("online replay: ring and per-decision stores "
+                             "decided differently")
+    trajs = [b.drain(10 ** 6) for b in bufs]
+    diff = _trajs_equal(*trajs)
+    if diff is not None or not trajs[0]:
+        raise AssertionError(f"online replay: trajectories differ: {diff}")
+    replay = {"decisions": len(res[0]), "trajectories": len(trajs[0]),
+              "ring_records": rstores[0].stats["serve_ring_records"],
+              "ring_drains": rstores[0].stats["serve_ring_drains"],
+              "ring_dropped": rstores[0].stats["serve_ring_dropped"],
+              "bit_equal": True}
+
+    # one learner update on the card against the CPU's
+    ph = parity_helpers()
+    w0 = {k: v.detach().cpu() for k, v in replay_sched.params.items()}
+    B, T = ONLINE_BLOCK["batch_trajectories"], ONLINE_BLOCK["max_steps"]
+    steps = {}
+    for dev in (device, "cpu"):
+        lr = OnlineLearner(
+            make_learner_trainer(agent_cfg, params, B, T,
+                                 learner_cfg=ONLINE_BLOCK["learner"],
+                                 seed=ONLINE_BLOCK["seed"], device=dev),
+            TrajectoryBuffer(), init_params=w0)
+        lr.buffer.requeue(sorted(trajs[0], key=_traj_key)[:B])
+        info = lr.step()
+        if not info or not info["accepted"]:
+            raise AssertionError(f"online learner on {dev}: {info}")
+        steps[dev] = (info, {k: v.detach().cpu()
+                             for k, v in lr.state.params.items()})
+    (ci, cp), (hi, hp) = steps[device], steps["cpu"]
+    for k in ("policy_loss", "approx_kl_div", "entropy"):
+        np.testing.assert_allclose(ci[k], hi[k], err_msg=k, **ONLINE_TOL)
+    worst = ph.assert_update_close(
+        hp, cp, w0, int(hi["minibatches_applied"]), 3e-4, False)
+    step_ms = [h["update_s"] * 1e3 for h in learner.history]
+    out = {"phase": "online", "block": cfg, "online": ONLINE_BLOCK,
+           "tenants": ONLINE_TENANTS, "offered_rps": ONLINE_RPS,
+           "requests": ONLINE_REQUESTS,
+           "achieved_rps": run["achieved_rps"],
+           "latency_p50_ms": float(np.percentile(lat, 50)),
+           "latency_p99_ms": float(np.percentile(lat, 99)),
+           "run_s": run_s, "calls": len(calls), "decided": decided[0],
+           "call_ms_by_version": {v: {"calls": len(m),
+                                      "mean": float(np.mean(m))}
+                                  for v, m in sorted(call_ms.items())},
+           "versions_served": sorted(set(flat)),
+           "learner": dict(learner.stats), "bus": dict(bus.stats),
+           "buffer": dict(buffer.stats), "learner_warmup_s": warm_s,
+           "learner_step_ms": {"mean": float(np.mean(step_ms)),
+                               "max": float(np.max(step_ms)),
+                               "n": len(step_ms)},
+           "history": learner.history,
+           "ring": {k: st[k] for k in st if k.startswith("serve_ring")},
+           "ring_ingest_ms": {"mean": float(np.mean(ingest_ms)),
+                              "max": float(np.max(ingest_ms)),
+                              "n": len(ingest_ms)},
+           "ring_final_drain_ms": drain_s * 1e3,
+           "encoder_launches": fwd, "encoder_bwd_launches": bwd,
+           "plain_encoder_calls": plain.n, "replay": replay,
+           "learner_card_vs_cpu": {
+               "stats": {k: (ci[k], hi[k]) for k in
+                         ("policy_loss", "approx_kl_div", "entropy")},
+               "worst_of_tolerance": worst,
+               "minibatches_applied": hi["minibatches_applied"],
+               "card_step_ms": ci["update_s"] * 1e3},
+           "seconds": time.perf_counter() - t_phase,
+           "card": card_line() if device == "cuda" else "cpu"}
+    emit(out)
+    return {"decima_node_encoder": fwd, "decima_node_encoder_bwd": bwd}
 
 
 # ---------------------------------------------------------------------------
@@ -2014,6 +2287,7 @@ def main() -> int:
                     ROUNDS_OFF)
         front = phase_serve_front(params, bank, sched)
         http = phase_serve_http(params, bank, sched)
+        online = phase_online(params, bank, agent)
         phase_parity(agent, sched)
         phase_run_flat()
         train = phase_train()
@@ -2024,7 +2298,7 @@ def main() -> int:
         phase_kernel_alone(cases, calls, tsched, chunks[CHUNK_TIMED], bwd)
         phase_train_parity(parity_helpers())
         paths = {"serve_front": front, "serve_http": http,
-                 "train": train["launches"],
+                 "online": online, "train": train["launches"],
                  "train_resume": phase_train_resume(),
                  "eval_trained": phase_eval_trained()}
         phase_telemetry_cost()

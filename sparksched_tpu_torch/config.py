@@ -132,10 +132,10 @@ SERVE_KEYS = frozenset({
     "front",  # batching front: continuous (default) | pipelined | linger
     "hot_capacity",  # device slots; < capacity pages idle sessions to host
     "shard_dp",  # shard the store over a dp mesh (not ported)
-    "record",  # per-decision trajectory records (not ported)
+    "record",  # per-decision trajectory records (the online loop's path)
     "pager_aware",  # continuous front: prefer hot sessions in batches
-    "ring",  # device-resident trajectory ring depth (not ported)
-    "ring_drain",  # the ring's drain cadence (not ported)
+    "ring",  # device-resident trajectory ring depth (0 = per decision)
+    "ring_drain",  # the ring's drain cadence (default: about half the ring)
     "groups",  # slot groups (the in-flight window's width)
     "depth",  # `front: pipelined` in-flight window depth (default: groups)
     "harvester",  # background thread materializing outputs
@@ -150,4 +150,23 @@ SERVE_KEYS = frozenset({
     "slo",  # the burn-rate SLO block (not ported)
     "attribution",  # critical-path analyzer on the front (default: trace)
     "hostprof",  # sampling host profiler (not ported)
+})
+
+# the top-level `online:` YAML block's keys, the JAX package's surface:
+# `online/__init__.py:online_from_config` fails on any other key
+ONLINE_KEYS = frozenset({
+    "enabled",  # default True when the block is present
+    "max_trajectories",  # completed-trajectory buffer bound (FIFO evict)
+    "max_steps",  # decisions per trajectory segment (the padded T)
+    "batch_trajectories",  # trajectories per update (the padded B)
+    "max_param_lag",  # off-policy guard: skip trajectories whose
+    #   params-version lag exceeds this (PPO's ratio clip covers the rest)
+    "min_decisions",  # drop segments shorter than this many decisions
+    "swap_every",  # publish params every N accepted learner updates
+    "probation_decisions",  # post-swap decisions watched before a swap
+    #   is marked good (the rollback window)
+    "max_quarantine_rate",  # roll back when the post-swap quarantine
+    #   rate over the probation window exceeds this
+    "learner",  # nested PPO overrides for the learner's trainer
+    "seed",
 })

@@ -20,13 +20,16 @@ branches applied in turn, each masked to its own lanes; a `lax.scan`
 over groups becomes a Python loop. Each function takes the optional
 `telemetry` counters (`obs.telemetry.Telemetry`) and then returns them
 as a trailing element, advanced as the JAX package advances them; the
-default None counts nothing and runs nothing extra. The trajectory
-records (`record=True`) and `reset_fn` are not ported.
+default None counts nothing and runs nothing extra. `TrajRing` and
+`ring_append` are the serving store's device trajectory ring. The
+micro-step trajectory records (`record=True`) and `reset_fn` are not
+ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 import torch
 
@@ -143,6 +146,98 @@ def write_slot(store: LoopState, idx: torch.Tensor, ls: LoopState) -> None:
     i = idx.long()
     for (_, dst), (_, src) in zip(leaves(store), leaves(ls)):
         dst[i] = src
+
+
+@dataclasses.dataclass
+class TrajRing:
+    """Device-resident trajectory ring: an [R]-record tree plus a
+    monotone append cursor, kept beside the session store and updated
+    in place by the ring-recording serve programs.
+
+    `cursor` (i32 []) counts the records EVER appended, not the wrapped
+    position: the host drains the span `[drained, cursor)` and recovers
+    the positions itself (`i % R`), so an overrun (more than R appends
+    between drains) shows as `cursor - drained > R` instead of silently
+    aliasing. `rec` is any tree (dataclasses, dicts, tensors) whose
+    leaves carry R + 1 rows: row R is a sink that masked-off lanes of an
+    append write to, where the JAX package's scatter drops them (an
+    out-of-range index is a device-side assert on the card). The
+    append below is schema-agnostic."""
+
+    cursor: torch.Tensor  # i32 []; total records appended since init
+    rec: Any  # [R + 1, ...] record tree; row R is the sink
+
+    @property
+    def size(self) -> int:
+        """R, the ring's depth in records."""
+        return rec_leaves(self.rec)[0].shape[0] - 1
+
+
+def rec_leaves(tree) -> list[torch.Tensor]:
+    """The tensors of a record tree (dataclass fields in order, dict
+    keys sorted; None fields skipped)."""
+    if dataclasses.is_dataclass(tree):
+        out: list[torch.Tensor] = []
+        for f in dataclasses.fields(tree):
+            v = getattr(tree, f.name)
+            if v is not None:
+                out += rec_leaves(v)
+        return out
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in rec_leaves(tree[k])]
+    return [tree]
+
+
+def rec_map(fn, *trees):
+    """`fn` leaf-wise over record trees of one structure."""
+    t0 = trees[0]
+    if dataclasses.is_dataclass(t0):
+        return type(t0)(**{
+            f.name: (None if getattr(t0, f.name) is None else
+                     rec_map(fn, *(getattr(t, f.name) for t in trees)))
+            for f in dataclasses.fields(t0)
+        })
+    if isinstance(t0, dict):
+        return {k: rec_map(fn, *(t[k] for t in trees)) for k in t0}
+    return fn(*trees)
+
+
+def make_ring(R: int, rec) -> TrajRing:
+    """A zero-filled ring of depth `R` for records shaped like `rec`
+    (one record, no leading axis), on `rec`'s device."""
+    if R < 1:
+        raise ValueError(f"ring depth {R} must be >= 1")
+    ring_rec = rec_map(
+        lambda a: torch.zeros((R + 1,) + tuple(a.shape), dtype=a.dtype,
+                              device=a.device), rec)
+    dev = rec_leaves(rec)[0].device
+    return TrajRing(cursor=torch.zeros((), dtype=_i32, device=dev),
+                    rec=ring_rec)
+
+
+def ring_append(ring: TrajRing, recs, mask: torch.Tensor) -> TrajRing:
+    """Masked append into the ring, IN PLACE (the JAX package's donated
+    ring): a scalar `mask` appends one record, a [K] `mask` the masked
+    subset of [K]-stacked records in lane order (exclusive-cumsum
+    compaction). Masked-off lanes write to the sink row R, so the
+    indices are built on the device and the append never syncs the
+    host. The wrap (`% R`) happens here; the cursor advances by the
+    number of records actually appended. Returns the ring."""
+    R = ring.size
+    if mask.dim() == 0:
+        n = mask.to(_i32)
+        idx = torch.where(mask, ring.cursor % R, R).reshape(1)
+        recs = rec_map(lambda v: v.unsqueeze(0), recs)
+    else:
+        mi = mask.to(_i32)
+        n = mi.sum().to(_i32)
+        offs = torch.cumsum(mi, 0) - mi  # exclusive cumsum: append order
+        idx = torch.where(mask, (ring.cursor + offs) % R, R)
+    idx = idx.long()
+    for dst, src in zip(rec_leaves(ring.rec), rec_leaves(recs)):
+        dst[idx] = src.to(dst.dtype)
+    ring.cursor.add_(n)
+    return ring
 
 
 def init_loop_state(state: EnvState) -> LoopState:

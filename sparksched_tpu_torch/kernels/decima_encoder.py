@@ -27,6 +27,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import threading
 
 import numpy as np
 import torch
@@ -138,6 +139,11 @@ def _check(x, adj, node_level, node_mask, w: EncoderWeights) -> None:
         raise ValueError(f"weights are on {w.packed.device}, x on {x.device}")
 
 
+# the launch counters are bumped from the serving thread and from the
+# online learner's thread (and autograd's) at once
+_COUNT_LOCK = threading.Lock()
+
+
 @functools.cache
 def _launcher():
     """The C entry point of the built library, with its signature."""
@@ -182,7 +188,8 @@ def decima_node_encoder(x, adj, node_level, node_mask, w: EncoderWeights,
         raise RuntimeError(
             f"decima_node_encoder launch failed (cudaGetLastError={rc})"
         )
-    decima_node_encoder.launches += 1
+    with _COUNT_LOCK:
+        decima_node_encoder.launches += 1
     return out
 
 
@@ -293,7 +300,8 @@ def decima_node_encoder_bwd(x, adj, node_level, node_mask, w: EncoderWeights,
         raise RuntimeError(
             f"decima_node_encoder_bwd launch failed (cudaGetLastError={rc})"
         )
-    decima_node_encoder_bwd.launches += 1
+    with _COUNT_LOCK:
+        decima_node_encoder_bwd.launches += 1
     decima_node_encoder_bwd.scratch_bytes = nbytes.value
     return unpack_grad(w, grad)
 

@@ -62,11 +62,23 @@ Observability is host-side and off by default: `metrics` (a
 `trace=True` stamps a per-request span walk, emitted as run-log
 `trace` records and fed to a `CritPathAnalyzer`.
 
+Trajectory records (the online loop's actor path): a `record=True`
+store hands each decision's `StoredObs` record to the host on its
+`ServeResult.obs` and, with a `collector` (`online.TrajectoryBuffer`),
+feeds every decision to it (`add`) and every close (`on_close`). With
+`ring=R > 0` the programs instead append each decided record to a
+per-group device `TrajRing`; every `ring_drain` potential appends (and
+at a parameter swap, at a harvest with nothing in flight, and at a
+close) the host snapshots the ring without a sync (`RingSnapshot`) and
+later hands the span `[drained, cursor)` to the collector as one chunk
+(`ingest_chunk`), a session's close always after its records. An
+overrun is counted in `serve_ring_dropped`. `ServeResult.obs` never
+crosses the wire.
+
 `store_from_config` / `front_from_config` build the stack from the
 top-level `serve:` YAML block (`config.SERVE_KEYS`). Not ported yet,
-and refused loudly: `record`, `ring`, `ring_drain` (the trajectory
-ring), the store's `collector`, `shard_dp` (a dp mesh) and
-`donate: false` (the port always updates in place).
+and refused loudly: `shard_dp` (a dp mesh) and `donate: false` (the
+port always updates in place).
 """
 
 from __future__ import annotations
@@ -87,19 +99,26 @@ from ..env.core import check_knobs
 from ..env.flat_loop import (
     init_loop_state,
     leaves,
+    rec_leaves,
+    rec_map,
     take_slot,
     tree_map,
     write_slot,
 )
 from ..obs.tracing import RequestTrace, annotate
 from ..ownership import assert_owner
+from ..trainers.rollout import StoredObs
 from ..workload.bank import WorkloadBank
 from .aot import (
     SERVE_KNOBS,
     ColdSlot,
     HostCopy,
+    RingSnapshot,
+    init_ring,
     serve_decide_batch_fn,
+    serve_decide_batch_ring_fn,
     serve_decide_fn,
+    serve_decide_ring_fn,
 )
 
 
@@ -120,12 +139,15 @@ def _not_ported(knob: str, what: str) -> NotImplementedError:
 
 class ServeResult:
     """Host-side view of one served decision (plain Python scalars).
-    `params_version` is the store's parameter version at dispatch."""
+    `params_version` is the store's parameter version at dispatch (the
+    staleness stamp the online learner filters on). `obs` (record-on
+    stores without a ring, else None) is the decision's `StoredObs`
+    record as numpy arrays; it never crosses the wire."""
 
     __slots__ = (
         "session_id", "stage_idx", "job_idx", "num_exec", "lgprob",
         "decided", "done", "reward", "dt", "wall_time", "health_mask",
-        "batched", "params_version",
+        "batched", "params_version", "obs",
     )
 
     def __init__(self, session_id: int, out: dict[str, np.ndarray], i: int,
@@ -143,21 +165,31 @@ class ServeResult:
         self.health_mask = int(out["health_mask"][i])
         self.batched = batched
         self.params_version = int(params_version)
+        self.obs = _result_obs(out, i)
 
     def to_dict(self) -> dict[str, Any]:
-        return {k: getattr(self, k) for k in self.__slots__}
+        return {k: getattr(self, k) for k in self.__slots__ if k != "obs"}
+
+
+def _result_obs(out: dict[str, np.ndarray], i: int) -> StoredObs | None:
+    """Row i of a record-on call's `obs.<field>` outputs, or None."""
+    if "obs.remaining" not in out:
+        return None
+    return StoredObs(**{f: out[f"obs.{f}"][i]
+                        for f in StoredObs.__dataclass_fields__})
 
 
 class RemoteResult:
     """`ServeResult`'s wire twin: a decision decoded from a
     `ServeResult.to_dict()` payload that crossed a socket, plus the
     wire-only `replica` (-1 in-process) and `spans_ms` (the server's
-    span offsets riding the reply)."""
+    span offsets riding the reply). `obs` is always None: records do
+    not cross the wire."""
 
     __slots__ = (
         "session_id", "stage_idx", "job_idx", "num_exec", "lgprob",
         "decided", "done", "reward", "dt", "wall_time", "health_mask",
-        "batched", "params_version", "replica", "spans_ms",
+        "batched", "params_version", "obs", "replica", "spans_ms",
     )
 
     def __init__(self, d: dict[str, Any]) -> None:
@@ -174,12 +206,13 @@ class RemoteResult:
         self.health_mask = int(d.get("health_mask", 0))
         self.batched = bool(d.get("batched", False))
         self.params_version = int(d.get("params_version", 0))
+        self.obs = None
         self.replica = int(d.get("replica", -1))
         self.spans_ms = d.get("spans_ms")
 
     def to_dict(self) -> dict[str, Any]:
         return {k: getattr(self, k) for k in self.__slots__
-                if k != "spans_ms"}
+                if k not in ("obs", "spans_ms")}
 
 
 class InFlightCall:
@@ -258,10 +291,6 @@ class SessionStore:
         for knob, on, what in (
             ("shard_dp", mesh is not None, "a dp-sharded store"),
             ("donate: false", not donate, "a copying store"),
-            ("record", record, "per-decision trajectory records"),
-            ("ring", ring, "the trajectory ring"),
-            ("ring_drain", ring_drain is not None, "the ring's drain"),
-            ("collector", collector is not None, "a trajectory collector"),
         ):
             if on:
                 raise _not_ported(knob, what)
@@ -285,6 +314,48 @@ class SessionStore:
                 f"max_batch={max_batch} must be in [1, "
                 f"hot_capacity/groups={gs}] (a batch is ONE call and "
                 "lives in ONE slot group)"
+            )
+        # trajectory recording, its optional collector (`add(result)` /
+        # `ingest_chunk(chunk)` / `on_close(sid, quarantined=)`) and the
+        # device ring: ring=R > 0 appends records on the device and
+        # drains them in batches; ring=0 hands each record to the host
+        self.record = bool(record)
+        self.collector = collector
+        self.ring_size = int(ring)
+        if self.ring_size < 0:
+            raise ValueError(f"ring={ring} must be >= 0")
+        if self.ring_size and not self.record:
+            raise ValueError(
+                "ring > 0 requires record=True (the ring IS the "
+                "record path — a ring without recording would run "
+                "dead append machinery)"
+            )
+        if self.ring_size and self.ring_size < max_batch:
+            raise ValueError(
+                f"ring={ring} must be >= max_batch={max_batch} (one "
+                "call can append up to max_batch records; a smaller "
+                "ring would drop records within a single call)"
+            )
+        self._ring_on = self.record and self.ring_size > 0
+        if ring_drain is not None and not self._ring_on:
+            raise ValueError(
+                "ring_drain requires ring > 0 (there is no ring to "
+                "set a drain cadence for)"
+            )
+        # default cadence: half the ring, clamped so a worst-case burst
+        # between snapshots (ring_drain - 1 potential appends plus one
+        # full batch) still fits; an explicit tighter cadence may
+        # overrun, which is counted (serve_ring_dropped)
+        self.ring_drain = (
+            max(1, min(self.ring_size // 2,
+                       self.ring_size - max_batch + 1))
+            if ring_drain is None else int(ring_drain)
+        )
+        if self._ring_on and not 1 <= self.ring_drain <= self.ring_size:
+            raise ValueError(
+                f"ring_drain={ring_drain} must be in [1, ring="
+                f"{self.ring_size}] (a cadence past the ring depth "
+                "guarantees overwritten records)"
             )
         self.knobs = SERVE_KNOBS | (knobs or {})
         check_knobs(self.knobs)
@@ -318,10 +389,17 @@ class SessionStore:
         pol, bpol = scheduler.serve_param_policies(
             deterministic=self.deterministic
         )
-        self._decide1 = serve_decide_fn(params, bank, pol, self.knobs)
-        self._decidek = serve_decide_batch_fn(
-            params, bank, bpol, self.max_batch, self.knobs
-        )
+        if self._ring_on:
+            self._decide1 = serve_decide_ring_fn(params, bank, pol,
+                                                 self.knobs)
+            self._decidek = serve_decide_batch_ring_fn(
+                params, bank, bpol, self.max_batch, self.knobs)
+        else:
+            self._decide1 = serve_decide_fn(params, bank, pol, self.knobs,
+                                            record=self.record)
+            self._decidek = serve_decide_batch_fn(
+                params, bank, bpol, self.max_batch, self.knobs,
+                record=self.record)
         # every slot starts as a copy of one dummy episode; create()
         # overwrites a slot with its own seeded reset
         ls0 = self._reset1(prng.fold_in(self._base_key, 2**19))
@@ -329,6 +407,20 @@ class SessionStore:
             tree_map(lambda a: a.expand((gs,) + a.shape[1:]).clone(), ls0)
             for _ in range(self.groups)
         ]
+        # one device ring per slot group (ring mode only); per group the
+        # potential undrained appends (counted at dispatch: an upper
+        # bound, so the cadence can only over-drain) and the records
+        # already ingested (the host cursor). Pending snapshots and
+        # deferred close events wait in ONE queue in the order they were
+        # made: a session's close must reach the collector before the
+        # records of a later session reusing its id, whichever group
+        # that one lives in (the JAX store keeps one queue per group)
+        self._rings = (
+            [init_ring(self.ring_size, params, ls0.env)
+             for _ in range(self.groups)] if self._ring_on else [])
+        self._ring_pot = [0] * self.groups
+        self._ring_drained = [0] * self.groups
+        self._ring_pending: deque = deque()
 
         # sids are public handles, slots device positions (GLOBAL ids:
         # group = slot // group_slots, local = slot % group_slots)
@@ -378,7 +470,9 @@ class SessionStore:
             "serve_param_version": 0,
             "serve_inflight_peak": 0,
             "serve_prefetches": 0,
-            # the trajectory ring's keys: 0 until the ring is ported
+            # the ring: potential undrained appends, snapshots taken,
+            # records ingested, and records lost to an overrun (exact,
+            # from the snapshot's cursor)
             "serve_ring_occupancy": 0,
             "serve_ring_drains": 0,
             "serve_ring_records": 0,
@@ -417,16 +511,121 @@ class SessionStore:
                 for k, v in self.scheduler.params.items()}
 
     def _call1(self, group: int, local: int, fstage: int, fnexec: int,
-               use_force: bool):
+               use_force: bool, sid: int = -1):
+        if self._ring_on:
+            out = self._decide1(self._stores[group], self._rings[group],
+                                local, sid, self.params_version,
+                                self._next_key(), fstage, fnexec, use_force)
+            self._ring_dispatched(group, 1)
+            return out
         return self._decide1(self._stores[group], local, self._next_key(),
                              fstage, fnexec, use_force)
 
-    def _callk(self, group: int, locals_: list[int]):
-        slots = np.full(self.max_batch, self.group_slots, np.int64)
+    def _callk(self, group: int, locals_: list[int],
+               sids: list[int] | None = None):
+        K = self.max_batch
+        slots = np.full(K, self.group_slots, np.int64)
         slots[: len(locals_)] = locals_
+        if self._ring_on:
+            sv = np.full(K, -1, np.int64)
+            if sids is not None:
+                sv[: len(sids)] = sids
+            both = torch.from_numpy(np.concatenate([slots, sv])).to(
+                self.device)
+            out = self._decidek(self._stores[group], self._rings[group],
+                                both[:K], both[K:], self.params_version,
+                                self._next_key())
+            self._ring_dispatched(group, K if sids is None else len(sids))
+            return out
         return self._decidek(self._stores[group],
                              torch.from_numpy(slots).to(self.device),
                              self._next_key())
+
+    # -- the trajectory ring's drain ---------------------------------------
+
+    def _ring_dispatched(self, group: int, n: int) -> None:
+        """Count a dispatched call's potential appends and snapshot the
+        group's ring once the cadence is reached. An upper bound (lanes
+        that do not decide append nothing): the trigger can only
+        over-drain, and an overrun is still counted exactly from the
+        snapshot's cursor."""
+        self._ring_pot[group] += int(n)
+        self.stats["serve_ring_occupancy"] = sum(self._ring_pot)
+        if self._ring_pot[group] >= self.ring_drain:
+            self._ring_snapshot(group)
+
+    def _ring_snapshot(self, group: int) -> None:
+        """Start a drain of one group's ring without a host sync
+        (`RingSnapshot`); `_drain_ring_writebacks` ingests it once its
+        copy has landed."""
+        self._ring_pending.append(
+            ("snap", group, RingSnapshot(self._rings[group])))
+        self._ring_pot[group] = 0
+        self.stats["serve_ring_occupancy"] = sum(self._ring_pot)
+        self.stats["serve_ring_drains"] += 1
+        if self.metrics is not None:
+            self.metrics.counter("serve_ring_drains")
+
+    def _ring_emit_close(self, sid: int, quarantined: bool) -> None:
+        """One session's close, to the collector: always after every ring
+        record of the session was ingested (the pending queue keeps
+        chunks and closes in stream order)."""
+        if self.collector is not None:
+            self.collector.on_close(sid, quarantined=quarantined)
+
+    def _ring_ingest(self, group: int, snap: RingSnapshot) -> None:
+        """Consume one landed snapshot: the undrained span is `[drained,
+        cursor)` with the cursor read from the SNAPSHOT, an overrun past
+        the ring's depth is counted as dropped records (the oldest are
+        gone), and the surviving records go to the collector as ONE
+        chunk in append order (a `RingRec` of [n] numpy arrays)."""
+        end, rec = snap.numpy()
+        start = self._ring_drained[group]
+        if end <= start:
+            return
+        dropped = (end - start) - self.ring_size
+        if dropped > 0:
+            self.stats["serve_ring_dropped"] += dropped
+            if self.metrics is not None:
+                self.metrics.counter("serve_ring_dropped", dropped)
+            start += dropped
+        idx = np.arange(start, end) % self.ring_size
+        chunk = rec_map(lambda a: a[idx], rec)
+        self._ring_drained[group] = end
+        self.stats["serve_ring_records"] += end - start
+        if self.collector is not None:
+            self.collector.ingest_chunk(chunk)
+
+    def _drain_ring_writebacks(self, wait: bool = False) -> None:
+        """The pending queue in order: a snapshot whose copy landed (or
+        any, with `wait`) is ingested, a deferred close fires once every
+        snapshot queued before it was. Without `wait` nothing blocks; a
+        snapshot not yet landed holds back what was queued after it
+        (the copies run in order on one stream, so a later one is not
+        ready before it anyway)."""
+        pend = self._ring_pending
+        while pend:
+            kind, a, b = pend[0]
+            if kind == "snap" and not (wait or b.ready()):
+                break
+            pend.popleft()
+            if kind == "close":
+                self._ring_emit_close(a, b)
+            else:
+                self._ring_ingest(a, b)
+
+    def drain_ring(self, wait: bool = True) -> None:
+        """Force a drain: snapshot every group with potential undrained
+        records, then work the pending queues; with `wait` (teardown,
+        end of a window, parity checks) until every record reached the
+        collector, without (a parameter swap) only what has landed. A
+        no-op on a store without a ring."""
+        if not self._ring_on:
+            return
+        for g in range(self.groups):
+            if self._ring_pot[g] > 0:
+                self._ring_snapshot(g)
+        self._drain_ring_writebacks(wait=wait)
 
     def _wait_device(self) -> None:
         if self.device.type == "cuda":
@@ -449,6 +648,7 @@ class SessionStore:
             self.wall_split["dispatch_s"] += t1 - t0
             self.wall_split["blocked_host_s"] += time.perf_counter() - t1
             self._drain_writebacks()
+            self._drain_ring_writebacks()
             return host
         t_dispatch = time.perf_counter()
         out = call()
@@ -460,6 +660,7 @@ class SessionStore:
         self.wall_split["dispatch_s"] += t_harvest - t_dispatch
         self.wall_split["blocked_host_s"] += t_scatter - t_harvest
         self._drain_writebacks()
+        self._drain_ring_writebacks()
         self.last_spans = {
             "dispatch": t_dispatch,
             "harvest": t_harvest,
@@ -623,6 +824,9 @@ class SessionStore:
             t.numel() * t.element_size()
             for t in vars(self.bank).values() if isinstance(t, torch.Tensor)
         )
+        # the per-group rings are device-resident fixed cost too
+        fixed += sum(t.numel() * t.element_size() for rg in self._rings
+                     for t in [rg.cursor] + rec_leaves(rg.rec))
         return hot_set_fit(
             [a[0] for _, a in leaves(self._stores[0])],
             candidates, budget_bytes=int(budget_bytes), fixed_bytes=fixed,
@@ -676,6 +880,9 @@ class SessionStore:
         self.stats["serve_param_swaps"] += 1
         self._version_changed("serve_param_swaps", prev_version, origin,
                               reason)
+        # a swap is a ring-drain boundary: records of the outgoing
+        # version reach the learner promptly, without blocking dispatch
+        self.drain_ring(wait=False)
         return self.params_version
 
     def rollback_params(self, reason: str | None = None) -> int:
@@ -688,6 +895,7 @@ class SessionStore:
         self.stats["serve_param_rollbacks"] += 1
         self._version_changed("serve_param_rollbacks", prev_version,
                               "rollback", reason)
+        self.drain_ring(wait=False)  # a swap boundary (see set_params)
         return self.params_version
 
     def _version_changed(self, counter: str, prev_version: int,
@@ -742,6 +950,24 @@ class SessionStore:
     def close(self, sid: int) -> None:
         assert_owner(self, "serve-pump")
         self._check_sid(sid, allow_quarantined=True)
+        if self.collector is not None:
+            # finalize (or drop, when quarantined) the session's open
+            # trajectory before the sid is reused
+            quar = bool(self._quarantined[sid])
+            if self._ring_on:
+                # every ring record of the session must reach the
+                # collector before its close: snapshot its group now
+                # (no sync) and queue the close behind the snapshot
+                g = self.session_group(sid)
+                if self._ring_pot[g] > 0:
+                    self._ring_snapshot(g)
+                if self._ring_pending:
+                    self._ring_pending.append(("close", sid, quar))
+                    self._drain_ring_writebacks()
+                else:
+                    self._ring_emit_close(sid, quar)
+            else:
+                self.collector.on_close(sid, quarantined=quar)
         slot = int(self._slot_of[sid])
         if slot >= 0:
             self._sid_of[slot] = -1
@@ -778,6 +1004,14 @@ class SessionStore:
 
     # -- serving -----------------------------------------------------------
 
+    def _record_result(self, res: ServeResult) -> None:
+        """Feed one served decision to the collector (the per-decision
+        record path). A quarantining decision reaches it too: the
+        collector drops the poisoned episode itself. Ring mode skips
+        this: the record reaches the collector through the drain."""
+        if self.collector is not None and not self._ring_on:
+            self.collector.add(res)
+
     def _batch_group(self, sids: list[int]) -> int:
         """The ONE slot group a batch lives in; cross-group sid sets
         fail loudly (the group-aware front never forms them)."""
@@ -797,9 +1031,10 @@ class SessionStore:
         g, l = divmod(slot, self.group_slots)
         ver = self.params_version  # live at dispatch
         out = self._served(
-            lambda: self._call1(g, l, stage_idx, num_exec, use_force))
+            lambda: self._call1(g, l, stage_idx, num_exec, use_force, sid))
         res = ServeResult(sid, out, 0, batched=False, params_version=ver)
         self._apply_health(sid, res.health_mask)
+        self._record_result(res)
         self.stats["serve_decisions"] += 1
         return res
 
@@ -823,6 +1058,7 @@ class SessionStore:
             if gens is None or (self._live[sid]
                                 and self._gen[sid] == gens[i]):
                 self._apply_health(sid, res.health_mask)
+                self._record_result(res)
             results.append(res)
         self.stats["serve_decisions"] += len(sids)
         self.stats["serve_batched_decisions"] += len(sids)
@@ -851,7 +1087,7 @@ class SessionStore:
         group = self._batch_group(sids)
         locals_ = [s % self.group_slots for s in self._ensure_hot(sids)]
         ver = self.params_version
-        out = self._served(lambda: self._callk(group, locals_))
+        out = self._served(lambda: self._callk(group, locals_, sids))
         return self._batch_results(sids, out, ver)
 
     # -- the pipelined window ----------------------------------------------
@@ -882,11 +1118,12 @@ class SessionStore:
             # decide_batch's lone-request fallback: the same program and
             # key consumption, so sync and pipelined fronts stay equal
             out = self._call1(group, batch_slots[0] % self.group_slots,
-                              -1, 0, False)
+                              -1, 0, False, sids[0])
             batched = False
         else:
             out = self._callk(group,
-                              [s % self.group_slots for s in batch_slots])
+                              [s % self.group_slots for s in batch_slots],
+                              sids)
             batched = True
         copy = HostCopy(out)
         t1 = time.perf_counter()
@@ -962,9 +1199,11 @@ class SessionStore:
                               params_version=call.params_version)
             if self._live[sid] and self._gen[sid] == call.gens[0]:
                 self._apply_health(sid, res.health_mask)
+                self._record_result(res)
             self.stats["serve_decisions"] += 1
             call.results = [res]
         self._drain_writebacks()
+        self._drain_ring_writebacks()
         return call.results
 
     def harvest(self, wait: bool = True, limit: int | None = None
@@ -976,7 +1215,14 @@ class SessionStore:
             self.finalize_call(call)
         with self._harvest_cv:
             empty = not self._inflight
-        self._drain_writebacks(wait=wait and empty)
+        idle = wait and empty
+        self._drain_writebacks(wait=idle)
+        # a harvest with nothing in flight is a ring-drain boundary: no
+        # dispatch to protect, so leftover records go to the collector
+        if idle:
+            self.drain_ring(wait=True)
+        else:
+            self._drain_ring_writebacks()
         return done
 
     def _harvester_loop(self) -> None:
@@ -1526,9 +1772,11 @@ def store_from_config(
     """Build a `SessionStore` from a top-level `serve:` YAML block, on
     the card unless `device="cpu"` is among the overrides. Unknown keys
     fail as in the JAX package; a store knob the port has not ported
-    yet raises `NotImplementedError`. `front`/`linger_ms`/`depth`/...
-    are front knobs (`front_from_config`), `host`/`port`/quotas server
-    knobs (`serve/server.py:server_from_config`)."""
+    yet (`shard_dp`, `donate: false`) raises `NotImplementedError`.
+    `record`, `ring` and `ring_drain` pass through to the store.
+    `front`/`linger_ms`/`depth`/... are front knobs
+    (`front_from_config`), `host`/`port`/quotas server knobs
+    (`serve/server.py:server_from_config`)."""
     cfg = dict(cfg or {})
     _check_keys(cfg)
     if cfg.get("shard_dp"):

@@ -375,3 +375,150 @@ def test_paged_grouped_store_on_the_card(card):
             for k in ("lgprob", "reward", "dt", "wall_time"):
                 assert getattr(a, k) == pytest.approx(getattr(b, k),
                                                       rel=1e-5, abs=1e-5)
+
+
+def test_ring_append_on_the_card_matches_cpu(card):
+    """The ring append on the card: masked-off lanes land in the sink row
+    (no device-side assert), the cursor and every row bit-equal to the
+    CPU's, across the wrap, with scalar and batch masks."""
+    from sparksched_tpu_torch.env.flat_loop import make_ring, ring_append
+
+    gen = torch.Generator().manual_seed(3)
+    rings = {d: make_ring(5, {"a": torch.zeros((), dtype=torch.int32,
+                                               device=d),
+                              "b": torch.zeros(2, device=d)})
+             for d in ("cpu", "cuda")}
+    for k in range(12):
+        n = () if k % 3 == 0 else (4,)
+        recs = {"a": torch.randint(0, 99, n, generator=gen,
+                                   dtype=torch.int32),
+                "b": torch.randn(n + (2,), generator=gen)}
+        mask = torch.rand(n, generator=gen) < 0.6
+        for d, r in rings.items():
+            ring_append(r, {x: v.to(d) for x, v in recs.items()}, mask.to(d))
+    cpu, gpu = rings["cpu"], rings["cuda"]
+    assert int(gpu.cursor) == int(cpu.cursor) > 5
+    for x in ("a", "b"):
+        assert torch.equal(gpu.rec[x][:5].cpu(), cpu.rec[x][:5])
+
+
+def _ring_store(dev, ring, buf):
+    from sparksched_tpu_torch.serve import SessionStore
+
+    p, b, s = _serve_stack(dev)
+    return SessionStore(p, b, s, capacity=8, hot_capacity=4, groups=2,
+                        max_batch=2, seed=0, record=True, ring=ring,
+                        collector=buf, device=dev)
+
+
+def _drive_ring(st) -> None:
+    sids = [st.create(seed=20 + i) for i in range(8)]
+    groups = [[s for s in sids if st.session_group(s) == g][:2]
+              for g in (0, 1)]
+    for _ in range(4):
+        for b in groups:
+            st.dispatch_batch(b)
+        st.harvest(wait=True)
+    for s in sids:
+        st.close(s)
+    st.drain_ring(wait=True)
+
+
+def test_ring_store_on_the_card(card):
+    """The ring store on the card, driven through the in-flight window:
+    its trajectories bit-equal to the card's per-decision record path,
+    nothing dropped, and equal to the CPU ring store's (stamps, actions
+    and records equal, the served floats within 1e-5 relative)."""
+    from sparksched_tpu_torch.online import TrajectoryBuffer
+
+    out = {}
+    for dev, ring in (("cuda", 4), ("cuda", 0), ("cpu", 4)):
+        buf = TrajectoryBuffer(capacity=64, max_steps=3, min_decisions=1)
+        st = _ring_store(dev, ring, buf)
+        _drive_ring(st)
+        if ring:
+            assert st.stats["serve_ring_dropped"] == 0
+            assert st.stats["serve_ring_records"] > 2 * ring
+        out[(dev, ring)] = sorted(buf.drain(10 ** 6), key=lambda t: (
+            t.session_id, float(t.wall_times[0])))
+    fields = ("stage_idx", "job_idx", "num_exec_k", "lgprob", "reward",
+              "wall_times", "params_version")
+    a, b, c = out[("cuda", 4)], out[("cuda", 0)], out[("cpu", 4)]
+    assert len(a) == len(b) == len(c) > 0
+    for x, y, z in zip(a, b, c):
+        assert (x.session_id, x.length, x.done) == (y.session_id, y.length,
+                                                    y.done)
+        assert (x.session_id, x.length, x.done) == (z.session_id, z.length,
+                                                    z.done)
+        for f in fields:
+            assert getattr(x, f).tobytes() == getattr(y, f).tobytes(), f
+        for f in ("stage_idx", "job_idx", "num_exec_k", "params_version"):
+            assert (getattr(x, f) == getattr(z, f)).all(), f
+        for f in ("lgprob", "reward", "wall_times"):
+            assert getattr(x, f) == pytest.approx(getattr(z, f), rel=1e-5,
+                                                  abs=1e-5), f
+        for f in vars(x.obs):
+            assert getattr(x.obs, f).tobytes() == getattr(y.obs, f).tobytes()
+            assert getattr(x.obs, f).tobytes() == getattr(z.obs, f).tobytes()
+
+
+def test_online_learner_on_the_card(card):
+    """One learner update on the card against the CPU's from the same
+    trajectories and weights (the stats within rtol 1e-4 / atol 1e-6,
+    the weights within test_torch_ppo.py's bounds, the policy heads to
+    Adam's step bound); the version reaches a card store through the
+    bus on the next pump, and the background thread steps, publishes
+    and stops cleanly."""
+    import time
+
+    import numpy as np
+
+    from sparksched_tpu_torch.online import (
+        OnlineLearner,
+        ParamBus,
+        TrajectoryBuffer,
+        make_learner_trainer,
+    )
+
+    from ._torch_parity import assert_update_close
+
+    agent = {"agent_cls": "DecimaScheduler", "embed_dim": 8,
+             "gnn_mlp_kwargs": {"hid_dims": [16]},
+             "policy_mlp_kwargs": {"hid_dims": [16]}, "job_bucket": 4}
+    buf = TrajectoryBuffer(capacity=64, max_steps=8, min_decisions=1)
+    _drive_ring(_ring_store("cpu", 4, buf))
+    trajs = buf.drain(2)
+    assert len(trajs) == 2
+    p, _, s = _serve_stack("cpu")
+    w0 = {k: v.detach().clone() for k, v in s.params.items()}
+    store = _ring_store("cuda", 4, None)
+    bus = ParamBus(store, probation_decisions=4)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        lr = OnlineLearner(make_learner_trainer(agent, p, 2, 8, device=dev),
+                           TrajectoryBuffer(), bus if dev == "cuda" else None,
+                           init_params=w0)
+        lr.buffer.requeue(list(trajs))
+        info = lr.step()
+        assert info["accepted"], info
+        res[dev] = (info, {k: v.detach().cpu()
+                           for k, v in lr.state.params.items()}, lr)
+    (gi, gp, glr), (ci, cp, _) = res["cuda"], res["cpu"]
+    for k in ("policy_loss", "approx_kl_div", "entropy"):
+        np.testing.assert_allclose(gi[k], ci[k], rtol=1e-4, atol=1e-6)
+    assert_update_close(cp, gp, w0, int(ci["minibatches_applied"]), 3e-4,
+                        False)
+    assert bus.pump() == {"event": "swap", "version": 1}
+    for k, v in store.model_params.items():
+        assert torch.equal(v.cpu(), gp[k]), k
+    sid = store.create(seed=1)
+    assert store.decide(sid).params_version == 1
+    glr.buffer.requeue(list(trajs))
+    glr.start_background()
+    for _ in range(500):
+        if glr.stats["learner_published"] >= 2:
+            break
+        time.sleep(0.01)
+    glr.stop()
+    assert glr.error is None and glr.stats["learner_published"] == 2
+    assert bus.pump()["event"] == "swap" and store.params_version == 2

@@ -164,6 +164,7 @@ from sparksched_tpu_torch.workload import make_workload_bank
 import sparksched_tpu_torch.train, sparksched_tpu_torch.trainers
 import sparksched_tpu_torch.obs.critpath, sparksched_tpu_torch.obs.metrics
 import sparksched_tpu_torch.serve.loadgen, sparksched_tpu_torch.ownership
+import sparksched_tpu_torch.online
 bank = make_workload_bank(5, device="cpu")
 params = EnvParams(num_executors=5, max_jobs=6, max_stages=bank.max_stages,
                    max_levels=bank.max_stages)
@@ -182,6 +183,17 @@ with ServeServer(paged, front) as server:
         tk = client.submit(client.create(seed=2))
         client.flush()
         assert tk.error is None
+from sparksched_tpu_torch.online import online_from_config
+ring = SessionStore(params, bank, sched, capacity=2, max_batch=2, record=True,
+                    ring=2, device="cpu")
+buf, learner, bus = online_from_config(
+    {"max_steps": 2, "batch_trajectories": 1}, ring,
+    {"agent_cls": "DecimaScheduler", "embed_dim": 8, "job_bucket": 4})
+sid = ring.create(seed=3)
+ring.decide(sid)
+ring.decide(sid)
+ring.drain_ring()
+assert learner.step()["accepted"] and bus.pump()["event"] == "swap"
 loaded = [m for m in sys.modules
           if m == "sparksched_tpu" or m.startswith("sparksched_tpu.")]
 assert not loaded, loaded
@@ -232,3 +244,8 @@ def test_entry_points_raise_without_a_card():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             build({"capacity": 2, "max_batch": 2},
                   EnvParams(num_executors=5), bank, sched)
+    from sparksched_tpu_torch.online import make_learner_trainer
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_learner_trainer({"agent_cls": "DecimaScheduler"},
+                             EnvParams(num_executors=5), 2, 4)

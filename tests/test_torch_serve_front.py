@@ -356,10 +356,13 @@ def test_config_errors_match_jax(setup, pair):
 
 
 @pytest.mark.parametrize("knob", [
-    {"record": True}, {"ring": 64}, {"ring_drain": 8}, {"shard_dp": 2},
-    {"donate": False},
+    {"shard_dp": 2}, {"shard_dp": "auto", "record": True},
+    {"donate": False, "record": True, "ring": 8},
+    {"shard_dp": 2, "ring": 8, "record": True}, {"donate": False},
 ])
 def test_unported_store_knobs_raise(setup, knob):
+    """A store knob still unported raises, naming it, also beside the
+    record path's knobs (which build: tests/test_torch_serve_ring.py)."""
     tp, tb, ts = setup[1]
     key = next(iter(knob))
     with pytest.raises(NotImplementedError, match=f"serve: {key}.*not ported"):
