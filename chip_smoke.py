@@ -61,7 +61,21 @@ tenants, the learner in the background on its own stream and swaps on
 call and never going back, every decided record through the ring and
 none dropped; then a replay through a ring store and a per-decision
 store giving bit-equal trajectories, and one learner update on the card
-against the same update on the CPU), `card_vs_cpu` (4 sessions x
+against the same update on the CPU), `serve_fleet` (the replica fleet
+of `serve/router.py`: 2 replica processes on the one card, each the
+`serve:` block with the record path and a 32-record ring, rebuilt from
+`fleet_builder`; 8 sessions x 8 decisions through the router equal to an
+in-process store's per replica; `run_open_loop` through the router at
+80 requests/s from 64 tenants, 960 requests, with the fleet collector
+and a quarantine-rate SLO monitor scraping on the loop: every request
+reconciled, health 0; every decided result through the rings to one
+parent `TrajectoryBuffer`, none dropped; one learner update on the
+card accepted and swapped onto both replicas; a poisoned session on
+each replica firing exactly one alert that rolls the fleet back; `/fleet`
+and the replica-labeled `/metrics` of a `ServeServer` over the router,
+with the host profiler's role table; replica 1 killed, its sessions
+raising `ReplicaDied` while replica 0 serves on; the forward kernel
+launched in each replica, counted there), `card_vs_cpu` (4 sessions x
 16 decisions), `run_flat_fair` (16 lanes x 128 groups, two lanes
 replayed on the CPU), `train` (the main path; a `train_iteration` line
 per iteration), `train_update_profile` (torch.profiler over an update:
@@ -1166,6 +1180,377 @@ def phase_online(params, bank, agent, device: str = "cuda") -> dict:
            "card": card_line() if device == "cuda" else "cpu"}
     emit(out)
     return {"decima_node_encoder": fwd, "decima_node_encoder_bwd": bwd}
+
+
+# the replica fleet: the serve: block (continuous front, traced) with the
+# record path and a 32-record ring in each of 2 replica processes on the
+# one card; parity through the router on 8 sessions x 8 decisions;
+# open-loop load from 64 tenants at 80 requests/s, 960 requests (a rate
+# one in-process store of the block falls behind)
+FLEET_REPLICAS = 2
+FLEET_BLOCK = SERVE_BLOCK | {"front": "continuous", "metrics": True,
+                             "record": True, "ring": ONLINE_RING}
+FLEET_PARITY_SESSIONS, FLEET_PARITY_DECISIONS = 8, 8
+FLEET_TENANTS, FLEET_RPS, FLEET_REQUESTS = 64, 80.0, 960
+FLEET_RTOL = 1e-5  # tests/_torch_parity.py:assert_same_result's
+FLEET_INT_FIELDS = ("stage_idx", "job_idx", "num_exec", "decided", "done",
+                    "health_mask", "batched", "params_version")
+FLEET_FLOAT_FIELDS = ("lgprob", "reward", "dt", "wall_time")
+
+
+def fleet_builder(weights: dict, device: str):
+    """A replica's stack (`ReplicaSpec.builder` "chip_smoke:fleet_builder"):
+    the flagship shape on `device` with the parent's weights, given as
+    numpy, so every replica and the parent hold the same bits."""
+    import torch
+
+    params, bank, agent = flagship(device)
+    sched = make_scheduler(params, agent, device, state_dict={
+        k: torch.from_numpy(v) for k, v in weights.items()})
+    return params, bank, sched
+
+
+def _fleet_result_diff(want, got) -> float:
+    """The largest relative difference of the served floats; raises when
+    an integer field differs."""
+    for k in FLEET_INT_FIELDS:
+        if getattr(want, k) != getattr(got, k):
+            raise AssertionError(f"serve_fleet parity: {k} "
+                                 f"{getattr(want, k)} != {getattr(got, k)}"
+                                 f" ({want.to_dict()} / {got.to_dict()})")
+    worst = 0.0
+    for k in FLEET_FLOAT_FIELDS:
+        a, b = float(getattr(want, k)), float(getattr(got, k))
+        err = abs(a - b)
+        if err > FLEET_RTOL * abs(a) + 1e-6:
+            raise AssertionError(f"serve_fleet parity: {k} {a} vs {b}")
+        worst = max(worst, err / max(abs(a), 1e-30))
+    return worst
+
+
+def phase_serve_fleet(params, bank, sched, agent, device: str = "cuda",
+                      builder: str = "chip_smoke:fleet_builder") -> dict:
+    """The replica fleet on the card: `Router(spec, replicas=2)`, each
+    replica rebuilding the `serve:` block's store (record path, ring)
+    from `fleet_builder` on the one card. Gates: decisions through the
+    router equal to an in-process store's per replica; under open-loop
+    load every request reconciled and health 0 with the fleet collector
+    and a quarantine-rate SLO monitor scraping on the loop; every
+    decided result through the ring to ONE parent buffer with none
+    dropped; one learner update on the card accepted and applied on
+    both replicas; a seeded quarantine regression firing exactly one
+    alert that rolls the fleet back; `/fleet` and the replica-labeled
+    `/metrics` over HTTP; after killing replica 1 its sessions raise
+    `ReplicaDied` and replica 0 serves on; the forward kernel launched
+    in each replica and the backward in the learner, no plain version
+    called in any process. `device="cpu"` with a builder of a small
+    setup rehearses it on the CPU (the kernel gates then skip)."""
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from sparksched_tpu_torch.kernels.decima_encoder import (
+        decima_node_encoder,
+        decima_node_encoder_bwd,
+    )
+    from sparksched_tpu_torch.obs.fleet import FleetCollector, render_status
+    from sparksched_tpu_torch.obs.hostprof import HostProfiler
+    from sparksched_tpu_torch.obs.metrics import MetricsRegistry
+    from sparksched_tpu_torch.obs.slo import SLOMonitor, SLOSpec
+    from sparksched_tpu_torch.online import (
+        OnlineLearner,
+        ParamBus,
+        TrajectoryBuffer,
+        make_learner_trainer,
+    )
+    from sparksched_tpu_torch.serve import (
+        ReplicaDied,
+        ReplicaSpec,
+        Router,
+        generate_arrivals,
+        run_open_loop,
+        store_from_config,
+    )
+    from sparksched_tpu_torch.serve.server import ServeServer
+
+    t_phase = time.perf_counter()
+    weights = {k: v.detach().cpu().numpy() for k, v in sched.params.items()}
+    spec = ReplicaSpec(builder=builder, builder_kwargs={"weights": weights},
+                       serve_cfg=FLEET_BLOCK, trace=True, device=device)
+    buf = TrajectoryBuffer(capacity=4 * FLEET_TENANTS,
+                           max_steps=ONLINE_BLOCK["max_steps"],
+                           min_decisions=2)
+    decima_node_encoder.launches = 0  # this path's launches only
+    decima_node_encoder_bwd.launches = 0
+    plain0 = (decima_node_encoder.plain_calls,
+              decima_node_encoder_bwd.plain_calls)
+    t = time.perf_counter()
+    router = Router(spec, replicas=FLEET_REPLICAS, metrics=MetricsRegistry(),
+                    collector=buf)
+    boot_s = time.perf_counter() - t
+    server = None
+    try:
+        boot = router.replica_info()
+        # results the router handed back, to count the decided ones
+        results = []
+        submit = router.submit
+
+        def counted(gsid):
+            tk = submit(gsid)
+            results.append(tk)
+            return tk
+
+        router.submit = counted
+
+        # parity: one request at a time through the router (a single
+        # decide on its replica) against an in-process store of the same
+        # block per replica, created in the same order
+        refs = [store_from_config(FLEET_BLOCK, params, bank, sched,
+                                  device=device)
+                for _ in range(FLEET_REPLICAS)]
+        sids = [router.create(seed=70_000 + i)
+                for i in range(FLEET_PARITY_SESSIONS)]
+        lsids = [refs[router.replica_of(s)].create(seed=70_000 + i)
+                 for i, s in enumerate(sids)]
+        worst = 0.0
+        with PlainCalls() as plain:
+            for _ in range(FLEET_PARITY_DECISIONS):
+                for s, ls in zip(sids, lsids):
+                    tk = router.submit(s)
+                    router.flush()
+                    if tk.error is not None:
+                        raise AssertionError(f"serve_fleet parity: {tk.error}")
+                    r = router.replica_of(s)
+                    if (tk.result.replica, tk.result.session_id) != (r, ls):
+                        raise AssertionError("serve_fleet: affinity broken")
+                    worst = max(worst, _fleet_result_diff(
+                        refs[r].decide(ls), tk.result))
+        for s in sids:
+            router.close(s)
+        parity = {"sessions": len(sids),
+                  "decisions": len(sids) * FLEET_PARITY_DECISIONS,
+                  "max_rel_float_diff": worst,
+                  "sessions_per_replica": [
+                      sum(router.replica_of(s) == r for s in sids)
+                      for r in range(FLEET_REPLICAS)]}
+        del refs
+        # the parity's reference stores are not the fleet's path
+        parent_fwd_parity = decima_node_encoder.launches
+        decima_node_encoder.launches = 0
+
+        # open-loop load, the collector scraping on the loop
+        rl_path = os.path.join(TMP_ROOT, "serve_fleet.jsonl")
+        from sparksched_tpu_torch.obs.runlog import RunLog
+
+        rl = RunLog(rl_path)
+        load_mon = SLOMonitor([SLOSpec("quarantine_rate", "ratio", 0.05)],
+                              runlog=rl)
+        col = FleetCollector(router, period_s=1.0, runlog=rl, slo=load_mon)
+        col.scrape()
+        arrivals = generate_arrivals(FLEET_RPS, FLEET_REQUESTS,
+                                     FLEET_TENANTS, seed=SEED)
+        t = time.perf_counter()
+        with PlainCalls() as plain_load:
+            run = run_open_loop(router, router, arrivals,
+                                session_seed=80_000,
+                                on_poll=col.maybe_scrape)
+        run_s = time.perf_counter() - t
+        status = col.scrape()
+        fs = router.fleet_stats()
+        if not (run["requests"] == FLEET_REQUESTS
+                == run["completed"] + run["capacity_rejections"]
+                and run["errors"] == 0):
+            raise AssertionError(f"serve_fleet: requests do not reconcile: "
+                                 f"{run['reconcile']}")
+        if fs["serve_quarantines"] or load_mon.alerts:
+            raise AssertionError(f"serve_fleet: {fs['serve_quarantines']} "
+                                 f"quarantines, alerts {load_mon.alerts}")
+        lat = np.array(run["samples_ms"])
+        samples = router.replica_samples()
+        per_replica = [s["stats"]["serve_decisions"] for s in samples]
+        seg = router.registry()
+        seg_ms = {k[len("serve_seg_"):-3]: {
+                      "p50": h.quantile(0.5), "p99": h.quantile(0.99),
+                      "mean": h.total / max(h.count, 1)}
+                  for k, h in sorted(seg.hists.items())
+                  if k.startswith("serve_seg_") and h.count}
+
+        # ring -> one learner
+        t = time.perf_counter()
+        router.ring_pump(force=True)
+        pump_ms = (time.perf_counter() - t) * 1e3
+        fs = router.fleet_stats()
+        decided = sum(1 for tk in results
+                      if tk.result is not None and tk.result.decided)
+        if fs["serve_ring_records"] != decided or fs["serve_ring_dropped"]:
+            raise AssertionError(
+                f"serve_fleet: ring records {fs['serve_ring_records']} / "
+                f"dropped {fs['serve_ring_dropped']} against {decided} "
+                "decided")
+        if buf.stats["online_decisions"] != decided:
+            raise AssertionError(f"serve_fleet: the buffer took "
+                                 f"{buf.stats['online_decisions']} of "
+                                 f"{decided} records")
+        agent_cfg = {"agent_cls": "DecimaScheduler"} | agent
+        B, T = ONLINE_BLOCK["batch_trajectories"], ONLINE_BLOCK["max_steps"]
+        bus = ParamBus(router, probation_decisions=10 ** 6,
+                       max_quarantine_rate=0.5)
+        learner = OnlineLearner(
+            make_learner_trainer(agent_cfg, params, B, T,
+                                 learner_cfg=ONLINE_BLOCK["learner"],
+                                 seed=ONLINE_BLOCK["seed"], device=device),
+            buf, bus, max_param_lag=ONLINE_BLOCK["max_param_lag"],
+            init_params={k: torch.from_numpy(v) for k, v in weights.items()},
+            version0=router.params_version)
+        if not learner.ready():
+            raise AssertionError(f"serve_fleet: learner not ready: "
+                                 f"{buf.stats}")
+        with PlainCalls() as plain_learn:
+            info = learner.step()
+        if not info or not info["accepted"]:
+            raise AssertionError(f"serve_fleet: learner update {info}")
+        if bus.pump() != {"event": "swap", "version": 1}:
+            raise AssertionError("serve_fleet: the update was not swapped")
+        sids = [router.create(seed=90_000 + i) for i in range(4)]
+        tks = [router.submit(s) for s in sids]
+        router.flush()
+        if ({tk.result.replica for tk in tks} != {0, 1} or any(
+                tk.error or tk.result.params_version != 1 for tk in tks)):
+            raise AssertionError("serve_fleet: version 1 not served by "
+                                 "both replicas")
+        learner_out = {k: info[k] for k in ("policy_loss", "approx_kl_div",
+                                            "entropy", "update_s")}
+
+        # the fleet plane: a seeded quarantine regression, one alert,
+        # a fleet-wide rollback; then /fleet and /metrics over HTTP
+        mon = SLOMonitor([SLOSpec("quarantine_rate", "ratio", 0.05)],
+                         windows=((60.0, 15.0, 1.0),), cooldown_s=600.0,
+                         rollback=router, rollback_on=("quarantine_rate",),
+                         runlog=rl)
+        plane = FleetCollector(router, period_s=0.0, runlog=rl, slo=mon)
+        plane.scrape()
+        for s in sids[:2]:  # one session on each replica
+            router.poison(s)
+        tks = [router.submit(s) for s in sids]
+        router.flush()
+        if sum(bool(tk.result.health_mask) for tk in tks) != 2:
+            raise AssertionError("serve_fleet: poison did not quarantine")
+        alerts = plane.scrape()["alerts"]
+        alerts += plane.scrape()["alerts"]  # the cooldown holds
+        if (len(alerts) != 1 or alerts[0]["action"] != "rollback"
+                or alerts[0]["rolled_back_to_version"] != 0
+                or router.params_version != 0):
+            raise AssertionError(f"serve_fleet: alerts {alerts}")
+        tks = [router.submit(s) for s in sids[2:]]
+        router.flush()
+        if ({tk.result.replica for tk in tks} != {0, 1} or any(
+                tk.error or tk.result.params_version != 0 for tk in tks)):
+            raise AssertionError("serve_fleet: rollback not fleet-wide")
+        for s in sids:
+            router.close(s)
+        prof = HostProfiler()
+        server = ServeServer(router, router, metrics=MetricsRegistry(),
+                             collector=plane, hostprof=prof).start()
+        base = f"http://127.0.0.1:{server.port}"
+        with urllib.request.urlopen(base + "/fleet", timeout=60) as r:
+            fleet_doc = json.loads(r.read().decode())
+        with urllib.request.urlopen(base + "/metrics", timeout=60) as r:
+            prom = r.read().decode()
+        server.stop()
+        server = None
+        if [row["replica"] for row in fleet_doc["replicas"]] != ["0", "1"]:
+            raise AssertionError(f"serve_fleet: /fleet {fleet_doc}")
+        if 'replica="0"' not in prom or 'replica="1"' not in prom:
+            raise AssertionError("serve_fleet: /metrics has no labels")
+        hostprof = prof.tables()
+        rl.close()
+
+        # the kernels, counted in each process before the kill
+        counts = router.kernel_counts()
+        for i, c in enumerate(counts):
+            if device == "cuda" and (c["decima_node_encoder"] <= 0
+                                     or c["decima_node_encoder_plain"]):
+                raise AssertionError(f"serve_fleet: replica {i} kernels {c}")
+        parent_fwd = decima_node_encoder.launches
+        parent_bwd = decima_node_encoder_bwd.launches
+        parent_plain = (plain.n + plain_load.n + plain_learn.n
+                        + decima_node_encoder.plain_calls - plain0[0]
+                        + decima_node_encoder_bwd.plain_calls - plain0[1])
+        if device == "cuda" and (parent_plain or parent_bwd <= 0):
+            raise AssertionError(f"serve_fleet: parent plain calls "
+                                 f"{parent_plain}, backward launches "
+                                 f"{parent_bwd}")
+
+        # replica death: its sessions fail, replica 0 serves on
+        sids = [router.create(seed=95_000 + i) for i in range(4)]
+        victim = router._replicas[1]
+        victim.proc.kill()
+        victim.proc.join(timeout=30.0)
+        deadline = time.monotonic() + 30.0
+        while (router.stats["router_replica_deaths"] == 0
+               and time.monotonic() < deadline):
+            router.poll()
+            time.sleep(0.05)
+        tks = [router.submit(s) for s in sids]
+        router.flush()
+        for s, tk in zip(sids, tks):
+            if router.replica_of(s) == 1:
+                if not isinstance(tk.error, ReplicaDied):
+                    raise AssertionError(f"serve_fleet: {tk.error!r} after "
+                                         "the kill")
+            elif tk.error is not None or tk.result.replica != 0:
+                raise AssertionError(f"serve_fleet: survivor {tk.error!r}")
+        for s in sids:
+            router.close(s)
+        death = {"deaths": router.stats["router_replica_deaths"],
+                 "sessions_failed": router.stats["router_sessions_failed"],
+                 "placement_after": sorted({router.replica_of(
+                     router.create(seed=96_000 + i)) for i in range(2)})}
+        if death["placement_after"] != [0]:
+            raise AssertionError(f"serve_fleet: placement {death}")
+    finally:
+        if server is not None:
+            server.stop()
+        router.stop()
+    if any(r.proc.is_alive() for r in router._replicas):
+        raise AssertionError("serve_fleet: a replica outlived stop()")
+    fwd = sum(c["decima_node_encoder"] for c in counts) + parent_fwd
+    out = {"phase": "serve_fleet", "block": FLEET_BLOCK,
+           "replicas": FLEET_REPLICAS, "boot_s": boot_s, "boot": boot,
+           "parity": parity, "tenants": FLEET_TENANTS,
+           "offered_rps": FLEET_RPS, "requests": FLEET_REQUESTS,
+           "achieved_rps": run["achieved_rps"],
+           "latency_p50_ms": float(np.percentile(lat, 50)),
+           "latency_p99_ms": float(np.percentile(lat, 99)),
+           "completed": run["completed"],
+           "capacity_rejections": run["capacity_rejections"],
+           "session_rotations": run["session_rotations"], "run_s": run_s,
+           "decisions_per_replica": per_replica,
+           "replica_segments_ms": seg_ms,
+           "scoreboard": render_status(status).splitlines(),
+           "collector": dict(col.stats),
+           "ring": {"records": fs["serve_ring_records"],
+                    "drains": fs["serve_ring_drains"],
+                    "dropped": fs["serve_ring_dropped"],
+                    "decided": decided, "force_pump_ms": pump_ms,
+                    "buffer": dict(buf.stats)},
+           "learner": learner_out, "alerts": alerts,
+           "fleet_rows": [row["replica"] for row in fleet_doc["replicas"]],
+           "hostprof": {role: {"samples": t["samples"], "share": t["share"],
+                               "top": [x["site"] for x in t["top"][:3]]}
+                        for role, t in hostprof["roles"].items()},
+           "death": death, "kernel_counts_by_replica": counts,
+           "parent_launches": {"decima_node_encoder": parent_fwd,
+                               "decima_node_encoder_bwd": parent_bwd,
+                               "in_parity_reference": parent_fwd_parity},
+           "contexts_time_slice": "2 CUDA contexts on one card take turns; "
+                                  "they do not run kernels concurrently",
+           "seconds": time.perf_counter() - t_phase,
+           "card": card_line() if device == "cuda" else "cpu"}
+    emit(out)
+    return {"decima_node_encoder": fwd,
+            "decima_node_encoder_bwd": parent_bwd}
 
 
 # ---------------------------------------------------------------------------
@@ -2288,6 +2673,7 @@ def main() -> int:
         front = phase_serve_front(params, bank, sched)
         http = phase_serve_http(params, bank, sched)
         online = phase_online(params, bank, agent)
+        fleet = phase_serve_fleet(params, bank, sched, agent)
         phase_parity(agent, sched)
         phase_run_flat()
         train = phase_train()
@@ -2298,7 +2684,8 @@ def main() -> int:
         phase_kernel_alone(cases, calls, tsched, chunks[CHUNK_TIMED], bwd)
         phase_train_parity(parity_helpers())
         paths = {"serve_front": front, "serve_http": http,
-                 "online": online, "train": train["launches"],
+                 "online": online, "serve_fleet": fleet,
+                 "train": train["launches"],
                  "train_resume": phase_train_resume(),
                  "eval_trained": phase_eval_trained()}
         phase_telemetry_cost()

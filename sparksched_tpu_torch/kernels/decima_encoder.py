@@ -162,9 +162,11 @@ def decima_node_encoder(x, adj, node_level, node_mask, w: EncoderWeights,
                         ) -> torch.Tensor:
     """NodeEncoder of a batch of items: the CUDA kernel on a CUDA tensor
     (one launch, counted in `decima_node_encoder.launches`), the plain
-    version on a CPU tensor."""
+    version on a CPU tensor (counted in `.plain_calls`)."""
     _check(x, adj, node_level, node_mask, w)
     if x.device.type == "cpu":
+        with _COUNT_LOCK:
+            decima_node_encoder.plain_calls += 1
         return decima_node_encoder_ref(
             x, adj, node_level, node_mask, w, num_levels, negative_slope,
         )
@@ -194,6 +196,7 @@ def decima_node_encoder(x, adj, node_level, node_mask, w: EncoderWeights,
 
 
 decima_node_encoder.launches = 0
+decima_node_encoder.plain_calls = 0
 
 
 def encoder_params(w: EncoderWeights) -> list[torch.Tensor]:
@@ -261,7 +264,7 @@ def decima_node_encoder_bwd(x, adj, node_level, node_mask, w: EncoderWeights,
     live-job list, the backward kernel and its fixed-order reductions
     (one call counted in `decima_node_encoder_bwd.launches`; the scratch
     it took, in bytes, in `decima_node_encoder_bwd.scratch_bytes`), the
-    plain version on a CPU tensor."""
+    plain version on a CPU tensor (counted in `.plain_calls`)."""
     _check(x, adj, node_level, node_mask, w)
     b, k, s, f = x.shape
     d = int(w.prep[-1][0].shape[0])
@@ -271,6 +274,8 @@ def decima_node_encoder_bwd(x, adj, node_level, node_mask, w: EncoderWeights,
                          f"{x.device}, got {grad_h.dtype} "
                          f"{tuple(grad_h.shape)} on {grad_h.device}")
     if x.device.type == "cpu":
+        with _COUNT_LOCK:
+            decima_node_encoder_bwd.plain_calls += 1
         return decima_node_encoder_bwd_ref(
             x, adj, node_level, node_mask, w, num_levels, negative_slope,
             grad_h,
@@ -307,7 +312,22 @@ def decima_node_encoder_bwd(x, adj, node_level, node_mask, w: EncoderWeights,
 
 
 decima_node_encoder_bwd.launches = 0
+decima_node_encoder_bwd.plain_calls = 0
 decima_node_encoder_bwd.scratch_bytes = 0
+
+
+def kernel_counts() -> dict[str, int]:
+    """This process's counts: each wrapper's kernel launches, and its
+    calls that took the plain version (a CPU tensor). Counts are per
+    process: a router's replicas report theirs over the pipe."""
+    with _COUNT_LOCK:
+        return {
+            "decima_node_encoder": decima_node_encoder.launches,
+            "decima_node_encoder_plain": decima_node_encoder.plain_calls,
+            "decima_node_encoder_bwd": decima_node_encoder_bwd.launches,
+            "decima_node_encoder_bwd_plain":
+                decima_node_encoder_bwd.plain_calls,
+        }
 
 
 class DecimaNodeEncoderFn(torch.autograd.Function):

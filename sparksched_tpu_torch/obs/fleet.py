@@ -1,0 +1,515 @@
+"""The fleet collector: per-replica scrapes, a windowed scoreboard, and
+the replica-labeled Prometheus exposition (counterpart of
+`sparksched_tpu/obs/fleet.py`; host-only code, copied).
+
+A merged `/metrics` loses the per-replica axis (a dead, hot-spotted or
+lagging replica disappears into the aggregate) and the time axis
+(since-boot totals). The collector keeps both: each scrape snapshots
+every replica's cumulative counters and histograms, and the scoreboard
+reports WINDOWED rates (deltas between scrapes, histogram bucket
+subtraction through `StreamingHistogram.delta`).
+
+One `FleetCollector` works against either fleet shape:
+
+- a `serve.router.Router` (`replica_samples()`: one `metrics` round trip
+  per live replica, unmerged);
+- any in-process store-like backend with `.stats` and optionally
+  `.metrics`: one pseudo-replica `"0"`.
+
+`maybe_scrape()` rides the OWNER's loop (the `ServeServer` pump calls it
+between polls; a bench loop per iteration): the router's pipes and the
+store are single-owner, so the collector brings no thread near them.
+`start()`/`stop()` exist for backends that are safe to poll off-thread
+(a test fake).
+
+Each scrape: (1) per-replica windows -> the scoreboard
+(`fleet_status()`), (2) the fleet's aggregate window -> `SLOMonitor.
+ingest` (alerts, optional rollback), (3) a `fleet` run-log record every
+`log_every` scrapes.
+
+CLI: `python -m sparksched_tpu_torch.obs.fleet --url http://host:port`
+reads a live server's `/fleet`; `--runlog FILE` renders the latest
+`fleet` record of a run log instead.
+"""
+
+from __future__ import annotations
+
+import json
+import time
+from typing import Any, Callable
+
+from .critpath import SEG_HIST
+from .metrics import MetricsRegistry, StreamingHistogram
+from ..ownership import assert_owner
+
+# per-decide latency source, in preference order: the device span is
+# the per-call latency proxy every traced front stamps
+LATENCY_HISTS = ("serve_span_device_ms", "serve_span_total_ms",
+                 "serve_decide_ms")
+
+_SCOREBOARD_FIELDS = (
+    "replica", "alive", "rps", "p99_ms", "sessions", "hot",
+    "inflight", "page_churn_per_s", "quarantine_rate",
+    "params_version", "params_lag", "decisions",
+    # the device trajectory ring's health: occupancy (records parked
+    # on the device awaiting a drain), drains shipped, and overrun
+    # drops (nonzero: the drain cadence cannot keep up with this
+    # replica's decision rate)
+    "ring_occ", "ring_drains", "ring_dropped",
+    # the replica's dominant tail segment over the scrape
+    # window (argmax of the windowed per-segment p99s — which stage
+    # of the request path owns THIS replica's tail right now)
+    "tail_seg",
+)
+
+
+def _stat(stats: dict | None, key: str, default: int = 0) -> int:
+    if not stats:
+        return default
+    return int(stats.get(key, default))
+
+
+def labeled_prometheus(samples: list[dict[str, Any]],
+                       extra: "MetricsRegistry | None" = None,
+                       prefix: str = "") -> str:
+    """The fleet `/metrics` exposition: merged totals FIRST
+    (unlabeled, what a plain merge gives existing scrapers), then each
+    replica's own series stamped `replica="N"` (no duplicate `# TYPE`
+    headers)."""
+    merged = MetricsRegistry()
+    for s in samples:
+        if s.get("registry") is not None:
+            merged.merge(s["registry"])
+    if extra is not None:
+        merged.merge(extra)
+    text = merged.to_prometheus(prefix)
+    for s in samples:
+        reg = s.get("registry")
+        if reg is not None:
+            text += reg.to_prometheus(
+                prefix, labels={"replica": str(s["replica"])},
+                types=False,
+            )
+    return text
+
+
+class FleetCollector:
+    """Periodic per-replica scrapes -> windowed scoreboard + SLO
+    ingest + `fleet` runlog records."""
+
+    def __init__(
+        self,
+        backend,
+        *,
+        period_s: float = 1.0,
+        runlog=None,
+        slo=None,
+        log_every: int = 1,
+        latency_hists: tuple[str, ...] = LATENCY_HISTS,
+        clock: Callable[[], float] = time.monotonic,
+        critpath=None,
+    ) -> None:
+        self.backend = backend
+        self.period_s = float(period_s)
+        self.runlog = runlog
+        self.slo = slo
+        # the in-process front's attribution analyzer: its joint
+        # (wall x segment) profile answers "segment mix AT a quantile",
+        # which the marginal per-segment registry hists cannot; behind
+        # a Router only those scraped hists exist
+        self.critpath = critpath
+        self.log_every = max(1, int(log_every))
+        self.latency_hists = tuple(latency_hists)
+        self._clock = clock
+        self._prev: dict[str, dict[str, Any]] = {}
+        self._last_scrape: float | None = None
+        self.last_status: dict[str, Any] | None = None
+        self.stats = {"collector_scrapes": 0, "collector_alerts": 0}
+        self._thread = None
+        self._stop_evt = None
+
+    # -- sampling ------------------------------------------------------
+
+    def _samples(self) -> list[dict[str, Any]]:
+        if hasattr(self.backend, "replica_samples"):
+            return self.backend.replica_samples()
+        stats = dict(getattr(self.backend, "stats", {}) or {})
+        return [{
+            "replica": "0", "alive": True, "stats": stats,
+            "registry": getattr(self.backend, "metrics", None),
+        }]
+
+    def _latency_hist(self, reg) -> StreamingHistogram | None:
+        if reg is None:
+            return None
+        for name in self.latency_hists:
+            h = reg.hists.get(name)
+            if h is not None:
+                return h
+        return None
+
+    @staticmethod
+    def _seg_hists(reg) -> dict[str, StreamingHistogram]:
+        """The replica's per-segment attribution histograms (fed by `CritPathAnalyzer` / `ServeClient._resolve`); empty
+        on an unattributed replica."""
+        if reg is None:
+            return {}
+        return {seg: h for seg, name in SEG_HIST.items()
+                if (h := reg.hists.get(name)) is not None}
+
+    # -- scrape --------------------------------------------------------
+
+    def maybe_scrape(self, now: float | None = None
+                     ) -> dict[str, Any] | None:
+        """Rate-limited scrape for riding an owner loop (the server
+        pump): no-op until `period_s` has elapsed."""
+        t = self._clock() if now is None else float(now)
+        if (self._last_scrape is not None
+                and t - self._last_scrape < self.period_s):
+            return None
+        return self.scrape(now=t)
+
+    def scrape(self, now: float | None = None) -> dict[str, Any]:
+        assert_owner(self, "serve-pump", "fleet-collector")
+        t = self._clock() if now is None else float(now)
+        self._last_scrape = t
+        self.stats["collector_scrapes"] += 1
+        samples = self._samples()
+
+        rows: list[dict[str, Any]] = []
+        fleet_hist: StreamingHistogram | None = None
+        fleet_segs: dict[str, StreamingHistogram] = {}
+        fleet = {"decisions": 0.0, "quarantines": 0.0, "dt_s": 0.0,
+                 "replicas_alive": 0, "replicas": len(samples)}
+        max_version = max(
+            (_stat(s.get("stats"), "serve_param_version")
+             for s in samples if s.get("stats")), default=0,
+        )
+        for s in samples:
+            rows.append(self._row(s, t, max_version, fleet))
+            # per-replica windowed latency hists merge into the fleet
+            # window (same geometry by construction)
+            wh = rows[-1].pop("_window_hist", None)
+            if wh is not None and wh.count:
+                if fleet_hist is None:
+                    fleet_hist = wh
+                else:
+                    fleet_hist.merge(wh)
+            for seg, sh in (rows[-1].pop("_window_segs", None)
+                            or {}).items():
+                fh = fleet_segs.get(seg)
+                if fh is None:
+                    fleet_segs[seg] = sh
+                else:
+                    fh.merge(sh)
+
+        dt = fleet.pop("dt_s")
+        window = {
+            "dt_s": dt,
+            "decisions": fleet["decisions"],
+            "quarantines": fleet["quarantines"],
+            "goodput_rps": fleet["decisions"] / dt if dt > 0 else 0.0,
+            "latency_hist": fleet_hist,
+            "params_lag_max": max(
+                (r["params_lag"] for r in rows
+                 if r["params_lag"] is not None), default=None,
+            ),
+            "attribution": self._attribution(fleet_segs),
+        }
+        alerts: list[dict[str, Any]] = []
+        if self.slo is not None:
+            alerts = self.slo.ingest(window, now=t)
+            self.stats["collector_alerts"] += len(alerts)
+
+        att = window["attribution"]
+        status = {
+            "t": t,
+            "replicas": rows,
+            "fleet": {
+                **fleet,
+                "goodput_rps": round(window["goodput_rps"], 3),
+                "window_p99_ms": (
+                    round(fleet_hist.quantile(0.99), 3)
+                    if fleet_hist is not None and fleet_hist.count
+                    else None),
+                "params_version_max": max_version,
+                "tail_seg": (att or {}).get("dominant_tail_segment"),
+                "attribution": att,
+            },
+            "alerts": alerts,
+        }
+        self.last_status = status
+        if self.critpath is not None:
+            # idle-tail exemplar shipping: the reservoir flushes on
+            # the scrape cadence even when no new request arrives to
+            # trigger it from the serve path
+            self.critpath.maybe_flush_window()
+        if (self.runlog is not None
+                and self.stats["collector_scrapes"] % self.log_every
+                == 0):
+            self.runlog.fleet(**_json_safe(status))
+        return status
+
+    def _attribution(
+        self, segs: dict[str, StreamingHistogram]
+    ) -> dict[str, Any] | None:
+        """The fleet window's attribution block: windowed per-segment
+        p99/mean over the merged replica histograms, the dominant
+        tail segment, and — when the in-process analyzer is attached
+        — the joint segment mix at p50 vs p99 (cumulative, not
+        windowed: the joint cells have no delta algebra)."""
+        att: dict[str, Any] = {}
+        if segs:
+            p99 = {s: round(h.quantile(0.99), 3)
+                   for s, h in segs.items() if h.count}
+            att = {
+                "n": max(h.count for h in segs.values()),
+                "seg_p99_ms": p99,
+                "seg_mean_ms": {
+                    s: round(h.total / h.count, 3)
+                    for s, h in segs.items() if h.count
+                },
+                "dominant_tail_segment": max(
+                    p99.items(), key=lambda kv: kv[1])[0]
+                if p99 else None,
+            }
+        if self.critpath is not None:
+            prof = self.critpath.profile
+            for q, label in ((0.5, "at_p50"), (0.99, "at_p99")):
+                mix = prof.attribution_at(q)
+                if mix is not None:
+                    att[label] = mix
+            dom = prof.dominant_segment()
+            if dom is not None:
+                # the joint profile's verdict beats the marginal
+                # argmax (the p99 of a segment is not the segment of
+                # the p99 request)
+                att["dominant_tail_segment"] = dom
+        return att or None
+
+    def _row(self, s: dict[str, Any], t: float, max_version: int,
+             fleet: dict[str, Any]) -> dict[str, Any]:
+        rep = str(s["replica"])
+        stats = s.get("stats")
+        reg = s.get("registry")
+        hist = self._latency_hist(reg)
+        segs = self._seg_hists(reg)
+        prev = self._prev.get(rep)
+        cur = {
+            "t": t,
+            "stats": dict(stats) if stats else None,
+            "hist": hist.copy() if hist is not None else None,
+            "segs": {k: h.copy() for k, h in segs.items()} or None,
+        }
+        self._prev[rep] = cur
+
+        row: dict[str, Any] = {
+            "replica": rep, "alive": bool(s.get("alive")),
+            "rps": None, "p99_ms": None,
+            "sessions": _stat(stats, "serve_sessions_live"),
+            "hot": _stat(stats, "serve_sessions_hot"),
+            "inflight": int(reg.gauges.get("serve_inflight_depth", 0))
+            if reg is not None else 0,
+            "page_churn_per_s": None,
+            "quarantine_rate": None,
+            "params_version": _stat(stats, "serve_param_version"),
+            "params_lag": (max_version
+                           - _stat(stats, "serve_param_version"))
+            if stats else None,
+            "decisions": _stat(stats, "serve_decisions"),
+            "ring_occ": _stat(stats, "serve_ring_occupancy"),
+            "ring_drains": _stat(stats, "serve_ring_drains"),
+            "ring_dropped": _stat(stats, "serve_ring_dropped"),
+            "tail_seg": None,
+            "_window_hist": None,
+            "_window_segs": None,
+        }
+        if row["alive"]:
+            fleet["replicas_alive"] += 1
+        if prev is None or stats is None or prev["stats"] is None:
+            return row
+        dt = t - prev["t"]
+        if dt <= 0:
+            return row
+        d_dec = _stat(stats, "serve_decisions") - _stat(
+            prev["stats"], "serve_decisions")
+        d_quar = _stat(stats, "serve_quarantines") - _stat(
+            prev["stats"], "serve_quarantines")
+        d_pages = (
+            _stat(stats, "serve_page_ins")
+            + _stat(stats, "serve_page_outs")
+            - _stat(prev["stats"], "serve_page_ins")
+            - _stat(prev["stats"], "serve_page_outs")
+        )
+        row["rps"] = round(max(0, d_dec) / dt, 3)
+        row["page_churn_per_s"] = round(max(0, d_pages) / dt, 3)
+        row["quarantine_rate"] = (
+            round(max(0, d_quar) / d_dec, 4) if d_dec > 0 else 0.0)
+        fleet["decisions"] += max(0, d_dec)
+        fleet["quarantines"] += max(0, d_quar)
+        fleet["dt_s"] = max(fleet["dt_s"], dt)
+        if hist is not None:
+            wh = hist.delta(prev["hist"])
+            row["_window_hist"] = wh
+            if wh.count:
+                row["p99_ms"] = round(wh.quantile(0.99), 3)
+        if segs:
+            prev_segs = prev.get("segs") or {}
+            wsegs: dict[str, StreamingHistogram] = {}
+            for seg, h in segs.items():
+                ph = prev_segs.get(seg)
+                ws = h.delta(ph) if ph is not None else h.copy()
+                if ws.count:
+                    wsegs[seg] = ws
+            if wsegs:
+                row["_window_segs"] = wsegs
+                seg_p99 = {seg: round(ws.quantile(0.99), 3)
+                           for seg, ws in wsegs.items()}
+                row["attribution"] = {"seg_p99_ms": seg_p99}
+                row["tail_seg"] = max(
+                    seg_p99.items(), key=lambda kv: kv[1])[0]
+        return row
+
+    def fleet_status(self) -> dict[str, Any]:
+        """The scoreboard: last scrape's status (scraping first if
+        none has happened yet)."""
+        return self.last_status if self.last_status is not None \
+            else self.scrape()
+
+    # -- optional background loop (NOT for Router/store backends) ------
+
+    def start(self) -> "FleetCollector":
+        """Background scrape thread — only for backends that are safe
+        to poll off-thread (a test fake, a remote facade). The server
+        integration rides the pump thread via `maybe_scrape` instead;
+        the Router pipes and the store are single-owner."""
+        import threading
+
+        if self._thread is not None:
+            raise RuntimeError("collector already started")
+        self._stop_evt = threading.Event()
+
+        def _loop() -> None:
+            while not self._stop_evt.wait(self.period_s):
+                self.scrape()
+
+        self._thread = threading.Thread(
+            target=_loop, name="fleet-collector", daemon=True)
+        self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        if self._thread is None:
+            return
+        self._stop_evt.set()
+        self._thread.join(timeout=10.0)
+        self._thread = None
+
+
+def _json_safe(obj: Any) -> Any:
+    if isinstance(obj, dict):
+        return {k: _json_safe(v) for k, v in obj.items()
+                if not str(k).startswith("_")}
+    if isinstance(obj, (list, tuple)):
+        return [_json_safe(v) for v in obj]
+    if isinstance(obj, StreamingHistogram):
+        return obj.summary()
+    if isinstance(obj, (str, int, float, bool)) or obj is None:
+        return obj
+    return str(obj)
+
+
+# ---------------------------------------------------------------------------
+# scoreboard rendering + CLI
+# ---------------------------------------------------------------------------
+
+
+def render_status(status: dict[str, Any]) -> str:
+    """Fixed-width scoreboard table (the CLI's and the docs' view)."""
+    cols = _SCOREBOARD_FIELDS
+    rows = [[("" if r.get(c) is None else str(r.get(c)))
+             for c in cols] for r in status.get("replicas", [])]
+    widths = [max(len(c), *(len(row[i]) for row in rows))
+              if rows else len(c) for i, c in enumerate(cols)]
+    lines = ["  ".join(c.ljust(w) for c, w in zip(cols, widths))]
+    lines.append("  ".join("-" * w for w in widths))
+    for row in rows:
+        lines.append("  ".join(v.ljust(w)
+                               for v, w in zip(row, widths)))
+    fl = status.get("fleet", {})
+    lines.append(
+        f"fleet: alive {fl.get('replicas_alive')}/"
+        f"{fl.get('replicas')}  goodput {fl.get('goodput_rps')} rps  "
+        f"window p99 {fl.get('window_p99_ms')} ms  "
+        f"tail seg {fl.get('tail_seg')}  "
+        f"params vmax {fl.get('params_version_max')}"
+    )
+    for a in status.get("alerts", []):
+        lines.append(
+            f"ALERT {a.get('slo')}: burn {a.get('burn_long')}x/"
+            f"{a.get('burn_short')}x action={a.get('action')}"
+        )
+    return "\n".join(lines)
+
+
+def _status_from_url(url: str) -> dict[str, Any]:
+    import urllib.request
+
+    with urllib.request.urlopen(url.rstrip("/") + "/fleet",
+                                timeout=10.0) as resp:
+        return json.loads(resp.read().decode())
+
+
+def _status_from_runlog(path: str) -> dict[str, Any] | None:
+    last = None
+    with open(path) as fp:
+        for line in fp:
+            line = line.strip()
+            if not line:
+                continue
+            try:
+                rec = json.loads(line)
+            except json.JSONDecodeError:
+                continue
+            if rec.get("ev") == "fleet":
+                last = rec
+    return last
+
+
+def main(argv: list[str] | None = None) -> int:
+    import argparse
+
+    from .runlog import emit
+
+    ap = argparse.ArgumentParser(
+        prog="python -m sparksched_tpu_torch.obs.fleet",
+        description="Render the fleet scoreboard from a live server's "
+                    "/fleet endpoint or a run log's fleet records.")
+    src = ap.add_mutually_exclusive_group(required=True)
+    src.add_argument("--url", help="serve server base URL "
+                                   "(e.g. http://127.0.0.1:8900)")
+    src.add_argument("--runlog", help="JSONL run log with fleet "
+                                      "records (post-mortem mode)")
+    ap.add_argument("--watch", type=float, default=0.0, metavar="SEC",
+                    help="re-scrape every SEC seconds until ^C")
+    ap.add_argument("--json", action="store_true",
+                    help="print raw JSON instead of the table")
+    args = ap.parse_args(argv)
+
+    while True:
+        if args.url:
+            status = _status_from_url(args.url)
+        else:
+            status = _status_from_runlog(args.runlog)
+            if status is None:
+                emit(f"[fleet] no fleet records in {args.runlog}")
+                return 1
+        emit(json.dumps(status) if args.json
+             else render_status(status))
+        if args.watch <= 0:
+            return 0
+        time.sleep(args.watch)
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

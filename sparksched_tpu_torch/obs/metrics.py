@@ -248,6 +248,20 @@ class MetricsRegistry:
         self.gauges: dict[str, float] = {}
         self.hists: dict[str, StreamingHistogram] = {}
 
+    def __getstate__(self) -> dict[str, Any]:
+        # a replica ships its registry to the router through a pipe:
+        # the lock stays behind, the receiver gets a fresh one
+        with self._lock:
+            return {"counters": dict(self.counters),
+                    "gauges": dict(self.gauges),
+                    "hists": {k: h.copy() for k, h in self.hists.items()}}
+
+    def __setstate__(self, state: dict[str, Any]) -> None:
+        self._lock = threading.Lock()
+        self.counters = state["counters"]
+        self.gauges = state["gauges"]
+        self.hists = state["hists"]
+
     def counter(self, name: str, inc: float = 1) -> None:
         with self._lock:
             self.counters[name] = self.counters.get(name, 0) + inc

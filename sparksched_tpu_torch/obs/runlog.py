@@ -212,6 +212,24 @@ class RunLog:
             **fields,
         )
 
+    def fleet(self, **status: Any) -> None:
+        """One fleet-collector scoreboard snapshot: the per-replica rows
+        and the fleet's aggregate window, as
+        `obs.fleet.FleetCollector.scrape` computed them."""
+        self.write("fleet", **status)
+
+    def alert(self, slo: str, **fields: Any) -> None:
+        """An SLO burn-rate alert: the spec that breached (`slo`), both
+        windows' burn rates, the rule's windows and factor, and the
+        `action` taken (`none` or `rollback`). Written by
+        `obs.slo.SLOMonitor` when it fires."""
+        self.write("alert", slo=slo, **fields)
+
+    def hostprof(self, **tables: Any) -> None:
+        """One role-attributed host profile (`obs.hostprof.HostProfiler`
+        tables), written once at the profiler's `stop()`."""
+        self.write("hostprof", **tables)
+
     def close(self, **fields: Any) -> None:
         if self._closed:
             return

@@ -41,12 +41,17 @@ class ParamBus:
         max_quarantine_rate: float = 0.5,
         runlog=None,
         metrics=None,
+        on_event=None,
     ) -> None:
         self.store = store
         self.probation_decisions = int(probation_decisions)
         self.max_quarantine_rate = float(max_quarantine_rate)
         self.runlog = runlog
         self.metrics = metrics
+        # observer of the pump's events (swap / rollback / proven dicts,
+        # called on the serving thread): `obs.slo.OnlineLoopProbe.
+        # on_bus_event` hangs its swap-to-first-decision clock here
+        self.on_event = on_event
         self._lock = threading.Lock()
         self._pending: tuple[Any, int, Any] | None = None
         # version 0 (the store's construction weights) is proven by
@@ -94,6 +99,12 @@ class ParamBus:
         pending publish. Returns an event dict when something happened
         (swap / rollback / proven), else None."""
         assert_owner(self, "serve-pump")
+        event = self._pump()
+        if event is not None and self.on_event is not None:
+            self.on_event(event)
+        return event
+
+    def _pump(self) -> dict[str, Any] | None:
         event = self._check_probation()
         with self._lock:
             pending, self._pending = self._pending, None

@@ -1,9 +1,9 @@
 """Decision serving of the port (counterpart of `sparksched_tpu/serve/`):
 the serve programs (`serve/aot.py`), the session store and its batching
 fronts (`serve/session.py`), open-loop load generation
-(`serve/loadgen.py`), and the HTTP front (`serve/server.py`), loaded
-lazily so the in-process path never imports it. The replica router
-(`serve/router.py`) is not ported yet: its names raise on access."""
+(`serve/loadgen.py`), and, loaded lazily so the in-process path never
+imports them, the HTTP front (`serve/server.py`) and the replica router
+(`serve/router.py`)."""
 
 from .aot import (  # noqa: F401
     SERVE_KNOBS,
@@ -55,16 +55,13 @@ _NET_EXPORTS = {
     "ServeServer": "server",
     "ServeClient": "server",
     "server_from_config": "server",
+    "Router": "router",
+    "ReplicaSpec": "router",
+    "ReplicaDied": "router",
 }
-_UNPORTED = ("Router", "ReplicaSpec", "ReplicaDied")
 
 
 def __getattr__(name: str):
-    if name in _UNPORTED:
-        raise NotImplementedError(
-            f"{name} (serve/router.py, the replica fleet) is not ported "
-            "to sparksched_tpu_torch yet (ROADMAP A10b)"
-        )
     mod = _NET_EXPORTS.get(name)
     if mod is None:
         raise AttributeError(

@@ -15,24 +15,25 @@ Wire surface (bodies JSON):
   ``{"sid": n}``; 429 when the tenant's session quota or the store's
   capacity is exhausted (`serve_capacity_rejections`).
 - ``POST /v1/decide``   ``{"sid": n}`` -> `ServeResult.to_dict()`
-  (+ ``spans_ms`` under tracing); 429 over the tenant's in-flight
-  quota (`serve_requests_rejected`), 404 unknown or closed session,
-  409 quarantined.
+  (+ ``spans_ms`` under tracing, + ``replica`` behind a router); 429
+  over the tenant's in-flight quota (`serve_requests_rejected`), 404
+  unknown or closed session, 409 quarantined.
 - ``POST /v1/close``    ``{"sid": n}`` -> ``{"closed": n}``.
 - ``GET /metrics``      Prometheus text of the store's and the
-  server's `MetricsRegistry`.
+  server's `MetricsRegistry`; behind a router, the merged totals and
+  then each replica's own series labeled `replica="N"`.
 - ``GET /healthz``      liveness + scalar stats.
+- ``GET /fleet``        the fleet collector's scoreboard (404 without
+  one).
 
-Admission control runs ON the pump thread, so quota state needs no
-locks. `ServeClient` speaks the same duck-typed store and front
-protocols as the in-process stack, so `run_open_loop(client, client,
-...)` drives a server over the wire; it brackets the server's spans
-with `wire_submit`/`wire_reply`.
-
-Not ported yet: `replicas` (the router and its replica fleet), the
-fleet collector and SLO monitor (`collect`, `slo`; `GET /fleet` answers
-404) and the host profiler (`hostprof`); `server_from_config` raises
-for each.
+The backend is duck-typed: an in-process `(SessionStore, front)` pair
+or a `serve.router.Router` passed as both (its `poll` also ships the
+replicas' ring chunks). Admission control runs ON the pump thread, so
+quota state needs no locks. The fleet collector's scrapes ride the pump
+thread too, and the host profiler brackets the server's lifetime. `ServeClient` speaks the same
+duck-typed store and front protocols as the in-process stack, so
+`run_open_loop(client, client, ...)` drives a server over the wire; it
+brackets the server's spans with `wire_submit`/`wire_reply`.
 """
 
 from __future__ import annotations
@@ -52,7 +53,6 @@ from ..ownership import assert_owner
 from .session import (
     RemoteResult,
     _check_keys,
-    _not_ported,
     SessionError,
     SessionQuarantined,
     front_from_config,
@@ -112,6 +112,9 @@ class _Handler(BaseHTTPRequestHandler):
         elif self.path == "/healthz":
             op = srv._submit_op("healthz", {})
             self._reply(op.status, op.payload)
+        elif self.path == "/fleet":
+            op = srv._submit_op("fleet", {})
+            self._reply(op.status, op.payload)
         else:
             self._reply(404, {"error": f"unknown path {self.path}",
                               "etype": "KeyError"})
@@ -139,13 +142,17 @@ class _Handler(BaseHTTPRequestHandler):
 
 class ServeServer:
     """The HTTP front over one serving backend: an in-process
-    `(SessionStore, front)` pair. `on_poll` is called once per pump
-    iteration, between serve calls (where a weight publisher hangs)."""
+    `(SessionStore, front)` pair, or a `Router` passed as both.
+    `on_poll` is called once per pump iteration, between serve calls
+    (where a weight publisher hangs). `collector` (a `FleetCollector`)
+    scrapes on the pump thread and answers `/fleet`; `hostprof` (a
+    `HostProfiler`) samples from `start()` to `stop()`."""
 
     def __init__(self, store, front, *, host: str = "127.0.0.1",
                  port: int = 0, quota_sessions: int = 0,
                  quota_inflight: int = 0, metrics=None, runlog=None,
-                 on_poll=None, op_timeout_s: float = 120.0) -> None:
+                 on_poll=None, collector=None, hostprof=None,
+                 op_timeout_s: float = 120.0) -> None:
         self.store = store
         self.front = front
         self.host = host
@@ -156,6 +163,13 @@ class ServeServer:
         self.metrics = metrics
         self.runlog = runlog
         self.on_poll = on_poll
+        # rides THIS pump thread (`maybe_scrape` between polls): the
+        # store or router stays single-owner
+        self.collector = collector
+        # brackets the server's lifetime; None: never sampled, no cost
+        self.hostprof = hostprof
+        # a router `server_from_config` spawned: stopped with the server
+        self._owned_backend = None
         self.op_timeout_s = float(op_timeout_s)
         self._q: queue.Queue[_Op] = queue.Queue()
         self._stop = threading.Event()
@@ -183,6 +197,8 @@ class ServeServer:
         self._threads = [t_http, t_pump]
         for t in self._threads:
             t.start()
+        if self.hostprof is not None:
+            self.hostprof.start()
         return self
 
     def stop(self) -> None:
@@ -194,6 +210,12 @@ class ServeServer:
         for t in self._threads:
             t.join(timeout=30.0)
         self._threads = []
+        if self.hostprof is not None:
+            # after the join: the tables cover the serving threads'
+            # whole lifetime
+            self.hostprof.stop()
+        if self._owned_backend is not None:
+            self._owned_backend.stop()
 
     def __enter__(self) -> "ServeServer":
         return self.start()
@@ -233,6 +255,8 @@ class ServeServer:
                 if self.on_poll is not None:
                     self.on_poll()
                 self.front.poll()
+                if self.collector is not None:
+                    self.collector.maybe_scrape()
             except Exception:  # keep pumping: one bad poll must not
                 self._count("serve_http_errors")  # strand handlers
                 time.sleep(0.01)
@@ -261,7 +285,7 @@ class ServeServer:
             handler = {
                 "create": self._op_create, "decide": self._op_decide,
                 "close": self._op_close, "metrics": self._op_metrics,
-                "healthz": self._op_healthz,
+                "healthz": self._op_healthz, "fleet": self._op_fleet,
             }[op.kind]
             handler(op, tracked)
         except Exception as e:  # never kill the pump on one bad op
@@ -381,6 +405,22 @@ class ServeServer:
     def _op_metrics(self, op: _Op, tracked: list) -> None:
         from ..obs.metrics import MetricsRegistry
 
+        if hasattr(self.store, "replica_samples"):
+            # a router: the merged totals first, then each replica's own
+            # series labeled `replica="N"`
+            from ..obs.fleet import labeled_prometheus
+
+            extra = MetricsRegistry()
+            own = getattr(self.store, "metrics", None)
+            if own is not None:
+                extra.merge(own)
+            if self.metrics is not None:
+                extra.merge(self.metrics)
+            op.status = 200
+            op.payload = {"text": labeled_prometheus(
+                self.store.replica_samples(), extra=extra)}
+            op.event.set()
+            return
         agg = MetricsRegistry()
         back = getattr(self.store, "metrics", None)
         if back is not None:
@@ -389,6 +429,22 @@ class ServeServer:
             agg.merge(self.metrics)
         op.status = 200
         op.payload = {"text": agg.to_prometheus()}
+        op.event.set()
+
+    def _op_fleet(self, op: _Op, tracked: list) -> None:
+        """The `/fleet` scoreboard: the collector's last status (scraping
+        now if there is none yet), on the pump thread like every op."""
+        if self.collector is None:
+            op.status = 404
+            op.payload = {"error": "no fleet collector configured "
+                                   "(serve: collect: true)",
+                          "etype": "KeyError"}
+            op.event.set()
+            return
+        from ..obs.fleet import _json_safe
+
+        op.status = 200
+        op.payload = _json_safe(self.collector.fleet_status())
         op.event.set()
 
     def _op_healthz(self, op: _Op, tracked: list) -> None:
@@ -708,29 +764,18 @@ def server_from_config(
     **overrides: Any,
 ) -> ServeServer:
     """Build the network front a `serve:` YAML block names, fail-loud
-    against `config.SERVE_KEYS`: an in-process store and front (on
-    `device`, the card unless the caller asks for the CPU) behind the
-    HTTP listener. `replicas > 0` (the router's replica fleet),
-    `collect` / `slo` (the fleet collector) and `hostprof` are not
-    ported and raise. The caller `start()`s (or context-manages) the
-    returned server."""
+    against `config.SERVE_KEYS`. `replicas: 0` (the default) serves an
+    in-process store and front (on `device`, the card unless the caller
+    asks for the CPU) behind the HTTP listener; `replicas: N` needs a
+    `ReplicaSpec` (`replica_spec=`) naming the builder each replica
+    process rebuilds the stack from (`params` / `bank` / `scheduler` are
+    used only in process; the replicas' device is the spec's).
+    `collect: true` attaches the fleet collector (with the `slo:`
+    monitor), `hostprof: true` the host profiler. The caller `start()`s
+    (or context-manages) the returned server."""
     cfg = dict(cfg or {})
     _check_keys(cfg)
-
     replicas = int(cfg.get("replicas", 0))
-    if replicas > 0 or replica_spec is not None:
-        raise _not_ported(f"replicas: {replicas}",
-                          "serve/router.py, the replica fleet")
-    if cfg.get("slo") and not cfg.get("collect", False):
-        raise ValueError(
-            "serve: slo: needs collect: true (the SLO monitor is "
-            "evaluated by the fleet collector's scrape loop)"
-        )
-    for key, what in (("collect", "the fleet collector"),
-                      ("slo", "the SLO burn-rate monitor"),
-                      ("hostprof", "the host profiler")):
-        if cfg.get(key):
-            raise _not_ported(key, what)
     net_kw = {
         "host": str(cfg.get("host", "127.0.0.1")),
         "port": int(cfg.get("port", 0)),
@@ -738,6 +783,57 @@ def server_from_config(
         "quota_inflight": int(cfg.get("quota_inflight", 0)),
     }
     net_kw.update(overrides)
+    # an `slo:` block without the collector would be silently disarmed
+    collect = bool(cfg.get("collect", False))
+    if cfg.get("slo") and not collect:
+        raise ValueError(
+            "serve: slo: needs collect: true (the SLO monitor is "
+            "evaluated by the fleet collector's scrape loop)"
+        )
+
+    def _attach_collector(backend, front=None) -> None:
+        if not collect:
+            return
+        from ..obs.fleet import FleetCollector
+        from ..obs.slo import slo_from_config
+
+        runlog = net_kw.get("runlog")
+        monitor = slo_from_config(
+            cfg.get("slo"), rollback=backend, runlog=runlog)
+        net_kw["collector"] = FleetCollector(
+            backend,
+            period_s=float(cfg.get("collect_period_s", 1.0)),
+            runlog=runlog, slo=monitor,
+            # the in-process front's attribution analyzer enriches the
+            # fleet window (behind a router the replicas' segment
+            # histograms arrive through the scraped registries)
+            critpath=getattr(front, "critpath", None),
+        )
+
+    if bool(cfg.get("hostprof", False)) and "hostprof" not in net_kw:
+        from ..obs.hostprof import HostProfiler
+
+        net_kw["hostprof"] = HostProfiler(runlog=net_kw.get("runlog"))
+
+    if replicas > 0:
+        from .router import Router
+
+        if replica_spec is None:
+            raise ValueError(
+                f"serve: replicas: {replicas} needs a ReplicaSpec "
+                "(pass replica_spec=): replica processes REBUILD the "
+                "stack from its builder, they cannot adopt live "
+                "params/bank/scheduler objects"
+            )
+        router = Router(replica_spec, replicas=replicas)
+        try:
+            _attach_collector(router)
+            server = ServeServer(router, router, **net_kw)
+            server._owned_backend = router
+            return server
+        except BaseException:
+            router.stop()
+            raise
     store_cfg = {k: v for k, v in cfg.items()
                  if k not in ("host", "port", "replicas",
                               "quota_sessions", "quota_inflight",
@@ -750,4 +846,5 @@ def server_from_config(
         # tail exemplars flow to the server's run log without turning
         # on the per-request `trace` record firehose
         front.critpath.runlog = net_kw.get("runlog")
+    _attach_collector(store, front)
     return ServeServer(store, front, **net_kw)

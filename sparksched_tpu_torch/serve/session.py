@@ -130,10 +130,10 @@ class SessionQuarantined(RuntimeError):
     """The session's health sentinel tripped; it will not be served."""
 
 
-def _not_ported(knob: str, what: str) -> NotImplementedError:
+def _not_ported(knob: str, what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"serve: {knob} ({what}) is not ported to sparksched_tpu_torch "
-        "yet (ROADMAP A10b)"
+        f"yet (ROADMAP {item})"
     )
 
 
@@ -288,12 +288,12 @@ class SessionStore:
         collector=None,
         device: str | torch.device = "cuda",
     ) -> None:
-        for knob, on, what in (
-            ("shard_dp", mesh is not None, "a dp-sharded store"),
-            ("donate: false", not donate, "a copying store"),
+        for knob, on, what, item in (
+            ("shard_dp", mesh is not None, "a dp-sharded store", "A12"),
+            ("donate: false", not donate, "a copying store", "A10c"),
         ):
             if on:
-                raise _not_ported(knob, what)
+                raise _not_ported(knob, what, item)
         dev = resolve_device(device)
         hot = int(capacity if hot_capacity is None else hot_capacity)
         if not 1 <= hot <= capacity:
@@ -1780,7 +1780,7 @@ def store_from_config(
     cfg = dict(cfg or {})
     _check_keys(cfg)
     if cfg.get("shard_dp"):
-        raise _not_ported("shard_dp", "a dp-sharded store")
+        raise _not_ported("shard_dp", "a dp-sharded store", "A12")
     kw: dict[str, Any] = {
         "capacity": int(cfg.get("capacity", 64)),
         "max_batch": int(cfg.get("max_batch", 8)),

@@ -6,9 +6,26 @@ are compared as numpy arrays. Also the seeded NodeEncoder inputs of
 from __future__ import annotations
 
 import numpy as np
+import pytest
 import torch
 
 from sparksched_tpu_torch.env import flat_loop as tfl
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Torch on one thread for a test module that imports this fixture.
+
+    The suite's workers share the box's cores with each other and with
+    XLA's compiler threads. There torch's intra-op threads, spinning at
+    every parallel region of these small tensors, cost several times the
+    single-threaded time (a mini training iteration: 7.6 s on one
+    thread, 51 s on eight, with the cores busy). The process's count
+    comes back after the module."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def jax_leaves(ls) -> list[np.ndarray]:
@@ -579,3 +596,26 @@ def slot_bytes(ls, lane: int) -> list[tuple[str, str, bytes]]:
     LoopState: equal lists mean bit-equal slots, NaNs included."""
     return [(name, str(v.dtype), v[lane].cpu().numpy().tobytes())
             for name, v in tfl.leaves(ls)]
+
+
+def fleet_builder(weights: dict[str, np.ndarray], device: str = "cpu"):
+    """A router replica's builder (`ReplicaSpec.builder`
+    "tests._torch_parity:fleet_builder"): the port side of
+    `serve_setup()` on `device`, with the weights given as numpy (each
+    replica rebuilds the same bits). Imports no JAX, and fails the boot
+    if anything in the replica did."""
+    import sys
+
+    from sparksched_tpu_torch.config import EnvParams
+    from sparksched_tpu_torch.schedulers import DecimaScheduler
+    from sparksched_tpu_torch.workload import make_workload_bank
+
+    torch.set_num_threads(1)  # the replica's own process, as the suite
+    tb = make_workload_bank(5, 20, device=device)
+    tp = EnvParams(num_executors=5, max_jobs=6, max_stages=tb.max_stages,
+                   max_levels=tb.max_stages)
+    ts = DecimaScheduler(**SERVE_AGENT, num_executors=5, device=device)
+    ts.load_params(weights)
+    if "jax" in sys.modules:
+        raise RuntimeError("a replica imported jax")
+    return tp, tb, ts

@@ -54,6 +54,7 @@ from ._torch_parity import (
     port_from_jax,
     port_leaves,
 )
+from ._torch_parity import one_torch_thread  # noqa: F401  (autouse)
 from .reference_fixtures import make_tpu_env_state, spec_diamond, spec_multi_job
 
 N, J = 5, 6

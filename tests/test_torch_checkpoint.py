@@ -48,6 +48,7 @@ from ._torch_parity import (
     assert_update_close,
     mini_train_cfg,
 )
+from ._torch_parity import one_torch_thread  # noqa: F401  (autouse)
 
 
 class _Stop(Exception):

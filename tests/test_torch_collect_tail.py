@@ -6,6 +6,7 @@ mask still equal the JAX collector's, which scans all 128 rows
 
 from __future__ import annotations
 
+from ._torch_parity import one_torch_thread  # noqa: F401  (autouse)
 from .test_torch_rollout import (
     test_collect_flat_sync_batch_matches_jax as _check_collection,
 )

@@ -36,6 +36,7 @@ from sparksched_tpu_torch.schedulers.decima import compact_features
 from sparksched_tpu_torch.workload import make_workload_bank
 
 from ._torch_parity import jax_h_node
+from ._torch_parity import one_torch_thread  # noqa: F401  (autouse)
 
 N, J, B = 10, 24, 6
 KW = dict(

@@ -29,6 +29,7 @@ from sparksched_tpu_torch.schedulers import round_robin_policy
 from sparksched_tpu_torch.serve import SERVE_KNOBS
 
 from ._torch_parity import port_from_jax
+from ._torch_parity import one_torch_thread  # noqa: F401  (autouse)
 from .test_torch_bulk import _assert_same, _episodes, _i32, _keys, _synthetic
 
 KNOBS = {

@@ -31,6 +31,7 @@ from sparksched_tpu_torch.kernels.decima_encoder import (
 from sparksched_tpu_torch.schedulers import DecimaScheduler, params_from_flax
 
 from ._torch_parity import CASES, jax_h_node, make_case
+from ._torch_parity import one_torch_thread  # noqa: F401  (autouse)
 
 N = 10
 B, K, S, F = 3, 5, 20, 5

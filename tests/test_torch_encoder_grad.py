@@ -45,6 +45,7 @@ from sparksched_tpu_torch.schedulers.decima import (
 )
 
 from ._torch_parity import CASES, make_case
+from ._torch_parity import one_torch_thread  # noqa: F401  (autouse)
 
 N, J, S = 5, 6, 8
 KW = dict(

@@ -34,6 +34,7 @@ from ._torch_parity import (
     port_fixture_state,
     port_leaves,
 )
+from ._torch_parity import one_torch_thread  # noqa: F401  (autouse)
 from .reference_fixtures import (
     make_tpu_env_state,
     spec_chain,

@@ -28,6 +28,8 @@ from sparksched_tpu.workload import make_workload_bank as jax_bank
 from sparksched_tpu_torch import evaluate as ev
 from sparksched_tpu_torch import metrics
 
+from ._torch_parity import one_torch_thread  # noqa: F401  (autouse)
+
 STEPS = 120
 
 

@@ -56,6 +56,7 @@ from ._torch_parity import (
     port_fixture_state,
     port_leaves,
 )
+from ._torch_parity import one_torch_thread  # noqa: F401  (autouse)
 from .reference_fixtures import spec_diamond, spec_multi_job
 
 N, J = 5, 6

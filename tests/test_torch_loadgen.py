@@ -25,6 +25,7 @@ from sparksched_tpu_torch.serve import (
 )
 
 from ._torch_parity import serve_setup
+from ._torch_parity import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.mark.parametrize("process,kw", [

@@ -41,6 +41,7 @@ from sparksched_tpu_torch.schedulers import params_from_flax
 from sparksched_tpu_torch.serve import ContinuousBatcher, SessionStore
 
 from ._torch_parity import assert_same_result, assert_update_close, serve_setup
+from ._torch_parity import one_torch_thread  # noqa: F401  (autouse)
 from .test_torch_serve_ring import OBS_FIELDS, assert_traj_equal
 
 AGENT_CFG = {

@@ -51,6 +51,7 @@ from ._torch_parity import (
     mini_train_cfg,
     port_rollout_from_jax,
 )
+from ._torch_parity import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = dict(rtol=1e-4, atol=1e-6)
 

@@ -16,6 +16,8 @@ import torch
 
 from sparksched_tpu_torch import prng
 
+from ._torch_parity import one_torch_thread  # noqa: F401  (autouse)
+
 SEEDS = [0, 1, 42, 2**20 + 3, 123456789]
 
 

@@ -20,6 +20,8 @@ from sparksched_tpu_torch.env.health import grad_health
 from sparksched_tpu_torch.trainers import baselines as tbl
 from sparksched_tpu_torch.trainers import returns as tret
 
+from ._torch_parity import one_torch_thread  # noqa: F401  (autouse)
+
 G, R, T = 2, 3, 40
 TOL = dict(rtol=1e-5, atol=1e-6)
 

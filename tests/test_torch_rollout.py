@@ -47,6 +47,7 @@ from ._torch_parity import (
     mismatched_leaves,
     port_rollout_leaves,
 )
+from ._torch_parity import one_torch_thread  # noqa: F401  (autouse)
 
 N, J, LANES = 5, 6, 4
 

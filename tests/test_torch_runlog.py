@@ -32,6 +32,7 @@ from sparksched_tpu_torch.schedulers import params_from_flax
 from sparksched_tpu_torch.trainers import make_trainer
 
 from ._torch_parity import mini_train_cfg
+from ._torch_parity import one_torch_thread  # noqa: F401  (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NO_COUNTERPART = ("jit_compile", "jit_compile_detail", "memory")

@@ -15,6 +15,7 @@ import torch
 from sparksched_tpu.schedulers.decima import DecimaAction as JaxAction
 from sparksched_tpu_torch.schedulers.decima import DecimaAction
 
+from ._torch_parity import one_torch_thread  # noqa: F401  (autouse)
 from .test_torch_decima import _pair, obs_pair  # noqa: F401
 
 

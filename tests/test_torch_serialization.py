@@ -39,6 +39,7 @@ from sparksched_tpu_torch.schedulers import (
 )
 
 from ._torch_parity import MINI_AGENT
+from ._torch_parity import one_torch_thread  # noqa: F401  (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODELS = sorted(glob.glob(os.path.join(REPO, "models", "decima",

@@ -38,6 +38,8 @@ from sparksched_tpu_torch.schedulers import DecimaScheduler, params_from_flax
 from sparksched_tpu_torch.serve import SessionQuarantined, SessionStore
 from sparksched_tpu_torch.workload import make_workload_bank
 
+from ._torch_parity import one_torch_thread  # noqa: F401  (autouse)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KW = dict(num_executors=5, embed_dim=8, gnn_mlp_kwargs={"hid_dims": [16]},
           policy_mlp_kwargs={"hid_dims": [16]}, job_bucket=4)

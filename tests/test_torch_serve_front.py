@@ -31,6 +31,7 @@ from sparksched_tpu_torch.serve import (
 )
 
 from ._torch_parity import assert_same_result, serve_setup
+from ._torch_parity import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture(scope="module")

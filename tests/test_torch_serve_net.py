@@ -2,8 +2,9 @@
 setup of tests/test_serve.py: decisions through the wire equal an
 in-process store's at the same seeds bit for bit, per-tenant quotas
 answer 429 with the two rejection counters kept apart, `/metrics` and
-`/healthz` answer, the wire client's open loop reconciles, and the
-network knobs the port has not ported raise."""
+`/healthz` answer, the wire client's open loop reconciles, and
+`server_from_config` refuses what the JAX package refuses (`shard_dp`
+is not ported and raises)."""
 
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ from sparksched_tpu_torch.serve.server import (
 )
 
 from ._torch_parity import serve_setup
+from ._torch_parity import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture(scope="module")
@@ -137,10 +139,10 @@ def test_http_quotas_429_counters_distinct(setup):
 
 
 @pytest.mark.parametrize("cfg,exc,match", [
-    ({"replicas": 2}, NotImplementedError, "router"),
-    ({"collect": True}, NotImplementedError, "collect.*not ported"),
+    ({"replicas": 2}, ValueError, "needs a ReplicaSpec"),
+    ({"collect": True, "slo": {"p99_mx": 5}}, ValueError, "unknown slo"),
     ({"slo": {"p99_ms": 5}}, ValueError, "needs collect"),
-    ({"hostprof": True}, NotImplementedError, "hostprof.*not ported"),
+    ({"shard_dp": 2}, NotImplementedError, "shard_dp.*ROADMAP A12"),
     ({"prot": 1}, ValueError, "unknown serve"),
 ])
 def test_server_from_config_refuses(setup, cfg, exc, match):

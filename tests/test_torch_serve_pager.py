@@ -22,6 +22,7 @@ from sparksched_tpu_torch.obs.memory import hot_set_fit
 from sparksched_tpu_torch.serve import SessionQuarantined, SessionStore
 
 from ._torch_parity import assert_same_result, serve_setup, slot_bytes
+from ._torch_parity import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture(scope="module")

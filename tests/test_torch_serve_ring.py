@@ -34,6 +34,7 @@ from sparksched_tpu_torch.serve import SessionStore, store_from_config
 from sparksched_tpu_torch.serve.aot import RingRec
 
 from ._torch_parity import serve_setup
+from ._torch_parity import one_torch_thread  # noqa: F401  (autouse)
 
 REC_FIELDS = ("sid", "seq", "params_version", "stage_idx", "job_idx",
               "num_exec", "lgprob", "reward", "dt", "wall_time", "done",

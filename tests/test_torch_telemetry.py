@@ -43,6 +43,7 @@ from sparksched_tpu_torch.schedulers import params_from_flax
 from sparksched_tpu_torch.trainers import make_trainer
 
 from ._torch_parity import mini_train_cfg, port_rollout_leaves
+from ._torch_parity import one_torch_thread  # noqa: F401  (autouse)
 from .test_torch_heuristics import _fair_port, _keys, _synthetic
 
 N, LANES = 5, 4

@@ -31,6 +31,7 @@ from sparksched_tpu_torch.schedulers import params_from_flax
 from sparksched_tpu_torch.trainers import make_trainer
 
 from ._torch_parity import LINEAR_ADAM, assert_update_close, mini_train_cfg
+from ._torch_parity import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _two_iterations(cfg: dict, linear: bool, art) -> None:

@@ -28,6 +28,8 @@ from sparksched_tpu_torch.workload.sampling import (
     sample_task_duration,
 )
 
+from ._torch_parity import one_torch_thread  # noqa: F401  (autouse)
+
 N = 10
 
 
