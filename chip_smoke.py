@@ -9,10 +9,12 @@ drives the port's paths at the flagship shape of `config/decima_tpch.yaml`
 (50 executors, 200-job cap, 20 stage slots; Decima embed 16, GNN [32,16],
 policy [64,64], job_bucket 32) and checks them. The main path is PPO
 training as the config runs it (16 lanes, the flat single-eval collector,
-3 epochs x 10 minibatches), 2 iterations with `rollout_steps` cut to 128,
-through `make_trainer(...).train()`: health 0, parameters finite and
-changed, both encoder kernels launched (forward in collection and update,
-backward in the update) and no plain version called. The earlier paths
+3 epochs x 10 minibatches, `fast_prng: True`: every key an rbg key), 2
+iterations with `rollout_steps` cut to 128, through
+`make_trainer(...).train()`: health 0, parameters finite and changed,
+both encoder kernels launched (forward in collection and update,
+backward in the update) and the rbg kernel (every random draw), no plain
+version called, the train state stamped "rbg". The earlier paths
 stay: Decima decisions served by `SessionStore(device="cuda")` at its
 default engine knobs (`SERVE_KNOBS`) and with the bulk knobs off
 (capacity 64 and max_batch 8 from the config's documented `serve:`
@@ -42,7 +44,9 @@ the same cases and on update chunks of 16, 256 and 1,024 real rollout
 observations, against the plain backward evaluated in float64 with each
 LeakyReLU on the branch of the kernel's float32 forward (the error
 against the plain float64 backward on its own branches reported beside),
-and the same bits on a rerun at the timed chunks.
+and the same bits on a rerun at the timed chunks. The rbg kernel is held
+bit for bit against its plain version on 4,096 keys at odd counts (wrap
+keys among them) and at every draw shape training made.
 
 Phases, in order: `build`, `kernel_vs_plain`, `serve` (4 x 64 decisions
 at SERVE_KNOBS), `serve_knobs_off` (2 x 64), `serve_front` (the config's
@@ -81,12 +85,21 @@ replayed on the CPU), `train` (the main path; a `train_iteration` line
 per iteration), `train_update_profile` (torch.profiler over an update:
 both kernels recorded), `kernel_vs_plain_train` (the forward at
 training's shapes), `bwd_kernel_vs_plain`, `kernel_alone`,
-`train_parity` (one collection per device, updated at the config's
-Adam and at a linear Adam), `train_resume` (2 lanes, T = 64: 2
-iterations against 1 + a resume), `eval_trained` (4 held-out seeds on
-the card, 2 of them on the CPU; the forward kernel at trained weights
-against the float64 plain forward) and `telemetry_cost` (16 lanes x 16
-rows, telemetry off and on: launches per row and rows per second).
+`rbg` (the rbg kernel against its plain version, then timed at the
+train phase's most launched draw shapes against its bound, its plain
+version and the threefry draw of the same shape), `train_parity` (one
+collection per device, updated at the config's Adam and at a linear
+Adam; 2 lanes, T = 64), `train_resume` (2 lanes, T = 32: 2 iterations
+against 1 + a resume), `lowprec` (`bank_dtype: int16` and `obs_dtype: bfloat16`: one
+iteration at T = 128, its peak memory beside the f32 layout's, and a
+2-lane collection on the card against the CPU), `chaos` (the `chaos:`
+block's nan_grad, bank_row, straggler and oom on 2 lanes, a real
+out-of-memory error from the update, and sigkill in a child process
+with the resume held against an uninterrupted run), `eval_trained` (2
+held-out seeds on the card, both on the CPU; the forward kernel at
+trained weights against the float64 plain forward) and `telemetry_cost`
+(16 lanes x 8 rows, telemetry off and on: launches per row and rows
+per second).
 
 Each phase prints one JSON line. Before the last line come the
 `{"kernels": [...]}` line (per kernel: launches on the main path and
@@ -94,8 +107,9 @@ on each path of this script that runs it (`launches_by_path`), max
 abs error against the plain version, the kernel's own time from
 torch.profiler at an update chunk, taken after the main path, the plain
 version's time and the least time the card could take; for the
-backward also its time, bound and scratch bytes at both timed chunks)
-and the card's
+backward also its time, bound and scratch bytes at both timed chunks;
+for the rbg kernel its time, plain time, threefry time and bound at
+each timed draw shape) and the card's
 name and power limit from nvidia-smi; the last line is
 `{"ok": true, "device": {...}}`. Any failed phase exits non-zero
 without that line, as does a run with no CUDA card or without the
@@ -107,6 +121,7 @@ from __future__ import annotations
 import functools
 import importlib.util
 import json
+import math
 import os
 import subprocess
 import sys
@@ -137,24 +152,29 @@ TIMED = ("B8_K32", "B8_K200")  # the serve path's shapes
 # the training phases: the flagship config, rollout_steps cut to 128
 # (256 until PR 6, cut to keep the whole run near its earlier length)
 TRAIN_ITERS, TRAIN_STEPS = 2, 128
-PARITY_LANES, PARITY_STEPS = 2, 64  # card vs CPU training
+# card vs CPU training (at T = 32 the linear Adam's zero-gradient output
+# bias of the stage head missed its per-tensor bound, 1.18x; ROADMAP
+# queue C)
+PARITY_LANES, PARITY_STEPS = 2, 64
 # the train phase's checkpoint cadences, cut so that they fire within its
 # TRAIN_ITERS iterations (the config: checkpointing_freq 50,
 # health.checkpoint_every 25)
 TRAIN_CKPT_FREQ, TRAIN_STATE_EVERY = 2, 1
-RESUME_LANES, RESUME_STEPS = 2, 64  # 2 iterations against 1 + resume 1
+# 2 iterations against 1 + resume 1 (T = 64 until PR 10)
+RESUME_LANES, RESUME_STEPS = 2, 32
 # trained weights: the JAX package's TPU-trained model, greedy on the
 # held-out seeds of `python -m sparksched_tpu_torch.evaluate` (full
 # 600-decision episodes), the first EVAL_CPU_SEEDS replayed on the CPU
 EVAL_MODEL = os.path.join(HERE, "models", "decima", "model_tpu.msgpack")
-# (4 seeds, cut from 8 to keep the whole run near 900 s with the serving
-# phases added)
-EVAL_SEEDS, EVAL_CPU_SEEDS = 4, 2
+# (2 seeds, cut from 8 to 4 with the serving phases added and to 2 with
+# the rbg, lowprec and chaos phases, to keep the whole run near 1,000 s)
+EVAL_SEEDS, EVAL_CPU_SEEDS = 2, 2
 # telemetry's cost: lanes and rows of the flagship collection, off and
 # on, and the rows whose launches torch.profiler counts (its processing
 # of ~25k records a row stalls a window much longer than this)
-# 16 rows (32 before the `online` phase took their time)
-TELEMETRY_LANES, TELEMETRY_ROWS, PROFILED_ROWS = 16, 16, 4
+# 8 rows (32 before the `online` phase took their time, 16 before the
+# rbg, lowprec and chaos phases)
+TELEMETRY_LANES, TELEMETRY_ROWS, PROFILED_ROWS = 16, 8, 4
 # trainer artifacts (checkpoints, train states, run logs) go below this
 # temporary directory, never into the checkout's artifacts/
 TMP_ROOT: str | None = None
@@ -179,10 +199,31 @@ BWD_KERNELS = ("live_count_kernel", "live_list_kernel",
 # float32 plain backward (one call) only up to this many: at [1024, 200,
 # 20] its autograd graph holds ~50 GB
 REF_LANES, PLAIN_MAX_ITEMS = 64, 256
+# the rbg kernel against its plain version: this many single keys, each
+# with an odd count of 1 to 2 * RBG_MAX_ODD - 1 words
+RBG_CHECK_KEYS, RBG_MAX_ODD = 4096, 67
+RBG_TIMED = 4  # the main path's most launched draw shapes that are timed
+# Philox4x32-10 integer work per block of 4 words (10 rounds of 2 wide
+# multiplies, 2 three-input xors and 2 key adds), counted low: a bound
+RBG_OPS_PER_BLOCK = 60
+# the low-precision layouts: one iteration at TRAIN_STEPS, card against
+# CPU on PARITY_LANES lanes
+LOWPREC_ENV = {"bank_dtype": "int16", "obs_dtype": "bfloat16"}
+# fault injection on the card: PARITY_LANES lanes at CHAOS_STEPS rows,
+# each fault class at its own iteration (seed 3: the bank_row NaN lands
+# on a live node of the drill config; here it is reported either way)
+CHAOS_STEPS, CHAOS_ITERS = 16, 5
+CHAOS_FAULTS = {"nan_grad": [1], "bank_row": [2], "straggler": [3],
+                "oom": [4], "seed": 3}
 # H100 SXM peaks (NVIDIA data sheet): HBM3 rate and FP32 outside the
-# tensor cores (the kernel runs plain FP32 FMAs)
+# tensor cores (the kernel runs plain FP32 FMAs); INT32 at half the FP32
+# rate (64 INT32 against 128 FP32 lanes per SM per clock on Hopper)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+INT32_OPS_PER_S = 33.5e12
+# kernel_ms: the least host time of a profiled window, and how many
+# profiles with no device record are taken before CUDA events stand in
+PROFILE_MIN_S, PROFILE_ATTEMPTS = 0.05, 3
 
 
 def emit(obj) -> None:
@@ -306,39 +347,59 @@ def encoder_work(f, net) -> tuple[int, int]:
     return nbytes, flops
 
 
-def kernel_ms(fn, reps: int, kernel: str) -> tuple[float, float]:
+def kernel_ms(fn, reps: int, kernel: str) -> tuple[float, float, str]:
     """Device time per call of `fn` from torch.profiler's records: (the
-    kernels whose names hold `kernel`, every device record of the call).
-    Each kernel name counts at its mean duration times its launches per
-    call (at least one), so a record the profiler drops does not bias the
-    sum. Raises when the profiler recorded no such kernel."""
+    kernels whose names hold `kernel`, every device record of the call,
+    where the times come from). Each kernel name counts at its mean
+    duration times its launches per call (at least one), so a record the
+    profiler drops does not bias the sum. The calls are repeated past
+    `reps` until the profiled window lasts PROFILE_MIN_S: CUPTI can miss
+    the first launches of a window, and 50 calls of a microsecond kernel
+    once came back with no device record at all. A profile with no
+    device record is taken again (PROFILE_ATTEMPTS in all); after that
+    both times are CUDA events over the calls (an upper bound on the
+    kernel's time: at these sizes the host's launches set it), and the
+    source says "cuda_events". Raises when the profiler recorded device
+    work but no such kernel."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    by_name: dict[str, list[float]] = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    t = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    reps = max(reps, math.ceil(PROFILE_MIN_S / max(time.perf_counter() - t,
+                                                   1e-6)))
+    names = (kernel,) if isinstance(kernel, str) else kernel
+    for _ in range(PROFILE_ATTEMPTS):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        by_name: dict[str, list[float]] = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                by_name.setdefault(e.name, []).append(
+                    e.time_range.elapsed_us())
+        if by_name:
+            break
+    else:
+        ms = cuda_ms(fn, reps)
+        return ms, ms, "cuda_events"
 
     def per_call(names) -> float:
         return sum(sum(by_name[n]) / len(by_name[n])
                    * max(1, round(len(by_name[n]) / reps))
                    for n in names) / 1e3
 
-    names = (kernel,) if isinstance(kernel, str) else kernel
     ours = [n for n in by_name if any(k in n for k in names)]
     if not ours:
         raise AssertionError(
             f"torch.profiler recorded no launch of {kernel} in {reps} "
             f"calls; device records: {sorted(by_name)}")
-    return per_call(ours), per_call(by_name)
+    return per_call(ours), per_call(by_name), "profiler"
 
 
 @functools.cache
@@ -438,8 +499,9 @@ def phase_kernels(params, bank, sched) -> tuple[dict, dict]:
 
 def phase_kernel_alone(cases: dict, calls: dict, sched, chunk,
                        bwd: dict) -> None:
-    """Each kernel's own device time from torch.profiler, failing when the
-    profiler has no record of it: the forward at the serve path's shapes
+    """Each kernel's own device time from torch.profiler (`kernel_ms`),
+    failing when the profiler records device work but none of it: the
+    forward at the serve path's shapes
     and at an update chunk (with its plain version and bound there), the
     backward (every kernel of a call) at the update chunks of BWD_TIMED. It
     runs after the main paths, so that no profiler session in this
@@ -450,8 +512,9 @@ def phase_kernel_alone(cases: dict, calls: dict, sched, chunk,
     )
 
     for name in TIMED:
-        cases[name]["ms"], cases[name]["wrapper_device_ms"] = kernel_ms(
-            calls[name], 50, "decima_node_encoder_kernel")
+        (cases[name]["ms"], cases[name]["wrapper_device_ms"],
+         cases[name]["ms_from"]) = kernel_ms(calls[name], 50,
+                                             "decima_node_encoder_kernel")
     net = sched.net
     ins = (chunk.x, chunk.adj, chunk.node_level, chunk.node_mask)
     args = (net.encoder_weights(), net.num_levels, net.slope)
@@ -459,17 +522,18 @@ def phase_kernel_alone(cases: dict, calls: dict, sched, chunk,
            "wrapper_ms": cuda_ms(lambda: decima_node_encoder(*ins, *args), 20),
            "plain_ms": cuda_ms(lambda: decima_node_encoder_ref(*ins, *args),
                                3)} | bound(*encoder_work(chunk, net))
-    fwd["ms"], fwd["wrapper_device_ms"] = kernel_ms(
+    fwd["ms"], fwd["wrapper_device_ms"], fwd["ms_from"] = kernel_ms(
         lambda: decima_node_encoder(*ins, *args), 20,
         "decima_node_encoder_kernel")
     cases[CHUNK_TIMED] = cases.get(CHUNK_TIMED, {}) | fwd
     for b in bwd.values():
-        b["ms"], b["wrapper_device_ms"] = kernel_ms(b["call"], 10,
-                                                    BWD_KERNELS)
+        b["ms"], b["wrapper_device_ms"], b["ms_from"] = kernel_ms(
+            b["call"], 10, BWD_KERNELS)
     emit({"phase": "kernel_alone", "kernel": "decima_node_encoder",
           "ms": {n: cases[n]["ms"] for n in (*TIMED, CHUNK_TIMED)},
           "wrapper_device_ms": {n: cases[n]["wrapper_device_ms"]
                                 for n in (*TIMED, CHUNK_TIMED)},
+          "ms_from": {n: cases[n]["ms_from"] for n in (*TIMED, CHUNK_TIMED)},
           "update_chunk": fwd})
     emit({"phase": "kernel_alone", "kernel": "decima_node_encoder_bwd",
           "kernels": list(BWD_KERNELS),
@@ -1972,6 +2036,37 @@ class PlainCalls:
         de.decima_node_encoder_ref, de.decima_node_encoder_bwd_ref = self._orig
 
 
+class RbgDraws:
+    """While active: the rbg draws made on the card, by (key batch shape,
+    draw shape, uniform or bits) with their counts, and the plain
+    version's calls (`rbg_random_bits.plain_calls` since entry)."""
+
+    def __enter__(self):
+        import collections
+
+        from sparksched_tpu_torch.kernels import rbg
+
+        self.shapes: collections.Counter = collections.Counter()
+        self._rbg, self._orig = rbg, rbg._draw
+        self._plain0 = rbg.rbg_random_bits.plain_calls
+
+        def draw(keys, shape, uniform):
+            if keys.device.type == "cuda":
+                self.shapes[(tuple(keys.shape[:-1]),
+                             tuple(int(d) for d in shape), bool(uniform))] += 1
+            return self._orig(keys, shape, uniform)
+
+        rbg._draw = draw
+        return self
+
+    @property
+    def plain(self) -> int:
+        return self._rbg.rbg_random_bits.plain_calls - self._plain0
+
+    def __exit__(self, *exc):
+        self._rbg._draw = self._orig
+
+
 def phase_train() -> dict:
     """The flagship config through `make_trainer(...).train()` on the
     card, TRAIN_ITERS iterations at rollout_steps TRAIN_STEPS, with the
@@ -1979,8 +2074,10 @@ def phase_train() -> dict:
     cadences cut to fire within the phase (`checkpointing_freq`
     TRAIN_CKPT_FREQ, `health.checkpoint_every` TRAIN_STATE_EVERY), the
     artifacts in a temporary directory: one line per iteration, the gates
-    (`check_train_artifacts` among them), and both encoder kernels'
-    launches counted from 0 over the training run."""
+    (`check_train_artifacts` among them), and the launches of both
+    encoder kernels and of the rbg kernel (the config's `fast_prng:
+    True`) counted from 0 over the training run: each must be launched,
+    no plain version called, and the train state stamped "rbg"."""
     import math
 
     import torch
@@ -1989,6 +2086,7 @@ def phase_train() -> dict:
         decima_node_encoder,
         decima_node_encoder_bwd,
     )
+    from sparksched_tpu_torch.kernels.rbg import rbg_random_bits
     from sparksched_tpu_torch.trainers import make_trainer
 
     t_phase = time.perf_counter()
@@ -2001,6 +2099,8 @@ def phase_train() -> dict:
                                        TRAIN_STATE_EVERY]
     cfg["health"]["checkpoint_every"] = TRAIN_STATE_EVERY
     trainer = make_trainer(cfg, device="cuda")
+    if trainer.prng_impl != "rbg":
+        raise AssertionError(f"the flagship trains under {trainer.prng_impl}")
     p0 = {k: v.detach().clone()
           for k, v in trainer.scheduler.net.named_parameters()}
     pre_update = [p0]  # the parameters before each iteration's update
@@ -2023,13 +2123,16 @@ def phase_train() -> dict:
     torch.cuda.reset_peak_memory_stats()
     decima_node_encoder.launches = 0
     decima_node_encoder_bwd.launches = 0
-    with PlainCalls() as plain:
+    rbg_random_bits.launches = 0
+    with PlainCalls() as plain, RbgDraws() as draws:
         state = trainer.train(callback=report)
     torch.cuda.synchronize()
     launches = {"decima_node_encoder": decima_node_encoder.launches,
-                "decima_node_encoder_bwd": decima_node_encoder_bwd.launches}
-    if plain.n:
-        raise AssertionError(f"the plain encoder ran {plain.n} times on the "
+                "decima_node_encoder_bwd": decima_node_encoder_bwd.launches,
+                "rbg_random_bits": rbg_random_bits.launches}
+    if plain.n or draws.plain:
+        raise AssertionError(f"the plain encoder ran {plain.n} times, the "
+                             f"plain rbg bits {draws.plain} times on the "
                              "card path")
     for name, n in launches.items():
         if n <= 0:
@@ -2054,25 +2157,28 @@ def phase_train() -> dict:
     artifacts = check_train_artifacts(trainer, state, pre_update)
     out = {"phase": "train", "iterations": TRAIN_ITERS,
            "rollout_steps": TRAIN_STEPS, "lanes": trainer.num_envs,
-           "cuts": cuts, "encoder_launches": launches,
-           "plain_encoder_calls": plain.n, "max_param_change": moved,
+           "cuts": cuts, "prng_impl": trainer.prng_impl,
+           "kernel_launches": launches, "plain_encoder_calls": plain.n,
+           "plain_rbg_calls": draws.plain,
+           "rbg_draw_shapes": len(draws.shapes), "max_param_change": moved,
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
            "artifacts": artifacts,
            "seconds": time.perf_counter() - t_phase, "card": card_line()}
     emit(out)
-    return {"trainer": trainer, "state": state, "launches": launches}
+    return {"trainer": trainer, "state": state, "launches": launches,
+            "rbg_draws": draws.shapes, "lines": lines}
 
 
 def _sha_ok(path: str) -> dict:
-    """A train-state generation against its meta file: digest, stamp and
-    iteration."""
+    """A train-state generation against its meta file: digest, stamp (the
+    flagship's rbg) and iteration."""
     import hashlib
 
     with open(path + ".meta.json") as fp:
         meta = json.load(fp)
     with open(path, "rb") as fp:
         digest = hashlib.sha256(fp.read()).hexdigest()
-    if digest != meta["sha256"] or meta["prng_impl"] != "threefry2x32":
+    if digest != meta["sha256"] or meta["prng_impl"] != "rbg":
         raise AssertionError(f"{path}: digest or prng_impl does not check "
                              f"({meta})")
     return {"iteration": meta["iteration"], "sha256_ok": True}
@@ -2201,13 +2307,14 @@ def phase_train_parity(parity) -> None:
                   for k, v in trainer.scheduler.params.items()}
         trainer.scheduler.load_params(sd)
         t = time.perf_counter()
-        ro, hm = trainer._collect(0, prng.PRNGKey(SEED, dev))
+        ro, hm = trainer._collect(
+            0, prng.PRNGKey(SEED, dev, impl=trainer.prng_impl))
         seconds[f"{dev}_collect"] = time.perf_counter() - t
         updates = {}
         for adam in ("config_adam", "linear_adam"):
             trainer.scheduler.load_params(sd)
             state = trainer.init_state()
-            state.rng = prng.PRNGKey(SEED, dev)
+            state.rng = prng.PRNGKey(SEED, dev, impl=trainer.prng_impl)
             if adam == "linear_adam":
                 state.opt_state = make_optimizer(
                     linear_cfg, list(state.params.values()))
@@ -2318,14 +2425,15 @@ def phase_train_resume() -> dict:
     Held as the card-vs-CPU training check holds the card: parameters
     within rtol 1e-4 / atol 1e-6, the policy heads per tensor
     (`assert_update_close`); Adam's step counts and the schedule's count
-    equal. Both encoder kernels must be launched on this path and no
-    plain version called."""
+    equal. Both encoder kernels and the rbg kernel must be launched on
+    this path and no plain version called."""
     import torch
 
     from sparksched_tpu_torch.kernels.decima_encoder import (
         decima_node_encoder,
         decima_node_encoder_bwd,
     )
+    from sparksched_tpu_torch.kernels.rbg import rbg_random_bits
     from sparksched_tpu_torch.trainers import make_trainer
 
     t_phase = time.perf_counter()
@@ -2341,7 +2449,8 @@ def phase_train_resume() -> dict:
     applied = []
     decima_node_encoder.launches = 0
     decima_node_encoder_bwd.launches = 0
-    with PlainCalls() as plain:
+    rbg_random_bits.launches = 0
+    with PlainCalls() as plain, RbgDraws() as draws:
         ta = trainer_at("full", 2)
         p0 = {k: v.detach().cpu().clone()
               for k, v in ta.scheduler.params.items()}
@@ -2353,10 +2462,11 @@ def phase_train_resume() -> dict:
                                                "train_state.msgpack"))
         torch.cuda.synchronize()
     launches = {"decima_node_encoder": decima_node_encoder.launches,
-                "decima_node_encoder_bwd": decima_node_encoder_bwd.launches}
-    if plain.n or min(launches.values()) <= 0:
+                "decima_node_encoder_bwd": decima_node_encoder_bwd.launches,
+                "rbg_random_bits": rbg_random_bits.launches}
+    if plain.n or draws.plain or min(launches.values()) <= 0:
         raise AssertionError(f"resume path: launches {launches}, plain "
-                             f"calls {plain.n}")
+                             f"calls {plain.n} + {draws.plain}")
     full, resumed = ta.train_state_tree(sa), tc.train_state_tree(sc)
     first = _first_unequal(full, resumed)
     out = {"phase": "train_resume", "lanes": RESUME_LANES,
@@ -2366,7 +2476,7 @@ def phase_train_resume() -> dict:
                full["params"], resumed["params"]) is None,
            "moments_bit_equal": _first_unequal(
                full["opt_state"], resumed["opt_state"]) is None,
-           "encoder_launches": launches, "plain_encoder_calls": plain.n}
+           "kernel_launches": launches, "plain_encoder_calls": plain.n}
     runlogs = os.listdir(os.path.join(root, "stopped", "runlog"))
     kinds = {json.loads(x)["ev"] for p in runlogs
              for x in open(os.path.join(root, "stopped", "runlog", p))}
@@ -2388,6 +2498,347 @@ def phase_train_resume() -> dict:
         sc.params, p0,
         sum(applied), lr, linear=False, heads_per_tensor=True)
     out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 8b: the rbg kernel, the low-precision layouts, fault injection
+# ---------------------------------------------------------------------------
+
+
+def rbg_work(n: int, uniform: bool) -> tuple[int, int]:
+    """(bytes, integer operations) of an rbg draw of `n` words: the key
+    read once and each output written once (float32 uniforms, or the
+    port's int64 words); RBG_OPS_PER_BLOCK per block of 4 words."""
+    return 32 + n * (4 if uniform else 8), -(-n // 4) * RBG_OPS_PER_BLOCK
+
+
+def phase_rbg(draws) -> dict:
+    """The rbg kernel against its plain version on the card, then timed.
+    Bit-equal: RBG_CHECK_KEYS random single keys (the first three with
+    counters that carry across words and wrap) at odd counts, as words
+    and as uniforms, and key batches at every draw shape the `train`
+    phase made (`draws`: one stream of the batch's first key). Timed at
+    the RBG_TIMED most launched shapes of `train` and at the largest: the
+    kernel's own device time (torch.profiler's records, `ms`, or CUDA
+    events where the profiler delivers no record: `ms_from`) and a whole
+    wrapper call (CUDA events over repeated calls, `call_ms`: at these
+    sizes the host's launch sets it), the plain version on the card
+    (`rbg_bits_ref`, and the uniform mapping), the threefry draw of the
+    same shape from 2-word keys (both CUDA events), and the bound (bytes
+    over the HBM rate or integer operations over the INT32 rate). No
+    PyTorch call computes this stream (torch's Philox takes another key and counter
+    layout), so `library_ms` is None."""
+    import torch
+
+    from sparksched_tpu_torch import prng
+    from sparksched_tpu_torch.kernels.rbg import (
+        bits_to_uniform,
+        rbg_bits_ref,
+        rbg_random_bits,
+        rbg_uniform,
+    )
+
+    t_phase = time.perf_counter()
+    g = torch.Generator().manual_seed(SEED)
+    keys = torch.randint(0, 2**32, (RBG_CHECK_KEYS, 4), generator=g,
+                         dtype=torch.int64)
+    keys[:3] = torch.tensor([[1, 2, 0xFFFFFFFF, 0xFFFFFFFF],
+                             [0xFFFFFFFF] * 4, [5, 6, 0xFFFFFFFE, 0]])
+    keys = keys.cuda()
+    bad, words = [], 0
+    for i in range(RBG_CHECK_KEYS):
+        n = 2 * (i % RBG_MAX_ODD) + 1
+        k = keys[i]
+        want = rbg_bits_ref(k, n)
+        if not (torch.equal(rbg_random_bits(k, (n,)), want)
+                and torch.equal(rbg_uniform(k, (n,)),
+                                bits_to_uniform(want))):
+            bad.append(i)
+        words += n
+    shapes = sorted(draws, key=lambda d: -draws[d])
+    for batch, shape, uniform in shapes:
+        kb = keys[:max(1, math.prod(batch))].reshape(batch + (4,))
+        got = (rbg_uniform if uniform else rbg_random_bits)(kb, shape)
+        want = rbg_bits_ref(kb, got.numel()).reshape(got.shape)
+        if not torch.equal(got, bits_to_uniform(want) if uniform else want):
+            bad.append((batch, shape, uniform))
+    torch.cuda.synchronize()
+    if bad:
+        raise AssertionError(f"rbg kernel differs from rbg_bits_ref at "
+                             f"{bad[:8]} ({len(bad)} cases)")
+    timed = shapes[:RBG_TIMED]
+    biggest = max(shapes, key=lambda d: math.prod(d[0]) * math.prod(d[1]))
+    if biggest not in timed:
+        timed.append(biggest)
+    at = {}
+    for batch, shape, uniform in timed:
+        kb = keys[:max(1, math.prod(batch))].reshape(batch + (4,))
+        kt = kb[..., :2].contiguous()  # threefry keys of the same batch
+        n = math.prod(batch) * math.prod(shape)
+        draw = rbg_uniform if uniform else rbg_random_bits
+        ms, _, ms_from = kernel_ms(lambda: draw(kb, shape), 50,
+                                   "rbg_philox_kernel")
+        call_ms = cuda_ms(lambda: draw(kb, shape), 200)
+        plain_ms = cuda_ms(lambda: (bits_to_uniform if uniform else
+                                    (lambda b: b))(rbg_bits_ref(kb, n)), 50)
+        tf_ms = cuda_ms(lambda: (prng.uniform if uniform
+                                 else prng.random_bits)(kt, shape), 50)
+        nbytes, ops = rbg_work(n, uniform)
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
+        name = (f"{'uniform' if uniform else 'bits'}"
+                f"{list(batch)}x{list(shape)}")
+        at[name] = {"words": n, "train_launches": draws[(batch, shape,
+                                                          uniform)],
+                    "ms": ms, "ms_from": ms_from, "call_ms": call_ms,
+                    "plain_ms": plain_ms,
+                    "threefry_ms": tf_ms,
+                    "bound_ms": max(t_bytes, t_ops) * 1e3,
+                    "bound_by": "bytes" if t_bytes >= t_ops
+                    else "operations", "bytes": nbytes, "int_ops": ops}
+    out = {"phase": "rbg", "checked_keys": RBG_CHECK_KEYS,
+           "checked_words": words, "batch_shapes_checked": len(shapes),
+           "max_abs_err": 0, "timed": at,
+           "seconds": time.perf_counter() - t_phase, "card": card_line()}
+    emit(out)
+    return out
+
+
+def phase_lowprec(train: dict) -> dict:
+    """`bank_dtype: int16` and `obs_dtype: bfloat16` (LOWPREC_ENV) on the
+    flagship config: one iteration through `make_trainer(...).train()` at
+    TRAIN_STEPS on the card (the bank's table int16, the recorded
+    duration buffer bf16, health 0, the kernels launched and no plain
+    version called) with its peak device memory beside the f32 layout's
+    over the `train` phase's first iteration (the same config, seed, lanes
+    and T); then PARITY_LANES lanes of one collection on the card and on
+    the CPU port from the same weights and keys, PARITY_STEPS rows:
+    actions and valid equal, the bf16 duration buffer bit-equal, log-probs
+    and wall times within rtol 1e-5 (`train_parity`'s bound); the int16
+    codes go through each device's float32 `expm1`, which may part in
+    the last ulp (ROADMAP queue C), and a reward is a difference of wall
+    times, so the rewards are held within 1e-5 of their largest magnitude
+    (as the forward is held relative to its outputs' scale)."""
+    import numpy as np
+    import torch
+
+    from sparksched_tpu_torch import prng
+    from sparksched_tpu_torch.kernels.decima_encoder import (
+        decima_node_encoder,
+    )
+    from sparksched_tpu_torch.kernels.rbg import rbg_random_bits
+    from sparksched_tpu_torch.trainers import make_trainer
+
+    t_phase = time.perf_counter()
+    cfg = train_cfg(num_iterations=1, rollout_steps=TRAIN_STEPS)
+    cfg["env"] = cfg["env"] | LOWPREC_ENV
+    trainer = make_trainer(cfg, device="cuda")
+    if trainer.bank.dur.dtype != torch.int16:
+        raise AssertionError(f"bank table {trainer.bank.dur.dtype}")
+    stats = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    decima_node_encoder.launches = rbg_random_bits.launches = 0
+    with PlainCalls() as plain, RbgDraws() as draws:
+        trainer.train(callback=lambda i, st, s: stats.update(s))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launches = {"decima_node_encoder": decima_node_encoder.launches,
+                "rbg_random_bits": rbg_random_bits.launches}
+    ro = trainer.last_rollout
+    if (ro.obs.duration.dtype != torch.bfloat16 or stats["health_mask"]
+            or plain.n or draws.plain or min(launches.values()) <= 0):
+        raise AssertionError(
+            f"lowprec iteration: duration {ro.obs.duration.dtype}, health "
+            f"{stats['health_mask']}, launches {launches}, plain "
+            f"{plain.n} + {draws.plain}")
+    f32_peak = train["lines"][0]["max_memory_allocated"]
+    out = {"phase": "lowprec", "env": LOWPREC_ENV,
+           "rollout_steps": TRAIN_STEPS, "lanes": trainer.num_envs,
+           "decisions": stats["decisions"],
+           "collect_seconds": stats["collect_seconds"],
+           "update_seconds": stats["update_seconds"],
+           "peak_bytes_bf16_int16": peak, "peak_bytes_f32": f32_peak,
+           "peak_ratio": peak / f32_peak,
+           "duration_buffer_bytes": ro.obs.duration.numel()
+           * ro.obs.duration.element_size(),
+           "kernel_launches": launches}
+    # the card against the CPU port on PARITY_LANES lanes
+    pcfg = train_cfg(num_sequences=1, num_rollouts=PARITY_LANES,
+                     rollout_steps=PARITY_STEPS)
+    pcfg["env"] = pcfg["env"] | LOWPREC_ENV
+    got, sd = {}, None
+    for dev in ("cuda", "cpu"):
+        t = make_trainer(pcfg, device=dev)
+        if sd is None:
+            sd = {k: v.cpu() * WEIGHT_SCALE
+                  for k, v in t.scheduler.params.items()}
+        t.scheduler.load_params(sd)
+        got[dev], _ = t._collect(0, prng.PRNGKey(SEED, dev,
+                                                  impl=t.prng_impl))
+    rc, rp = got["cuda"], got["cpu"]
+    for k in ("stage_idx", "job_idx", "num_exec_k", "valid"):
+        if not torch.equal(getattr(rc, k).cpu(), getattr(rp, k)):
+            raise AssertionError(f"lowprec card vs CPU: {k} differs")
+    if not torch.equal(rc.obs.duration.cpu().view(torch.int16),
+                       rp.obs.duration.view(torch.int16)):
+        raise AssertionError("lowprec card vs CPU: the bf16 buffer differs")
+    errs = {}
+    for k in ("lgprob", "reward", "wall_times"):
+        a, b = getattr(rc, k).cpu().numpy(), getattr(rp, k).numpy()
+        atol = 1e-5 * float(np.abs(b).max()) if k == "reward" else 1e-6
+        if not np.allclose(a, b, rtol=1e-5, atol=atol):
+            raise AssertionError(f"lowprec card vs CPU: {k} differs by "
+                                 f"{np.abs(a - b).max()}")
+        errs[k] = float(np.abs(a - b).max())
+    errs["wall_times_bit_equal"] = bool(torch.equal(rc.wall_times.cpu(),
+                                                    rp.wall_times))
+    out |= {"card_vs_cpu": {"lanes": PARITY_LANES,
+                            "rollout_steps": PARITY_STEPS,
+                            "decisions": int(rp.valid.sum()),
+                            "actions_equal": True,
+                            "duration_bits_equal": True,
+                            "max_abs_err": errs},
+            "seconds": time.perf_counter() - t_phase, "card": card_line()}
+    emit(out)
+    return launches
+
+
+def _chaos_cfg(art: str, iterations: int, chaos_blk=None) -> dict:
+    cfg = train_cfg(art, num_sequences=1, num_rollouts=PARITY_LANES,
+                    rollout_steps=CHAOS_STEPS, num_iterations=iterations)
+    cfg["health"] = cfg["health"] | {"backoff_seconds": 0.05,
+                                     "checkpoint_every": 1,
+                                     "straggler_ratio_max": 1.9}
+    if chaos_blk:
+        cfg["chaos"] = chaos_blk
+    return cfg
+
+
+def _runlog(art: str) -> list:
+    import glob
+
+    return [json.loads(x) for p in sorted(glob.glob(
+        os.path.join(art, "runlog", "*.jsonl"))) for x in open(p)]
+
+
+def phase_chaos() -> dict:
+    """The `chaos:` block on the card, the flagship config cut to
+    PARITY_LANES lanes x CHAOS_STEPS rows: `nan_grad`, `bank_row`,
+    `straggler` and `oom` at iterations 1-4 of one run (CHAOS_FAULTS),
+    each injection a `chaos` record; `nan_grad` and `oom` rolled back and
+    retried (`health` and `recovery` records, the oom after
+    `torch.cuda.empty_cache()`), `straggler` quarantined, `bank_row`
+    retried where its NaN row is a live node (reported either way); the
+    run finishes with finite parameters. A real `torch.OutOfMemoryError`
+    from the update is retried the same way. Then `sigkill` at iteration
+    1 of 2 in a child process on the card (killed after its collect, rc
+    -9), the run resumed from its `checkpoint_every: 1` train state for
+    the last iteration and held against an uninterrupted run as
+    `train_resume` holds it (bit-equality reported; parameters within the
+    `assert_update_close` bounds)."""
+    import signal
+
+    import torch
+
+    from sparksched_tpu_torch.kernels.decima_encoder import (
+        decima_node_encoder,
+        decima_node_encoder_bwd,
+    )
+    from sparksched_tpu_torch.kernels.rbg import rbg_random_bits
+    from sparksched_tpu_torch.trainers import make_trainer
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chaos_", dir=TMP_ROOT)
+    decima_node_encoder.launches = decima_node_encoder_bwd.launches = 0
+    rbg_random_bits.launches = 0
+    art = os.path.join(root, "faults")
+    t = make_trainer(_chaos_cfg(art, CHAOS_ITERS, CHAOS_FAULTS), "cuda")
+    state = t.train()
+    recs = [(r["ev"], r.get("action"), tuple(r.get("bits") or ()),
+             tuple(r.get("injected") or ()), r.get("iteration"))
+            for r in _runlog(art) if r["ev"] in ("chaos", "health",
+                                                 "recovery")]
+    injected = sorted(f for ev, _, _, inj, _ in recs if ev == "chaos"
+                      for f in inj)
+    retried = {it for ev, act, _, _, it in recs
+               if ev == "recovery" and act == "rollback_retry"}
+    quarantined = {it for ev, act, bits, _, it in recs
+                   if ev == "health" and act == "quarantine"
+                   and "straggler" in bits}
+    oom = [bits for ev, _, bits, _, it in recs if ev == "health" and it == 4]
+    finite = all(bool(torch.isfinite(p).all())
+                 for p in state.params.values())
+    if (injected != ["bank_row", "nan_grad", "straggler"]
+            or not {1, 4} <= retried or 3 not in quarantined
+            or oom != [("oom",)] or state.iteration != CHAOS_ITERS
+            or not finite):
+        raise AssertionError(f"chaos run: records {recs}, iteration "
+                             f"{state.iteration}, finite {finite}")
+    # a real out-of-memory error from the update
+    art2 = os.path.join(root, "real_oom")
+    t2 = make_trainer(_chaos_cfg(art2, 1), "cuda")
+    update, calls = t2._update, []
+
+    def oom_once(st, ro):
+        calls.append(1)
+        if len(calls) == 1:
+            raise torch.OutOfMemoryError("CUDA out of memory (injected)")
+        return update(st, ro)
+
+    t2._update = oom_once
+    t2.train()
+    real = [(r["ev"], r.get("bits")) for r in _runlog(art2)
+            if r["ev"] in ("health", "recovery")]
+    if len(calls) != 2 or real != [("health", ["oom"]),
+                                   ("recovery", ["oom"])]:
+        raise AssertionError(f"real oom: {len(calls)} updates, {real}")
+    # sigkill in a child process on the card, then the resume
+    killed = os.path.join(root, "killed")
+    code = ("import json, sys\n"
+            f"sys.path.insert(0, {HERE!r})\n"
+            "from sparksched_tpu_torch.trainers import make_trainer\n"
+            "make_trainer(json.loads(sys.argv[1]), device='cuda').train()\n")
+    cfg = _chaos_cfg(killed, 2, {"sigkill": [1]})
+    child = subprocess.run([sys.executable, "-c", code, json.dumps(cfg)],
+                           capture_output=True, text=True, timeout=600)
+    if child.returncode != -signal.SIGKILL:
+        raise AssertionError(f"sigkill child: rc {child.returncode}\n"
+                             f"{child.stderr[-2000:]}")
+    resumer = make_trainer(_chaos_cfg(killed, 1), "cuda")
+    resumed = resumer.train(resume_from=os.path.join(
+        killed, "train_state.msgpack"))
+    applied = []
+    full_t = make_trainer(_chaos_cfg(os.path.join(root, "full"), 2), "cuda")
+    p0 = {k: v.detach().cpu().clone()
+          for k, v in full_t.scheduler.params.items()}
+    full = full_t.train(callback=lambda i, s, st: applied.append(
+        int(st["minibatches_applied"])))
+    a, b = full_t.train_state_tree(full), resumer.train_state_tree(resumed)
+    first = _first_unequal(a, b)
+    worst = parity_helpers().assert_update_close(
+        {k: v.detach().cpu().numpy() for k, v in full.params.items()},
+        resumed.params, p0, sum(applied),
+        full_t.train_cfg["opt_kwargs"]["lr"], linear=False,
+        heads_per_tensor=True)
+    if resumed.iteration != 2 or a["opt_state"]["count"] != \
+            b["opt_state"]["count"]:
+        raise AssertionError("sigkill resume: iteration or Adam count")
+    out = {"phase": "chaos", "lanes": PARITY_LANES,
+           "rollout_steps": CHAOS_STEPS, "faults": CHAOS_FAULTS,
+           "records": [list(r) for r in recs],
+           "bank_row_detected": 2 in retried,
+           "retries": [s["health_retries"] for s in t.stats_log],
+           "real_oom_retried": True, "sigkill_rc": child.returncode,
+           "resume_bit_equal": first is None, "first_unequal": first,
+           "worst_param_err_over_tol": worst,
+           "seconds": time.perf_counter() - t_phase}
+    # this process's launches (the sigkill child's are its own)
+    launches = {"decima_node_encoder": decima_node_encoder.launches,
+                "decima_node_encoder_bwd": decima_node_encoder_bwd.launches,
+                "rbg_random_bits": rbg_random_bits.launches}
+    out["kernel_launches"] = launches
     emit(out)
     return launches
 
@@ -2600,7 +3051,8 @@ def phase_telemetry_cost() -> None:
         counts: dict = {}
         torch.cuda.synchronize()
         t = time.perf_counter()
-        ro, _ = trainer._collect(0, prng.PRNGKey(SEED, "cuda"), counts)
+        ro, _ = trainer._collect(
+            0, prng.PRNGKey(SEED, "cuda", impl=trainer.prng_impl), counts)
         torch.cuda.synchronize()
         return ro, counts, time.perf_counter() - t
 
@@ -2682,11 +3134,14 @@ def main() -> int:
         tsched = train["trainer"].scheduler
         bwd, bwd_err_max = phase_bwd_kernel(tsched, checks, chunks)
         phase_kernel_alone(cases, calls, tsched, chunks[CHUNK_TIMED], bwd)
+        rbg = phase_rbg(train["rbg_draws"])
         phase_train_parity(parity_helpers())
         paths = {"serve_front": front, "serve_http": http,
                  "online": online, "serve_fleet": fleet,
                  "train": train["launches"],
                  "train_resume": phase_train_resume(),
+                 "lowprec": phase_lowprec(train),
+                 "chaos": phase_chaos(),
                  "eval_trained": phase_eval_trained()}
         phase_telemetry_cost()
     except Exception:
@@ -2696,6 +3151,7 @@ def main() -> int:
         tmp.cleanup()
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     fwd, bw = cases[CHUNK_TIMED], bwd[CHUNK_TIMED]
+    rbg_top = next(iter(rbg["timed"].values()))  # the most launched shape
     bw_at = {n: {k: b[k] for k in ("shape", "ms", "bound_ms", "bound_by",
                                    "plain_ms", "scratch_bytes")}
              for n, b in bwd.items()}
@@ -2706,7 +3162,8 @@ def main() -> int:
         "replaces": "sparksched_tpu/schedulers/decima.py:284",
         "launches": train["launches"]["decima_node_encoder"],
         "launches_by_path": {p: n["decima_node_encoder"]
-                             for p, n in paths.items()},
+                             for p, n in paths.items()
+                             if "decima_node_encoder" in n},
         "max_abs_err": max([c["max_abs_err"] for c in cases.values()]
                            + [front["max_abs_err"]]),
         "ms": fwd["ms"],
@@ -2731,6 +3188,24 @@ def main() -> int:
         "library_ms": None,
         "scratch_bytes": max(b["scratch_bytes"] for b in bw_at.values()),
         "at": bw_at,
+    }, {
+        "name": "rbg_random_bits",
+        "route": "cuda",
+        "source": "sparksched_tpu_torch/csrc/rbg_philox.cu",
+        "replaces": "jax/_src/prng.py:_rbg_random_bits "
+                    "(lax.rng_bit_generator; the JAX package's fast_prng, "
+                    "sparksched_tpu/config.py:263)",
+        "launches": train["launches"]["rbg_random_bits"],
+        "launches_by_path": {p: n["rbg_random_bits"]
+                             for p, n in paths.items()
+                             if "rbg_random_bits" in n},
+        "max_abs_err": rbg["max_abs_err"],
+        "ms": rbg_top["ms"],
+        "plain_ms": rbg_top["plain_ms"],
+        "bound_ms": rbg_top["bound_ms"],
+        "bound_by": rbg_top["bound_by"],
+        "library_ms": None,
+        "at": rbg["timed"],
     }]})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {

@@ -118,15 +118,15 @@ def launcher(lib, f, w, packed, nl: int, slope: float):
     return call
 
 
-def profiled_ms(call, reps: int, kernels, tries: int = 3) -> float:
-    """The kernels' own time per call (chip_smoke.kernel_ms), taking a
-    new profiler session when one recorded no kernel at all."""
-    for i in range(tries):
-        try:
-            return chip_smoke.kernel_ms(call, reps, kernels)[0]
-        except AssertionError:
-            if i == tries - 1:
-                raise
+def profiled_ms(call, reps: int, kernels) -> float:
+    """The kernels' own time per call (chip_smoke.kernel_ms, which takes a
+    new profiler session when one recorded no kernel at all). Raises
+    rather than set a CUDA-events time beside the profiler's."""
+    ms, _, source = chip_smoke.kernel_ms(call, reps, kernels)
+    if source != "profiler":
+        raise RuntimeError(f"torch.profiler recorded no device work for "
+                           f"{kernels}")
+    return ms
 
 
 def fwd_ab(a, tmp, results, rows) -> None:

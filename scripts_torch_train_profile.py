@@ -2,11 +2,14 @@
 """Where a training iteration of the PyTorch port goes on the card.
 
     python3 scripts_torch_train_profile.py [--steps 9600] [--split-rows 256]
-        [--window 16] [--out artifacts/port/train_profile.json]
+        [--window 16] [--impls rbg threefry2x32] [--memory]
+        [--out artifacts/port/train_profile.json]
 
 Builds `config/decima_tpch.yaml`'s trainer on the card (16 lanes, the
 config's widths, its own weights from seed 42) with `rollout_steps`
-cut to `--steps` (9600 is the config's own) and measures:
+cut to `--steps` (9600 is the config's own) and, for each PRNG impl of
+`--impls` in turn (`rbg` is the config's `fast_prng: True`,
+`threefry2x32` the same config with `fast_prng: False`), measures:
 
 1. one iteration as `Trainer.train` runs it: collection seconds, rows
    and valid decisions, decisions/s, rows left early; update seconds,
@@ -19,9 +22,17 @@ cut to `--steps` (9600 is the config's own) and measures:
    writes, health, the key chain);
 3. torch.profiler over `--window` rows taken from the middle of that
    collection: torch ops and kernel launches per row, device busy time
-   and the device's idle share of the window's wall;
+   and the device's idle share of the window's wall, and the host time
+   per row inside the PRNG's functions (`split` and `fold_in`, the key
+   chain, threefry's hash under both impls; `random_bits` and `uniform`,
+   the draws: the rbg kernel or threefry's hash), each counted once at
+   its outermost call;
 4. torch.profiler over the update of that collection: each encoder
    kernel's launches and mean device time there.
+
+With `--memory`, then the peak device memory of one collection and one
+update at `--steps` under the f32 layouts and under `bank_dtype: int16`
+with `obs_dtype: bfloat16` (the same config, seed and keys).
 
 Prints one JSON object (also written to `--out`) with the card's name and
 power limit. Needs a CUDA card; imports no JAX.
@@ -62,56 +73,88 @@ def cuda_events(prof):
             if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
-def main() -> int:
-    import torch
+PRNG_FNS = ("split", "fold_in", "random_bits", "uniform")
+LOWPREC_ENV = {"bank_dtype": "int16", "obs_dtype": "bfloat16"}
 
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--steps", type=int, default=9600)
-    ap.add_argument("--split-rows", type=int, default=256)
-    ap.add_argument("--window", type=int, default=16)
-    ap.add_argument("--out", default=os.path.join(
-        HERE, "artifacts", "port", "train_profile.json"))
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        print("no CUDA device", file=sys.stderr)
-        return 2
-    sys.path.insert(0, HERE)
+
+class PrngRanges:
+    """While installed: each outermost call of the PRNG's functions runs
+    inside a `torch.profiler.record_function` range named `prng.<fn>`."""
+
+    def __init__(self):
+        from sparksched_tpu_torch import prng
+
+        self.prng, self.orig, self.depth = prng, {}, 0
+
+    def install(self):
+        from torch.profiler import record_function
+
+        for name in PRNG_FNS:
+            fn = self.orig[name] = getattr(self.prng, name)
+
+            def ranged(*a, _fn=fn, _name=name, **k):
+                if self.depth:
+                    return _fn(*a, **k)
+                self.depth += 1
+                try:
+                    with record_function(f"prng.{_name}"):
+                        return _fn(*a, **k)
+                finally:
+                    self.depth -= 1
+
+            setattr(self.prng, name, ranged)
+
+    def remove(self):
+        for name, fn in self.orig.items():
+            setattr(self.prng, name, fn)
+        self.orig = {}
+
+
+def build_trainer(steps: int, impl: str, env: dict | None = None):
+    from sparksched_tpu_torch.config import load
+    from sparksched_tpu_torch.trainers import make_trainer
+
+    cfg = load(CONFIG)
+    cfg["trainer"] |= {"num_iterations": 1, "rollout_steps": steps,
+                       "fast_prng": impl == "rbg"}
+    cfg["env"] |= env or {}
+    trainer = make_trainer(cfg, device="cuda")
+    assert trainer.prng_impl == impl
+    return trainer
+
+
+def profile_impl(args, impl: str) -> dict:
+    import torch
     from torch.profiler import ProfilerActivity, profile
 
     from sparksched_tpu_torch import prng
-    from sparksched_tpu_torch.config import load
-    from sparksched_tpu_torch.kernels import build
     from sparksched_tpu_torch.kernels.decima_encoder import (
         decima_node_encoder,
         decima_node_encoder_bwd,
     )
-    from sparksched_tpu_torch.trainers import make_trainer
+    from sparksched_tpu_torch.kernels.rbg import rbg_random_bits
     from sparksched_tpu_torch.trainers import rollout as tro
-    from sparksched_tpu_torch.trainers.ppo import UPDATE_CHUNK
 
-    build.build_all()
-    cfg = load(CONFIG)
-    cfg["trainer"] |= {"num_iterations": 1, "rollout_steps": args.steps}
-    trainer = make_trainer(cfg, device="cuda")
-    out = {"card": card_line(), "device": torch.cuda.get_device_name(0),
-           "lanes": trainer.num_envs, "rollout_steps": args.steps,
-           "update_chunk": UPDATE_CHUNK}
+    trainer = build_trainer(args.steps, impl)
+    out = {"prng_impl": impl, "lanes": trainer.num_envs}
 
     # 1. one iteration as train() runs it
     decima_node_encoder.launches = decima_node_encoder_bwd.launches = 0
+    rbg_random_bits.launches = 0
     stats = {}
     trainer.train(callback=lambda i, st, s: stats.update(s))
-    out["iteration"] = {k: stats[k] for k in (
+    it = {k: stats[k] for k in (
         "collect_seconds", "rows", "decisions", "update_seconds",
         "minibatches_applied", "kl_stopped", "update_chunks",
         "max_memory_allocated", "episode_length", "health_mask")}
-    out["iteration"]["decisions_per_s"] = (stats["decisions"]
-                                           / stats["collect_seconds"])
-    out["iteration"]["rows_per_s"] = stats["rows"] / stats["collect_seconds"]
-    out["iteration"]["encoder_launches"] = decima_node_encoder.launches
-    out["iteration"]["encoder_bwd_launches"] = decima_node_encoder_bwd.launches
-    print(json.dumps({"phase": "iteration", **out["iteration"]}), flush=True)
-    save(args.out, out)
+    it["decisions_per_s"] = stats["decisions"] / stats["collect_seconds"]
+    it["rows_per_s"] = stats["rows"] / stats["collect_seconds"]
+    it["encoder_launches"] = decima_node_encoder.launches
+    it["encoder_bwd_launches"] = decima_node_encoder_bwd.launches
+    it["rbg_launches"] = rbg_random_bits.launches
+    out["iteration"] = it
+    print(json.dumps({"phase": "iteration", "prng_impl": impl, **it}),
+          flush=True)
 
     # 2. the split per row, 3. a profiled window of rows
     split = {"policy_s": 0.0, "engine_s": 0.0}
@@ -120,6 +163,7 @@ def main() -> int:
     mid = max(0, args.split_rows // 2 - args.window // 2)
     calls = {"rows": 0}
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    ranges = PrngRanges()
     window = {}
 
     def timed(key, fn):
@@ -136,12 +180,14 @@ def main() -> int:
         n = calls["rows"]
         if n == mid:
             torch.cuda.synchronize()
+            ranges.install()
             prof.start()
             window["t0"] = time.perf_counter()
         if n == mid + args.window:
             torch.cuda.synchronize()
             window["wall"] = time.perf_counter() - window["t0"]
             prof.stop()
+            ranges.remove()
         calls["rows"] += 1
         return timed("policy_s", orig[0])(*a, **k)
 
@@ -149,15 +195,17 @@ def main() -> int:
     tro.decide_micro_step = timed("engine_s", orig[1])
     tro.drain_to_decision = timed("engine_s", orig[2])
     trainer.rollout_steps = args.split_rows
+    key = prng.PRNGKey(7, "cuda", impl=impl)
     try:
         torch.cuda.synchronize()
         t = time.perf_counter()
-        ro, _ = trainer._collect(0, prng.PRNGKey(7, "cuda"))
+        ro, _ = trainer._collect(0, key)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
     finally:
         sched.batch_policy = orig[0]
         tro.decide_micro_step, tro.drain_to_decision = orig[1], orig[2]
+        ranges.remove()
     rows = calls["rows"]
     out["split"] = {
         "rows": rows, "wall_s": wall, "ms_per_row": wall / rows * 1e3,
@@ -169,14 +217,21 @@ def main() -> int:
     }
     if "wall" in window:
         ev = cuda_events(prof)
-        ops = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CPU
-               and e.name.startswith("aten::")]
+        cpu = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CPU]
+        ops = [e for e in cpu if e.name.startswith("aten::")]
         launches = [e for e in prof.events()
                     if e.name in ("cudaLaunchKernel", "cuLaunchKernel",
                                   "cudaLaunchKernelExC")]
         busy = sum(e.time_range.elapsed_us() for e in ev) / 1e3
         n = args.window
+        host = {}
+        for name in PRNG_FNS:
+            rs = [e for e in cpu if e.name == f"prng.{name}"]
+            host[name] = {"calls_per_row": len(rs) / n,
+                          "host_ms_per_row": sum(
+                              e.time_range.elapsed_us() for e in rs)
+                          / 1e3 / n}
         out["window"] = {
             "rows": n, "first_row": mid, "wall_ms": window["wall"] * 1e3,
             "aten_ops_per_row": len(ops) / n,
@@ -184,14 +239,18 @@ def main() -> int:
             "device_kernels_per_row": len(ev) / n,
             "device_busy_ms_per_row": busy / n,
             "device_idle_share": 1 - busy / (window["wall"] * 1e3),
+            "prng_host": host,
+            "key_chain_host_ms_per_row": host["split"]["host_ms_per_row"]
+            + host["fold_in"]["host_ms_per_row"],
+            "draws_host_ms_per_row": host["random_bits"]["host_ms_per_row"]
+            + host["uniform"]["host_ms_per_row"],
         }
-    print(json.dumps({"phase": "split", **out["split"],
-                      **out.get("window", {})}), flush=True)
-    save(args.out, out)
+    print(json.dumps({"phase": "split", "prng_impl": impl, **out["split"],
+                      "window": out.get("window")}), flush=True)
 
     # 4. the update of that collection, profiled
     state = trainer.init_state()
-    state.rng = prng.PRNGKey(3, "cuda")
+    state.rng = prng.PRNGKey(3, "cuda", impl=impl)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
@@ -217,8 +276,74 @@ def main() -> int:
                 "mean_ms": sum(ts) / len(ts) / 1e3 if ts else None}
     upd["device_busy_ms"] = sum(e.time_range.elapsed_us() for e in ev) / 1e3
     out["update"] = upd
-    print(json.dumps({"phase": "update", **upd}), flush=True)
-    save(args.out, out)
+    print(json.dumps({"phase": "update", "prng_impl": impl, **upd}),
+          flush=True)
+    return out
+
+
+def memory_layout(steps: int, layout: str) -> dict:
+    """Peak device memory of one collection and one update at `steps`
+    rows under the f32 layouts or LOWPREC_ENV, from the same keys."""
+    import torch
+
+    from sparksched_tpu_torch import prng
+
+    trainer = build_trainer(steps, "rbg",
+                            LOWPREC_ENV if layout == "bf16" else None)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ro, _ = trainer._collect(0, prng.PRNGKey(7, "cuda", impl="rbg"))
+    torch.cuda.synchronize()
+    collect_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    state = trainer.init_state()
+    trainer._update(state, ro)
+    torch.cuda.synchronize()
+    out = {"layout": layout, "env": LOWPREC_ENV if layout == "bf16" else {},
+           "rollout_steps": steps, "decisions": int(ro.valid.sum()),
+           "allocated_before": base, "collect_peak": collect_peak,
+           "update_peak": torch.cuda.max_memory_allocated(),
+           "duration_buffer_bytes": ro.obs.duration.numel()
+           * ro.obs.duration.element_size(),
+           "bank_dur_bytes": trainer.bank.dur.numel()
+           * trainer.bank.dur.element_size()}
+    print(json.dumps({"phase": "memory", **out}), flush=True)
+    return out
+
+
+def main() -> int:
+    import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--steps", type=int, default=9600)
+    ap.add_argument("--split-rows", type=int, default=256)
+    ap.add_argument("--window", type=int, default=16)
+    ap.add_argument("--impls", nargs="+", default=["rbg"],
+                    choices=["rbg", "threefry2x32"])
+    ap.add_argument("--memory", action="store_true")
+    ap.add_argument("--out", default=os.path.join(
+        HERE, "artifacts", "port", "train_profile.json"))
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    from sparksched_tpu_torch.kernels import build
+    from sparksched_tpu_torch.trainers.ppo import UPDATE_CHUNK
+
+    build.build_all()
+    out = {"card": card_line(), "device": torch.cuda.get_device_name(0),
+           "rollout_steps": args.steps, "update_chunk": UPDATE_CHUNK,
+           "by_impl": []}
+    for impl in args.impls:
+        out["by_impl"].append(profile_impl(args, impl))
+        save(args.out, out)
+    if args.memory:
+        out["memory"] = [memory_layout(args.steps, lay)
+                         for lay in ("f32", "bf16")]
+        save(args.out, out)
     print(json.dumps(out), flush=True)
     return 0
 

@@ -7,7 +7,11 @@ stays a frozen dataclass: every shape-determining field lives here and
 the engine's tensors are sized from it.
 
 The JAX-only switches of the reference module (`honor_jax_platforms_env`,
-`use_fast_prng`, `enable_compilation_cache`) have no counterpart.
+`enable_compilation_cache`) have no counterpart. `use_fast_prng`, which
+flips jax's process-wide default PRNG to `rbg`, has none either: the
+port has no process-wide default impl, and the trainer's `fast_prng:
+True` builds every key of its run as an rbg key (`prng.PRNGKey(...,
+impl="rbg")`).
 """
 
 from __future__ import annotations
@@ -114,6 +118,19 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r}")
     return dev
+
+
+# the top-level `chaos:` YAML block's keys (`chaos.ChaosMonkey`), the JAX
+# package's surface
+CHAOS_KEYS = frozenset({
+    "seed",  # injection-index derivation seed
+    "nan_grad",  # iterations: poison one recorded reward with NaN
+    "bank_row",  # iterations: poison one recorded obs duration row
+    "straggler",  # iterations: inflate one lane's loop_iters counter
+    "oom",  # iterations: raise a simulated out-of-memory error
+    "sigkill",  # iterations: SIGKILL the process mid-iteration
+    "straggler_factor",  # loop_iters inflation factor (default 100)
+})
 
 
 # the top-level `serve:` YAML block's keys, the JAX package's surface:

@@ -19,7 +19,7 @@ class Observation:
     `nodes[..., :]` = (num_remaining_tasks, most_recent_duration,
     is_schedulable)."""
 
-    nodes: torch.Tensor  # f32[B,J,S,3]
+    nodes: torch.Tensor  # f32[B,J,S,3] (bf16 under obs_dtype bfloat16)
     node_mask: torch.Tensor  # bool[B,J,S]
     job_mask: torch.Tensor  # bool[B,J]
     schedulable: torch.Tensor  # bool[B,J,S]
@@ -43,11 +43,9 @@ class Observation:
 def observe(params: EnvParams, state: EnvState, compute_levels: bool = True
             ) -> Observation:
     """`node_level` comes from the state's incremental cache, masked to
-    the active nodes."""
-    if params.obs_dtype != "float32":
-        raise NotImplementedError(
-            "obs_dtype=bfloat16 is not ported yet (ROADMAP queue A)"
-        )
+    the active nodes. `params.obs_dtype = "bfloat16"` narrows `nodes` (and
+    so the recorded `StoredObs.duration` buffers) to bf16; every consumer
+    upcasts to f32 at its read site."""
     job_mask = state.job_active
     node_mask = job_mask[:, :, None] & state.stage_exists & \
         ~state.stage_completed
@@ -60,6 +58,8 @@ def observe(params: EnvParams, state: EnvState, compute_levels: bool = True
         dim=-1,
     )
     nodes = torch.where(node_mask[..., None], nodes, 0.0)
+    if params.obs_dtype == "bfloat16":
+        nodes = nodes.to(torch.bfloat16)
     s_cap = node_mask.shape[-1]
     if compute_levels:
         node_level = torch.where(node_mask, state.node_level, s_cap)

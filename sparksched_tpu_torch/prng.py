@@ -1,16 +1,30 @@
-"""Counter-based PRNG with the bits of `jax.random`'s default.
+"""Counter-based PRNG with the bits of `jax.random`.
 
 A session's whole trajectory is a function of its key: the job sequence,
 the time limit and every task-duration uniform come from `jax.random`
 calls in the JAX package. To serve the same decisions from the same
-seeds, this module reproduces jax 0.9.0's default generator bit for
-bit: impl `threefry2x32` (20 rounds) with `jax_threefry_partitionable`
-on, which makes `split` and `random_bits` hash a 64-bit iota counter.
+seeds, this module reproduces jax 0.9.0's two generators the package
+runs, bit for bit:
 
-A key is an int64 tensor of shape `[..., 2]` holding two 32-bit words
-(torch's uint32 arithmetic is incomplete, so every word lives in int64
-and is masked back to 32 bits after each add or shift). All functions
-accept a batch of keys in the leading dimensions.
+- `threefry2x32` (the default; 20 rounds) with `jax_threefry_partitionable`
+  on, which makes `split` and `random_bits` hash a 64-bit iota counter;
+- `rbg`, which the trainer's `fast_prng: True` selects: a key of four
+  words whose `split` and `fold_in` are threefry's applied to each 2-word
+  half, and whose `random_bits` is Philox4x32-10 (`kernels/rbg.py`: the
+  kernel on the card, its plain version on the CPU). Under `vmap`, which
+  every batched draw of the JAX package runs in, JAX draws a batch of rbg
+  keys as one stream of the batch's first key, so a draw here over a
+  batch of rbg keys does the same.
+
+A key is an int64 tensor of shape `[..., 2]` (threefry) or `[..., 4]`
+(rbg) holding 32-bit words (torch's uint32 arithmetic is incomplete, so
+every word lives in int64 and is masked back to 32 bits after each add or
+shift); its trailing width is its impl, and every function dispatches on
+it. All functions accept a batch of keys in the leading dimensions. There
+is no process-wide default impl: whoever creates a key names it
+(`PRNGKey`'s `impl` defaults to threefry2x32, the JAX package's
+default). Every draw takes 32-bit words, the only width the JAX package
+draws (float32 uniforms, int32 `randint`, `permutation`'s sort keys).
 """
 
 from __future__ import annotations
@@ -19,7 +33,11 @@ import math
 
 import torch
 
+from .kernels.rbg import bits_to_uniform, rbg_random_bits, rbg_uniform
+
 _M32 = 0xFFFFFFFF
+# impl name -> key width (the JAX package's `jax_default_prng_impl` names)
+IMPL_WIDTH = {"threefry2x32": 2, "rbg": 4}
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
 
 
@@ -43,10 +61,29 @@ def threefry2x32(k0: torch.Tensor, k1: torch.Tensor, x0: torch.Tensor,
     return a, b
 
 
-def PRNGKey(seed: int, device: str | torch.device = "cpu") -> torch.Tensor:
-    """`jax.random.PRNGKey(seed)` for a 32-bit seed: words (0, seed)."""
-    return torch.tensor([0, int(seed) & _M32], dtype=torch.int64,
+def PRNGKey(seed: int, device: str | torch.device = "cpu",
+            impl: str = "threefry2x32") -> torch.Tensor:
+    """`jax.random.PRNGKey(seed)` for a 32-bit seed under `impl`: words
+    (0, seed) for threefry2x32, (0, seed, 0, seed) for rbg."""
+    if impl not in IMPL_WIDTH:
+        raise ValueError(f"unknown PRNG impl {impl!r} (have: "
+                         f"{sorted(IMPL_WIDTH)})")
+    half = [0, int(seed) & _M32]
+    return torch.tensor(half * (IMPL_WIDTH[impl] // 2), dtype=torch.int64,
                         device=device)
+
+
+def impl_of(key: torch.Tensor) -> str:
+    """The impl of a key, by its trailing width."""
+    for name, width in IMPL_WIDTH.items():
+        if key.shape[-1] == width:
+            return name
+    raise ValueError(f"a key has 2 (threefry2x32) or 4 (rbg) words, not "
+                     f"{key.shape[-1]}")
+
+
+def _is_rbg(key: torch.Tensor) -> bool:
+    return impl_of(key) == "rbg"
 
 
 def _hash(key: torch.Tensor, hi, lo) -> tuple[torch.Tensor, torch.Tensor]:
@@ -59,6 +96,8 @@ def _hash(key: torch.Tensor, hi, lo) -> tuple[torch.Tensor, torch.Tensor]:
 
 def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
     """`jax.random.fold_in(key, data)`."""
+    if _is_rbg(key):  # threefry's on both 2-word halves in one call
+        return fold_in(key.unflatten(-1, (2, 2)), data).flatten(-2)
     zero = torch.zeros(1, dtype=torch.int64, device=key.device)
     d = torch.full((1,), int(data) & _M32, dtype=torch.int64,
                    device=key.device)
@@ -67,7 +106,11 @@ def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
 
 
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
-    """`jax.random.split(key, num)`: shape `key.shape[:-1] + [num, 2]`."""
+    """`jax.random.split(key, num)`: shape `key.shape[:-1] + [num, W]`
+    for keys of W words."""
+    if _is_rbg(key):  # threefry's on both 2-word halves in one call
+        halves = split(key.unflatten(-1, (2, 2)), num)  # [..., 2, num, 2]
+        return halves.movedim(-3, -2).flatten(-2)
     lo = torch.arange(num, dtype=torch.int64, device=key.device)
     a, b = _hash(key, torch.zeros_like(lo), lo)
     return torch.stack([a, b], dim=-1)
@@ -76,7 +119,10 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
 def random_bits(key: torch.Tensor, shape: tuple[int, ...] = ()
                 ) -> torch.Tensor:
     """32 random bits per element (as int64), shape
-    `key.shape[:-1] + shape` — `jax.random.bits` for uint32."""
+    `key.shape[:-1] + shape` — `jax.random.bits` for uint32 (vmapped over
+    the leading dimensions)."""
+    if _is_rbg(key):
+        return rbg_random_bits(key, shape)
     n = 1
     for d in shape:
         n *= int(d)
@@ -88,9 +134,9 @@ def random_bits(key: torch.Tensor, shape: tuple[int, ...] = ()
 
 def uniform(key: torch.Tensor, shape: tuple[int, ...] = ()) -> torch.Tensor:
     """`jax.random.uniform(key, shape)` in float32 on [0, 1)."""
-    bits = random_bits(key, shape)
-    fbits = ((bits >> 9) | 0x3F800000).to(torch.int32)
-    return torch.clamp_min(fbits.view(torch.float32) - 1.0, 0.0)
+    if _is_rbg(key):
+        return rbg_uniform(key, shape)
+    return bits_to_uniform(random_bits(key, shape))
 
 
 def exponential(key: torch.Tensor, shape: tuple[int, ...] = ()

@@ -15,8 +15,8 @@ log-probs and normalised entropies the PPO update differentiates, with
 the NodeEncoder's gradient from its own backward kernel
 (`kernels.decima_encoder.DecimaNodeEncoderFn`).
 
-Waiting for later slices: `compute_dtype="bfloat16"` and the msgpack
-checkpoint loader.
+Waiting for a later slice: `compute_dtype="bfloat16"` (ROADMAP A9b, with
+bf16 variants of both NodeEncoder kernels).
 """
 
 from __future__ import annotations
@@ -76,6 +76,8 @@ def build_features(obs: Observation, num_executors: int,
     caps = torch.minimum(torch.clamp_min(n - supplies, 0), committable)
     is_src = (obs.source_job[:, None] >= 0) & (j_idx[None, :] == obs.source_job[:, None])
     caps = torch.where(is_src, committable, caps)
+    # each read upcast to f32 (lossless from the bf16 observation layout),
+    # so the arithmetic below and the NodeEncoder kernels stay float32
     remaining = obs.nodes[..., 0].to(torch.float32)
     duration = obs.nodes[..., 1].to(torch.float32)
     shape = remaining.shape
@@ -407,7 +409,8 @@ class DecimaScheduler(TrainableScheduler):
         self.device = resolve_device(device)
         if compute_dtype not in (None, "float32"):
             raise NotImplementedError(
-                "compute_dtype=bfloat16 is not ported yet (ROADMAP queue A)"
+                "compute_dtype=bfloat16 is not ported yet (ROADMAP A9b: "
+                "bf16 variants of both NodeEncoder kernels)"
             )
         self.name = "Decima"
         self.num_executors = int(num_executors)

@@ -2,8 +2,10 @@
 
     python -m sparksched_tpu_torch.train -f config/decima_tpch.yaml
 
-runs the config's trainer on the card; `--device cpu` runs it on the CPU
-(without a card and without that flag it raises). `--resume PATH`
+runs the config's trainer on the card (under the rbg stream when the
+trainer block sets `fast_prng: True`, as the flagship does); `--device
+cpu` runs it on the CPU (without a card and without that flag it
+raises). `--resume PATH`
 continues from a train state the port wrote (`<artifacts_dir>/
 train_state.msgpack`) for another `num_iterations` iterations."""
 

@@ -57,7 +57,7 @@ class StoredObs:
     comes from the job's template."""
 
     remaining: torch.Tensor  # i32[...,J,S]
-    duration: torch.Tensor  # f32[...,J,S]
+    duration: torch.Tensor  # f32[...,J,S] (the observation's dtype)
     schedulable: torch.Tensor  # bool[...,J,S]
     node_mask: torch.Tensor  # bool[...,J,S]
     job_mask: torch.Tensor  # bool[...,J]
@@ -139,14 +139,17 @@ def zero_stored(params: EnvParams, lead: tuple[int, ...],
                 device) -> StoredObs:
     """Zeroed records with leading axes `lead`: the collector's buffers,
     zero in every field as the JAX collector's (its `_zero_stored` gives
-    only the shapes and dtypes)."""
+    only the shapes and dtypes). `duration` takes the observation's dtype
+    (bf16 under `obs_dtype: bfloat16`)."""
     j, s = params.max_jobs, params.max_stages
 
     def z(*shape, dtype=_i32):
         return torch.zeros(lead + shape, dtype=dtype, device=device)
 
     return StoredObs(
-        remaining=z(j, s), duration=z(j, s, dtype=torch.float32),
+        remaining=z(j, s),
+        duration=z(j, s, dtype=torch.bfloat16 if params.obs_dtype
+                   == "bfloat16" else torch.float32),
         schedulable=z(j, s, dtype=torch.bool),
         node_mask=z(j, s, dtype=torch.bool), job_mask=z(j, dtype=torch.bool),
         job_template=z(j), exec_supplies=z(j), num_committable=z(),

@@ -8,13 +8,16 @@ trainer's `_update`. The seed layout is the JAX package's: the sequence
 key of group g at iteration i is `fold_in(fold_in(PRNGKey(seed), g), i)`,
 lane r of it `fold_in(seq, 1000 + r)`, the iteration key
 `fold_in(PRNGKey(seed), i)` (`fold_in(·, 90_000 + attempt)` on a health
-retry) and the collector's `fold_in(iteration key, 7)`.
+retry) and the collector's `fold_in(iteration key, 7)`. Every one of them
+is a threefry2x32 key, or an rbg key with `fast_prng: True` (the JAX
+package's `use_fast_prng`, which switches its whole training program).
 
 Ported: `rollout_engine: flat` with `flat_single_eval` in sync mode, the
 Adam optimizer (`lr_anneal`, global-norm clipping as optax writes it),
 `fixed_sequences`, `entropy_anneal`, `beta_discount` or the differential
 returns, the health block (rollback-and-retry with reseed and backoff,
-the `straggler_ratio_max` quarantine, `checkpoint_every` / `keep`),
+the `straggler_ratio_max` quarantine, `checkpoint_every` / `keep`, the
+out-of-memory retry), the `chaos:` block's fault injection, `fast_prng`,
 checkpoints and resume (`checkpointing_freq`: the best pre-update
 parameters as a flax-msgpack `model.msgpack` either package loads;
 `save_train_state` / `load_train_state` / `train(resume_from=)`, the
@@ -23,8 +26,7 @@ names) and the `obs:` block's run log, telemetry and memory samples.
 Not ported yet (the trainer names the keys it ignores when it starts):
 asynchronous collection (`rollout_duration`) and the `core` engine (both
 raise), TensorBoard and the profiler, `obs.trace_iteration` /
-`trace_dir` / `slo`, chaos injection and `fast_prng` (the port has only
-the threefry stream). A train state of the JAX package does not load
+`trace_dir` / `slo`. A train state of the JAX package does not load
 here (its optax tree differs); model files load both ways.
 """
 
@@ -45,9 +47,10 @@ import numpy as np
 import torch
 
 from .. import metrics, prng
+from ..chaos import ChaosMonkey
 from ..config import EnvParams, env_params_from_cfg, resolve_device
 from ..env import core
-from ..env.health import H_STRAGGLER, RETRYABLE_MASK, describe_mask
+from ..env.health import H_OOM, H_STRAGGLER, RETRYABLE_MASK, describe_mask
 from ..obs.memory import device_memory_stats
 from ..obs.runlog import RunLog, emit
 from ..obs.telemetry import summarize, telemetry_zeros
@@ -166,8 +169,6 @@ OBS_KEYS = frozenset({"runlog", "telemetry", "memory", "runlog_max_bytes"}
                      | set(_UNPORTED_OBS))
 HEALTH_KEYS = frozenset({"enabled", "max_retries", "backoff_seconds",
                          "checkpoint_every", "keep", "straggler_ratio_max"})
-# the PRNG the port runs (the stamp of its train states)
-PRNG_IMPL = "threefry2x32"
 # update stats the JAX package's `scalars` records do not carry
 _PORT_ONLY_STATS = ("minibatches_applied", "kl_stopped", "update_chunks")
 
@@ -179,7 +180,8 @@ class Trainer(abc.ABC):
                  train_cfg: CfgType, health_cfg: CfgType | None = None,
                  device: str | torch.device = "cuda",
                  unported: list[str] | None = None,
-                 obs_cfg: CfgType | None = None) -> None:
+                 obs_cfg: CfgType | None = None,
+                 chaos_cfg: CfgType | None = None) -> None:
         self.device = resolve_device(device)
         unported = list(unported or [])
         if train_cfg.get("rollout_duration") is not None:
@@ -193,8 +195,11 @@ class Trainer(abc.ABC):
                 "collection is not ported yet (set rollout_engine: flat, "
                 "flat_single_eval: true)")
         unported += [k for k in _UNPORTED_TRAIN if train_cfg.get(k)]
-        if train_cfg.get("fast_prng"):
-            unported.append("fast_prng (the port runs threefry)")
+        # the impl of every key of the run (the JAX package's names; the
+        # stamp of its train states): rbg keys are four words, threefry's
+        # two, so a train state resumes only under the impl that wrote it
+        self.prng_impl = ("rbg" if train_cfg.get("fast_prng", False)
+                          else "threefry2x32")
         self.seed: int = int(train_cfg.get("seed", 42))
         self.num_iterations: int = int(train_cfg["num_iterations"])
         self.num_sequences: int = int(train_cfg["num_sequences"])
@@ -244,6 +249,16 @@ class Trainer(abc.ABC):
         self.health_straggler_max = None if srm is None else float(srm)
         if self.health_enabled:  # as in the JAX package
             self.obs_telemetry = True
+
+        # seeded fault injection (the top-level `chaos:` block), which
+        # drills the recovery paths above
+        self._chaos = None
+        if chaos_cfg:
+            self._chaos = ChaosMonkey(chaos_cfg)
+            if self._chaos.any_scheduled() and not self.health_enabled:
+                emit("[chaos] warning: chaos: faults scheduled without a "
+                     "health: block — injections will NOT be detected or "
+                     "recovered (this is only useful for negative tests)")
 
         if ("reward_buff_cap" in train_cfg) == ("beta_discount" in train_cfg):
             raise ValueError(
@@ -306,7 +321,7 @@ class Trainer(abc.ABC):
         return TrainState(
             params=params,
             opt_state=make_optimizer(self.train_cfg, list(params.values())),
-            rng=prng.PRNGKey(self.seed, self.device),
+            rng=self.seed_key(),
             buf=(AvgNumJobsBuffer.create(self.reward_buff_cap, self.device)
                  if self.reward_buff_cap else None),
             iteration=0,
@@ -322,11 +337,17 @@ class Trainer(abc.ABC):
         frac = min(max(iteration / n, 0.0), 1.0)
         return base * (final / base) ** frac
 
+    def seed_key(self, device=None) -> torch.Tensor:
+        """`PRNGKey(seed)` under the run's impl, on the trainer's device
+        unless another is named."""
+        return prng.PRNGKey(self.seed, device or self.device,
+                            impl=self.prng_impl)
+
     def lane_keys(self, iteration: int) -> tuple[torch.Tensor, torch.Tensor]:
-        """(sequence keys, lane keys), [G*R, 2] each, of an iteration."""
+        """(sequence keys, lane keys), [G*R, W] each, of an iteration."""
         if self.fixed_sequences:
             iteration = 0
-        master = prng.PRNGKey(self.seed)
+        master = self.seed_key("cpu")
         seq, lane = [], []
         for g in range(self.num_sequences):
             s = prng.fold_in(prng.fold_in(master, g), iteration)
@@ -422,19 +443,42 @@ class Trainer(abc.ABC):
             last_good = state.snapshot()
             attempt = 0
             while True:
-                rng_i = prng.fold_in(prng.PRNGKey(self.seed, self.device), i)
+                rng_i = prng.fold_in(self.seed_key(), i)
                 if attempt:
                     rng_i = prng.fold_in(rng_i, 90_000 + attempt)
                 state.rng = rng_i
                 counts: dict = {}
                 self._sync()
                 t0 = time.perf_counter()
-                ro, hm = self._collect(state.iteration, state.rng, counts)
-                self._sync()
-                t1 = time.perf_counter()
-                self._span(f"iter {i + 1} collect", t1 - t0)
-                state, stats = self._update(state, ro)
-                self._sync()
+                oom = False
+                try:
+                    ro, hm = self._collect(state.iteration, state.rng,
+                                           counts)
+                    self._sync()
+                    t1 = time.perf_counter()
+                    self._span(f"iter {i + 1} collect", t1 - t0)
+                    if self._chaos is not None:
+                        ro = self._inject(ro, counts, i, attempt)
+                    state, stats = self._update(state, ro)
+                    self._sync()
+                except torch.OutOfMemoryError as e:
+                    # a real CUDA allocation failure or the simulated one:
+                    # with the health block on, roll back and retry
+                    if not (self.health_enabled
+                            and self._record_health_and_retry(
+                                i, attempt, H_OOM, detail=str(e)[:300])):
+                        raise
+                    oom = True
+                if oom:
+                    # the failed attempt's tensors are dropped (the
+                    # exception and its frames with them) before the
+                    # allocator's cache is returned to the card
+                    ro = hm = counts = None
+                    state.restore(last_good)
+                    if self.device.type == "cuda":
+                        torch.cuda.empty_cache()
+                    attempt += 1
+                    continue
                 t2 = time.perf_counter()
                 self._span(f"iter {i + 1} update", t2 - t1)
                 tm = counts.get("telemetry")
@@ -541,6 +585,25 @@ class Trainer(abc.ABC):
         if self._runlog is not None:
             self._runlog.span_event(name, secs)
 
+    def _inject(self, ro: Rollout, counts: dict, i: int, attempt: int
+                ) -> Rollout:
+        """The `chaos:` block's faults for this attempt, between collect
+        and update as in the JAX package: the rollout poisoned, the
+        telemetry inflated (in `counts`), a `chaos` run-log record, then a
+        SIGKILL or a simulated out-of-memory error if scheduled."""
+        ro, injected = self._chaos.poison_rollout(ro, i, attempt)
+        tm, more = self._chaos.inflate_straggler(counts.get("telemetry"), i,
+                                                 attempt)
+        if more:
+            counts["telemetry"] = tm
+        injected += more
+        if injected and self._runlog is not None:
+            self._runlog.write("chaos", iteration=i, attempt=attempt,
+                               injected=injected)
+        self._chaos.maybe_sigkill(i)
+        self._chaos.maybe_raise_oom(i, attempt)
+        return ro
+
     def _record_health(self, i: int, attempt: int, mask: int, action: str,
                        **fields: Any) -> None:
         """A runlog `health` record and a console line."""
@@ -550,13 +613,14 @@ class Trainer(abc.ABC):
         emit(f"[health] iteration {i + 1} attempt {attempt}: "
              f"{describe_mask(mask) or [hex(mask)]} -> {action}")
 
-    def _record_health_and_retry(self, i: int, attempt: int,
-                                 mask: int) -> bool:
+    def _record_health_and_retry(self, i: int, attempt: int, mask: int,
+                                 **fields: Any) -> bool:
         """Record a tripped sentinel and decide: True means "back off
         (slept here) and run the iteration again", False that the retry
-        budget is spent."""
+        budget is spent. `fields` go into the `health` record."""
         if attempt >= self.health_max_retries:
-            self._record_health(i, attempt, mask, action="gave_up")
+            self._record_health(i, attempt, mask, action="gave_up",
+                                **fields)
             if self._runlog is not None:
                 self._runlog.write("recovery", iteration=i, attempt=attempt,
                                    action="gave_up", mask=int(mask),
@@ -564,7 +628,7 @@ class Trainer(abc.ABC):
             return False
         delay = self.health_backoff * (2.0 ** attempt)
         self._record_health(i, attempt, mask, action="rollback_retry",
-                            backoff_seconds=round(delay, 3))
+                            backoff_seconds=round(delay, 3), **fields)
         if self._runlog is not None:
             self._runlog.write("recovery", iteration=i, attempt=attempt,
                                action="rollback_retry", mask=int(mask),
@@ -623,7 +687,8 @@ class Trainer(abc.ABC):
         """The train state as nested dicts of numpy arrays: the parameters
         in the JAX package's layout, `ClippedAdam`'s count (the learning
         rate schedule's position) and torch Adam's per-parameter `step`,
-        `exp_avg` and `exp_avg_sq`, the rng key (uint32[2]), the
+        `exp_avg` and `exp_avg_sq`, the rng key (uint32[2] under
+        threefry2x32, uint32[4] under rbg), the
         differential-returns window and the iteration."""
         opt = state.opt_state
         names = list(state.params)
@@ -673,8 +738,12 @@ class Trainer(abc.ABC):
                         ost["exp_avg_sq"][name], np.float32)),
                 }
         rng = np.asarray(tree["rng"], np.uint32)
-        if rng.shape != (2,):
-            raise ValueError(f"rng of shape {rng.shape}, not a threefry key")
+        width = prng.IMPL_WIDTH[self.prng_impl]
+        if rng.shape != (width,):
+            raise ValueError(
+                f"rng of shape {rng.shape}, not a {self.prng_impl} key "
+                f"(uint32[{width}]) — the state was saved under a different "
+                "PRNG impl (trainer config `fast_prng`)")
         buf = tree["buf"]
         if (buf is None) != (not self.reward_buff_cap):
             raise ValueError("the returns window does not match the config")
@@ -709,7 +778,7 @@ class Trainer(abc.ABC):
         `iteration`."""
         keep = self.checkpoint_keep if keep is None else int(keep)
         data = to_bytes(self.train_state_tree(state))
-        meta = {"prng_impl": PRNG_IMPL,
+        meta = {"prng_impl": self.prng_impl,
                 "sha256": hashlib.sha256(data).hexdigest(),
                 "iteration": int(state.iteration)}
 
@@ -743,8 +812,9 @@ class Trainer(abc.ABC):
         `path.1`, ...) is checked against its meta digest and decoded; a
         torn or unreadable one is skipped (a console line and a runlog
         `recovery` record name what was skipped). A `prng_impl` other
-        than the port's raises at once: that is the config, not a torn
-        file. Nothing is unpickled."""
+        than the run's raises at once, naming the `fast_prng` value to
+        set: that is the config, not a torn file. Nothing is
+        unpickled."""
         candidates = [path] + [f"{path}.{g}"
                                for g in range(1, max(self.checkpoint_keep, 2))]
         errors: list[str] = []
@@ -756,13 +826,14 @@ class Trainer(abc.ABC):
             if osp.exists(meta_path):
                 with open(meta_path) as fp:
                     meta = json.load(fp)
-                saved = meta.get("prng_impl", PRNG_IMPL)
-                if saved != PRNG_IMPL:
+                saved = meta.get("prng_impl", self.prng_impl)
+                if saved != self.prng_impl:
                     raise ValueError(
                         f"train state {cand} was saved under PRNG impl "
-                        f"{saved!r} but the port runs {PRNG_IMPL!r} (it "
-                        "has no fast_prng stream); resume it in the package "
-                        "that wrote it")
+                        f"{saved!r} but this process uses "
+                        f"{self.prng_impl!r} — set `fast_prng: "
+                        f"{saved == 'rbg'}` in the trainer config before "
+                        "resuming")
                 digest = meta.get("sha256")
             with open(cand, "rb") as fp:
                 data = fp.read()
@@ -785,7 +856,10 @@ class Trainer(abc.ABC):
             return restored
         raise ValueError(
             f"could not restore {path}: no intact generation among "
-            f"{candidates} ({'; '.join(errors) or 'none found'})")
+            f"{candidates} ({'; '.join(errors) or 'none found'}) — if "
+            "the error is a shape mismatch on `rng`, the state was "
+            "saved under a different PRNG impl (trainer config "
+            "`fast_prng`)")
 
     def _rollout_stats(self, ro: Rollout) -> dict[str, float]:
         fs = ro.final_state
@@ -824,9 +898,9 @@ def _intact(gen: str) -> bool:
 def make_trainer(cfg: CfgType, device: str | torch.device = "cuda"
                  ) -> Trainer:
     """String-keyed factory over `cfg["trainer"]["trainer_cls"]` (PPO),
-    with the top-level `health:` and `obs:` blocks. The `chaos:` and
-    `parallel:` blocks are not ported: their keys are named as ignored
-    when the trainer starts."""
+    with the top-level `health:`, `obs:` and `chaos:` blocks. The
+    `parallel:` block is not ported: its keys are named as ignored when
+    the trainer starts."""
     from .ppo import PPO
 
     registry = {"PPO": PPO}
@@ -834,8 +908,8 @@ def make_trainer(cfg: CfgType, device: str | torch.device = "cuda"
     if name not in registry:
         raise ValueError(f"'{name}' is not a valid trainer (the port has "
                          f"{sorted(registry)}).")
-    unported = [f"{blk}.{k}" for blk in ("chaos", "parallel")
-                for k in (cfg.get(blk) or {})]
+    unported = [f"parallel.{k}" for k in (cfg.get("parallel") or {})]
     return registry[name](cfg["agent"], cfg["env"], cfg["trainer"],
                           health_cfg=cfg.get("health"), device=device,
-                          unported=unported, obs_cfg=cfg.get("obs"))
+                          unported=unported, obs_cfg=cfg.get("obs"),
+                          chaos_cfg=cfg.get("chaos"))

@@ -10,11 +10,14 @@ import torch
 
 from ..config import resolve_device
 from .bank import (  # noqa: F401
+    BANK_DTYPES,
     EXEC_LEVEL_VALUES,
     NUM_EXEC_LEVELS,
     WorkloadBank,
+    bank_dtype_label,
     load_tpch_templates,
     pack_bank,
+    quantize_bank,
 )
 from .synthetic import make_templates  # noqa: F401
 
@@ -54,13 +57,10 @@ def make_workload_bank(
     **_: object,
 ) -> WorkloadBank:
     """Build the template bank through the provider registry, packed on
-    `device` (the card unless the caller asks for the CPU)."""
+    `device` (the card unless the caller asks for the CPU). `bank_dtype`
+    (an `env:` config key: "int16", "int8" or "bf16", default f32)
+    narrows the duration table through `quantize_bank`."""
     dev = resolve_device(device)
-    if bank_dtype not in (None, "f32", "float32"):
-        raise NotImplementedError(
-            "bank_dtype quantization is not ported yet (ROADMAP queue A, "
-            "quantize_bank)"
-        )
     name = data_sampler_cls or "TPCHDataSampler"
     if name not in _DATA_SAMPLERS:
         raise ValueError(
@@ -72,8 +72,11 @@ def make_workload_bank(
         bucket_size=bucket_size, data_dir=data_dir, seed=seed,
     )
     max_stages = max(max_stages, max(t["adj"].shape[0] for t in templates))
-    return pack_bank(templates, num_executors, max_stages, bucket_size,
+    bank = pack_bank(templates, num_executors, max_stages, bucket_size,
                      device=dev)
+    if bank_dtype is not None:
+        bank = quantize_bank(bank, bank_dtype)
+    return bank
 
 
 make_data_sampler = make_workload_bank

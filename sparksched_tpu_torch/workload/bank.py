@@ -7,8 +7,10 @@ topological `node_level[T,S]`) and durations (`dur[T,S,3,L,K]` buckets
 of K samples per (stage, wave, executor level), counts `cnt[T,S,3,L]`
 and presence masks). Sampling a duration is then a few gathers from
 these tensors. The packing itself is host numpy, identical to the JAX
-package's, so both banks hold the same numbers. `quantize_bank` is not
-ported: the flagship config keeps `bank_dtype` off.
+package's, so both banks hold the same numbers. `quantize_bank` narrows
+the duration table (`bank_dtype`: int16 / int8 in the log domain with a
+per-template scale, bf16 as a cast), with the JAX package's host
+arithmetic, so the narrow tables are equal too.
 """
 
 from __future__ import annotations
@@ -50,6 +52,11 @@ class WorkloadBank:
     itv_right_val: torch.Tensor  # i32[N+1]
     itv_left_idx: torch.Tensor  # i32[N+1]
     itv_right_idx: torch.Tensor  # i32[N+1]
+    # int-coded banks only (`quantize_bank`): the per-template f32[T]
+    # log-domain scale, duration = expm1(dur * dur_scale[t]), applied at
+    # the one gather site (`sampling.sample_task_duration`); None for the
+    # f32 and bf16 tables
+    dur_scale: torch.Tensor | None = None
 
     @property
     def num_templates(self) -> int:
@@ -204,6 +211,48 @@ def pack_bank(
         itv_left_idx=t(to_idx(itv[:, 0]), np.int32),
         itv_right_idx=t(to_idx(itv[:, 1]), np.int32),
     )
+
+
+BANK_DTYPES = ("f32", "float32", "bf16", "bfloat16", "int8", "int16")
+
+
+def bank_dtype_label(bank: WorkloadBank) -> str:
+    """Short dtype tag of a bank's `dur` table ("f32", "bf16", "int8",
+    "int16"), the JAX package's labels."""
+    return {torch.float32: "f32", torch.bfloat16: "bf16",
+            torch.int8: "int8", torch.int16: "int16"}[bank.dur.dtype]
+
+
+def quantize_bank(bank: WorkloadBank, dtype: str = "int16") -> WorkloadBank:
+    """The bank with its `dur[T,S,3,L,K]` table in a narrow dtype (the JAX
+    package's `quantize_bank`).
+
+    int8/int16: log-domain codes with a per-template f32 scale, `q =
+    rint(log1p(dur) / dur_scale[t])`, `dur_scale[t] = log1p(max(dur[t]))
+    / intmax`, so the error is relative (at most expm1(dur_scale[t] / 2))
+    across the heavy tail of TPC-H durations. The codes are computed in
+    float64 on the host, as the JAX package does: an f32 log could land a
+    value across a half-step boundary. bfloat16: a plain cast. The table
+    is dequantized to f32 at its one gather site
+    (`sampling.sample_task_duration`); `rough_duration` stays f32."""
+    if dtype in ("f32", "float32"):
+        return bank
+    if dtype in ("bf16", "bfloat16"):
+        return dataclasses.replace(bank, dur=bank.dur.to(torch.bfloat16),
+                                   dur_scale=None)
+    if dtype not in ("int8", "int16"):
+        raise ValueError(f"unknown bank dtype {dtype!r} (have: "
+                         f"{BANK_DTYPES})")
+    imax = 127 if dtype == "int8" else 32767
+    ldur = np.log1p(bank.dur.cpu().numpy().astype(np.float64))
+    t_max = ldur.reshape(ldur.shape[0], -1).max(axis=1)
+    scale = np.where(t_max > 0, t_max / imax, 1.0)
+    q = np.rint(ldur / scale[:, None, None, None, None])
+    q = np.clip(q, 0, imax).astype(dtype)
+    dev = bank.dur.device
+    return dataclasses.replace(
+        bank, dur=torch.from_numpy(q).to(dev),
+        dur_scale=torch.from_numpy(scale.astype(np.float32)).to(dev))
 
 
 def load_tpch_templates(data_dir: str = "data/tpch") -> list[dict[str, Any]]:

@@ -101,5 +101,12 @@ def sample_task_duration(
     n = torch.clamp_min(c, 1)
     pick = torch.minimum((u2[..., 1] * n).to(torch.int32), n - 1)
     dur = bank.dur[t, s, wave, l, pick.long()]
+    if dur.dtype != torch.float32:
+        # a narrow table (`quantize_bank`): the gather stays narrow, the
+        # value is f32 from here on (int codes through their template's
+        # log-domain scale, bf16 by the cast)
+        dur = dur.to(torch.float32)
+        if bank.dur_scale is not None:
+            dur = torch.expm1(dur * bank.dur_scale[t])
     dur = torch.where(c > 0, dur, bank.rough_duration[t, s])
     return dur + torch.where(warm, params.warmup_delay, 0.0)

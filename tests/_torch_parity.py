@@ -619,3 +619,27 @@ def fleet_builder(weights: dict[str, np.ndarray], device: str = "cpu"):
     if "jax" in sys.modules:
         raise RuntimeError("a replica imported jax")
     return tp, tb, ts
+
+
+def drill_cfg(art, num_iterations=3, health=None, chaos_blk=None,
+              fast_prng=False) -> dict:
+    """`scripts_chaos_drill.py:drill_cfg` (5 executors, 3 job slots, 2
+    lanes, T = 30) on the flat single-eval engine, the one the port
+    runs."""
+    import scripts_chaos_drill as drill
+
+    cfg = drill.drill_cfg(str(art), num_iterations, health, chaos_blk)
+    cfg["trainer"].update(rollout_engine="flat", flat_single_eval=True,
+                          fast_prng=fast_prng)
+    return cfg
+
+
+def runlog_records(art) -> list[dict]:
+    """Every record of the run logs under `art/runlog`, in file order."""
+    import json
+    import pathlib
+
+    recs = []
+    for p in sorted(pathlib.Path(art, "runlog").glob("*.jsonl")):
+        recs.extend(json.loads(ln) for ln in open(p))
+    return recs

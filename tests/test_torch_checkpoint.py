@@ -14,7 +14,7 @@ exact`, `tests/test_trainers.py::test_ppo_trains_and_checkpoints`).
   generation falls back to it (a runlog `recovery` record); a save after
   that never rotates the torn file over the intact one; with every
   generation torn the load raises. A train state stamped with another
-  `prng_impl` raises at once.
+  `prng_impl` raises at once, naming the `fast_prng` value to set.
 - Over the 2-iteration trainer comparison of `test_torch_trainer.py`
   (weights x0.3, `checkpointing_freq: 2`): the port's best model —
   iteration, avg_num_jobs (to its 3 decimals), completed jobs, parameters
@@ -146,7 +146,8 @@ def test_prng_impl_mismatch_raises(tmp_path):
     meta["prng_impl"] = "rbg"
     with open(path + ".meta.json", "w") as fp:
         json.dump(meta, fp)
-    with pytest.raises(ValueError, match="PRNG impl 'rbg'"):
+    with pytest.raises(ValueError,
+                       match="PRNG impl 'rbg'.*set `fast_prng: True`"):
         t.load_train_state(path)
 
 

@@ -15,7 +15,10 @@ a train state saved by a card trainer after one iteration loads into a
 fresh card trainer with every byte equal and Adam's moments on the
 card. The paged, grouped session store on the card: the page round trip
 through pinned host memory bit-exact, the in-flight window equal to
-`decide_batch` bit for bit, and the CPU store's decisions. Run
+`decide_batch` bit for bit, and the CPU store's decisions. The rbg
+Philox kernel bit-equal to its plain version on 2,048 keys at odd counts
+(counters that carry and wrap among them), as words and as uniforms,
+and over key batches (one stream of the batch's first key). Run
 there with `python -m pytest --noconftest -m cuda tests/test_torch_cuda.py`
 (`--noconftest`: the suite's conftest imports JAX, which the card's
 machine need not have)."""
@@ -522,3 +525,34 @@ def test_online_learner_on_the_card(card):
     glr.stop()
     assert glr.error is None and glr.stats["learner_published"] == 2
     assert bus.pump()["event"] == "swap" and store.params_version == 2
+
+
+def test_rbg_kernel_matches_plain_version(card):
+    from sparksched_tpu_torch.kernels.rbg import (
+        bits_to_uniform,
+        rbg_bits_ref,
+        rbg_random_bits,
+        rbg_uniform,
+    )
+
+    g = torch.Generator().manual_seed(5)
+    keys = torch.randint(0, 2**32, (2048, 4), generator=g,
+                         dtype=torch.int64)
+    keys[:3] = torch.tensor([[1, 2, 0xFFFFFFFF, 0xFFFFFFFF],
+                             [0xFFFFFFFF] * 4, [5, 6, 0xFFFFFFFE, 0]])
+    keys = keys.to(card)
+    launches = rbg_random_bits.launches
+    for i in range(keys.shape[0]):
+        n = 2 * (i % 67) + 1
+        want = rbg_bits_ref(keys[i], n)
+        assert torch.equal(rbg_random_bits(keys[i], (n,)), want), i
+        assert torch.equal(rbg_uniform(keys[i], (n,)),
+                           bits_to_uniform(want)), i
+    for batch, shape in (((16,), (50, 2)), ((16,), (8, 50, 2)),
+                         ((3, 16), (7,)), ((16,), ())):
+        kb = keys[:16 * (3 if len(batch) == 2 else 1)].reshape(batch + (4,))
+        got = rbg_uniform(kb, shape)
+        want = rbg_bits_ref(kb, got.numel()).reshape(got.shape)
+        assert torch.equal(got, bits_to_uniform(want)), (batch, shape)
+    torch.cuda.synchronize()
+    assert rbg_random_bits.launches == launches + 2 * keys.shape[0] + 4

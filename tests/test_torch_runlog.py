@@ -12,8 +12,8 @@ trainer's `obs:` block against the JAX package's.
 - The run log's size cap rotates the file into numbered segments, each a
   complete JSONL file, and `run_end` stays the active file's last record.
 - The flagship config no longer names its checkpoint, health and `obs:`
-  keys as ignored; `fast_prng` stays named, and so do `use_tensorboard`
-  and `obs.trace_iteration` when set.
+  keys, or `fast_prng` (its run is an rbg run), as ignored;
+  `use_tensorboard` and `obs.trace_iteration` are named when set.
 """
 
 from __future__ import annotations
@@ -105,7 +105,7 @@ def test_flagship_config_keys_are_honoured(capsys):
     for key in ("checkpointing_freq", "checkpoint_every", "health.keep",
                 "straggler_ratio_max", "obs.runlog", "obs.telemetry"):
         assert key not in ignored, key
-    assert "fast_prng" in ignored
+    assert "fast_prng" not in ignored and t.prng_impl == "rbg"
     assert t.checkpointing_freq == 50 and t.health_checkpoint_every == 25
     assert t.checkpoint_keep == 2 and t.obs_runlog and t.obs_telemetry
     # the config sets use_tensorboard: False; set, it is named
