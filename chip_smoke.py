@@ -13,8 +13,9 @@ training as the config runs it (16 lanes, the flat single-eval collector,
 iterations with `rollout_steps` cut to 128, through
 `make_trainer(...).train()`: health 0, parameters finite and changed,
 both encoder kernels launched (forward in collection and update,
-backward in the update) and the rbg kernel (every random draw), no plain
-version called, the train state stamped "rbg". The earlier paths
+backward in the update) and the three PRNG kernels (the rbg draws, the
+threefry hash of every split and fold_in, the engine's split_uniform),
+no plain version called, the train state stamped "rbg". The earlier paths
 stay: Decima decisions served by `SessionStore(device="cuda")` at its
 default engine knobs (`SERVE_KNOBS`) and with the bulk knobs off
 (capacity 64 and max_batch 8 from the config's documented `serve:`
@@ -46,7 +47,10 @@ LeakyReLU on the branch of the kernel's float32 forward (the error
 against the plain float64 backward on its own branches reported beside),
 and the same bits on a rerun at the timed chunks. The rbg kernel is held
 bit for bit against its plain version on 4,096 keys at odd counts (wrap
-keys among them) and at every draw shape training made.
+keys among them) and at every draw shape training made; the threefry
+hash kernel and split_uniform likewise under both impls, on 4,096 keys
+with counters past 2^32 and at every hash and split-then-draw shape
+training made.
 
 Phases, in order: `build`, `kernel_vs_plain`, `serve` (4 x 64 decisions
 at SERVE_KNOBS), `serve_knobs_off` (2 x 64), `serve_front` (the config's
@@ -87,7 +91,10 @@ both kernels recorded), `kernel_vs_plain_train` (the forward at
 training's shapes), `bwd_kernel_vs_plain`, `kernel_alone`,
 `rbg` (the rbg kernel against its plain version, then timed at the
 train phase's most launched draw shapes against its bound, its plain
-version and the threefry draw of the same shape), `train_parity` (one
+version and the threefry draw of the same shape), `prng` (the threefry
+hash kernel and split_uniform against their plain versions under both
+impls, then timed at the train phase's most launched shapes),
+`train_parity` (one
 collection per device, updated at the config's Adam and at a linear
 Adam; 2 lanes, T = 64), `train_resume` (2 lanes, T = 32: 2 iterations
 against 1 + a resume), `lowprec` (`bank_dtype: int16` and `obs_dtype: bfloat16`: one
@@ -109,7 +116,9 @@ torch.profiler at an update chunk, taken after the main path, the plain
 version's time and the least time the card could take; for the
 backward also its time, bound and scratch bytes at both timed chunks;
 for the rbg kernel its time, plain time, threefry time and bound at
-each timed draw shape) and the card's
+each timed draw shape; for the threefry hash kernel and split_uniform
+their time, wrapper-call time, plain time and bound at each timed shape)
+and the card's
 name and power limit from nvidia-smi; the last line is
 `{"ok": true, "device": {...}}`. Any failed phase exits non-zero
 without that line, as does a run with no CUDA card or without the
@@ -206,6 +215,15 @@ RBG_TIMED = 4  # the main path's most launched draw shapes that are timed
 # Philox4x32-10 integer work per block of 4 words (10 rounds of 2 wide
 # multiplies, 2 three-input xors and 2 key adds), counted low: a bound
 RBG_OPS_PER_BLOCK = 60
+# the threefry hash kernel and split_uniform against their plain
+# versions: this many random keys of each impl (non-contiguous views);
+# counts and counter bases that cross 2^32; the timed shapes per kernel
+PRNG_CHECK_KEYS = 4096
+PRNG_COUNTS = ((3, 0), (67, 2**32 - 33), (2, 2**32 - 1), (1, 2**40 + 5))
+PRNG_TIMED = 2
+# threefry2x32's integer work per hash (20 rounds of an add, a rotate and
+# a xor, 5 key injections of 2 adds and the counter's words), counted low
+TF_OPS_PER_HASH = 80
 # the low-precision layouts: one iteration at TRAIN_STEPS, card against
 # CPU on PARITY_LANES lanes
 LOWPREC_ENV = {"bank_dtype": "int16", "obs_dtype": "bfloat16"}
@@ -794,6 +812,7 @@ def phase_serve_front(params, bank, sched, device: str = "cuda") -> dict:
         torch.cuda.synchronize()
     setup_s = time.perf_counter() - t_phase
     decima_node_encoder.launches = 0  # this path's launches only
+    zero_prng_launches()
     with PlainCalls() as plain:
         for name, store in stores.items():
             t = time.perf_counter()
@@ -801,6 +820,7 @@ def phase_serve_front(params, bank, sched, device: str = "cuda") -> dict:
                                        session_seed=20_000)
             runs[name]["seconds"] = time.perf_counter() - t
     launches = decima_node_encoder.launches
+    prng_n = prng_launches()
     _check_no_plain_and_launched("serve_front", launches, plain.n, device)
     rows = {}
     for name, out in runs.items():
@@ -892,6 +912,7 @@ def phase_serve_front(params, bank, sched, device: str = "cuda") -> dict:
            "fronts": SERVE_FRONTS, "tenants": LOAD_TENANTS,
            "offered_rps": LOAD_RPS, "requests_per_front": LOAD_REQUESTS,
            "runs": rows, "encoder_launches": launches,
+           "prng_launches": prng_n,
            "plain_encoder_calls": plain.n, "kernel_vs_plain": errs,
            "tolerance": TOL, "page_round_trip": round_trip,
            "replay": {"batches": len(batches), "decisions": len(got),
@@ -906,7 +927,7 @@ def phase_serve_front(params, bank, sched, device: str = "cuda") -> dict:
            "setup_s": setup_s, "seconds": time.perf_counter() - t_phase,
            "card": card_line() if device == "cuda" else "cpu"}
     emit(out)
-    return {"decima_node_encoder": launches,
+    return {"decima_node_encoder": launches, **prng_n,
             "max_abs_err": max(e["max_abs_err"] for e in errs.values())}
 
 
@@ -1104,6 +1125,7 @@ def phase_online(params, bank, agent, device: str = "cuda") -> dict:
         torch.cuda.synchronize()
     decima_node_encoder.launches = 0  # this path's launches only
     decima_node_encoder_bwd.launches = 0
+    zero_prng_launches()
     with PlainCalls() as plain:
         learner.start_background()
         t = time.perf_counter()
@@ -1118,6 +1140,7 @@ def phase_online(params, bank, agent, device: str = "cuda") -> dict:
         drain_s = time.perf_counter() - t
         bus.pump()  # the last publish, if one is pending
     fwd, bwd = decima_node_encoder.launches, decima_node_encoder_bwd.launches
+    prng_n = prng_launches()
     if learner.error is not None:
         raise AssertionError(f"online: the learner thread raised "
                              f"{learner.error!r}")
@@ -1233,6 +1256,7 @@ def phase_online(params, bank, agent, device: str = "cuda") -> dict:
                               "n": len(ingest_ms)},
            "ring_final_drain_ms": drain_s * 1e3,
            "encoder_launches": fwd, "encoder_bwd_launches": bwd,
+           "prng_launches": prng_n,
            "plain_encoder_calls": plain.n, "replay": replay,
            "learner_card_vs_cpu": {
                "stats": {k: (ci[k], hi[k]) for k in
@@ -1243,7 +1267,8 @@ def phase_online(params, bank, agent, device: str = "cuda") -> dict:
            "seconds": time.perf_counter() - t_phase,
            "card": card_line() if device == "cuda" else "cpu"}
     emit(out)
-    return {"decima_node_encoder": fwd, "decima_node_encoder_bwd": bwd}
+    return {"decima_node_encoder": fwd, "decima_node_encoder_bwd": bwd,
+            **prng_n}
 
 
 # the replica fleet: the serve: block (continuous front, traced) with the
@@ -2036,35 +2061,79 @@ class PlainCalls:
         de.decima_node_encoder_ref, de.decima_node_encoder_bwd_ref = self._orig
 
 
-class RbgDraws:
-    """While active: the rbg draws made on the card, by (key batch shape,
-    draw shape, uniform or bits) with their counts, and the plain
-    version's calls (`rbg_random_bits.plain_calls` since entry)."""
+PRNG_KERNELS = ("rbg_random_bits", "threefry2x32", "split_uniform")
+
+
+def prng_wrappers() -> dict:
+    """name -> the wrapper of each PRNG kernel (its `launches` and
+    `plain_calls` counters)."""
+    from sparksched_tpu_torch.kernels import rbg, threefry
+
+    return {"rbg_random_bits": rbg.rbg_random_bits,
+            "threefry2x32": threefry.threefry2x32,
+            "split_uniform": rbg.split_uniform}
+
+
+def zero_prng_launches() -> None:
+    for fn in prng_wrappers().values():
+        fn.launches = 0
+
+
+def prng_launches() -> dict:
+    return {n: fn.launches for n, fn in prng_wrappers().items()}
+
+
+class PrngDraws:
+    """While active: the PRNG calls made on the card -- rbg draws by (key
+    batch shape, draw shape, uniform or bits) (`shapes`), kernel-1 hashes
+    by (key batch shape, key words, counters, mode) (`tf`) and
+    split_uniform calls by (key batch shape, key words, draw shape)
+    (`su`), each with its count -- and the plain versions' calls of all
+    three wrappers since entry (`plain`)."""
 
     def __enter__(self):
         import collections
 
+        from sparksched_tpu_torch import prng
         from sparksched_tpu_torch.kernels import rbg
 
         self.shapes: collections.Counter = collections.Counter()
-        self._rbg, self._orig = rbg, rbg._draw
-        self._plain0 = rbg.rbg_random_bits.plain_calls
+        self.tf: collections.Counter = collections.Counter()
+        self.su: collections.Counter = collections.Counter()
+        self._rbg, self._prng = rbg, prng
+        self._orig = (rbg._draw, prng._threefry, prng.split_uniform)
+        self._plain0 = sum(f.plain_calls for f in prng_wrappers().values())
+        draw0, tf0, su0 = self._orig
 
         def draw(keys, shape, uniform):
             if keys.device.type == "cuda":
                 self.shapes[(tuple(keys.shape[:-1]),
                              tuple(int(d) for d in shape), bool(uniform))] += 1
-            return self._orig(keys, shape, uniform)
+            return draw0(keys, shape, uniform)
 
-        rbg._draw = draw
+        def tf(keys, n, base=0, mode="pair"):
+            if keys.device.type == "cuda":
+                self.tf[(tuple(keys.shape[:-1]), int(keys.shape[-1]),
+                         int(n), mode)] += 1
+            return tf0(keys, n, base, mode)
+
+        def su(keys, shape=()):
+            if keys.device.type == "cuda":
+                self.su[(tuple(keys.shape[:-1]), int(keys.shape[-1]),
+                         tuple(int(d) for d in shape))] += 1
+            return su0(keys, shape)
+
+        rbg._draw, prng._threefry, prng.split_uniform = draw, tf, su
         return self
 
     @property
     def plain(self) -> int:
-        return self._rbg.rbg_random_bits.plain_calls - self._plain0
+        return (sum(f.plain_calls for f in prng_wrappers().values())
+                - self._plain0)
 
     def __exit__(self, *exc):
-        self._rbg._draw = self._orig
+        (self._rbg._draw, self._prng._threefry,
+         self._prng.split_uniform) = self._orig
 
 
 def phase_train() -> dict:
@@ -2075,9 +2144,11 @@ def phase_train() -> dict:
     TRAIN_CKPT_FREQ, `health.checkpoint_every` TRAIN_STATE_EVERY), the
     artifacts in a temporary directory: one line per iteration, the gates
     (`check_train_artifacts` among them), and the launches of both
-    encoder kernels and of the rbg kernel (the config's `fast_prng:
-    True`) counted from 0 over the training run: each must be launched,
-    no plain version called, and the train state stamped "rbg"."""
+    encoder kernels and of the three PRNG kernels (the rbg draws under
+    the config's `fast_prng: True`, the threefry hash of every split and
+    fold_in, the engine's split_uniform) counted from 0 over the training
+    run: each must be launched, no plain version called, and the train
+    state stamped "rbg"."""
     import math
 
     import torch
@@ -2086,7 +2157,6 @@ def phase_train() -> dict:
         decima_node_encoder,
         decima_node_encoder_bwd,
     )
-    from sparksched_tpu_torch.kernels.rbg import rbg_random_bits
     from sparksched_tpu_torch.trainers import make_trainer
 
     t_phase = time.perf_counter()
@@ -2123,17 +2193,17 @@ def phase_train() -> dict:
     torch.cuda.reset_peak_memory_stats()
     decima_node_encoder.launches = 0
     decima_node_encoder_bwd.launches = 0
-    rbg_random_bits.launches = 0
-    with PlainCalls() as plain, RbgDraws() as draws:
+    zero_prng_launches()
+    with PlainCalls() as plain, PrngDraws() as draws:
         state = trainer.train(callback=report)
     torch.cuda.synchronize()
     launches = {"decima_node_encoder": decima_node_encoder.launches,
                 "decima_node_encoder_bwd": decima_node_encoder_bwd.launches,
-                "rbg_random_bits": rbg_random_bits.launches}
+                **prng_launches()}
     if plain.n or draws.plain:
         raise AssertionError(f"the plain encoder ran {plain.n} times, the "
-                             f"plain rbg bits {draws.plain} times on the "
-                             "card path")
+                             f"plain PRNG versions {draws.plain} times on "
+                             "the card path")
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"training launched no {name}")
@@ -2159,14 +2229,17 @@ def phase_train() -> dict:
            "rollout_steps": TRAIN_STEPS, "lanes": trainer.num_envs,
            "cuts": cuts, "prng_impl": trainer.prng_impl,
            "kernel_launches": launches, "plain_encoder_calls": plain.n,
-           "plain_rbg_calls": draws.plain,
-           "rbg_draw_shapes": len(draws.shapes), "max_param_change": moved,
+           "plain_prng_calls": draws.plain,
+           "rbg_draw_shapes": len(draws.shapes),
+           "threefry_hash_shapes": len(draws.tf),
+           "split_uniform_shapes": len(draws.su), "max_param_change": moved,
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
            "artifacts": artifacts,
            "seconds": time.perf_counter() - t_phase, "card": card_line()}
     emit(out)
     return {"trainer": trainer, "state": state, "launches": launches,
-            "rbg_draws": draws.shapes, "lines": lines}
+            "rbg_draws": draws.shapes, "tf_draws": draws.tf,
+            "su_draws": draws.su, "lines": lines}
 
 
 def _sha_ok(path: str) -> dict:
@@ -2433,7 +2506,6 @@ def phase_train_resume() -> dict:
         decima_node_encoder,
         decima_node_encoder_bwd,
     )
-    from sparksched_tpu_torch.kernels.rbg import rbg_random_bits
     from sparksched_tpu_torch.trainers import make_trainer
 
     t_phase = time.perf_counter()
@@ -2449,8 +2521,8 @@ def phase_train_resume() -> dict:
     applied = []
     decima_node_encoder.launches = 0
     decima_node_encoder_bwd.launches = 0
-    rbg_random_bits.launches = 0
-    with PlainCalls() as plain, RbgDraws() as draws:
+    zero_prng_launches()
+    with PlainCalls() as plain, PrngDraws() as draws:
         ta = trainer_at("full", 2)
         p0 = {k: v.detach().cpu().clone()
               for k, v in ta.scheduler.params.items()}
@@ -2463,7 +2535,7 @@ def phase_train_resume() -> dict:
         torch.cuda.synchronize()
     launches = {"decima_node_encoder": decima_node_encoder.launches,
                 "decima_node_encoder_bwd": decima_node_encoder_bwd.launches,
-                "rbg_random_bits": rbg_random_bits.launches}
+                **prng_launches()}
     if plain.n or draws.plain or min(launches.values()) <= 0:
         raise AssertionError(f"resume path: launches {launches}, plain "
                              f"calls {plain.n} + {draws.plain}")
@@ -2605,6 +2677,143 @@ def phase_rbg(draws) -> dict:
     return out
 
 
+def int_bound(nbytes: int, ops: int) -> dict:
+    """The least time for work that moves `nbytes` and does `ops` INT32
+    operations: the larger of the two times."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "int_ops": ops}
+
+
+def tf_work(keys: int, words: int, n: int, mode: str) -> tuple[int, int]:
+    """(bytes, integer operations) of a kernel-1 call: each key read
+    once, each output written once (a pair of int64 words per half, an
+    int64 word, or a float32), a hash per (key, counter, half)."""
+    out = {"pair": 8 * words, "bits": 8, "uniform": 4}[mode]
+    return (keys * words * 8 + keys * n * out,
+            keys * n * (words // 2) * TF_OPS_PER_HASH)
+
+
+def su_work(lanes: int, words: int, n: int) -> tuple[int, int]:
+    """(bytes, integer operations) of a split_uniform call: the keys read
+    once, the next keys and the uniforms written once; the hashes this
+    data needs (each lane's next key; under threefry each lane's second
+    key and a hash a word, under rbg the first lane's second key once
+    and a Philox block per 4 words)."""
+    nbytes = 2 * lanes * words * 8 + lanes * n * 4
+    if words == 4:
+        ops = ((2 * lanes + 2) * TF_OPS_PER_HASH
+               + -(-lanes * n // 4) * RBG_OPS_PER_BLOCK)
+    else:
+        ops = (2 * lanes + lanes * n) * TF_OPS_PER_HASH
+    return nbytes, ops
+
+
+def phase_prng(train: dict) -> dict:
+    """The threefry hash kernel (`threefry2x32`) and the engine's
+    split-then-draw kernel (`split_uniform`) against their plain versions
+    on the card, then timed. Bit-equal, under both impls: kernel 1 on
+    PRNG_CHECK_KEYS random keys (non-contiguous views) in every mode at
+    PRNG_COUNTS (bases past 2^32), and at every (key batch, count, mode)
+    the `train` phase hashed; split_uniform at every (key batch, draw
+    shape) the five engine sites drew in `train`, with threefry and rbg
+    keys. Timed at the PRNG_TIMED most launched shapes of `train` (rbg
+    keys) and at the most launched with threefry keys: the kernel's own
+    device time (`ms`, `ms_from` as in `rbg`), a whole wrapper call
+    (`call_ms`, CUDA events), the plain version on the card (`plain_ms`)
+    and the bound (bytes over the HBM rate or integer operations over
+    the INT32 rate). No PyTorch call computes jax's threefry stream, so
+    `library_ms` is None."""
+    import torch
+
+    from sparksched_tpu_torch.kernels.rbg import (
+        split_uniform,
+        split_uniform_ref,
+    )
+    from sparksched_tpu_torch.kernels.threefry import (
+        MODES,
+        threefry2x32,
+        threefry2x32_keys_ref,
+    )
+
+    t_phase = time.perf_counter()
+    g = torch.Generator().manual_seed(SEED + 1)
+    words = torch.randint(0, 2**32, (PRNG_CHECK_KEYS, 2, 4), generator=g,
+                          dtype=torch.int64).cuda()
+    pool = {4: words[:, 1], 2: words[:, 1, 1:3]}  # row stride 8: views
+
+    def keys(batch: tuple, w: int):
+        return pool[w][:max(1, math.prod(batch))].reshape(batch + (w,))
+
+    bad, cases = [], 0
+    for w in (2, 4):
+        for mode in (MODES if w == 2 else ("pair",)):
+            for n, base in PRNG_COUNTS:
+                cases += 1
+                got = threefry2x32(pool[w], n, base, mode)
+                if not torch.equal(got, threefry2x32_keys_ref(pool[w], n,
+                                                              base, mode)):
+                    bad.append(("threefry2x32", w, n, base, mode))
+    tf_shapes = sorted(train["tf_draws"], key=lambda d: -train["tf_draws"][d])
+    for batch, _, n, _ in tf_shapes:
+        for w in (2, 4):
+            for mode in (MODES if w == 2 else ("pair",)):
+                for base in (0, 2**32 - 1):
+                    cases += 1
+                    kb = keys(batch, w)
+                    if not torch.equal(threefry2x32(kb, n, base, mode),
+                                       threefry2x32_keys_ref(kb, n, base,
+                                                             mode)):
+                        bad.append(("threefry2x32", batch, w, n, base, mode))
+    su_shapes = sorted(train["su_draws"], key=lambda d: -train["su_draws"][d])
+    for batch, _, shape in su_shapes:
+        for w in (2, 4):
+            cases += 1
+            kb = keys(batch, w)
+            got, want = split_uniform(kb, shape), split_uniform_ref(kb, shape)
+            if not (torch.equal(got[0], want[0])
+                    and torch.equal(got[1], want[1])):
+                bad.append(("split_uniform", batch, w, shape))
+    torch.cuda.synchronize()
+    if bad:
+        raise AssertionError(f"PRNG kernels differ from their plain versions "
+                             f"at {bad[:8]} ({len(bad)} of {cases} cases)")
+
+    def timed(name: str, kernel: str, fn, plain, work, launches) -> dict:
+        ms, _, ms_from = kernel_ms(fn, 50, kernel)
+        return {"train_launches": launches, "ms": ms, "ms_from": ms_from,
+                "call_ms": cuda_ms(fn, 200), "plain_ms": cuda_ms(plain, 50),
+                **int_bound(*work)}
+
+    at = {"threefry2x32": {}, "split_uniform": {}}
+    for i, (batch, w, n, mode) in enumerate(tf_shapes[:PRNG_TIMED]):
+        for kw in ((w, 2) if i == 0 and w != 2 else (w,)):
+            kb = keys(batch, kw)
+            at["threefry2x32"][f"{mode}{list(batch)}x{n}w{kw}"] = timed(
+                "threefry2x32", "threefry2x32_kernel",
+                lambda: threefry2x32(kb, n, 0, mode),
+                lambda: threefry2x32_keys_ref(kb, n, 0, mode),
+                tf_work(max(1, math.prod(batch)), kw, n, mode),
+                train["tf_draws"][(batch, w, n, mode)])
+    for i, (batch, w, shape) in enumerate(su_shapes[:PRNG_TIMED]):
+        for kw in ((w, 2) if i == 0 and w != 2 else (w,)):
+            kb = keys(batch, kw)
+            at["split_uniform"][f"{list(batch)}x{list(shape)}w{kw}"] = timed(
+                "split_uniform", "split_uniform_kernel",
+                lambda: split_uniform(kb, shape),
+                lambda: split_uniform_ref(kb, shape),
+                su_work(max(1, math.prod(batch)), kw, math.prod(shape)),
+                train["su_draws"][(batch, w, shape)])
+    out = {"phase": "prng", "checked_keys": PRNG_CHECK_KEYS,
+           "cases": cases, "hash_shapes_checked": len(tf_shapes),
+           "split_uniform_shapes_checked": len(su_shapes),
+           "max_abs_err": 0, "timed": at,
+           "seconds": time.perf_counter() - t_phase, "card": card_line()}
+    emit(out)
+    return out
+
+
 def phase_lowprec(train: dict) -> dict:
     """`bank_dtype: int16` and `obs_dtype: bfloat16` (LOWPREC_ENV) on the
     flagship config: one iteration through `make_trainer(...).train()` at
@@ -2627,7 +2836,6 @@ def phase_lowprec(train: dict) -> dict:
     from sparksched_tpu_torch.kernels.decima_encoder import (
         decima_node_encoder,
     )
-    from sparksched_tpu_torch.kernels.rbg import rbg_random_bits
     from sparksched_tpu_torch.trainers import make_trainer
 
     t_phase = time.perf_counter()
@@ -2639,13 +2847,14 @@ def phase_lowprec(train: dict) -> dict:
     stats = {}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    decima_node_encoder.launches = rbg_random_bits.launches = 0
-    with PlainCalls() as plain, RbgDraws() as draws:
+    decima_node_encoder.launches = 0
+    zero_prng_launches()
+    with PlainCalls() as plain, PrngDraws() as draws:
         trainer.train(callback=lambda i, st, s: stats.update(s))
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     launches = {"decima_node_encoder": decima_node_encoder.launches,
-                "rbg_random_bits": rbg_random_bits.launches}
+                **prng_launches()}
     ro = trainer.last_rollout
     if (ro.obs.duration.dtype != torch.bfloat16 or stats["health_mask"]
             or plain.n or draws.plain or min(launches.values()) <= 0):
@@ -2746,13 +2955,12 @@ def phase_chaos() -> dict:
         decima_node_encoder,
         decima_node_encoder_bwd,
     )
-    from sparksched_tpu_torch.kernels.rbg import rbg_random_bits
     from sparksched_tpu_torch.trainers import make_trainer
 
     t_phase = time.perf_counter()
     root = tempfile.mkdtemp(prefix="chaos_", dir=TMP_ROOT)
     decima_node_encoder.launches = decima_node_encoder_bwd.launches = 0
-    rbg_random_bits.launches = 0
+    zero_prng_launches()
     art = os.path.join(root, "faults")
     t = make_trainer(_chaos_cfg(art, CHAOS_ITERS, CHAOS_FAULTS), "cuda")
     state = t.train()
@@ -2837,7 +3045,7 @@ def phase_chaos() -> dict:
     # this process's launches (the sigkill child's are its own)
     launches = {"decima_node_encoder": decima_node_encoder.launches,
                 "decima_node_encoder_bwd": decima_node_encoder_bwd.launches,
-                "rbg_random_bits": rbg_random_bits.launches}
+                **prng_launches()}
     out["kernel_launches"] = launches
     emit(out)
     return launches
@@ -3135,6 +3343,7 @@ def main() -> int:
         bwd, bwd_err_max = phase_bwd_kernel(tsched, checks, chunks)
         phase_kernel_alone(cases, calls, tsched, chunks[CHUNK_TIMED], bwd)
         rbg = phase_rbg(train["rbg_draws"])
+        prng_out = phase_prng(train)
         phase_train_parity(parity_helpers())
         paths = {"serve_front": front, "serve_http": http,
                  "online": online, "serve_fleet": fleet,
@@ -3206,7 +3415,32 @@ def main() -> int:
         "bound_by": rbg_top["bound_by"],
         "library_ms": None,
         "at": rbg["timed"],
-    }]})
+    }, *({
+        "name": name,
+        "route": "cuda",
+        "source": source,
+        "replaces": replaces,
+        "launches": train["launches"][name],
+        "launches_by_path": {p: n[name] for p, n in paths.items()
+                             if name in n},
+        "max_abs_err": prng_out["max_abs_err"],
+        "ms": top["ms"],
+        "plain_ms": top["plain_ms"],
+        "bound_ms": top["bound_ms"],
+        "bound_by": top["bound_by"],
+        "library_ms": None,
+        "at": prng_out["timed"][name],
+    } for name, source, replaces, top in (
+        ("threefry2x32", "sparksched_tpu_torch/csrc/threefry.cu",
+         "jax/_src/prng.py:threefry_2x32 (threefry2x32_p under "
+         "jax.random.split / fold_in / bits / uniform, fused by XLA in "
+         "the JAX package)",
+         next(iter(prng_out["timed"]["threefry2x32"].values()))),
+        ("split_uniform", "sparksched_tpu_torch/csrc/rbg_philox.cu",
+         "sparksched_tpu/env/core.py:259-264 (jax.random.split then "
+         "jax.random.uniform; also :575-579, :1120-1123, :1319-1322, "
+         ":1570-1574)",
+         next(iter(prng_out["timed"]["split_uniform"].values())))))]})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

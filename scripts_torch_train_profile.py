@@ -14,7 +14,8 @@ cut to `--steps` (9600 is the config's own) and, for each PRNG impl of
 1. one iteration as `Trainer.train` runs it: collection seconds, rows
    and valid decisions, decisions/s, rows left early; update seconds,
    minibatches applied, update chunks and the peak memory of the update;
-   each encoder kernel's launches over the iteration;
+   each encoder kernel's and each PRNG kernel's launches over the
+   iteration;
 2. the split per row over a collection of `--split-rows` rows, each part
    timed between `torch.cuda.synchronize()` calls: the policy
    (features, net, sampling), the engine (`decide_micro_step` and
@@ -24,9 +25,11 @@ cut to `--steps` (9600 is the config's own) and, for each PRNG impl of
    collection: torch ops and kernel launches per row, device busy time
    and the device's idle share of the window's wall, and the host time
    per row inside the PRNG's functions (`split` and `fold_in`, the key
-   chain, threefry's hash under both impls; `random_bits` and `uniform`,
-   the draws: the rbg kernel or threefry's hash), each counted once at
-   its outermost call;
+   chain: the threefry hash kernel under both impls; `random_bits` and
+   `uniform`, the draws: the rbg kernel or the threefry hash kernel;
+   `split_uniform`, the engine's split-then-draw kernel), each counted
+   once at its outermost call, and each PRNG kernel's device records
+   and device ms per row;
 4. torch.profiler over the update of that collection: each encoder
    kernel's launches and mean device time there.
 
@@ -73,7 +76,9 @@ def cuda_events(prof):
             if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
-PRNG_FNS = ("split", "fold_in", "random_bits", "uniform")
+PRNG_FNS = ("split", "fold_in", "random_bits", "uniform", "split_uniform")
+PRNG_KERNELS = ("threefry2x32_kernel", "split_uniform_kernel",
+                "rbg_philox_kernel")
 LOWPREC_ENV = {"bank_dtype": "int16", "obs_dtype": "bfloat16"}
 
 
@@ -132,7 +137,8 @@ def profile_impl(args, impl: str) -> dict:
         decima_node_encoder,
         decima_node_encoder_bwd,
     )
-    from sparksched_tpu_torch.kernels.rbg import rbg_random_bits
+    from sparksched_tpu_torch.kernels.rbg import rbg_random_bits, split_uniform
+    from sparksched_tpu_torch.kernels.threefry import threefry2x32
     from sparksched_tpu_torch.trainers import rollout as tro
 
     trainer = build_trainer(args.steps, impl)
@@ -140,7 +146,8 @@ def profile_impl(args, impl: str) -> dict:
 
     # 1. one iteration as train() runs it
     decima_node_encoder.launches = decima_node_encoder_bwd.launches = 0
-    rbg_random_bits.launches = 0
+    rbg_random_bits.launches = threefry2x32.launches = 0
+    split_uniform.launches = 0
     stats = {}
     trainer.train(callback=lambda i, st, s: stats.update(s))
     it = {k: stats[k] for k in (
@@ -152,6 +159,8 @@ def profile_impl(args, impl: str) -> dict:
     it["encoder_launches"] = decima_node_encoder.launches
     it["encoder_bwd_launches"] = decima_node_encoder_bwd.launches
     it["rbg_launches"] = rbg_random_bits.launches
+    it["threefry_launches"] = threefry2x32.launches
+    it["split_uniform_launches"] = split_uniform.launches
     out["iteration"] = it
     print(json.dumps({"phase": "iteration", "prng_impl": impl, **it}),
           flush=True)
@@ -244,6 +253,13 @@ def profile_impl(args, impl: str) -> dict:
             + host["fold_in"]["host_ms_per_row"],
             "draws_host_ms_per_row": host["random_bits"]["host_ms_per_row"]
             + host["uniform"]["host_ms_per_row"],
+            "split_uniform_host_ms_per_row":
+                host["split_uniform"]["host_ms_per_row"],
+            "prng_kernels": {k: {
+                "records_per_row": len([e for e in ev if k in e.name]) / n,
+                "device_ms_per_row": sum(e.time_range.elapsed_us()
+                                         for e in ev if k in e.name)
+                / 1e3 / n} for k in PRNG_KERNELS},
         }
     print(json.dumps({"phase": "split", "prng_impl": impl, **out["split"],
                       "window": out.get("window")}), flush=True)

@@ -1,76 +1,67 @@
-// rbg random bits: JAX's `rbg` stream (lax.rng_bit_generator, Philox4x32-10
-// as XLA lowers it) for one key, as 32-bit words or as float32 uniforms.
+// Two kernels of the port's random draws.
+//
+// 1. rbg random bits: JAX's `rbg` stream (lax.rng_bit_generator,
+//    Philox4x32-10 as XLA lowers it) for one key, as 32-bit words or as
+//    float32 uniforms: the draws that follow no split (the policy's Gumbel,
+//    `randint`, `permutation`, the reset).
+// 2. split_uniform: `(split(keys)[:, 0], uniform(split(keys)[:, 1], shape))`
+//    for lane keys [B, W] in one launch, under either impl: the engine's
+//    five split-then-draw sites (sparksched_tpu_torch/env/core.py
+//    `_apply_action`, `_bulk_fulfill`, `_bulk_relaunch`, `_bulk_ready`,
+//    `_bulk_events_fused`).
 //
 // Replaces: `lax.rng_bit_generator` under `jax_default_prng_impl = "rbg"`
 // (jax/_src/prng.py `_rbg_random_bits`), which the JAX package reaches from
 // every `jax.random.uniform` / `bits` / `randint` / `gumbel` / `permutation`
 // draw once `fast_prng: True` switches the impl
-// (sparksched_tpu/config.py:use_fast_prng). The JAX package has no Pallas
-// kernel for it: XLA emits the generator as one op.
+// (sparksched_tpu/config.py:use_fast_prng); and, in split_uniform, the
+// `jax.random.split` + `jax.random.uniform` pairs of
+// sparksched_tpu/env/core.py (:259-264, :575-579, :1120-1123, :1319-1322,
+// :1570-1574) under either impl. The JAX package has no Pallas kernel for
+// either: XLA emits the generator as one op and fuses the hash.
 //
-// The stream, as XLA:CPU produces it and the tests hold bit for bit:
+// The rbg stream, as XLA:CPU produces it and the tests hold bit for bit
+// (prng_core.cuh: philox_block):
 // - the Philox key is the key's words (k0, k1);
 // - the 128-bit counter of block i is the little-endian words
 //   (k2, k3, k0, k1) plus i, with carry across all four words;
 // - each block gives 4 words in order; the output is cut to n words.
 // Under `vmap` JAX draws a batch of keys as ONE stream of the batch's first
 // key over (batch..., shape) (the rng_bit_generator batching rule), so the
-// wrapper hands this kernel the first key of its batch and the whole count.
+// bits wrapper hands kernel 1 the first key of its batch and the whole
+// count, and split_uniform draws the stream of split(keys[0])[1]: lane b
+// takes words [b * n, (b + 1) * n), row-major over the draw's shape.
+// Under threefry, split_uniform hashes each lane's own second key over the
+// flat iota (prng_core.cuh: split_uniform_tf_item).
 //
-// What bounds it: it reads 32 bytes of key and writes n words (8 bytes each
-// as the port's int64 words, 4 as float32 uniforms); the arithmetic is 10
-// rounds of two 32x32 multiplies (hi and lo) and a few xors/adds per block
-// of 4 words, ~60 integer operations a block. Against the H100's rates the
-// bytes bound it at every size the main path draws (PERF.md); at the main
-// path's draws (a few hundred to ~10^5 words) the launch itself dominates.
+// What bounds them: kernel 1 reads 32 bytes of key and writes n words (8
+// bytes each as the port's int64 words, 4 as float32 uniforms); the
+// arithmetic is 10 rounds of two 32x32 multiplies (hi and lo) and a few
+// xors/adds per block of 4 words, ~60 integer operations a block.
+// split_uniform reads B keys and writes B next keys and B * n uniforms;
+// it adds, per lane, threefry hashes (~80 operations each) for the next
+// key (two under rbg) and, under threefry, two per word (the lane's second
+// key, then the word). At the main path's draws (16 lanes, up to ~10^4
+// words) every bound is well under a microsecond: the launch dominates.
 //
-// What the design does about it: one thread per block of 4 words, a
-// grid-stride loop, the round function unrolled in registers with
-// `__umulhi` for the high products and a 128-bit counter add with carry;
-// each thread writes its 4 words contiguously. Nothing is staged in shared
-// memory: no word is read twice.
+// What the design does about it: one thread per block of 4 words (rbg) or
+// per word (threefry) in a grid-stride loop, the rounds unrolled in
+// registers; each thread writes its words contiguously. split_uniform
+// under rbg derives the one Philox key from keys[0] once per block into
+// shared memory (thread 0, then a barrier), so no second launch and no
+// host copy come between the split and the draw; the first B threads also
+// write the lanes' next keys. Keys are read through a row stride (views
+// need no copy).
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "prng_core.cuh"
+
 namespace {
 
-constexpr uint32_t kM0 = 0xD2511F53u;
-constexpr uint32_t kM1 = 0xCD9E8D57u;
-constexpr uint32_t kW0 = 0x9E3779B9u;
-constexpr uint32_t kW1 = 0xBB67AE85u;
 constexpr int kThreads = 256;
-
-__device__ __forceinline__ void philox_block(uint32_t k0, uint32_t k1,
-                                             uint32_t k2, uint32_t k3,
-                                             unsigned long long blk,
-                                             uint32_t out[4]) {
-  // counter = (k2, k3, k0, k1) + blk, little-endian over 128 bits
-  const unsigned long long lo0 = ((unsigned long long)k3 << 32) | k2;
-  unsigned long long hi = ((unsigned long long)k1 << 32) | k0;
-  const unsigned long long lo = lo0 + blk;
-  hi += (lo < lo0) ? 1ull : 0ull;
-  uint32_t c0 = (uint32_t)lo, c1 = (uint32_t)(lo >> 32);
-  uint32_t c2 = (uint32_t)hi, c3 = (uint32_t)(hi >> 32);
-  uint32_t a0 = k0, a1 = k1;
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    const uint32_t hi0 = __umulhi(kM0, c0), lo0w = kM0 * c0;
-    const uint32_t hi1 = __umulhi(kM1, c2), lo1w = kM1 * c2;
-    const uint32_t n0 = hi1 ^ c1 ^ a0;
-    const uint32_t n2 = hi0 ^ c3 ^ a1;
-    c0 = n0;
-    c1 = lo1w;
-    c2 = n2;
-    c3 = lo0w;
-    a0 += kW0;
-    a1 += kW1;
-  }
-  out[0] = c0;
-  out[1] = c1;
-  out[2] = c2;
-  out[3] = c3;
-}
+constexpr long long kMaxBlocks = 65535;
 
 // mode 0: 32-bit words as int64 (the port's word convention);
 // mode 1: float32 uniforms on [0, 1), jax.random.uniform's mapping
@@ -85,7 +76,7 @@ __global__ void __launch_bounds__(kThreads)
   for (long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        b < nb; b += stride) {
     uint32_t w[4];
-    philox_block(k0, k1, k2, k3, (unsigned long long)b, w);
+    prng_core::philox_block(k0, k1, k2, k3, (unsigned long long)b, w);
     const long long base = 4 * b;
     const int cnt = (n - base) < 4 ? (int)(n - base) : 4;
     if (MODE == 0) {
@@ -97,12 +88,33 @@ __global__ void __launch_bounds__(kThreads)
       float* o = static_cast<float*>(out) + base;
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        if (i < cnt) {
-          const float f = __uint_as_float((w[i] >> 9) | 0x3F800000u) - 1.0f;
-          o[i] = fmaxf(f, 0.0f);
-        }
+        if (i < cnt) o[i] = prng_core::bits_to_uniform(w[i]);
       }
     }
+  }
+}
+
+// split_uniform: items of prng_core::split_uniform_{tf,rbg}_item
+template <bool RBG>
+__global__ void __launch_bounds__(kThreads)
+    split_uniform_kernel(const int64_t* __restrict__ keys,
+                         long long key_stride, long long B, long long n,
+                         long long items, int64_t* __restrict__ next,
+                         float* __restrict__ u) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const long long t0 = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if constexpr (RBG) {
+    __shared__ uint32_t shared_sub[4];
+    if (threadIdx.x == 0) prng_core::rbg_sub_key(keys, shared_sub);
+    __syncthreads();
+    const uint32_t sub[4] = {shared_sub[0], shared_sub[1], shared_sub[2],
+                             shared_sub[3]};
+    for (long long t = t0; t < items; t += stride)
+      prng_core::split_uniform_rbg_item(keys, key_stride, B, n, sub, t, next,
+                                        u);
+  } else {
+    for (long long t = t0; t < items; t += stride)
+      prng_core::split_uniform_tf_item(keys, key_stride, B, n, t, next, u);
   }
 }
 
@@ -117,11 +129,35 @@ extern "C" int rbg_random_bits_launch(const int64_t* key, void* out,
   if (n == 0) return 0;
   const long long nb = (n + 3) / 4;
   long long blocks = (nb + kThreads - 1) / kThreads;
-  if (blocks > 65535) blocks = 65535;
+  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (mode == 0)
     rbg_philox_kernel<0><<<(unsigned)blocks, kThreads, 0, s>>>(key, out, n);
   else
     rbg_philox_kernel<1><<<(unsigned)blocks, kThreads, 0, s>>>(key, out, n);
+  return (int)cudaGetLastError();
+}
+
+// keys: device pointer to B lane keys of 4 (rbg = 1) or 2 (rbg = 0) int64
+// words, lane b's at keys + b * key_stride; next: B * W int64 words (each
+// lane's split(key)[0]); u: B * n float32 (uniform(split(keys)[:, 1], n)
+// as the JAX package draws it under vmap). Launches on `stream`; returns
+// cudaGetLastError() (0 on success), -1 on bad arguments.
+extern "C" int split_uniform_launch(const int64_t* keys, long long key_stride,
+                                    long long B, int rbg, long long n,
+                                    int64_t* next, float* u, void* stream) {
+  if (B < 0 || n < 0 || (rbg != 0 && rbg != 1)) return -1;
+  if (B == 0) return 0;
+  const long long draw = rbg ? (B * n + 3) / 4 : B * n;
+  const long long items = draw > B ? draw : B;
+  long long blocks = (items + kThreads - 1) / kThreads;
+  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (rbg)
+    split_uniform_kernel<true><<<(unsigned)blocks, kThreads, 0, s>>>(
+        keys, key_stride, B, n, items, next, u);
+  else
+    split_uniform_kernel<false><<<(unsigned)blocks, kThreads, 0, s>>>(
+        keys, key_stride, B, n, items, next, u);
   return (int)cudaGetLastError();
 }

@@ -246,14 +246,13 @@ def _apply_action(params: EnvParams, bank: WorkloadBank, state: EnvState,
                   ak, e, tj, ts) -> EnvState:
     """Apply a resolved action on every lane (A_NONE changes nothing but
     the rng, which advances once per call whatever the kind)."""
-    keys = prng.split(state.rng)
-    rng, sub = keys[:, 0], keys[:, 1]
+    rng, us = prng.split_uniform(state.rng, (2,))
     n = state.exec_job.shape[1]
     e = e.clamp(0, n - 1)
     tpl = _g(state.job_template, tj)
     num_local = _i((state.exec_job == tj[:, None]).sum(1))
     dur = sample_task_duration(
-        params, bank, prng.uniform(sub, (2,)), tpl, ts, num_local,
+        params, bank, us, tpl, ts, num_local,
         _g(state.exec_task_valid, e), _g(state.exec_task_stage, e) == ts,
     )
 
@@ -513,9 +512,7 @@ def _bulk_fulfill(params: EnvParams, bank: WorkloadBank, state: EnvState,
     base_nl = (state.exec_job[:, None, :] == dj[:, :, None]).sum(-1)
     nl = base_nl - torch.where(dj == src_j[:, None], leavers_before, 0)
 
-    keys = prng.split(state.rng)
-    rng_next, sub = keys[:, 0], keys[:, 1]
-    us = prng.uniform(sub, (n, 2))
+    rng_next, us = prng.split_uniform(state.rng, (n, 2))
     tpl = _gk(state.job_template, djc)
     tv = _gk(state.exec_task_valid, e)
     ss_same = _gk(state.exec_task_stage, e) == ds0
@@ -960,9 +957,8 @@ def _bulk_relaunch(params: EnvParams, bank: WorkloadBank, state: EnvState,
 
     # pre-sampled durations: dur_table[:, i, e] is the draw consumed if
     # the i-th processed event belongs to executor e
-    keys = prng.split(state.rng)
-    rng_next, sub = keys[:, 0], keys[:, 1]
-    us = prng.uniform(sub, (max_events * n, 2)).reshape(b, max_events, n, 2)
+    rng_next, us = prng.split_uniform(state.rng, (max_events * n, 2))
+    us = us.reshape(b, max_events, n, 2)
     yes = torch.ones((b, 1, n), dtype=torch.bool, device=dev)
     dur_table = sample_task_duration(
         params, bank, us, tpl[:, None, :], sc[:, None, :],
@@ -1112,9 +1108,7 @@ def _bulk_ready(params: EnvParams, bank: WorkloadBank, state: EnvState,
     base_nl = (state.exec_job[:, None, :] == dj[:, :, None]).sum(-1)
     nl = base_nl + (earlier & same_job).sum(-1) + 1
 
-    keys = prng.split(state.rng)
-    rng_next, sub = keys[:, 0], keys[:, 1]
-    us = prng.uniform(sub, (n, 2))
+    rng_next, us = prng.split_uniform(state.rng, (n, 2))
     tpl = _gk(state.job_template, djc)
     ec = e.clamp(0, n - 1)
     tv = _gk(state.exec_task_valid, ec)
@@ -1286,10 +1280,8 @@ def _bulk_events_fused(params: EnvParams, bank: WorkloadBank,
                       (state.source_stage == -1)[:, None])
     )
 
-    keys = prng.split(state.rng)
-    rng_next, sub = keys[:, 0], keys[:, 1]
     # us[:, i, e] is consumed iff the i-th processed event is e's
-    us = prng.uniform(sub, (length, n, 2))
+    rng_next, us = prng.split_uniform(state.rng, (length, n, 2))
 
     jcnt0 = _i((state.exec_job[:, None, :] == jr[None, :, None]).sum(-1))
 

@@ -1,17 +1,18 @@
 """Build the port's CUDA sources with nvcc and load them with ctypes.
 
 Each source `csrc/<name>.cu` becomes `_build/lib<name>-<digest>.so`
-(the digest covers the source and the flags, so an edited source is
-rebuilt). Nothing is built when a module is imported: the first launch
-builds, or `build_all()` builds every source with one nvcc process per
-source, all started together. The build directory is listed in
-`.gitignore`."""
+(the digest covers the source, the `csrc/` headers it includes and the
+flags, so an edited source or header is rebuilt). Nothing is built when
+a module is imported: the first launch builds, or `build_all()` builds
+every source with one nvcc process per source, all started together.
+The build directory is listed in `.gitignore`."""
 
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -20,7 +21,7 @@ import threading
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("decima_encoder", "decima_encoder_bwd", "rbg_philox")
+SOURCES = ("decima_encoder", "decima_encoder_bwd", "rbg_philox", "threefry")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -41,9 +42,25 @@ def nvcc_path() -> str:
     return path
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def _sources(path: str, seen: dict) -> None:
+    """`path` and every `csrc/` file it includes, recursively, into
+    `seen` (path -> bytes)."""
+    if path in seen:
+        return
+    with open(path, "rb") as f:
+        seen[path] = f.read()
+    for inc in _INCLUDE.findall(seen[path]):
+        _sources(os.path.join(CSRC, inc.decode()), seen)
+
+
 def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    seen: dict[str, bytes] = {}
+    _sources(os.path.join(CSRC, f"{name}.cu"), seen)
+    digest = hashlib.sha256(b"".join(seen.values())
+                            + " ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 

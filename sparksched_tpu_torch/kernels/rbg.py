@@ -16,7 +16,18 @@ keys `[..., 4]` (int64 words, the port's convention) and return
 `rbg_random_bits` / `rbg_uniform` launch `csrc/rbg_philox.cu` on a CUDA
 key (one launch, counted in `rbg_random_bits.launches`) or raise; on a
 CPU key they run the plain version `rbg_bits_ref` (counted in
-`rbg_random_bits.plain_calls`).
+`rbg_random_bits.plain_calls`). They serve the draws that follow no
+split: the policy's Gumbel, `randint`, `permutation`, the reset.
+
+`split_uniform(keys, shape)` is the engine's split-then-draw in one
+launch of the same source, under either impl: for lane keys `[..., W]`
+it returns `(split(keys)[..., 0, :], uniform(split(keys)[..., 1, :],
+shape))` -- under rbg the uniforms are the Philox stream of the FIRST
+lane's second key (the vmapped draw), under threefry each lane's second
+key hashes its own iota. On a CUDA key one launch (counted in
+`split_uniform.launches`) or an error; on a CPU key the plain version
+`split_uniform_ref`, `split` then `uniform` through the plain functions
+(counted in `split_uniform.plain_calls`).
 """
 
 from __future__ import annotations
@@ -27,6 +38,13 @@ import math
 import threading
 
 import torch
+
+from .threefry import (
+    bits_to_uniform,
+    flat_keys,
+    key_words,
+    threefry2x32_keys_ref,
+)
 
 _M32 = 0xFFFFFFFF
 _M16 = 0xFFFF
@@ -70,12 +88,6 @@ def rbg_bits_ref(key: torch.Tensor, n: int) -> torch.Tensor:
     return torch.stack([c0, c1, c2, c3], -1).reshape(-1)[:n]
 
 
-def bits_to_uniform(bits: torch.Tensor) -> torch.Tensor:
-    """`jax.random.uniform`'s float32 on [0, 1) from 32-bit words."""
-    fbits = ((bits >> 9) | 0x3F800000).to(torch.int32)
-    return torch.clamp_min(fbits.view(torch.float32) - 1.0, 0.0)
-
-
 @functools.cache
 def _launcher():
     """The C entry point of the built library, with its signature."""
@@ -84,6 +96,17 @@ def _launcher():
     fn = load("rbg_philox").rbg_random_bits_launch
     vp = ctypes.c_void_p
     fn.argtypes = [vp, vp, ctypes.c_longlong, ctypes.c_int, vp]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _split_uniform_launcher():
+    from .build import load
+
+    fn = load("rbg_philox").split_uniform_launch
+    vp, ll = ctypes.c_void_p, ctypes.c_longlong
+    fn.argtypes = [vp, ll, ll, ctypes.c_int, ll, vp, vp, vp]
     fn.restype = ctypes.c_int
     return fn
 
@@ -135,6 +158,56 @@ def rbg_uniform(keys: torch.Tensor, shape: tuple[int, ...] = ()
     return _draw(keys, shape, uniform=True)
 
 
+def split_uniform_ref(keys: torch.Tensor, shape: tuple[int, ...]
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of `split_uniform`: the plain split, then the
+    plain draw from the second keys."""
+    pairs = threefry2x32_keys_ref(keys, 2)  # [..., 2, W]
+    nxt, sub = pairs[..., 0, :], pairs[..., 1, :]
+    out_shape = tuple(keys.shape[:-1]) + tuple(int(d) for d in shape)
+    n = math.prod(tuple(int(d) for d in shape))
+    if keys.shape[-1] == 4:
+        total = math.prod(out_shape)
+        u = (bits_to_uniform(rbg_bits_ref(sub, total)) if total
+             else torch.empty(0, dtype=torch.float32, device=keys.device))
+    else:
+        u = threefry2x32_keys_ref(sub, n, 0, "uniform")
+    return nxt, u.reshape(out_shape)
+
+
+def split_uniform(keys: torch.Tensor, shape: tuple[int, ...] = ()
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(next keys `keys.shape`, float32 uniforms `keys.shape[:-1] +
+    shape`): `keys2 = split(keys); (keys2[..., 0, :],
+    uniform(keys2[..., 1, :], shape))` (module docstring), one launch on
+    a CUDA key under either impl, the plain version on a CPU key."""
+    w = key_words(keys)
+    shape = tuple(int(d) for d in shape)
+    if keys.device.type == "cpu":
+        with _COUNT_LOCK:
+            split_uniform.plain_calls += 1
+        return split_uniform_ref(keys, shape)
+    if keys.device.type != "cuda":
+        raise ValueError(f"unsupported device {keys.device}")
+    lead = tuple(keys.shape[:-1])
+    nxt = torch.empty(lead + (w,), dtype=torch.int64, device=keys.device)
+    u = torch.empty(lead + shape, dtype=torch.float32, device=keys.device)
+    if nxt.numel() == 0:
+        return nxt, u
+    flat, stride = flat_keys(keys)
+    stream = torch.cuda.current_stream(keys.device).cuda_stream
+    rc = _split_uniform_launcher()(flat.data_ptr(), stride, flat.shape[0],
+                                   int(w == 4), math.prod(shape),
+                                   nxt.data_ptr(), u.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"split_uniform launch failed (rc={rc})")
+    with _COUNT_LOCK:
+        split_uniform.launches += 1
+    return nxt, u
+
+
 rbg_random_bits.launches = 0
 rbg_random_bits.plain_calls = 0
+split_uniform.launches = 0
+split_uniform.plain_calls = 0
 

@@ -7,7 +7,9 @@ seeds, this module reproduces jax 0.9.0's two generators the package
 runs, bit for bit:
 
 - `threefry2x32` (the default; 20 rounds) with `jax_threefry_partitionable`
-  on, which makes `split` and `random_bits` hash a 64-bit iota counter;
+  on, which makes `split` and `random_bits` hash a 64-bit iota counter
+  (`kernels/threefry.py`: the kernel on the card, one launch for a
+  split, a fold_in or a draw; its plain version on the CPU);
 - `rbg`, which the trainer's `fast_prng: True` selects: a key of four
   words whose `split` and `fold_in` are threefry's applied to each 2-word
   half, and whose `random_bits` is Philox4x32-10 (`kernels/rbg.py`: the
@@ -20,11 +22,15 @@ A key is an int64 tensor of shape `[..., 2]` (threefry) or `[..., 4]`
 (rbg) holding 32-bit words (torch's uint32 arithmetic is incomplete, so
 every word lives in int64 and is masked back to 32 bits after each add or
 shift); its trailing width is its impl, and every function dispatches on
-it. All functions accept a batch of keys in the leading dimensions. There
-is no process-wide default impl: whoever creates a key names it
-(`PRNGKey`'s `impl` defaults to threefry2x32, the JAX package's
-default). Every draw takes 32-bit words, the only width the JAX package
-draws (float32 uniforms, int32 `randint`, `permutation`'s sort keys).
+it. `split_uniform` is the engine's split followed by a uniform draw
+from the second keys, one launch on the card under either impl
+(`kernels/rbg.py`). A CUDA key runs the kernels or raises; only a CPU
+key runs the plain versions. All functions accept a batch of keys in the
+leading dimensions. There is no process-wide default impl: whoever
+creates a key names it (`PRNGKey`'s `impl` defaults to threefry2x32, the
+JAX package's default). Every draw takes 32-bit words, the only width
+the JAX package draws (float32 uniforms, int32 `randint`,
+`permutation`'s sort keys).
 """
 
 from __future__ import annotations
@@ -33,32 +39,15 @@ import math
 
 import torch
 
-from .kernels.rbg import bits_to_uniform, rbg_random_bits, rbg_uniform
+from .kernels.rbg import rbg_random_bits, rbg_uniform, split_uniform
+from .kernels.threefry import threefry2x32 as _threefry
+from .kernels.threefry import threefry2x32_ref
 
 _M32 = 0xFFFFFFFF
 # impl name -> key width (the JAX package's `jax_default_prng_impl` names)
 IMPL_WIDTH = {"threefry2x32": 2, "rbg": 4}
-_ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
-
-
-def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
-    return ((x << r) | (x >> (32 - r))) & _M32
-
-
-def threefry2x32(k0: torch.Tensor, k1: torch.Tensor, x0: torch.Tensor,
-                 x1: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Threefry-2x32 over broadcastable int64 words (jax's unrolled
-    `_threefry2x32_lowering`)."""
-    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
-    a = (x0 + ks[0]) & _M32
-    b = (x1 + ks[1]) & _M32
-    for i in range(5):
-        for r in _ROT[i % 2]:
-            a = (a + b) & _M32
-            b = _rotl(b, r) ^ a
-        a = (a + ks[(i + 1) % 3]) & _M32
-        b = (b + ks[(i + 2) % 3] + (i + 1)) & _M32
-    return a, b
+# the plain word hash, under its earlier name
+threefry2x32 = threefry2x32_ref
 
 
 def PRNGKey(seed: int, device: str | torch.device = "cpu",
@@ -86,34 +75,17 @@ def _is_rbg(key: torch.Tensor) -> bool:
     return impl_of(key) == "rbg"
 
 
-def _hash(key: torch.Tensor, hi, lo) -> tuple[torch.Tensor, torch.Tensor]:
-    """Hash counters (hi, lo) (shape `[n]`) under every key of the batch:
-    returns two words of shape `key.shape[:-1] + [n]`."""
-    k0 = key[..., 0:1]
-    k1 = key[..., 1:2]
-    return threefry2x32(k0, k1, hi, lo)
-
-
 def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
-    """`jax.random.fold_in(key, data)`."""
-    if _is_rbg(key):  # threefry's on both 2-word halves in one call
-        return fold_in(key.unflatten(-1, (2, 2)), data).flatten(-2)
-    zero = torch.zeros(1, dtype=torch.int64, device=key.device)
-    d = torch.full((1,), int(data) & _M32, dtype=torch.int64,
-                   device=key.device)
-    a, b = _hash(key, zero, d)
-    return torch.cat([a, b], dim=-1)
+    """`jax.random.fold_in(key, data)` (an rbg key: threefry's on both
+    2-word halves, in the same launch)."""
+    return _threefry(key, 1, int(data) & _M32)[..., 0, :]
 
 
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     """`jax.random.split(key, num)`: shape `key.shape[:-1] + [num, W]`
-    for keys of W words."""
-    if _is_rbg(key):  # threefry's on both 2-word halves in one call
-        halves = split(key.unflatten(-1, (2, 2)), num)  # [..., 2, num, 2]
-        return halves.movedim(-3, -2).flatten(-2)
-    lo = torch.arange(num, dtype=torch.int64, device=key.device)
-    a, b = _hash(key, torch.zeros_like(lo), lo)
-    return torch.stack([a, b], dim=-1)
+    for keys of W words (an rbg key: threefry's on both 2-word halves,
+    in the same launch)."""
+    return _threefry(key, num)
 
 
 def random_bits(key: torch.Tensor, shape: tuple[int, ...] = ()
@@ -123,20 +95,18 @@ def random_bits(key: torch.Tensor, shape: tuple[int, ...] = ()
     the leading dimensions)."""
     if _is_rbg(key):
         return rbg_random_bits(key, shape)
-    n = 1
-    for d in shape:
-        n *= int(d)
-    lo = torch.arange(n, dtype=torch.int64, device=key.device)
-    hi = lo >> 32
-    a, b = _hash(key, hi, lo & _M32)
-    return (a ^ b).reshape(tuple(key.shape[:-1]) + tuple(shape))
+    shape = tuple(int(d) for d in shape)
+    bits = _threefry(key, math.prod(shape), 0, "bits")
+    return bits.reshape(tuple(key.shape[:-1]) + shape)
 
 
 def uniform(key: torch.Tensor, shape: tuple[int, ...] = ()) -> torch.Tensor:
     """`jax.random.uniform(key, shape)` in float32 on [0, 1)."""
     if _is_rbg(key):
         return rbg_uniform(key, shape)
-    return bits_to_uniform(random_bits(key, shape))
+    shape = tuple(int(d) for d in shape)
+    u = _threefry(key, math.prod(shape), 0, "uniform")
+    return u.reshape(tuple(key.shape[:-1]) + shape)
 
 
 def exponential(key: torch.Tensor, shape: tuple[int, ...] = ()

@@ -347,15 +347,14 @@ class Trainer(abc.ABC):
         """(sequence keys, lane keys), [G*R, W] each, of an iteration."""
         if self.fixed_sequences:
             iteration = 0
-        master = self.seed_key("cpu")
+        master = self.seed_key()
         seq, lane = [], []
         for g in range(self.num_sequences):
             s = prng.fold_in(prng.fold_in(master, g), iteration)
             for r in range(self.num_rollouts):
                 seq.append(s)
                 lane.append(prng.fold_in(s, 1000 + r))
-        return (torch.stack(seq).to(self.device),
-                torch.stack(lane).to(self.device))
+        return torch.stack(seq), torch.stack(lane)
 
     def _collect(self, iteration: int, rng: torch.Tensor,
                  counts: dict | None = None):
