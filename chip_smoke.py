@@ -13,9 +13,11 @@ training as the config runs it (16 lanes, the flat single-eval collector,
 iterations with `rollout_steps` cut to 128, through
 `make_trainer(...).train()`: health 0, parameters finite and changed,
 both encoder kernels launched (forward in collection and update,
-backward in the update) and the three PRNG kernels (the rbg draws, the
-threefry hash of every split and fold_in, the engine's split_uniform),
-no plain version called, the train state stamped "rbg". The earlier paths
+backward in the update), the three PRNG kernels (the rbg draws, the
+threefry hash of every split and fold_in, the engine's split_uniform)
+and the fused bulk event pass (`bulk_events_fused`, one launch a pass,
+its uniforms drawn inside), no plain version called, the train state
+stamped "rbg". The earlier paths
 stay: Decima decisions served by `SessionStore(device="cuda")` at its
 default engine knobs (`SERVE_KNOBS`) and with the bulk knobs off
 (capacity 64 and max_batch 8 from the config's documented `serve:`
@@ -50,7 +52,12 @@ bit for bit against its plain version on 4,096 keys at odd counts (wrap
 keys among them) and at every draw shape training made; the threefry
 hash kernel and split_uniform likewise under both impls, on 4,096 keys
 with counters past 2^32 and at every hash and split-then-draw shape
-training made.
+training made. The fused bulk event kernel is held bit for bit against
+its plain version on every EnvState field of the pass's inputs captured
+on the card from `train` (rbg keys, and the same states with threefry
+keys), `lowprec` (the int16 bank) and `serve_front` (a serving store's
+gathered slots); every path that runs the engine must launch it and
+call no plain version of it.
 
 Phases, in order: `build`, `kernel_vs_plain`, `serve` (4 x 64 decisions
 at SERVE_KNOBS), `serve_knobs_off` (2 x 64), `serve_front` (the config's
@@ -106,7 +113,10 @@ with the resume held against an uninterrupted run), `eval_trained` (2
 held-out seeds on the card, both on the CPU; the forward kernel at
 trained weights against the float64 plain forward) and `telemetry_cost`
 (16 lanes x 8 rows, telemetry off and on: launches per row and rows
-per second).
+per second); `bulk_kernel` (the fused bulk event kernel against its
+plain version on the captured inputs, then timed against its bound and
+the plain version, and the wrapper's host cost) runs after
+`eval_trained`.
 
 Each phase prints one JSON line. Before the last line come the
 `{"kernels": [...]}` line (per kernel: launches on the main path and
@@ -116,8 +126,9 @@ torch.profiler at an update chunk, taken after the main path, the plain
 version's time and the least time the card could take; for the
 backward also its time, bound and scratch bytes at both timed chunks;
 for the rbg kernel its time, plain time, threefry time and bound at
-each timed draw shape; for the threefry hash kernel and split_uniform
-their time, wrapper-call time, plain time and bound at each timed shape)
+each timed draw shape; for the threefry hash kernel, split_uniform and
+bulk_events_fused their time, wrapper-call time, plain time and bound
+at each timed shape)
 and the card's
 name and power limit from nvidia-smi; the last line is
 `{"ok": true, "device": {...}}`. Any failed phase exits non-zero
@@ -224,6 +235,15 @@ PRNG_TIMED = 2
 # threefry2x32's integer work per hash (20 rounds of an add, a rotate and
 # a xor, 5 key injections of 2 adds and the counter's words), counted low
 TF_OPS_PER_HASH = 80
+# the fused bulk event pass: inputs captured at calls 0, 1, 3, 7, ...
+# of a path, the last BULK_KEEP kept per path; its integer work per
+# executor of a scan step (two passes over the finishes and two over the
+# arrivals), and the bank bytes one duration sample gathers besides its
+# `dur` entry (4 interval words, a presence byte, the level fallback, 3
+# wave counts, the rough duration and the scale)
+BULK_KEEP = 6
+BULK_OPS_PER_EXEC_STEP = 4
+BULK_BANK_BYTES = 16 + 1 + 4 + 12 + 4 + 4
 # the low-precision layouts: one iteration at TRAIN_STEPS, card against
 # CPU on PARITY_LANES lanes
 LOWPREC_ENV = {"bank_dtype": "int16", "obs_dtype": "bfloat16"}
@@ -720,6 +740,24 @@ def _check_no_plain_and_launched(name: str, launches: int, plain: int,
         raise AssertionError(f"{name}: no decima_node_encoder launch")
 
 
+def bulk_plain_calls() -> int:
+    from sparksched_tpu_torch.kernels.bulk_events import bulk_events_fused
+
+    return bulk_events_fused.plain_calls
+
+
+def _check_bulk(name: str, launches: dict, plain0: int, device: str) -> None:
+    """On the card the path ran the fused bulk pass as its kernel: at
+    least one launch, and no plain call since `plain0`."""
+    if device != "cuda":  # a CPU rehearsal runs the plain version
+        return
+    plain = bulk_plain_calls() - plain0
+    if plain or launches.get("bulk_events_fused", 0) <= 0:
+        raise AssertionError(f"{name}: {launches.get('bulk_events_fused')} "
+                             f"bulk_events_fused launches, {plain} plain "
+                             "calls")
+
+
 def _slot_bytes(ls, lane: int) -> list:
     from sparksched_tpu_torch.env.flat_loop import leaves
 
@@ -812,16 +850,18 @@ def phase_serve_front(params, bank, sched, device: str = "cuda") -> dict:
         torch.cuda.synchronize()
     setup_s = time.perf_counter() - t_phase
     decima_node_encoder.launches = 0  # this path's launches only
-    zero_prng_launches()
-    with PlainCalls() as plain:
+    zero_engine_launches()
+    bulk0 = bulk_plain_calls()
+    with PlainCalls() as plain, BulkCapture("serve"):
         for name, store in stores.items():
             t = time.perf_counter()
             runs[name] = run_open_loop(store, store._front, arrivals,
                                        session_seed=20_000)
             runs[name]["seconds"] = time.perf_counter() - t
     launches = decima_node_encoder.launches
-    prng_n = prng_launches()
+    engine_n = engine_launches()
     _check_no_plain_and_launched("serve_front", launches, plain.n, device)
+    _check_bulk("serve_front", engine_n, bulk0, device)
     rows = {}
     for name, out in runs.items():
         st = stores[name]
@@ -912,7 +952,7 @@ def phase_serve_front(params, bank, sched, device: str = "cuda") -> dict:
            "fronts": SERVE_FRONTS, "tenants": LOAD_TENANTS,
            "offered_rps": LOAD_RPS, "requests_per_front": LOAD_REQUESTS,
            "runs": rows, "encoder_launches": launches,
-           "prng_launches": prng_n,
+           "engine_launches": engine_n,
            "plain_encoder_calls": plain.n, "kernel_vs_plain": errs,
            "tolerance": TOL, "page_round_trip": round_trip,
            "replay": {"batches": len(batches), "decisions": len(got),
@@ -927,7 +967,7 @@ def phase_serve_front(params, bank, sched, device: str = "cuda") -> dict:
            "setup_s": setup_s, "seconds": time.perf_counter() - t_phase,
            "card": card_line() if device == "cuda" else "cpu"}
     emit(out)
-    return {"decima_node_encoder": launches, **prng_n,
+    return {"decima_node_encoder": launches, **engine_n,
             "max_abs_err": max(e["max_abs_err"] for e in errs.values())}
 
 
@@ -938,6 +978,7 @@ def phase_serve_http(params, bank, sched, device: str = "cuda") -> dict:
     each, one request at a time, and every decision must equal an
     in-process twin store's at the same seeds bit for bit; `/healthz`
     and `/metrics` must answer."""
+    from sparksched_tpu_torch.kernels.bulk_events import bulk_events_fused
     from sparksched_tpu_torch.kernels.decima_encoder import decima_node_encoder
     from sparksched_tpu_torch.obs.metrics import MetricsRegistry
     from sparksched_tpu_torch.serve import front_from_config, store_from_config
@@ -954,6 +995,8 @@ def phase_serve_http(params, bank, sched, device: str = "cuda") -> dict:
     try:
         with ServeClient("127.0.0.1", server.port) as client:
             decima_node_encoder.launches = 0  # this path's launches only
+            bulk_events_fused.launches = 0
+            bulk0 = bulk_plain_calls()
             with PlainCalls() as plain:
                 t = time.perf_counter()
                 sids = [client.create(seed=40_000 + i, tenant=i)
@@ -968,8 +1011,11 @@ def phase_serve_http(params, bank, sched, device: str = "cuda") -> dict:
                         wire.append(tk.result.to_dict())
                 wire_s = time.perf_counter() - t
             launches = decima_node_encoder.launches
+            bulk_n = bulk_events_fused.launches
             _check_no_plain_and_launched("serve_http", launches, plain.n,
                                          device)
+            _check_bulk("serve_http", {"bulk_events_fused": bulk_n}, bulk0,
+                        device)
             health = client.healthz()
             metrics = client.metrics_text()
             for sid in sids:
@@ -997,10 +1043,11 @@ def phase_serve_http(params, bank, sched, device: str = "cuda") -> dict:
            "wire_decisions_per_s": len(wire) / wire_s,
            "healthz": health, "metrics_bytes": len(metrics),
            "encoder_launches": launches, "plain_encoder_calls": plain.n,
+           "bulk_events_fused_launches": bulk_n,
            "seconds": time.perf_counter() - t_phase,
            "card": card_line() if device == "cuda" else "cpu"}
     emit(out)
-    return {"decima_node_encoder": launches}
+    return {"decima_node_encoder": launches, "bulk_events_fused": bulk_n}
 
 
 # the online loop: the config's documented `online:` block, over the
@@ -1125,7 +1172,8 @@ def phase_online(params, bank, agent, device: str = "cuda") -> dict:
         torch.cuda.synchronize()
     decima_node_encoder.launches = 0  # this path's launches only
     decima_node_encoder_bwd.launches = 0
-    zero_prng_launches()
+    zero_engine_launches()
+    bulk0 = bulk_plain_calls()
     with PlainCalls() as plain:
         learner.start_background()
         t = time.perf_counter()
@@ -1140,11 +1188,12 @@ def phase_online(params, bank, agent, device: str = "cuda") -> dict:
         drain_s = time.perf_counter() - t
         bus.pump()  # the last publish, if one is pending
     fwd, bwd = decima_node_encoder.launches, decima_node_encoder_bwd.launches
-    prng_n = prng_launches()
+    engine_n = engine_launches()
     if learner.error is not None:
         raise AssertionError(f"online: the learner thread raised "
                              f"{learner.error!r}")
     _check_no_plain_and_launched("online", fwd, plain.n, device)
+    _check_bulk("online", engine_n, bulk0, device)
     if device == "cuda" and bwd <= 0:
         raise AssertionError("online: no decima_node_encoder_bwd launch")
     st = store.stats
@@ -1256,7 +1305,7 @@ def phase_online(params, bank, agent, device: str = "cuda") -> dict:
                               "n": len(ingest_ms)},
            "ring_final_drain_ms": drain_s * 1e3,
            "encoder_launches": fwd, "encoder_bwd_launches": bwd,
-           "prng_launches": prng_n,
+           "engine_launches": engine_n,
            "plain_encoder_calls": plain.n, "replay": replay,
            "learner_card_vs_cpu": {
                "stats": {k: (ci[k], hi[k]) for k in
@@ -1268,7 +1317,7 @@ def phase_online(params, bank, agent, device: str = "cuda") -> dict:
            "card": card_line() if device == "cuda" else "cpu"}
     emit(out)
     return {"decima_node_encoder": fwd, "decima_node_encoder_bwd": bwd,
-            **prng_n}
+            **engine_n}
 
 
 # the replica fleet: the serve: block (continuous front, traced) with the
@@ -1559,7 +1608,9 @@ def phase_serve_fleet(params, bank, sched, agent, device: str = "cuda",
         counts = router.kernel_counts()
         for i, c in enumerate(counts):
             if device == "cuda" and (c["decima_node_encoder"] <= 0
-                                     or c["decima_node_encoder_plain"]):
+                                     or c["decima_node_encoder_plain"]
+                                     or c["bulk_events_fused"] <= 0
+                                     or c["bulk_events_fused_plain"]):
                 raise AssertionError(f"serve_fleet: replica {i} kernels {c}")
         parent_fwd = decima_node_encoder.launches
         parent_bwd = decima_node_encoder_bwd.launches
@@ -1639,7 +1690,8 @@ def phase_serve_fleet(params, bank, sched, agent, device: str = "cuda",
            "card": card_line() if device == "cuda" else "cpu"}
     emit(out)
     return {"decima_node_encoder": fwd,
-            "decima_node_encoder_bwd": parent_bwd}
+            "decima_node_encoder_bwd": parent_bwd,
+            "bulk_events_fused": sum(c["bulk_events_fused"] for c in counts)}
 
 
 # ---------------------------------------------------------------------------
@@ -2061,26 +2113,26 @@ class PlainCalls:
         de.decima_node_encoder_ref, de.decima_node_encoder_bwd_ref = self._orig
 
 
-PRNG_KERNELS = ("rbg_random_bits", "threefry2x32", "split_uniform")
-
-
-def prng_wrappers() -> dict:
-    """name -> the wrapper of each PRNG kernel (its `launches` and
-    `plain_calls` counters)."""
-    from sparksched_tpu_torch.kernels import rbg, threefry
+def engine_wrappers() -> dict:
+    """name -> the wrapper of each kernel the engine and the key chain
+    launch (its `launches` and `plain_calls` counters): the three PRNG
+    kernels and the fused bulk event pass, which draws its own
+    uniforms."""
+    from sparksched_tpu_torch.kernels import bulk_events, rbg, threefry
 
     return {"rbg_random_bits": rbg.rbg_random_bits,
             "threefry2x32": threefry.threefry2x32,
-            "split_uniform": rbg.split_uniform}
+            "split_uniform": rbg.split_uniform,
+            "bulk_events_fused": bulk_events.bulk_events_fused}
 
 
-def zero_prng_launches() -> None:
-    for fn in prng_wrappers().values():
+def zero_engine_launches() -> None:
+    for fn in engine_wrappers().values():
         fn.launches = 0
 
 
-def prng_launches() -> dict:
-    return {n: fn.launches for n, fn in prng_wrappers().items()}
+def engine_launches() -> dict:
+    return {n: fn.launches for n, fn in engine_wrappers().items()}
 
 
 class PrngDraws:
@@ -2102,7 +2154,7 @@ class PrngDraws:
         self.su: collections.Counter = collections.Counter()
         self._rbg, self._prng = rbg, prng
         self._orig = (rbg._draw, prng._threefry, prng.split_uniform)
-        self._plain0 = sum(f.plain_calls for f in prng_wrappers().values())
+        self._plain0 = sum(f.plain_calls for f in engine_wrappers().values())
         draw0, tf0, su0 = self._orig
 
         def draw(keys, shape, uniform):
@@ -2128,12 +2180,55 @@ class PrngDraws:
 
     @property
     def plain(self) -> int:
-        return (sum(f.plain_calls for f in prng_wrappers().values())
+        return (sum(f.plain_calls for f in engine_wrappers().values())
                 - self._plain0)
 
     def __exit__(self, *exc):
         (self._rbg._draw, self._prng._threefry,
          self._prng.split_uniform) = self._orig
+
+
+BULK_CAPTURES: dict[str, list] = {}
+
+
+class BulkCapture:
+    """While active: the inputs of the fused bulk pass's calls 0, 1, 3,
+    7, ... on the card (through `flat_loop._bulk_events_fused`, the name
+    every caller uses), cloned, the last BULK_KEEP kept in
+    BULK_CAPTURES[name]."""
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        import dataclasses
+
+        from sparksched_tpu_torch.env import flat_loop
+
+        self._fl, self._orig = flat_loop, flat_loop._bulk_events_fused
+        kept = BULK_CAPTURES.setdefault(self.name, [])
+        calls = [0]
+        orig = self._orig
+
+        def capture(params, bank, state, enabled, stop_at_limit=False,
+                    max_events=8):
+            i = calls[0]
+            calls[0] += 1
+            if state.rng.device.type == "cuda" and i & (i + 1) == 0:
+                st = state.replace(**{
+                    f.name: getattr(state, f.name).clone()
+                    for f in dataclasses.fields(state)})
+                kept.append((params, bank, st, enabled.clone(),
+                             stop_at_limit, max_events))
+                del kept[:-BULK_KEEP]
+            return orig(params, bank, state, enabled,
+                        stop_at_limit=stop_at_limit, max_events=max_events)
+
+        flat_loop._bulk_events_fused = capture
+        return self
+
+    def __exit__(self, *exc):
+        self._fl._bulk_events_fused = self._orig
 
 
 def phase_train() -> dict:
@@ -2193,13 +2288,13 @@ def phase_train() -> dict:
     torch.cuda.reset_peak_memory_stats()
     decima_node_encoder.launches = 0
     decima_node_encoder_bwd.launches = 0
-    zero_prng_launches()
-    with PlainCalls() as plain, PrngDraws() as draws:
+    zero_engine_launches()
+    with PlainCalls() as plain, PrngDraws() as draws, BulkCapture("train"):
         state = trainer.train(callback=report)
     torch.cuda.synchronize()
     launches = {"decima_node_encoder": decima_node_encoder.launches,
                 "decima_node_encoder_bwd": decima_node_encoder_bwd.launches,
-                **prng_launches()}
+                **engine_launches()}
     if plain.n or draws.plain:
         raise AssertionError(f"the plain encoder ran {plain.n} times, the "
                              f"plain PRNG versions {draws.plain} times on "
@@ -2521,7 +2616,7 @@ def phase_train_resume() -> dict:
     applied = []
     decima_node_encoder.launches = 0
     decima_node_encoder_bwd.launches = 0
-    zero_prng_launches()
+    zero_engine_launches()
     with PlainCalls() as plain, PrngDraws() as draws:
         ta = trainer_at("full", 2)
         p0 = {k: v.detach().cpu().clone()
@@ -2535,7 +2630,7 @@ def phase_train_resume() -> dict:
         torch.cuda.synchronize()
     launches = {"decima_node_encoder": decima_node_encoder.launches,
                 "decima_node_encoder_bwd": decima_node_encoder_bwd.launches,
-                **prng_launches()}
+                **engine_launches()}
     if plain.n or draws.plain or min(launches.values()) <= 0:
         raise AssertionError(f"resume path: launches {launches}, plain "
                              f"calls {plain.n} + {draws.plain}")
@@ -2814,6 +2909,172 @@ def phase_prng(train: dict) -> dict:
     return out
 
 
+def _bulk_unequal(got, want) -> list[str]:
+    """The EnvState fields (and counts) of two fused passes that are not
+    bit-equal (floats compared as their bits)."""
+    import dataclasses
+
+    import torch
+
+    def bits(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+    bad = [f.name for f in dataclasses.fields(got[0])
+           if not torch.equal(bits(getattr(got[0], f.name)),
+                              bits(getattr(want[0], f.name)))]
+    return bad + [n for n, a, b in (("k_rel", got[1], want[1]),
+                                    ("k_rdy", got[2], want[2]))
+                  if not torch.equal(a, b)]
+
+
+def bulk_work(bank, st, got, enabled) -> tuple[int, int]:
+    """(bytes, integer operations) this pass's data needs: every field
+    the pass writes read and written once (whole: the outputs are new
+    tensors), the executor, job and lane inputs it reads once, and, for
+    each stage a launch or an arrival touched, its `adj` row and four
+    per-stage facts; for each launch one bank gather (BULK_BANK_BYTES and
+    its `dur` entry). Operations: each lane's scan steps (its events, and
+    one more that stops it) of BULK_OPS_PER_EXEC_STEP per executor, and
+    the hashes: under threefry two a launch and two a lane (its second
+    and next key), under rbg a Philox block a launch and three hashes a
+    lane (lane 0's second key, the next key's two halves)."""
+    from sparksched_tpu_torch.kernels.bulk_events import OUT_FIELDS
+
+    out, k_rel, k_rdy = got
+
+    def nbytes(t) -> int:
+        return t.numel() * t.element_size()
+
+    nb = sum(nbytes(getattr(st, f)) * 2 for f in OUT_FIELDS)
+    nb += nbytes(k_rel) + nbytes(k_rdy) + nbytes(enabled)
+    nb += sum(nbytes(getattr(st, f)) for f in (
+        "time_limit", "job_template", "job_arrival_time", "job_arrival_seq",
+        "job_arrived", "exec_dst_job", "exec_dst_stage", "exec_arrive_seq",
+        "source_valid", "source_job", "source_stage"))
+    touched = int(((out.stage_remaining != st.stage_remaining)
+                   | (out.moving_count != st.moving_count)).sum())
+    nb += touched * (st.adj.shape[-1] + 1 + 4 + 4 + 4)
+    launches = int((out.seq_counter - st.seq_counter).sum())
+    nb += launches * (BULK_BANK_BYTES + bank.dur.element_size())
+    lanes, n = st.exec_job.shape
+    steps = int((k_rel + k_rdy).sum() + enabled.sum())
+    ops = steps * n * BULK_OPS_PER_EXEC_STEP
+    if st.rng.shape[-1] == 4:
+        ops += launches * RBG_OPS_PER_BLOCK + 3 * lanes * TF_OPS_PER_HASH
+    else:
+        ops += (2 * launches + 2 * lanes) * TF_OPS_PER_HASH
+    return nb, ops
+
+
+def _arena_outputs(st) -> list:
+    """The kernel's outputs as views of one buffer (the allocation the
+    wrapper could make instead of one `empty_like` a field): for the
+    host-cost comparison only."""
+    import torch
+
+    from sparksched_tpu_torch.kernels.bulk_events import OUT_FIELDS
+
+    like = [getattr(st, f) for f in OUT_FIELDS] + [st.seq_counter] * 2
+    sizes = [-(-t.numel() * t.element_size() // 8) * 8 for t in like]
+    buf = torch.empty(sum(sizes), dtype=torch.uint8, device=st.rng.device)
+    return [v.view(t.dtype).view(t.shape)
+            for v, t in zip(buf.split(sizes), like)]
+
+
+def phase_bulk_kernel() -> dict:
+    """The fused bulk event kernel (`bulk_events_fused`) against its plain
+    version (`core._bulk_events_fused_ref`) on the card, then timed.
+    Bit-equal on every EnvState field, k_rel and k_rdy, on the pass's
+    inputs captured from the card's paths (BulkCapture): `train` (rbg
+    keys, and the same states with their threefry words), `lowprec` (the
+    int16 bank, rbg) and `serve_front` (a serving store's gathered
+    slots, threefry). Timed on the `train` capture that consumed the most
+    events, under both impls: the kernel's own device time (`ms`,
+    `ms_from` as in `rbg`), a whole wrapper call (`call_ms`, CUDA
+    events), the plain version on the card (`plain_ms`) and the bound
+    (`bulk_work` over the HBM rate or the INT32 rate); and the host cost
+    of the wrapper's argument packing with its 23 `empty_like` outputs
+    against one arena split into views (`host_us`). No PyTorch call
+    computes this pass, so `library_ms` is None."""
+    import torch
+
+    from sparksched_tpu_torch.env.core import _bulk_events_fused_ref
+    from sparksched_tpu_torch.kernels import bulk_events as bk
+
+    t_phase = time.perf_counter()
+    cases = {}
+    for name, cap in (("train", "train"), ("lowprec_int16", "lowprec"),
+                      ("serve", "serve")):
+        if not BULK_CAPTURES.get(cap):
+            raise AssertionError(f"bulk_kernel: no capture from {cap}")
+        impls = ("rbg", "threefry") if name == "train" else (
+            "threefry" if BULK_CAPTURES[cap][0][2].rng.shape[-1] == 2
+            else "rbg",)
+        for impl in impls:
+            rows = []
+            for p, b, st, on, stop, me in BULK_CAPTURES[cap]:
+                if impl == "threefry" and st.rng.shape[-1] == 4:
+                    st = st.replace(rng=st.rng[:, :2].contiguous())
+                rows.append((p, b, st, on, stop, me))
+            cases[f"{name}_{impl}"] = rows
+    checked, top = {}, {}
+    for key, rows in cases.items():
+        events = 0
+        for p, b, st, on, stop, me in rows:
+            got = bk.bulk_events_fused(p, b, st, on, stop, me)
+            want = _bulk_events_fused_ref(p, b, st, on, stop_at_limit=stop,
+                                          max_events=me)
+            bad = _bulk_unequal(got, want)
+            if bad:
+                raise AssertionError(f"bulk_kernel {key}: the kernel differs "
+                                     f"from the plain version at {bad}")
+            k = int((got[1] + got[2]).sum())
+            events += k
+            if key.startswith("train") and k > top.get(key, (-1,))[0]:
+                top[key] = (k, (p, b, st, on, stop, me), got)
+        if events <= 0:
+            raise AssertionError(f"bulk_kernel {key}: no event consumed")
+        checked[key] = {"calls": len(rows), "events": events,
+                        "lanes": int(rows[0][2].rng.shape[0]),
+                        "bank_dur": str(rows[0][1].dur.dtype)}
+    at = {}
+    for key, (k, (p, b, st, on, stop, me), got) in top.items():
+        def kern():
+            return bk.bulk_events_fused(p, b, st, on, stop, me)
+
+        def plain():
+            return _bulk_events_fused_ref(p, b, st, on, stop_at_limit=stop,
+                                          max_events=me)
+
+        ms, _, ms_from = kernel_ms(kern, 50, "bulk_events_fused_kernel")
+        at[key] = {"lanes": int(st.rng.shape[0]), "events": k,
+                   "executors": int(st.exec_job.shape[1]),
+                   "stages": list(st.stage_remaining.shape[1:]),
+                   "max_events": me, "ms": ms, "ms_from": ms_from,
+                   "call_ms": cuda_ms(kern, 200),
+                   "plain_ms": cuda_ms(plain, 10),
+                   **int_bound(*bulk_work(b, st, got, on))}
+    p, b, st, on, stop, me = top["train_rbg"][1]
+    host = {}
+    for how, fn in (("pack_empty_like", lambda: bk.pack(p, b, st, on, stop,
+                                                        me)),
+                    ("arena_views", lambda: _arena_outputs(st)),
+                    ("empty_like_only", lambda: [
+                        torch.empty_like(getattr(st, f))
+                        for f in bk.OUT_FIELDS])):
+        fn()
+        t = time.perf_counter()
+        for _ in range(500):
+            fn()
+        host[how] = (time.perf_counter() - t) / 500 * 1e6
+    torch.cuda.synchronize()
+    out = {"phase": "bulk_kernel", "checked": checked, "max_abs_err": 0,
+           "timed": at, "host_us": host,
+           "seconds": time.perf_counter() - t_phase, "card": card_line()}
+    emit(out)
+    return out
+
+
 def phase_lowprec(train: dict) -> dict:
     """`bank_dtype: int16` and `obs_dtype: bfloat16` (LOWPREC_ENV) on the
     flagship config: one iteration through `make_trainer(...).train()` at
@@ -2848,13 +3109,13 @@ def phase_lowprec(train: dict) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     decima_node_encoder.launches = 0
-    zero_prng_launches()
-    with PlainCalls() as plain, PrngDraws() as draws:
+    zero_engine_launches()
+    with PlainCalls() as plain, PrngDraws() as draws, BulkCapture("lowprec"):
         trainer.train(callback=lambda i, st, s: stats.update(s))
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     launches = {"decima_node_encoder": decima_node_encoder.launches,
-                **prng_launches()}
+                **engine_launches()}
     ro = trainer.last_rollout
     if (ro.obs.duration.dtype != torch.bfloat16 or stats["health_mask"]
             or plain.n or draws.plain or min(launches.values()) <= 0):
@@ -2960,7 +3221,7 @@ def phase_chaos() -> dict:
     t_phase = time.perf_counter()
     root = tempfile.mkdtemp(prefix="chaos_", dir=TMP_ROOT)
     decima_node_encoder.launches = decima_node_encoder_bwd.launches = 0
-    zero_prng_launches()
+    zero_engine_launches()
     art = os.path.join(root, "faults")
     t = make_trainer(_chaos_cfg(art, CHAOS_ITERS, CHAOS_FAULTS), "cuda")
     state = t.train()
@@ -3045,7 +3306,7 @@ def phase_chaos() -> dict:
     # this process's launches (the sigkill child's are its own)
     launches = {"decima_node_encoder": decima_node_encoder.launches,
                 "decima_node_encoder_bwd": decima_node_encoder_bwd.launches,
-                **prng_launches()}
+                **engine_launches()}
     out["kernel_launches"] = launches
     emit(out)
     return launches
@@ -3153,18 +3414,22 @@ def phase_eval_trained() -> dict:
     import numpy as np
 
     from sparksched_tpu_torch import evaluate as ev
+    from sparksched_tpu_torch.kernels.bulk_events import bulk_events_fused
     from sparksched_tpu_torch.kernels.decima_encoder import (
         decima_node_encoder,
     )
 
     t_phase = time.perf_counter()
-    decima_node_encoder.launches = 0
+    decima_node_encoder.launches = bulk_events_fused.launches = 0
+    bulk0 = bulk_plain_calls()
     with PlainCalls() as plain:
         res = ev.evaluate(EVAL_MODEL, EVAL_SEEDS, device="cuda")
     launches = decima_node_encoder.launches
+    bulk_n = bulk_events_fused.launches
     if plain.n or launches <= 0:
         raise AssertionError(f"evaluation: {launches} forward launches, "
                              f"{plain.n} plain calls")
+    _check_bulk("eval_trained", {"bulk_events_fused": bulk_n}, bulk0, "cuda")
     card_s = time.perf_counter() - t_phase
     for name in ("fair", "decima"):
         if not res[name]["all_done"]:
@@ -3222,10 +3487,11 @@ def phase_eval_trained() -> dict:
            "min_gap": res["decima"]["min_gap"], "tie_gap": ev.TIE_GAP,
            "card_vs_cpu": parity, "fwd_vs_plain64": fwd,
            "encoder_launches": launches, "plain_encoder_calls": plain.n,
+           "bulk_events_fused_launches": bulk_n,
            "card_seconds": card_s, "cpu_seconds": cpu_s,
            "seconds": time.perf_counter() - t_phase}
     emit(out)
-    return {"decima_node_encoder": launches}
+    return {"decima_node_encoder": launches, "bulk_events_fused": bulk_n}
 
 
 # ---------------------------------------------------------------------------
@@ -3352,6 +3618,7 @@ def main() -> int:
                  "lowprec": phase_lowprec(train),
                  "chaos": phase_chaos(),
                  "eval_trained": phase_eval_trained()}
+        bulk = phase_bulk_kernel()
         phase_telemetry_cost()
     except Exception:
         traceback.print_exc()
@@ -3438,9 +3705,29 @@ def main() -> int:
          next(iter(prng_out["timed"]["threefry2x32"].values()))),
         ("split_uniform", "sparksched_tpu_torch/csrc/rbg_philox.cu",
          "sparksched_tpu/env/core.py:259-264 (jax.random.split then "
-         "jax.random.uniform; also :575-579, :1120-1123, :1319-1322, "
-         ":1570-1574)",
-         next(iter(prng_out["timed"]["split_uniform"].values())))))]})
+         "jax.random.uniform; also :575-579, :1120-1123, :1319-1322; "
+         "the fused pass's :1570-1574 is bulk_events_fused's)",
+         next(iter(prng_out["timed"]["split_uniform"].values()))))), {
+        "name": "bulk_events_fused",
+        "route": "cuda",
+        "source": "sparksched_tpu_torch/csrc/bulk_events.cu",
+        "replaces": "sparksched_tpu/env/core.py:1478-1740 (_bulk_events_fused: "
+                    "jax.random.split + uniform at :1570-1574, the lax.scan "
+                    "at :1672, sample_task_duration and sample_executor_key "
+                    "at sparksched_tpu/workload/sampling.py:74, :45; "
+                    "XLA-compiled)",
+        "launches": train["launches"]["bulk_events_fused"],
+        "launches_by_path": {p: n["bulk_events_fused"]
+                             for p, n in paths.items()
+                             if "bulk_events_fused" in n},
+        "max_abs_err": bulk["max_abs_err"],
+        "ms": bulk["timed"]["train_rbg"]["ms"],
+        "plain_ms": bulk["timed"]["train_rbg"]["plain_ms"],
+        "bound_ms": bulk["timed"]["train_rbg"]["bound_ms"],
+        "bound_by": bulk["timed"]["train_rbg"]["bound_by"],
+        "library_ms": None,
+        "at": bulk["timed"],
+    }]})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

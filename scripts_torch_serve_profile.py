@@ -18,7 +18,10 @@ calls three ways and prints one JSON line each:
   event-drain iterations per call.
 - `profile`: `torch.profiler` over the same calls: device-busy time (sum
   of kernel durations), the device's idle share of the wall time, kernel
-  launches per call, and the top kernels and host ops.
+  launches per call, and the top kernels and host ops; and the fused
+  bulk event pass, each call inside a `record_function` range
+  `engine.bulk_events_fused` (through `flat_loop._bulk_events_fused`):
+  its calls, host ms, torch ops and kernel launches per call.
 - `launches`: host-dispatched torch ops per drain iteration, counted
   with a dispatch mode on one call.
 
@@ -43,7 +46,8 @@ def main() -> int:
 
     sys.path.insert(0, HERE)
     import chip_smoke as cs
-    from torch.profiler import ProfilerActivity, profile
+    from scripts_torch_train_profile import BULK_RANGE, LAUNCH_NAMES, inside
+    from torch.profiler import ProfilerActivity, profile, record_function
     from torch.utils._python_dispatch import TorchDispatchMode
 
     from sparksched_tpu_torch.env import flat_loop
@@ -117,14 +121,25 @@ def main() -> int:
     # --- profile: device busy share and kernel launches --------------------
     sync()
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_card else [])
+    orig_bulk = flat_loop._bulk_events_fused
+
+    def ranged(*a, **k):
+        with record_function(BULK_RANGE):
+            return orig_bulk(*a, **k)
+
+    flat_loop._bulk_events_fused = ranged
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for i in range(args.calls):
             store.decide_batch(groups[i % len(groups)])
         sync()
         wall = time.perf_counter() - t0
+    flat_loop._bulk_events_fused = orig_bulk
+    # the device's kernel records, without the `record_function` range's
+    # annotation on the device timeline (no device work)
     kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.is_user_annotation]
     busy_us = sum(e.time_range.elapsed_us() for e in kernels)
     by_kernel: dict[str, list[float]] = {}
     for e in kernels:
@@ -134,6 +149,10 @@ def main() -> int:
     top_dev = sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[:8]
     host = prof.key_averages()
     top_host = sorted(host, key=lambda a: -a.cpu_time_total)[:8]
+    cpu = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CPU]
+    passes = [e for e in cpu if e.name == BULK_RANGE]
+    n = args.calls
     print(json.dumps({
         "phase": "profile", "knobs": args.knobs, "calls": args.calls,
         "wall_ms_per_call": wall / args.calls * 1e3,
@@ -145,6 +164,14 @@ def main() -> int:
         "top_host_ops": [{"name": a.key, "calls": a.count,
                           "cpu_ms": a.cpu_time_total / 1e3}
                          for a in top_host],
+        "bulk_events_fused": {
+            "calls_per_call": len(passes) / n,
+            "host_ms_per_call": sum(e.time_range.elapsed_us()
+                                    for e in passes) / 1e3 / n,
+            "aten_ops_per_call": len(inside(
+                [e for e in cpu if e.name.startswith("aten::")], passes)) / n,
+            "kernel_launches_per_call": len(inside(
+                [e for e in cpu if e.name in LAUNCH_NAMES], passes)) / n},
         "card": card,
     }), flush=True)
     if args.trace:

@@ -29,7 +29,11 @@ cut to `--steps` (9600 is the config's own) and, for each PRNG impl of
    `uniform`, the draws: the rbg kernel or the threefry hash kernel;
    `split_uniform`, the engine's split-then-draw kernel), each counted
    once at its outermost call, and each PRNG kernel's device records
-   and device ms per row;
+   and device ms per row; and the fused bulk event pass, each call
+   inside a `record_function` range `engine.bulk_events_fused` (its
+   callers' name, `flat_loop._bulk_events_fused`): calls, host ms, torch
+   ops and kernel launches inside the ranges per row, and the
+   `bulk_events_fused` kernel's device records and ms per row;
 4. torch.profiler over the update of that collection: each encoder
    kernel's launches and mean device time there.
 
@@ -70,15 +74,21 @@ def save(path: str, out: dict) -> None:
 
 
 def cuda_events(prof):
+    """The device's kernel records. A `record_function` range also shows
+    on the device timeline (a user annotation spanning its kernels); it
+    is no device work, so it is left out."""
     import torch
 
     return [e for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.is_user_annotation]
 
 
 PRNG_FNS = ("split", "fold_in", "random_bits", "uniform", "split_uniform")
 PRNG_KERNELS = ("threefry2x32_kernel", "split_uniform_kernel",
-                "rbg_philox_kernel")
+                "rbg_philox_kernel", "bulk_events_fused_kernel")
+LAUNCH_NAMES = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC")
+BULK_RANGE = "engine.bulk_events_fused"
 LOWPREC_ENV = {"bank_dtype": "int16", "obs_dtype": "bfloat16"}
 
 
@@ -115,6 +125,56 @@ class PrngRanges:
         self.orig = {}
 
 
+class BulkRange:
+    """While installed: each call of the fused bulk pass through its
+    callers' name (`flat_loop._bulk_events_fused`) runs inside a
+    `record_function` range BULK_RANGE."""
+
+    def install(self):
+        from torch.profiler import record_function
+
+        from sparksched_tpu_torch.env import flat_loop
+
+        self.flat_loop, self.orig = flat_loop, flat_loop._bulk_events_fused
+
+        def ranged(*a, **k):
+            with record_function(BULK_RANGE):
+                return self.orig(*a, **k)
+
+        flat_loop._bulk_events_fused = ranged
+
+    def remove(self):
+        if getattr(self, "orig", None) is not None:
+            self.flat_loop._bulk_events_fused = self.orig
+            self.orig = None
+
+
+def inside(events, ranges) -> list:
+    """The events whose start lies inside one of `ranges` (CPU events)."""
+    import bisect
+
+    spans = sorted((r.time_range.start, r.time_range.end) for r in ranges)
+    starts = [a for a, _ in spans]
+    out = []
+    for e in events:
+        i = bisect.bisect_right(starts, e.time_range.start) - 1
+        if i >= 0 and e.time_range.start <= spans[i][1]:
+            out.append(e)
+    return out
+
+
+def bulk_counter():
+    """The fused bulk kernel's wrapper (its `launches`), or None on a tree
+    without it (the parent of an A/B pair, where the plain pass runs)."""
+    try:
+        from sparksched_tpu_torch.kernels.bulk_events import (
+            bulk_events_fused,
+        )
+    except ImportError:
+        return None
+    return bulk_events_fused
+
+
 def build_trainer(steps: int, impl: str, env: dict | None = None):
     from sparksched_tpu_torch.config import load
     from sparksched_tpu_torch.trainers import make_trainer
@@ -148,6 +208,9 @@ def profile_impl(args, impl: str) -> dict:
     decima_node_encoder.launches = decima_node_encoder_bwd.launches = 0
     rbg_random_bits.launches = threefry2x32.launches = 0
     split_uniform.launches = 0
+    bulk = bulk_counter()
+    if bulk is not None:
+        bulk.launches = 0
     stats = {}
     trainer.train(callback=lambda i, st, s: stats.update(s))
     it = {k: stats[k] for k in (
@@ -161,6 +224,7 @@ def profile_impl(args, impl: str) -> dict:
     it["rbg_launches"] = rbg_random_bits.launches
     it["threefry_launches"] = threefry2x32.launches
     it["split_uniform_launches"] = split_uniform.launches
+    it["bulk_events_fused_launches"] = bulk.launches if bulk else 0
     out["iteration"] = it
     print(json.dumps({"phase": "iteration", "prng_impl": impl, **it}),
           flush=True)
@@ -172,7 +236,7 @@ def profile_impl(args, impl: str) -> dict:
     mid = max(0, args.split_rows // 2 - args.window // 2)
     calls = {"rows": 0}
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-    ranges = PrngRanges()
+    ranges, bulk_range = PrngRanges(), BulkRange()
     window = {}
 
     def timed(key, fn):
@@ -190,6 +254,7 @@ def profile_impl(args, impl: str) -> dict:
         if n == mid:
             torch.cuda.synchronize()
             ranges.install()
+            bulk_range.install()
             prof.start()
             window["t0"] = time.perf_counter()
         if n == mid + args.window:
@@ -197,6 +262,7 @@ def profile_impl(args, impl: str) -> dict:
             window["wall"] = time.perf_counter() - window["t0"]
             prof.stop()
             ranges.remove()
+            bulk_range.remove()
         calls["rows"] += 1
         return timed("policy_s", orig[0])(*a, **k)
 
@@ -215,6 +281,7 @@ def profile_impl(args, impl: str) -> dict:
         sched.batch_policy = orig[0]
         tro.decide_micro_step, tro.drain_to_decision = orig[1], orig[2]
         ranges.remove()
+        bulk_range.remove()
     rows = calls["rows"]
     out["split"] = {
         "rows": rows, "wall_s": wall, "ms_per_row": wall / rows * 1e3,
@@ -229,9 +296,7 @@ def profile_impl(args, impl: str) -> dict:
         cpu = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CPU]
         ops = [e for e in cpu if e.name.startswith("aten::")]
-        launches = [e for e in prof.events()
-                    if e.name in ("cudaLaunchKernel", "cuLaunchKernel",
-                                  "cudaLaunchKernelExC")]
+        launches = [e for e in prof.events() if e.name in LAUNCH_NAMES]
         busy = sum(e.time_range.elapsed_us() for e in ev) / 1e3
         n = args.window
         host = {}
@@ -260,6 +325,14 @@ def profile_impl(args, impl: str) -> dict:
                 "device_ms_per_row": sum(e.time_range.elapsed_us()
                                          for e in ev if k in e.name)
                 / 1e3 / n} for k in PRNG_KERNELS},
+        }
+        passes = [e for e in cpu if e.name == BULK_RANGE]
+        out["window"]["bulk_events_fused"] = {
+            "calls_per_row": len(passes) / n,
+            "host_ms_per_row": sum(e.time_range.elapsed_us()
+                                   for e in passes) / 1e3 / n,
+            "aten_ops_per_row": len(inside(ops, passes)) / n,
+            "kernel_launches_per_row": len(inside(launches, passes)) / n,
         }
     print(json.dumps({"phase": "split", "prng_impl": impl, **out["split"],
                       "window": out.get("window")}), flush=True)

@@ -3,7 +3,9 @@
 // `_threefry2x32_lowering` schedule), the Philox4x32-10 block of
 // `lax.rng_bit_generator` under `rbg`, jax.random.uniform's float32
 // mapping, and the per-thread body of each kernel (`threefry_item`,
-// `split_uniform_tf_item`, `split_uniform_rbg_item`). `threefry.cu` and
+// `split_uniform_tf_item`, `split_uniform_rbg_item`) with the word-level
+// pieces they share, which `engine_core.cuh` calls to derive the one pair
+// of uniforms a fused bulk-pass step consumes. `threefry.cu` and
 // `rbg_philox.cu` only add the launch around these bodies.
 //
 // Under plain g++ (no `__CUDACC__`) the CUDA qualifiers become `inline`
@@ -154,27 +156,44 @@ PRNG_HD void threefry_item(const int64_t* keys, long long key_stride,
   }
 }
 
-// split_uniform under threefry, item t of max(B, B * n): for t < B, lane
-// t's next key split(key)[0] (counter 0) into next[2t..2t+1]; for
+// split(key)[0] of one lane key of `w` words (2, or 4 under rbg: each
+// half at counter 0) into next[0..w)
+PRNG_HD void split_next_key(const int64_t* key, int w, int64_t* next) {
+  for (int h = 0; h < w; h += 2) {
+    uint32_t a, b;
+    threefry_at((uint32_t)key[h], (uint32_t)key[h + 1], 0, a, b);
+    next[h] = (int64_t)a;
+    next[h + 1] = (int64_t)b;
+  }
+}
+
+// split(key)[1] of a threefry key (counter 1): the key whose iota a
+// lane's split-then-draw hashes
+PRNG_HD void split_tf_sub_key(const int64_t* key, uint32_t& s0,
+                              uint32_t& s1) {
+  threefry_at((uint32_t)key[0], (uint32_t)key[1], 1, s0, s1);
+}
+
+// word j of uniform(sub, ...) for the threefry key (s0, s1)
+PRNG_HD float uniform_tf_word(uint32_t s0, uint32_t s1, uint64_t j) {
+  uint32_t a, b;
+  threefry_at(s0, s1, j, a, b);
+  return bits_to_uniform(a ^ b);
+}
+
+// split_uniform under threefry, item t of max(B, B * n): for t < B,
+// lane t's next key split(key)[0] (counter 0) into next[2t..2t+1]; for
 // t < B * n, word j = t % n of lane b = t / n: the uniform of lane b's
 // second key split(key)[1] (counter 1) at counter j, into u[t].
 PRNG_HD void split_uniform_tf_item(const int64_t* keys, long long key_stride,
                                    long long B, long long n, long long t,
                                    int64_t* next, float* u) {
-  if (t < B) {
-    const int64_t* key = keys + t * key_stride;
-    uint32_t a, b;
-    threefry_at((uint32_t)key[0], (uint32_t)key[1], 0, a, b);
-    next[2 * t] = (int64_t)a;
-    next[2 * t + 1] = (int64_t)b;
-  }
+  if (t < B) split_next_key(keys + t * key_stride, 2, next + 2 * t);
   if (t < B * n) {
     const long long lane = t / n, j = t % n;
-    const int64_t* key = keys + lane * key_stride;
-    uint32_t s0, s1, a, b;
-    threefry_at((uint32_t)key[0], (uint32_t)key[1], 1, s0, s1);
-    threefry_at(s0, s1, (uint64_t)j, a, b);
-    u[t] = bits_to_uniform(a ^ b);
+    uint32_t s0, s1;
+    split_tf_sub_key(keys + lane * key_stride, s0, s1);
+    u[t] = uniform_tf_word(s0, s1, (uint64_t)j);
   }
 }
 
@@ -194,13 +213,7 @@ PRNG_HD void split_uniform_rbg_item(const int64_t* keys, long long key_stride,
                                     long long B, long long n,
                                     const uint32_t sub[4], long long t,
                                     int64_t* next, float* u) {
-  if (t < B) {
-    const int64_t* key = keys + t * key_stride;
-    uint32_t w[4];
-    threefry_at((uint32_t)key[0], (uint32_t)key[1], 0, w[0], w[1]);
-    threefry_at((uint32_t)key[2], (uint32_t)key[3], 0, w[2], w[3]);
-    for (int i = 0; i < 4; ++i) next[4 * t + i] = (int64_t)w[i];
-  }
+  if (t < B) split_next_key(keys + t * key_stride, 4, next + 4 * t);
   const long long total = B * n;
   if (4 * t < total) {
     uint32_t w[4];
@@ -210,6 +223,17 @@ PRNG_HD void split_uniform_rbg_item(const int64_t* keys, long long key_stride,
     for (int i = 0; i < 4; ++i)
       if (i < cnt) u[base + i] = bits_to_uniform(w[i]);
   }
+}
+
+// words g and g + 1 (g even) of the Philox stream of `sub` as uniforms:
+// one block holds both (a split-then-draw's pair of a step and executor)
+PRNG_HD void uniform_rbg_pair(const uint32_t sub[4], uint64_t g, float& u0,
+                              float& u1) {
+  uint32_t w[4];
+  philox_block(sub[0], sub[1], sub[2], sub[3], g >> 2, w);
+  const int i = (int)(g & 3);
+  u0 = bits_to_uniform(w[i]);
+  u1 = bits_to_uniform(w[i + 1]);
 }
 
 }  // namespace prng_core

@@ -8,7 +8,8 @@
 //    for lane keys [B, W] in one launch, under either impl: the engine's
 //    five split-then-draw sites (sparksched_tpu_torch/env/core.py
 //    `_apply_action`, `_bulk_fulfill`, `_bulk_relaunch`, `_bulk_ready`,
-//    `_bulk_events_fused`).
+//    and `_bulk_events_fused_ref`, the fused pass's plain version: on the
+//    card that pass derives its uniforms inside `bulk_events.cu`).
 //
 // Replaces: `lax.rng_bit_generator` under `jax_default_prng_impl = "rbg"`
 // (jax/_src/prng.py `_rbg_random_bits`), which the JAX package reaches from

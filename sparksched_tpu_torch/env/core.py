@@ -20,6 +20,9 @@ table becomes a loop of masked steps over all lanes, left early once no
 lane is live (every later step would be a no-op), and a pass's
 `[candidate, executor]` scatters stay one-hot selects (`_exec_scatter`):
 an `index_put_` with repeated indices has no defined order on the card.
+On a card state `_bulk_events_fused` is one launch of a hand-written
+kernel (`kernels/bulk_events.py`); that loop is its plain version,
+`_bulk_events_fused_ref`, which CPU states run.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ import torch
 
 from .. import prng
 from ..config import EnvParams
+from ..kernels.bulk_events import bulk_events_fused
 from ..obs.telemetry import add as _tm_add
 from ..workload.bank import WorkloadBank
 from ..workload.sampling import sample_job_sequence, sample_task_duration
@@ -1251,7 +1255,21 @@ def _bulk_events_fused(params: EnvParams, bank: WorkloadBank,
     order — in a single bounded scan of `max_events + N` steps. Returns
     (state, k_rel[B], k_rdy[B]), the events consumed by kind. See the
     JAX package's docstring for when an event is simple and where the
-    run stops."""
+    run stops. On a CUDA state one launch of `csrc/bulk_events.cu`, on a
+    CPU state the plain version `_bulk_events_fused_ref`
+    (`kernels/bulk_events.py`)."""
+    return bulk_events_fused(params, bank, state, enabled,
+                             stop_at_limit=stop_at_limit,
+                             max_events=max_events)
+
+
+def _bulk_events_fused_ref(params: EnvParams, bank: WorkloadBank,
+                           state: EnvState, enabled: torch.Tensor,
+                           stop_at_limit: bool = False, max_events: int = 8):
+    """The plain version of `_bulk_events_fused`: the split-then-draw of
+    a `[B, L, N, 2]` uniform table, then a host loop of masked steps
+    over all lanes, left once no lane is live, and one merged state
+    write."""
     b, n = state.exec_job.shape
     j_cap, s_cap = state.stage_remaining.shape[1:]
     dev = state.exec_job.device

@@ -21,7 +21,8 @@ import threading
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("decima_encoder", "decima_encoder_bwd", "rbg_philox", "threefry")
+SOURCES = ("bulk_events", "decima_encoder", "decima_encoder_bwd", "rbg_philox",
+           "threefry")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

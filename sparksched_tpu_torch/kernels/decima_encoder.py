@@ -316,20 +316,6 @@ decima_node_encoder_bwd.plain_calls = 0
 decima_node_encoder_bwd.scratch_bytes = 0
 
 
-def kernel_counts() -> dict[str, int]:
-    """This process's counts: each wrapper's kernel launches, and its
-    calls that took the plain version (a CPU tensor). Counts are per
-    process: a router's replicas report theirs over the pipe."""
-    with _COUNT_LOCK:
-        return {
-            "decima_node_encoder": decima_node_encoder.launches,
-            "decima_node_encoder_plain": decima_node_encoder.plain_calls,
-            "decima_node_encoder_bwd": decima_node_encoder_bwd.launches,
-            "decima_node_encoder_bwd_plain":
-                decima_node_encoder_bwd.plain_calls,
-        }
-
-
 class DecimaNodeEncoderFn(torch.autograd.Function):
     """The NodeEncoder for autograd: `apply(x, adj, node_level, node_mask,
     w, num_levels, negative_slope, *encoder_params(w))`. The forward

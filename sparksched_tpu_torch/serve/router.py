@@ -176,7 +176,7 @@ def _replica_main(conn, idx: int, spec: ReplicaSpec) -> None:
         t0 = time.perf_counter()
         import torch
 
-        from ..kernels.decima_encoder import kernel_counts
+        from ..kernels import kernel_counts
         from ..obs.metrics import MetricsRegistry
         from .session import front_from_config, store_from_config
 
@@ -724,8 +724,8 @@ class Router:
 
     def kernel_counts(self) -> list[dict[str, int] | None]:
         """Each replica's own kernel counts (launches and plain-version
-        calls of the encoder wrappers, `kernels.decima_encoder.
-        kernel_counts`); None for a dead replica."""
+        calls of every kernel wrapper, `kernels.kernel_counts`); None for
+        a dead replica."""
         out: list[dict[str, int] | None] = []
         for r in self._replicas:
             counts = None

@@ -9,9 +9,9 @@ key, lane b taking words [b * n, (b + 1) * n). Held here on CPU keys (the
 plain version `split_uniform_ref`) against `jax.vmap(jax.random.split)`
 then `jax.vmap(jax.random.uniform)` at the draw shapes of the five engine
 sites (`_apply_action` (2,), `_bulk_fulfill` / `_bulk_ready` (n, 2),
-`_bulk_relaunch` (max_events * n, 2), `_bulk_events_fused` (length, n,
-2)), for lane keys that are non-contiguous views, one lane, a single key
-and an empty draw; and the five sites call it. The engine's own parity
+`_bulk_relaunch` (max_events * n, 2), `_bulk_events_fused`'s plain
+version (length, n, 2)), for lane keys that are non-contiguous views,
+one lane, a single key and an empty draw; and the five sites call it. The engine's own parity
 tests (`test_torch_bulk.py`, `test_torch_drain.py`, `test_torch_env.py`,
 `test_torch_rbg_trainer.py`, ...) hold the rewired sites against the JAX
 engine.
@@ -38,7 +38,7 @@ IMPLS = {"threefry2x32": 2, "rbg": 4}
 # max_events 3 and a fused pass of 8 events
 SITE_SHAPES = [(2,), (50, 2), (3 * 50, 2), (8, 50, 2)]
 SITES = ("_apply_action", "_bulk_fulfill", "_bulk_relaunch", "_bulk_ready",
-         "_bulk_events_fused")
+         "_bulk_events_fused_ref")
 
 
 def _lane_keys(impl: str, lanes: int, seed: int):
@@ -112,7 +112,13 @@ def test_split_uniform_refuses_what_it_cannot_run():
 
 
 def test_the_five_engine_sites_call_split_uniform():
+    """The fused pass's site is its plain version: `_bulk_events_fused`
+    itself hands the state to the fused kernel's wrapper, which derives
+    the uniforms in the kernel (`tests/test_torch_bulk_kernel.py`)."""
     for name in SITES:
         src = inspect.getsource(getattr(core, name))
         assert src.count("prng.split_uniform(state.rng") == 1, name
         assert "prng.split(" not in src and "prng.uniform(" not in src, name
+    src = inspect.getsource(core._bulk_events_fused)
+    assert "bulk_events_fused(params, bank, state" in src
+    assert "prng." not in src
