@@ -114,8 +114,11 @@ held-out seeds on the card, both on the CPU; the forward kernel at
 trained weights against the float64 plain forward) and `telemetry_cost`
 (16 lanes x 8 rows, telemetry off and on: launches per row and rows
 per second); `bulk_kernel` (the fused bulk event kernel against its
-plain version on the captured inputs, then timed against its bound and
-the plain version, and the wrapper's host cost) runs after
+plain version on the captured inputs and on the corner cases of
+`tests/_bulk_corners.py`, then timed against its bound and the plain
+version, each `train` capture's time beside its longest lane's scan
+steps with the fit ms = fixed + per_step x steps, a launch with every
+lane disabled, and the wrapper's host cost) runs after
 `eval_trained`.
 
 Each phase prints one JSON line. Before the last line come the
@@ -2981,6 +2984,110 @@ def _arena_outputs(st) -> list:
             for v, t in zip(buf.split(sizes), like)]
 
 
+@functools.cache
+def corner_helpers():
+    """`tests/_bulk_corners.py`, loaded by path: the fused pass's corner
+    cases, built on the port alone."""
+    spec = importlib.util.spec_from_file_location(
+        "_bulk_corners", os.path.join(HERE, "tests", "_bulk_corners.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _cpu_pass(got):
+    """A pass's (state, k_rel, k_rdy) with every tensor on the CPU."""
+    import dataclasses
+
+    st = got[0]
+    return (st.replace(**{f.name: getattr(st, f.name).cpu()
+                          for f in dataclasses.fields(st)}),
+            got[1].cpu(), got[2].cpu())
+
+
+def bulk_corners() -> dict:
+    """Every case of `tests/_bulk_corners.py` at each of its executor
+    counts under both impls (the lanes made on the CPU by the port's own
+    engine): the kernel on the card against the plain version on the CPU
+    copy of the same inputs (the inputs the CPU tests hold the g++ build
+    to; CUDA's float32 `amin` may keep either zero of a +0.0 / -0.0 tie,
+    the CPU's and the kernel's keep the first), and each case's check
+    that it happened. Returns case -> events consumed over its lanes."""
+    from sparksched_tpu_torch.env.core import _bulk_events_fused_ref
+    from sparksched_tpu_torch.kernels import bulk_events as bk
+
+    cm = corner_helpers()
+    out = {}
+    for case in cm.CASES:
+        for n in cm.EXECUTORS:
+            if not cm.applies(case, n):
+                continue
+            for impl in ("threefry2x32", "rbg"):
+                p, b, st, on, stop, check = cm.corner_batch(case, n, impl)
+                want = _bulk_events_fused_ref(p, b, st, on,
+                                              stop_at_limit=stop,
+                                              max_events=8)
+                _, db, dst, don = cm.to_device(p, b, st, on, "cuda")
+                got = _cpu_pass(bk.bulk_events_fused(p, db, dst, don, stop,
+                                                     8))
+                name = f"{case}_n{n}_{impl}"
+                bad = _bulk_unequal(got, want)
+                if bad:
+                    raise AssertionError(f"bulk_kernel corner {name}: the "
+                                         f"kernel differs at {bad}")
+                what = check(got)
+                if what is not None:
+                    raise AssertionError(f"bulk_kernel corner {name}: "
+                                         f"{what}")
+                out[name] = int((got[1] + got[2]).sum())
+    return out
+
+
+def _wide_jobs(p, b, st, on, stop, me) -> dict:
+    """The timed capture with every job-indexed field twice as long (its
+    jobs repeated): the kernel's shared memory then passes 48 KB, the
+    launch that raises its cap, held bit-equal to the plain version."""
+    import dataclasses
+
+    import torch
+
+    from sparksched_tpu_torch.env.core import _bulk_events_fused_ref
+    from sparksched_tpu_torch.kernels import bulk_events as bk
+
+    j_cap = st.stage_remaining.shape[1]
+    wide = st.replace(**{
+        f.name: torch.cat([getattr(st, f.name)] * 2, 1).contiguous()
+        for f in dataclasses.fields(st)
+        if getattr(st, f.name).dim() >= 2
+        and getattr(st, f.name).shape[1] == j_cap})
+    got = bk.bulk_events_fused(p, b, wide, on, stop, me)
+    want = _bulk_events_fused_ref(p, b, wide, on, stop_at_limit=stop,
+                                  max_events=me)
+    bad = _bulk_unequal(got, want)
+    if bad:
+        raise AssertionError(f"bulk_kernel wide jobs: differs at {bad}")
+    return {"jobs": 2 * j_cap, "events": int((got[1] + got[2]).sum()),
+            "ms": kernel_ms(lambda: bk.bulk_events_fused(p, b, wide, on,
+                                                         stop, me), 20,
+                            "bulk_events_fused_kernel")[0]}
+
+
+def _line_fit(xs, ys) -> tuple[float, float]:
+    """(intercept, slope) of the least-squares line through (xs, ys)."""
+    n = len(xs)
+    mx, my = sum(xs) / n, sum(ys) / n
+    sxx = sum((x - mx) ** 2 for x in xs)
+    slope = (sum((x - mx) * (y - my) for x, y in zip(xs, ys)) / sxx
+             if sxx else 0.0)
+    return my - slope * mx, slope
+
+
+def bulk_steps(on, got) -> int:
+    """The longest lane's scan steps: its events and, on an enabled lane,
+    the step that stopped it."""
+    return int((got[1] + got[2] + on.to(got[1].dtype)).max())
+
+
 def phase_bulk_kernel() -> dict:
     """The fused bulk event kernel (`bulk_events_fused`) against its plain
     version (`core._bulk_events_fused_ref`) on the card, then timed.
@@ -2994,8 +3101,14 @@ def phase_bulk_kernel() -> dict:
     events), the plain version on the card (`plain_ms`) and the bound
     (`bulk_work` over the HBM rate or the INT32 rate); and the host cost
     of the wrapper's argument packing with its 23 `empty_like` outputs
-    against one arena split into views (`host_us`). No PyTorch call
-    computes this pass, so `library_ms` is None."""
+    against one arena split into views (`host_us`). Then the corner
+    cases (`bulk_corners`), every `train` capture's kernel time beside
+    its longest lane's scan steps with the least-squares fit ms = fixed
+    + per_step x steps per impl (`fit`), a launch on the timed capture
+    with `enabled` all False, the copy and the outputs alone
+    (`disabled`), and the timed capture with twice its job slots
+    (`wide`: past 48 KB of shared memory). No PyTorch call computes this pass, so `library_ms` is
+    None."""
     import torch
 
     from sparksched_tpu_torch.env.core import _bulk_events_fused_ref
@@ -3067,9 +3180,40 @@ def phase_bulk_kernel() -> dict:
         for _ in range(500):
             fn()
         host[how] = (time.perf_counter() - t) / 500 * 1e6
+    fit = {}
+    for key in ("train_rbg", "train_threefry"):
+        points = []
+        for p, b, st, on, stop, me in cases[key]:
+            def kern(p=p, b=b, st=st, on=on, stop=stop, me=me):
+                return bk.bulk_events_fused(p, b, st, on, stop, me)
+
+            got = kern()
+            ms, _, ms_from = kernel_ms(kern, 20, "bulk_events_fused_kernel")
+            points.append({"steps": bulk_steps(on, got),
+                           "events": int((got[1] + got[2]).sum()),
+                           "ms": ms, "ms_from": ms_from})
+        fixed, per_step = _line_fit([q["steps"] for q in points],
+                                    [q["ms"] for q in points])
+        fit[key] = {"fixed_ms": fixed, "per_step_ms": per_step,
+                    "points": points}
+    p, b, st, on, stop, me = top["train_rbg"][1]
+    off = torch.zeros_like(on)
+    got = bk.bulk_events_fused(p, b, st, off, stop, me)
+    want = _bulk_events_fused_ref(p, b, st, off, stop_at_limit=stop,
+                                  max_events=me)
+    bad = _bulk_unequal(got, want)
+    if bad or int((got[1] + got[2]).sum()):
+        raise AssertionError(f"bulk_kernel disabled: differs at {bad}, "
+                             f"{int((got[1] + got[2]).sum())} events")
+    disabled = {"ms": kernel_ms(
+        lambda: bk.bulk_events_fused(p, b, st, off, stop, me), 50,
+        "bulk_events_fused_kernel")[0], "lanes": int(off.shape[0])}
+    corners = bulk_corners()
+    wide = _wide_jobs(p, b, st, on, stop, me)
     torch.cuda.synchronize()
     out = {"phase": "bulk_kernel", "checked": checked, "max_abs_err": 0,
-           "timed": at, "host_us": host,
+           "timed": at, "host_us": host, "fit": fit, "disabled": disabled,
+           "corners": corners, "wide": wide,
            "seconds": time.perf_counter() - t_phase, "card": card_line()}
     emit(out)
     return out
@@ -3727,6 +3871,10 @@ def main() -> int:
         "bound_by": bulk["timed"]["train_rbg"]["bound_by"],
         "library_ms": None,
         "at": bulk["timed"],
+        "fixed_ms": {k: f["fixed_ms"] for k, f in bulk["fit"].items()},
+        "per_step_ms": {k: f["per_step_ms"] for k, f in bulk["fit"].items()},
+        "disabled_ms": bulk["disabled"]["ms"],
+        "corners_checked": len(bulk["corners"]),
     }]})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {

@@ -20,20 +20,34 @@
 // [200, 20] stages x 50 executors: the launch and the scan's latency
 // decide.
 //
-// The design: one block per lane. Its threads copy the lane's inputs of
-// every written field to the outputs (strided, 16-byte words) and load
-// into shared memory what the scan reads: the executors' event views and
-// static arrival facts, the jobs' arrival events and templates. Then one
-// thread runs the scan and a sparse epilogue (engine_core.cuh: only the
-// stages a launch or an arrival touched, each once through a bitmap, and
-// only their `adj` rows), its only global traffic the bank's gathers and
-// the touched stages; then every thread writes the executors' outputs.
+// The design: one block of 256 threads per lane, its warps in roles.
+// Warps 4-7 copy the lane's inputs of every written [J, S] and [J] field
+// to the outputs from the start (16-byte words, 16 loads in flight a
+// thread). Warps 0-3 load into shared memory what the scan reads: the
+// executors' event views and arrival facts and, for each of the 2N stages
+// the pass can launch at or arrive at (each executor's finish target and
+// its arrival's destination), the stage's input counts, facts and `adj`
+// row and its bank rows (counts, presence, fallback level, rough
+// duration); warp 3 also takes the live executors per job, the job
+// arrivals' minimum and the keys. After a barrier of those four warps,
+// warp 0 runs the scan (engine_core.cuh) while the copy may still run:
+// the scan reads the inputs through a shared-memory overlay of the stages
+// it touched, never the outputs. A step's event minimum is a warp
+// reduction (lane l over executors l, l + 32, ..., five xor-shuffle
+// rounds), each lane meanwhile deriving the uniforms and target of its own
+// least events, so the winner's come by one shuffle from its lane; the
+// duration model then reads shared memory but for the bucket sample, one
+// global load a launch. After a barrier of all threads every thread writes
+// the overlay over the copy (each touched stage once; the job's fully
+// launched stages and the children's unsaturated-parent counts by integer
+// atomics over its `adj` row), the executors' outputs and the lane's.
 // The uniforms are derived where consumed, one pair per step, so the
 // [B, L, N, 2] table is never written; under rbg each lane derives lane
 // 0's second key itself (the vmapped draw is ONE stream of it).
 // No host sync and no second launch.
 
 #include <cstdint>
+#include <mutex>
 #include <cuda_runtime.h>
 
 #include "engine_core.cuh"
@@ -41,31 +55,70 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kSetupThreads = 128;  // warps 0-3 set up; warps 4-7 copy
+constexpr int kLoadThreads = 96;    // warps 0-2 elect; warp 3 the jobs
+constexpr int kMaxSmem = 227 * 1024;  // a block's dynamic shared memory
+
+// barriers of some warps only: the loads' end (warps 0-3 and warp 4, which
+// takes the keys), then the setup's rounds (warps 0-3); the copy runs on
+__device__ __forceinline__ void loads_barrier() {
+  asm volatile("bar.sync 3, %0;" ::"n"(kSetupThreads + engine_core::kWarp)
+               : "memory");
+}
+
+__device__ __forceinline__ void setup_barrier() {
+  asm volatile("bar.sync 1, %0;" ::"n"(kSetupThreads) : "memory");
+}
 
 template <class Dur>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
     bulk_events_fused_kernel(engine_core::BulkArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const engine_core::LaneWork w = engine_core::carve_lane_work(smem, a);
-  engine_core::bulk_events_lane_init(a, blockIdx.x, w, threadIdx.x,
-                                     blockDim.x);
+  const int b = blockIdx.x;
+  if (threadIdx.x < kSetupThreads) {
+    engine_core::bulk_events_lane_init(a, b, w, threadIdx.x, kSetupThreads);
+    loads_barrier();
+    if (threadIdx.x < kLoadThreads) {
+      engine_core::bulk_events_lane_elect(a, w, threadIdx.x, kLoadThreads);
+    } else {
+      engine_core::bulk_events_lane_jobs(a, w);
+    }
+    setup_barrier();
+    engine_core::bulk_events_lane_slots(a, w, threadIdx.x, kSetupThreads);
+    setup_barrier();
+    if (threadIdx.x < engine_core::kWarp) {
+      engine_core::bulk_events_scan<Dur>(a, b, w);
+    } else {
+      engine_core::bulk_events_produce(a, b, w,
+                                       threadIdx.x - engine_core::kWarp);
+    }
+  } else {
+    if (threadIdx.x < kSetupThreads + engine_core::kWarp) {
+      engine_core::bulk_events_lane_keys(a, b, w);
+      loads_barrier();
+    }
+    engine_core::bulk_events_copy(a, b, threadIdx.x - kSetupThreads,
+                                  blockDim.x - kSetupThreads);
+  }
   __syncthreads();
-  if (threadIdx.x == 0)
-    engine_core::bulk_events_fused_lane<Dur>(a, blockIdx.x, w);
-  __syncthreads();
-  engine_core::bulk_events_lane_finish(a, blockIdx.x, w, threadIdx.x,
-                                       blockDim.x);
+  engine_core::bulk_events_lane_finish(a, b, w, threadIdx.x, blockDim.x);
 }
 
 template <class Dur>
 int launch(const engine_core::BulkArgs& a, cudaStream_t s) {
   const long long smem = engine_core::lane_work_bytes(a);
-  if (smem > 227 * 1024) return -2;
+  if (smem > kMaxSmem) return -2;
   if (smem > 48 * 1024) {
-    const cudaError_t rc = cudaFuncSetAttribute(
-        bulk_events_fused_kernel<Dur>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (rc != cudaSuccess) return (int)rc;
+    // raise the instantiation's cap to the whole block's share, once
+    static std::once_flag once;
+    static cudaError_t cap_rc = cudaSuccess;
+    std::call_once(once, [] {
+      cap_rc = cudaFuncSetAttribute(bulk_events_fused_kernel<Dur>,
+                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    kMaxSmem);
+    });
+    if (cap_rc != cudaSuccess) return (int)cap_rc;
   }
   bulk_events_fused_kernel<Dur><<<a.B, kThreads, smem, s>>>(a);
   return (int)cudaGetLastError();
@@ -88,9 +141,7 @@ extern "C" int bulk_events_fused_launch(const int64_t* ptrs,
                                         float warmup_delay, void* stream) {
   const engine_core::BulkArgs a =
       engine_core::bulk_args_from(ptrs, dims, warmup_delay);
-  if (a.B < 0 || a.N < 1 || a.J < 1 || a.S < 1 || (a.W != 2 && a.W != 4) ||
-      a.L < 0 || a.BI < 1 || a.BL < 1 || a.BK < 1)
-    return -1;
+  if (!engine_core::bulk_args_valid(a)) return -1;
   if (a.B == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (a.dur_kind) {

@@ -231,9 +231,9 @@ PRNG_HD void uniform_rbg_pair(const uint32_t sub[4], uint64_t g, float& u0,
                               float& u1) {
   uint32_t w[4];
   philox_block(sub[0], sub[1], sub[2], sub[3], g >> 2, w);
-  const int i = (int)(g & 3);
-  u0 = bits_to_uniform(w[i]);
-  u1 = bits_to_uniform(w[i + 1]);
+  const int i = (int)(g & 3);  // by selects: w stays in registers
+  u0 = bits_to_uniform(i == 0 ? w[0] : i == 1 ? w[1] : w[2]);
+  u1 = bits_to_uniform(i == 0 ? w[1] : i == 1 ? w[2] : w[3]);
 }
 
 }  // namespace prng_core

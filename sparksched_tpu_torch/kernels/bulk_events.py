@@ -9,8 +9,9 @@ one launch of the kernel (counted in `bulk_events_fused.launches`): no
 `split_uniform` launch, no host sync. On a CPU state it runs the plain
 version `core._bulk_events_fused_ref` (counted in
 `bulk_events_fused.plain_calls`). Any other device, a dtype or shape
-the kernel does not read, or a non-contiguous field (but for `rng`'s
-rows) raises. Both return `(state, k_rel[B], k_rdy[B])` with every
+the kernel does not read (a bank of more than MAX_LEVELS executor
+levels among them), or a non-contiguous field (but for `rng`'s rows)
+raises. Both return `(state, k_rel[B], k_rdy[B])` with every
 output bit-equal; the fields the pass does not write are the input's
 own tensors, as `state.replace` leaves them.
 
@@ -77,6 +78,7 @@ NUM_POINTERS = 2 + len(_IN) + len(_BANK) + len(OUT_FIELDS) + 2
 NUM_DIMS = 13
 DUR_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int16: 2,
              torch.int8: 3}
+MAX_LEVELS = 32  # engine_core.cuh's kMaxLevels: a presence row is one word
 
 
 def _need(name: str, t: torch.Tensor, dtype, shape, device,
@@ -112,6 +114,9 @@ def pack(params, bank, state, enabled: torch.Tensor,
         raise ValueError(f"bulk_events_fused: bank.dur is {bank.dur.dtype} "
                          f"{tuple(bank.dur.shape)}")
     t, bs, _, bl, bk = bank.dur.shape
+    if bl > MAX_LEVELS:
+        raise ValueError(f"bulk_events_fused: {bl} executor levels, the "
+                         f"kernel reads at most {MAX_LEVELS}")
     if s_cap > bs:
         raise ValueError(f"bulk_events_fused: {s_cap} stage slots, the bank "
                          f"{bs}")

@@ -3,10 +3,16 @@ bit for bit, on the CPU.
 
 - `csrc/engine_core.cuh` (the arithmetic `csrc/bulk_events.cu` runs: the
   lane's setup, its scan with the duration model and the uniforms
-  derived one pair a step, the sparse epilogue) built with g++
-  (`-std=c++17 -O2 -ffp-contract=off`, the card's kernel has no FMA
-  contraction either) behind a C shim that runs each lane's setup on 3
-  strided "threads", then its scan, then its outputs on 3 "threads".
+  derived one pair a step, the copy of the written fields, the overlay
+  and sparse epilogue) built with g++ (`-std=c++17 -O2
+  -ffp-contract=off`, the card's kernel has no FMA contraction either)
+  behind a C shim that runs each part of a lane's block in turn: the
+  setup's loads on 3 strided "threads", its keys and jobs on the
+  header's host warp (32 lanes as an array, through the same butterfly
+  and shuffle picks as the card's warp), the slots' election, the scan
+  on the host warp (making each row of uniforms as it needs it), the
+  copy (after the scan: on the card they run at once, so a scan that
+  read or wrote an output would show), then its outputs on 3 "threads".
   It reads the very argument arrays the wrapper packs for the card
   (`kernels/bulk_events.py:pack`), here on CPU tensors, and is held
   against `core._bulk_events_fused_ref` on mid-episode lanes of
@@ -80,18 +86,26 @@ void shim_arg_counts(int* p, int* d) { *p = kNumPointers; *d = kNumDims; }
 int shim_bulk_events(const int64_t* ptrs, const int64_t* dims, float warmup,
                      int nthreads) {
   const BulkArgs a = bulk_args_from(ptrs, dims, warmup);
+  if (!bulk_args_valid(a)) return -1;
   std::vector<int32_t> buf((lane_work_bytes(a) + 3) / 4 + 1);
   for (int b = 0; b < a.B; ++b) {
     const LaneWork w = carve_lane_work(buf.data(), a);
     for (int t = 0; t < nthreads; ++t)
       bulk_events_lane_init(a, b, w, t, nthreads);
+    bulk_events_lane_keys(a, b, w);
+    for (int t = 0; t < nthreads; ++t) bulk_events_lane_elect(a, w, t, nthreads);
+    bulk_events_lane_jobs(a, w);
+    for (int t = 0; t < nthreads; ++t) bulk_events_lane_slots(a, w, t, nthreads);
+    // the scan before the copy that runs beside it on the card: a scan
+    // that wrote an output, or read one, would show
     switch (a.dur_kind) {
-      case 0: bulk_events_fused_lane<DurF32>(a, b, w); break;
-      case 1: bulk_events_fused_lane<DurBf16>(a, b, w); break;
-      case 2: bulk_events_fused_lane<DurInt<int16_t>>(a, b, w); break;
-      case 3: bulk_events_fused_lane<DurInt<int8_t>>(a, b, w); break;
+      case 0: bulk_events_scan<DurF32>(a, b, w); break;
+      case 1: bulk_events_scan<DurBf16>(a, b, w); break;
+      case 2: bulk_events_scan<DurInt<int16_t>>(a, b, w); break;
+      case 3: bulk_events_scan<DurInt<int8_t>>(a, b, w); break;
       default: return -1;
     }
+    for (int t = 0; t < nthreads; ++t) bulk_events_copy(a, b, t, nthreads);
     for (int t = 0; t < nthreads; ++t)
       bulk_events_lane_finish(a, b, w, t, nthreads);
   }
@@ -102,14 +116,13 @@ int shim_bulk_events(const int64_t* ptrs, const int64_t* dims, float warmup,
 EXPM1 = ctypes.CFUNCTYPE(ctypes.c_float, ctypes.c_float)
 
 
-@pytest.fixture(scope="module")
-def engine(tmp_path_factory):
-    """`csrc/engine_core.cuh` behind the C shim, built with g++."""
+def build_engine(d, src: str) -> ctypes.CDLL:
+    """`src` (the C shim over `csrc/engine_core.cuh`, or more) built with
+    g++ in the directory `d` and loaded, torch's expm1 handed to it."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("g++ not found: engine_core.cuh's host build needs it")
-    d = tmp_path_factory.mktemp("engine_core")
-    (d / "shim.cpp").write_text(SHIM)
+    (d / "shim.cpp").write_text(src)
     lib = d / "libengine_core.so"
     subprocess.run([gxx, "-std=c++17", "-O2", "-ffp-contract=off", "-shared",
                     "-fPIC", "-Wall", "-I", build.CSRC, "-o", str(lib),
@@ -130,6 +143,12 @@ def engine(tmp_path_factory):
     so.shim_arg_counts(ctypes.byref(n_ptr), ctypes.byref(n_dim))
     assert (n_ptr.value, n_dim.value) == (bk.NUM_POINTERS, bk.NUM_DIMS)
     return so
+
+
+@pytest.fixture(scope="module")
+def engine(tmp_path_factory):
+    """`csrc/engine_core.cuh` behind the C shim, built with g++."""
+    return build_engine(tmp_path_factory.mktemp("engine_core"), SHIM)
 
 
 def run_engine(engine, params, bank, env, on, stop_at_limit, max_events=8):
