@@ -14,8 +14,8 @@ iterations with `rollout_steps` cut to 128, through
 `make_trainer(...).train()`: health 0, parameters finite and changed,
 both encoder kernels launched (forward in collection and update,
 backward in the update), the three PRNG kernels (the rbg draws, the
-threefry hash of every split and fold_in, the engine's split_uniform)
-and the fused bulk event pass (`bulk_events_fused`, one launch a pass,
+threefry path kernel of every key chain, one launch a collection row,
+the engine's split_uniform) and the fused bulk event pass (`bulk_events_fused`, one launch a pass,
 its uniforms drawn inside), no plain version called, the train state
 stamped "rbg". The earlier paths
 stay: Decima decisions served by `SessionStore(device="cuda")` at its
@@ -50,9 +50,10 @@ against the plain float64 backward on its own branches reported beside),
 and the same bits on a rerun at the timed chunks. The rbg kernel is held
 bit for bit against its plain version on 4,096 keys at odd counts (wrap
 keys among them) and at every draw shape training made; the threefry
-hash kernel and split_uniform likewise under both impls, on 4,096 keys
-with counters past 2^32 and at every hash and split-then-draw shape
-training made. The fused bulk event kernel is held bit for bit against
+path kernel and split_uniform likewise under both impls, on 4,096 keys
+with counters past 2^32, random path tables, every path table that
+training, `serve_front` and `online` used, and every split-then-draw
+shape training made. The fused bulk event kernel is held bit for bit against
 its plain version on every EnvState field of the pass's inputs captured
 on the card from `train` (rbg keys, and the same states with threefry
 keys), `lowprec` (the int16 bank) and `serve_front` (a serving store's
@@ -99,8 +100,8 @@ training's shapes), `bwd_kernel_vs_plain`, `kernel_alone`,
 `rbg` (the rbg kernel against its plain version, then timed at the
 train phase's most launched draw shapes against its bound, its plain
 version and the threefry draw of the same shape), `prng` (the threefry
-hash kernel and split_uniform against their plain versions under both
-impls, then timed at the train phase's most launched shapes),
+path kernel and split_uniform against their plain versions under both
+impls, then timed at the train phase's most launched calls),
 `train_parity` (one
 collection per device, updated at the config's Adam and at a linear
 Adam; 2 lanes, T = 64), `train_resume` (2 lanes, T = 32: 2 iterations
@@ -129,7 +130,7 @@ torch.profiler at an update chunk, taken after the main path, the plain
 version's time and the least time the card could take; for the
 backward also its time, bound and scratch bytes at both timed chunks;
 for the rbg kernel its time, plain time, threefry time and bound at
-each timed draw shape; for the threefry hash kernel, split_uniform and
+each timed draw shape; for the threefry path kernel, split_uniform and
 bulk_events_fused their time, wrapper-call time, plain time and bound
 at each timed shape)
 and the card's
@@ -189,9 +190,11 @@ RESUME_LANES, RESUME_STEPS = 2, 32
 # held-out seeds of `python -m sparksched_tpu_torch.evaluate` (full
 # 600-decision episodes), the first EVAL_CPU_SEEDS replayed on the CPU
 EVAL_MODEL = os.path.join(HERE, "models", "decima", "model_tpu.msgpack")
-# (2 seeds, cut from 8 to 4 with the serving phases added and to 2 with
-# the rbg, lowprec and chaos phases, to keep the whole run near 1,000 s)
-EVAL_SEEDS, EVAL_CPU_SEEDS = 2, 2
+# (cut from 8 seeds to 4 with the serving phases added, to 2 with the
+# rbg, lowprec and chaos phases, and to 1 with the key-path checks: the
+# phase took 206 s of an 891 s run at 2 seeds, 110 s on the card and 88 s
+# replaying both on the CPU)
+EVAL_SEEDS, EVAL_CPU_SEEDS = 1, 1
 # telemetry's cost: lanes and rows of the flagship collection, off and
 # on, and the rows whose launches torch.profiler counts (its processing
 # of ~25k records a row stalls a window much longer than this)
@@ -229,11 +232,13 @@ RBG_TIMED = 4  # the main path's most launched draw shapes that are timed
 # Philox4x32-10 integer work per block of 4 words (10 rounds of 2 wide
 # multiplies, 2 three-input xors and 2 key adds), counted low: a bound
 RBG_OPS_PER_BLOCK = 60
-# the threefry hash kernel and split_uniform against their plain
+# the threefry path kernel and split_uniform against their plain
 # versions: this many random keys of each impl (non-contiguous views);
-# counts and counter bases that cross 2^32; the timed shapes per kernel
+# counts and counter bases that cross 2^32; random path tables; the
+# timed shapes per kernel
 PRNG_CHECK_KEYS = 4096
 PRNG_COUNTS = ((3, 0), (67, 2**32 - 33), (2, 2**32 - 1), (1, 2**40 + 5))
+PRNG_TABLES = 6  # random path tables, depths 1 to 3
 PRNG_TIMED = 2
 # threefry2x32's integer work per hash (20 rounds of an add, a rotate and
 # a xor, 5 key injections of 2 adds and the counter's words), counted low
@@ -855,7 +860,8 @@ def phase_serve_front(params, bank, sched, device: str = "cuda") -> dict:
     decima_node_encoder.launches = 0  # this path's launches only
     zero_engine_launches()
     bulk0 = bulk_plain_calls()
-    with PlainCalls() as plain, BulkCapture("serve"):
+    with PlainCalls() as plain, BulkCapture("serve"), \
+            PrngDraws("serve_front"), CallLaunches(stores.values()) as calls:
         for name, store in stores.items():
             t = time.perf_counter()
             runs[name] = run_open_loop(store, store._front, arrivals,
@@ -865,6 +871,10 @@ def phase_serve_front(params, bank, sched, device: str = "cuda") -> dict:
     engine_n = engine_launches()
     _check_no_plain_and_launched("serve_front", launches, plain.n, device)
     _check_bulk("serve_front", engine_n, bulk0, device)
+    key_chain = calls.summary()
+    if not key_chain["batch"]["calls"] or key_chain["batch"]["max"] > 2:
+        raise AssertionError(f"serve_front: a greedy decide_batch launched "
+                             f"threefry2x32 more than twice: {key_chain}")
     rows = {}
     for name, out in runs.items():
         st = stores[name]
@@ -956,6 +966,7 @@ def phase_serve_front(params, bank, sched, device: str = "cuda") -> dict:
            "offered_rps": LOAD_RPS, "requests_per_front": LOAD_REQUESTS,
            "runs": rows, "encoder_launches": launches,
            "engine_launches": engine_n,
+           "threefry_per_served_call": key_chain,
            "plain_encoder_calls": plain.n, "kernel_vs_plain": errs,
            "tolerance": TOL, "page_round_trip": round_trip,
            "replay": {"batches": len(batches), "decisions": len(got),
@@ -1177,7 +1188,7 @@ def phase_online(params, bank, agent, device: str = "cuda") -> dict:
     decima_node_encoder_bwd.launches = 0
     zero_engine_launches()
     bulk0 = bulk_plain_calls()
-    with PlainCalls() as plain:
+    with PlainCalls() as plain, PrngDraws("online"):
         learner.start_background()
         t = time.perf_counter()
         try:
@@ -2138,13 +2149,24 @@ def engine_launches() -> dict:
     return {n: fn.launches for n, fn in engine_wrappers().items()}
 
 
+KEY_TABLES: dict[str, dict] = {}
+
+
 class PrngDraws:
     """While active: the PRNG calls made on the card -- rbg draws by (key
-    batch shape, draw shape, uniform or bits) (`shapes`), kernel-1 hashes
-    by (key batch shape, key words, counters, mode) (`tf`) and
+    batch shape, draw shape, uniform or bits) (`shapes`), threefry2x32
+    calls by (key batch shape, key words, counters, mode, path table
+    shape or None for the one-hop default) (`tf`), under each such key
+    every distinct table with the last varying counter it was called
+    with (`tables`), and
     split_uniform calls by (key batch shape, key words, draw shape)
     (`su`), each with its count -- and the plain versions' calls of all
-    three wrappers since entry (`plain`)."""
+    three wrappers since entry (`plain`). Named, it leaves `tf` and
+    `tables` in KEY_TABLES[name] on exit (the `prng` phase checks the
+    kernel at every site's table)."""
+
+    def __init__(self, name: str | None = None):
+        self.name = name
 
     def __enter__(self):
         import collections
@@ -2154,6 +2176,7 @@ class PrngDraws:
 
         self.shapes: collections.Counter = collections.Counter()
         self.tf: collections.Counter = collections.Counter()
+        self.tables: dict = {}
         self.su: collections.Counter = collections.Counter()
         self._rbg, self._prng = rbg, prng
         self._orig = (rbg._draw, prng._threefry, prng.split_uniform)
@@ -2166,11 +2189,14 @@ class PrngDraws:
                              tuple(int(d) for d in shape), bool(uniform))] += 1
             return draw0(keys, shape, uniform)
 
-        def tf(keys, n, base=0, mode="pair"):
+        def tf(keys, n, base=0, mode="pair", paths=None):
             if keys.device.type == "cuda":
-                self.tf[(tuple(keys.shape[:-1]), int(keys.shape[-1]),
-                         int(n), mode)] += 1
-            return tf0(keys, n, base, mode)
+                key = (tuple(keys.shape[:-1]), int(keys.shape[-1]), int(n),
+                       mode, None if paths is None else tuple(paths.shape))
+                self.tf[key] += 1
+                ptr = None if paths is None else paths.data_ptr()
+                self.tables.setdefault(key, {})[ptr] = (paths, int(base))
+            return tf0(keys, n, base, mode, paths)
 
         def su(keys, shape=()):
             if keys.device.type == "cuda":
@@ -2189,6 +2215,53 @@ class PrngDraws:
     def __exit__(self, *exc):
         (self._rbg._draw, self._prng._threefry,
          self._prng.split_uniform) = self._orig
+        if self.name:
+            KEY_TABLES[self.name] = {"tf": self.tf, "tables": self.tables}
+
+
+def tf_count() -> int:
+    """threefry2x32's launches and plain calls so far (one of the two
+    moves, by the keys' device)."""
+    from sparksched_tpu_torch.kernels.threefry import threefry2x32
+
+    return threefry2x32.launches + threefry2x32.plain_calls
+
+
+class CallLaunches:
+    """While active: threefry2x32's launches (or plain calls) inside each
+    served call of `stores` (their single and batched programs), by kind
+    (`single`, `batch`)."""
+
+    def __init__(self, stores):
+        self.stores = list(stores)
+        self.single: list[int] = []
+        self.batch: list[int] = []
+
+    def __enter__(self):
+        def counted(fn, into):
+            def run(*a, **k):
+                n0 = tf_count()
+                try:
+                    return fn(*a, **k)
+                finally:
+                    into.append(tf_count() - n0)
+            return run
+
+        self._orig = [(st._decide1, st._decidek) for st in self.stores]
+        for st in self.stores:
+            st._decide1 = counted(st._decide1, self.single)
+            st._decidek = counted(st._decidek, self.batch)
+        return self
+
+    def __exit__(self, *exc):
+        for st, (one, k) in zip(self.stores, self._orig):
+            st._decide1, st._decidek = one, k
+
+    def summary(self) -> dict:
+        return {kind: {"calls": len(v), "max": max(v, default=0),
+                       "mean": sum(v) / max(len(v), 1)}
+                for kind, v in (("single", self.single),
+                                ("batch", self.batch))}
 
 
 BULK_CAPTURES: dict[str, list] = {}
@@ -2232,6 +2305,40 @@ class BulkCapture:
 
     def __exit__(self, *exc):
         self._fl._bulk_events_fused = self._orig
+
+
+class RowLaunches:
+    """While active: threefry2x32's launches between one collection row's
+    policy call and the next row's (`deltas`: the row's key chain, which
+    the row derives before its policy call, and whatever the row's
+    engine launched), within each of `trainer`'s collections."""
+
+    def __init__(self, trainer):
+        self.trainer = trainer
+        self.deltas: list[int] = []
+
+    def __enter__(self):
+        tr, sched = self.trainer, self.trainer.scheduler
+        self._orig = (tr._collect, sched.lane_policy)
+        last = [None]
+
+        def collect(*a, **k):
+            last[0] = None
+            return self._orig[0](*a, **k)
+
+        def policy(*a, **k):
+            n = tf_count()
+            if last[0] is not None:
+                self.deltas.append(n - last[0])
+            last[0] = n
+            return self._orig[1](*a, **k)
+
+        tr._collect, sched.lane_policy = collect, policy
+        return self
+
+    def __exit__(self, *exc):
+        self.trainer._collect, self.trainer.scheduler.lane_policy = (
+            self._orig)
 
 
 def phase_train() -> dict:
@@ -2292,7 +2399,9 @@ def phase_train() -> dict:
     decima_node_encoder.launches = 0
     decima_node_encoder_bwd.launches = 0
     zero_engine_launches()
-    with PlainCalls() as plain, PrngDraws() as draws, BulkCapture("train"):
+    per_row = RowLaunches(trainer)
+    with PlainCalls() as plain, PrngDraws("train") as draws, \
+            BulkCapture("train"), per_row:
         state = trainer.train(callback=report)
     torch.cuda.synchronize()
     launches = {"decima_node_encoder": decima_node_encoder.launches,
@@ -2305,6 +2414,10 @@ def phase_train() -> dict:
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"training launched no {name}")
+    if not per_row.deltas or max(per_row.deltas) > 1:
+        raise AssertionError(f"a collection row launched threefry2x32 "
+                             f"{max(per_row.deltas, default=0)} times "
+                             f"(over {len(per_row.deltas)} rows; rbg: 1)")
     for line in lines:
         if line["health_mask"] != 0:
             raise AssertionError(f"health mask {line['health_mask']}")
@@ -2330,6 +2443,9 @@ def phase_train() -> dict:
            "plain_prng_calls": draws.plain,
            "rbg_draw_shapes": len(draws.shapes),
            "threefry_hash_shapes": len(draws.tf),
+           "threefry_per_row": {"rows": len(per_row.deltas),
+                                "max": max(per_row.deltas),
+                                "min": min(per_row.deltas)},
            "split_uniform_shapes": len(draws.su), "max_param_change": moved,
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
            "artifacts": artifacts,
@@ -2784,13 +2900,32 @@ def int_bound(nbytes: int, ops: int) -> dict:
             "bytes": nbytes, "int_ops": ops}
 
 
-def tf_work(keys: int, words: int, n: int, mode: str) -> tuple[int, int]:
-    """(bytes, integer operations) of a kernel-1 call: each key read
-    once, each output written once (a pair of int64 words per half, an
-    int64 word, or a float32), a hash per (key, counter, half)."""
+def tf_work(keys: int, words: int, n: int, mode: str, paths=None,
+            base: int = 0) -> tuple[int, int]:
+    """(bytes, integer operations) a threefry2x32 call needs: each root
+    read once and each output written once (a pair of int64 words per
+    half, an int64 word, or a float32); a hash for each (root, half) and
+    each distinct node of the paths' tree (paths that share their first
+    hops share those hashes), the last hop at each of its n counters.
+    The path table is the kernel's way to the answer, not part of it,
+    so its bytes are not counted."""
+    from sparksched_tpu_torch.kernels.threefry import PATH_VAR
+
     out = {"pair": 8 * words, "bits": 8, "uniform": 4}[mode]
-    return (keys * words * 8 + keys * n * out,
-            keys * n * (words // 2) * TF_OPS_PER_HASH)
+    rows = [(PATH_VAR,)] if paths is None else \
+        paths.reshape(-1, paths.shape[-1]).tolist()
+    nodes = set()
+    for row in rows:
+        hops = []
+        for c in row:
+            if c < 0 and c != PATH_VAR:
+                break
+            hops.append(base if c == PATH_VAR else c)
+        nodes.update(tuple(hops[:d]) for d in range(1, len(hops)))
+        nodes.update(tuple(hops[:-1]) + (hops[-1] + j,) for j in range(n))
+    hashes = keys * len(nodes) * (words // 2)
+    return (keys * words * 8 + keys * len(rows) * n * out,
+            hashes * TF_OPS_PER_HASH)
 
 
 def su_work(lanes: int, words: int, n: int) -> tuple[int, int]:
@@ -2808,21 +2943,52 @@ def su_work(lanes: int, words: int, n: int) -> tuple[int, int]:
     return nbytes, ops
 
 
+def random_tables(g, count: int) -> list:
+    """`count` random path tables [P, D] (int64, CPU): depths 1 to 3,
+    counters anywhere in [0, 2^32) and near its top, PATH_VAR entries,
+    rows shorter than the table padded with PATH_END."""
+    import torch
+
+    from sparksched_tpu_torch.kernels.threefry import PATH_VAR, path_table
+
+    tables = []
+    for i in range(count):
+        depth, num = 1 + i % 3, 5 + 7 * i
+        rows = []
+        for _ in range(num):
+            hops = int(torch.randint(1, depth + 1, (), generator=g))
+            row = torch.randint(0, 2**32, (hops,), generator=g).tolist()
+            for d in range(hops):
+                pick = int(torch.randint(0, 4, (), generator=g))
+                if pick == 0:
+                    row[d] = PATH_VAR
+                elif pick == 1:
+                    row[d] = 2**32 - 1 - d
+            rows.append(tuple(row))
+        tables.append(path_table(rows, "cpu"))
+    return tables
+
+
 def phase_prng(train: dict) -> dict:
-    """The threefry hash kernel (`threefry2x32`) and the engine's
+    """The threefry path kernel (`threefry2x32`) and the engine's
     split-then-draw kernel (`split_uniform`) against their plain versions
-    on the card, then timed. Bit-equal, under both impls: kernel 1 on
-    PRNG_CHECK_KEYS random keys (non-contiguous views) in every mode at
-    PRNG_COUNTS (bases past 2^32), and at every (key batch, count, mode)
-    the `train` phase hashed; split_uniform at every (key batch, draw
-    shape) the five engine sites drew in `train`, with threefry and rbg
-    keys. Timed at the PRNG_TIMED most launched shapes of `train` (rbg
-    keys) and at the most launched with threefry keys: the kernel's own
-    device time (`ms`, `ms_from` as in `rbg`), a whole wrapper call
-    (`call_ms`, CUDA events), the plain version on the card (`plain_ms`)
-    and the bound (bytes over the HBM rate or integer operations over
-    the INT32 rate). No PyTorch call computes jax's threefry stream, so
-    `library_ms` is None."""
+    on the card, then timed. Bit-equal, under both impls: threefry2x32
+    on PRNG_CHECK_KEYS random roots (non-contiguous views) with the
+    one-hop default in every mode at PRNG_COUNTS (bases past 2^32) and
+    through PRNG_TABLES random path tables (depths 1 to 3, varying
+    counters, counters near 2^32) at 1 and 3 counters; at every (key
+    batch, counters, mode, table) that `train`, `serve_front` and
+    `online` called (KEY_TABLES: the collector row's table, the lane
+    keys', PPO's, a served call's, the one-hop default), with the
+    varying counter the path last used and 2^32 - 1; split_uniform at
+    every (key batch, draw shape) the five engine sites drew in `train`,
+    with threefry and rbg keys. Timed at the PRNG_TIMED most launched
+    calls of `train` (rbg keys) and at the most launched with threefry
+    keys: the kernel's own device time (`ms`, `ms_from` as in `rbg`), a
+    whole wrapper call (`call_ms`, CUDA events), the plain version on
+    the card (`plain_ms`) and the bound (bytes over the HBM rate or
+    integer operations over the INT32 rate). No PyTorch call computes
+    jax's threefry stream, so `library_ms` is None."""
     import torch
 
     from sparksched_tpu_torch.kernels.rbg import (
@@ -2844,26 +3010,39 @@ def phase_prng(train: dict) -> dict:
     def keys(batch: tuple, w: int):
         return pool[w][:max(1, math.prod(batch))].reshape(batch + (w,))
 
+    def modes(w: int):
+        return MODES if w == 2 else ("pair",)
+
     bad, cases = [], 0
+
+    def check(kb, n, base, mode, paths, label):
+        nonlocal cases
+        cases += 1
+        got = threefry2x32(kb, n, base, mode, paths)
+        if not torch.equal(got, threefry2x32_keys_ref(kb, n, base, mode,
+                                                      paths)):
+            bad.append(label)
+
     for w in (2, 4):
-        for mode in (MODES if w == 2 else ("pair",)):
+        for mode in modes(w):
             for n, base in PRNG_COUNTS:
-                cases += 1
-                got = threefry2x32(pool[w], n, base, mode)
-                if not torch.equal(got, threefry2x32_keys_ref(pool[w], n,
-                                                              base, mode)):
-                    bad.append(("threefry2x32", w, n, base, mode))
-    tf_shapes = sorted(train["tf_draws"], key=lambda d: -train["tf_draws"][d])
-    for batch, _, n, _ in tf_shapes:
-        for w in (2, 4):
-            for mode in (MODES if w == 2 else ("pair",)):
-                for base in (0, 2**32 - 1):
-                    cases += 1
-                    kb = keys(batch, w)
-                    if not torch.equal(threefry2x32(kb, n, base, mode),
-                                       threefry2x32_keys_ref(kb, n, base,
-                                                             mode)):
-                        bad.append(("threefry2x32", batch, w, n, base, mode))
+                check(pool[w], n, base, mode, None,
+                      ("threefry2x32", w, n, base, mode))
+            for i, table in enumerate(random_tables(g, PRNG_TABLES)):
+                for n in (1, 3):
+                    check(pool[w][:512], n, 2**32 - 1 - i, mode, table.cuda(),
+                          ("threefry2x32", w, n, mode, "table", i))
+    sites = 0
+    for path in ("train", "serve_front", "online"):
+        tf, tables = KEY_TABLES[path]["tf"], KEY_TABLES[path]["tables"]
+        for key in tf:
+            batch, w, n, mode, _ = key
+            for paths, base in tables[key].values():
+                sites += 1
+                for kw in ((2, 4) if mode == "pair" else (w,)):
+                    for var in (base, 2**32 - 1):
+                        check(keys(batch, kw), n, var, mode, paths,
+                              ("threefry2x32", path, key, kw, var))
     su_shapes = sorted(train["su_draws"], key=lambda d: -train["su_draws"][d])
     for batch, _, shape in su_shapes:
         for w in (2, 4):
@@ -2885,15 +3064,22 @@ def phase_prng(train: dict) -> dict:
                 **int_bound(*work)}
 
     at = {"threefry2x32": {}, "split_uniform": {}}
-    for i, (batch, w, n, mode) in enumerate(tf_shapes[:PRNG_TIMED]):
+    tf_train = KEY_TABLES["train"]
+    tf_shapes = sorted(tf_train["tf"], key=lambda d: -tf_train["tf"][d])
+    for i, key in enumerate(tf_shapes[:PRNG_TIMED]):
+        batch, w, n, mode, pshape = key
+        paths, base = next(iter(tf_train["tables"][key].values()))
         for kw in ((w, 2) if i == 0 and w != 2 else (w,)):
             kb = keys(batch, kw)
-            at["threefry2x32"][f"{mode}{list(batch)}x{n}w{kw}"] = timed(
+            label = (f"{mode}{list(batch)}x{n}w{kw}"
+                     + (f"paths{list(pshape)}" if pshape else ""))
+            at["threefry2x32"][label] = timed(
                 "threefry2x32", "threefry2x32_kernel",
-                lambda: threefry2x32(kb, n, 0, mode),
-                lambda: threefry2x32_keys_ref(kb, n, 0, mode),
-                tf_work(max(1, math.prod(batch)), kw, n, mode),
-                train["tf_draws"][(batch, w, n, mode)])
+                lambda: threefry2x32(kb, n, base, mode, paths),
+                lambda: threefry2x32_keys_ref(kb, n, base, mode, paths),
+                tf_work(max(1, math.prod(batch)), kw, n, mode, paths,
+                        base),
+                tf_train["tf"][key])
     for i, (batch, w, shape) in enumerate(su_shapes[:PRNG_TIMED]):
         for kw in ((w, 2) if i == 0 and w != 2 else (w,)):
             kb = keys(batch, kw)
@@ -2904,7 +3090,8 @@ def phase_prng(train: dict) -> dict:
                 su_work(max(1, math.prod(batch)), kw, math.prod(shape)),
                 train["su_draws"][(batch, w, shape)])
     out = {"phase": "prng", "checked_keys": PRNG_CHECK_KEYS,
-           "cases": cases, "hash_shapes_checked": len(tf_shapes),
+           "cases": cases, "random_tables": PRNG_TABLES,
+           "site_tables_checked": sites,
            "split_uniform_shapes_checked": len(su_shapes),
            "max_abs_err": 0, "timed": at,
            "seconds": time.perf_counter() - t_phase, "card": card_line()}

@@ -21,7 +21,11 @@ calls three ways and prints one JSON line each:
   launches per call, and the top kernels and host ops; and the fused
   bulk event pass, each call inside a `record_function` range
   `engine.bulk_events_fused` (through `flat_loop._bulk_events_fused`):
-  its calls, host ms, torch ops and kernel launches per call.
+  its calls, host ms, torch ops and kernel launches per call; and the
+  host time per call inside the PRNG's functions (`prng_host`, each
+  outermost call in a range `prng.<fn>` as the train profile script
+  counts them; the key chain `split`, `fold_in` and `derive`), with the
+  `threefry2x32` wrapper's launches per call.
 - `launches`: host-dispatched torch ops per drain iteration, counted
   with a dispatch mode on one call.
 
@@ -46,11 +50,19 @@ def main() -> int:
 
     sys.path.insert(0, HERE)
     import chip_smoke as cs
-    from scripts_torch_train_profile import BULK_RANGE, LAUNCH_NAMES, inside
+    from scripts_torch_train_profile import (
+        BULK_RANGE,
+        KEY_CHAIN_FNS,
+        LAUNCH_NAMES,
+        PRNG_FNS,
+        PrngRanges,
+        inside,
+    )
     from torch.profiler import ProfilerActivity, profile, record_function
     from torch.utils._python_dispatch import TorchDispatchMode
 
     from sparksched_tpu_torch.env import flat_loop
+    from sparksched_tpu_torch.kernels.threefry import threefry2x32
     from sparksched_tpu_torch.serve import SessionStore, aot
 
     ap = argparse.ArgumentParser()
@@ -128,13 +140,20 @@ def main() -> int:
             return orig_bulk(*a, **k)
 
     flat_loop._bulk_events_fused = ranged
-    with profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        for i in range(args.calls):
-            store.decide_batch(groups[i % len(groups)])
-        sync()
-        wall = time.perf_counter() - t0
-    flat_loop._bulk_events_fused = orig_bulk
+    ranges = PrngRanges()
+    ranges.install()
+    tf0 = threefry2x32.launches + threefry2x32.plain_calls
+    try:
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for i in range(args.calls):
+                store.decide_batch(groups[i % len(groups)])
+            sync()
+            wall = time.perf_counter() - t0
+    finally:
+        flat_loop._bulk_events_fused = orig_bulk
+        ranges.remove()
+    tf_calls = threefry2x32.launches + threefry2x32.plain_calls - tf0
     # the device's kernel records, without the `record_function` range's
     # annotation on the device timeline (no device work)
     kernels = [e for e in prof.events()
@@ -153,6 +172,13 @@ def main() -> int:
            if e.device_type == torch.autograd.DeviceType.CPU]
     passes = [e for e in cpu if e.name == BULK_RANGE]
     n = args.calls
+    prng_host = {}
+    for name in PRNG_FNS:
+        rs = [e for e in cpu if e.name == f"prng.{name}"]
+        prng_host[name] = {
+            "calls_per_call": len(rs) / n,
+            "host_ms_per_call": sum(e.time_range.elapsed_us()
+                                    for e in rs) / 1e3 / n}
     print(json.dumps({
         "phase": "profile", "knobs": args.knobs, "calls": args.calls,
         "wall_ms_per_call": wall / args.calls * 1e3,
@@ -172,6 +198,12 @@ def main() -> int:
                 [e for e in cpu if e.name.startswith("aten::")], passes)) / n,
             "kernel_launches_per_call": len(inside(
                 [e for e in cpu if e.name in LAUNCH_NAMES], passes)) / n},
+        "prng_host": prng_host,
+        "key_chain_host_ms_per_call": sum(
+            prng_host[k]["host_ms_per_call"] for k in KEY_CHAIN_FNS),
+        "key_chain_calls_per_call": sum(
+            prng_host[k]["calls_per_call"] for k in KEY_CHAIN_FNS),
+        "threefry2x32_calls_per_call": tf_calls / n,
         "card": card,
     }), flush=True)
     if args.trace:

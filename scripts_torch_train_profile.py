@@ -24,9 +24,11 @@ cut to `--steps` (9600 is the config's own) and, for each PRNG impl of
 3. torch.profiler over `--window` rows taken from the middle of that
    collection: torch ops and kernel launches per row, device busy time
    and the device's idle share of the window's wall, and the host time
-   per row inside the PRNG's functions (`split` and `fold_in`, the key
-   chain: the threefry hash kernel under both impls; `random_bits` and
-   `uniform`, the draws: the rbg kernel or the threefry hash kernel;
+   per row inside the PRNG's functions (`split`, `fold_in` and
+   `derive`, the key chain: the threefry path kernel under both impls,
+   `derive` a call site's whole chain in one launch (absent on trees
+   before it, counted 0 there); `random_bits` and `uniform`, the draws:
+   the rbg kernel or the threefry path kernel;
    `split_uniform`, the engine's split-then-draw kernel), each counted
    once at its outermost call, and each PRNG kernel's device records
    and device ms per row; and the fused bulk event pass, each call
@@ -84,7 +86,9 @@ def cuda_events(prof):
             and not e.is_user_annotation]
 
 
-PRNG_FNS = ("split", "fold_in", "random_bits", "uniform", "split_uniform")
+PRNG_FNS = ("split", "fold_in", "derive", "random_bits", "uniform",
+            "split_uniform")
+KEY_CHAIN_FNS = ("split", "fold_in", "derive")
 PRNG_KERNELS = ("threefry2x32_kernel", "split_uniform_kernel",
                 "rbg_philox_kernel", "bulk_events_fused_kernel")
 LAUNCH_NAMES = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC")
@@ -94,7 +98,8 @@ LOWPREC_ENV = {"bank_dtype": "int16", "obs_dtype": "bfloat16"}
 
 class PrngRanges:
     """While installed: each outermost call of the PRNG's functions runs
-    inside a `torch.profiler.record_function` range named `prng.<fn>`."""
+    inside a `torch.profiler.record_function` range named `prng.<fn>`
+    (a function the tree's `prng` lacks is left out)."""
 
     def __init__(self):
         from sparksched_tpu_torch import prng
@@ -105,6 +110,8 @@ class PrngRanges:
         from torch.profiler import record_function
 
         for name in PRNG_FNS:
+            if not hasattr(self.prng, name):
+                continue
             fn = self.orig[name] = getattr(self.prng, name)
 
             def ranged(*a, _fn=fn, _name=name, **k):
@@ -232,7 +239,7 @@ def profile_impl(args, impl: str) -> dict:
     # 2. the split per row, 3. a profiled window of rows
     split = {"policy_s": 0.0, "engine_s": 0.0}
     sched = trainer.scheduler
-    orig = (sched.batch_policy, tro.decide_micro_step, tro.drain_to_decision)
+    orig = (sched.lane_policy, tro.decide_micro_step, tro.drain_to_decision)
     mid = max(0, args.split_rows // 2 - args.window // 2)
     calls = {"rows": 0}
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
@@ -266,7 +273,7 @@ def profile_impl(args, impl: str) -> dict:
         calls["rows"] += 1
         return timed("policy_s", orig[0])(*a, **k)
 
-    sched.batch_policy = policy
+    sched.lane_policy = policy
     tro.decide_micro_step = timed("engine_s", orig[1])
     tro.drain_to_decision = timed("engine_s", orig[2])
     trainer.rollout_steps = args.split_rows
@@ -278,7 +285,7 @@ def profile_impl(args, impl: str) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
     finally:
-        sched.batch_policy = orig[0]
+        sched.lane_policy = orig[0]
         tro.decide_micro_step, tro.drain_to_decision = orig[1], orig[2]
         ranges.remove()
         bulk_range.remove()
@@ -314,8 +321,10 @@ def profile_impl(args, impl: str) -> dict:
             "device_busy_ms_per_row": busy / n,
             "device_idle_share": 1 - busy / (window["wall"] * 1e3),
             "prng_host": host,
-            "key_chain_host_ms_per_row": host["split"]["host_ms_per_row"]
-            + host["fold_in"]["host_ms_per_row"],
+            "key_chain_host_ms_per_row": sum(
+                host[k]["host_ms_per_row"] for k in KEY_CHAIN_FNS),
+            "key_chain_calls_per_row": sum(
+                host[k]["calls_per_row"] for k in KEY_CHAIN_FNS),
             "draws_host_ms_per_row": host["random_bits"]["host_ms_per_row"]
             + host["uniform"]["host_ms_per_row"],
             "split_uniform_host_ms_per_row":

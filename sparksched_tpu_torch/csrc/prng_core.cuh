@@ -2,7 +2,7 @@
 // inline functions: jax 0.9.0's threefry2x32 hash (20 rounds, the
 // `_threefry2x32_lowering` schedule), the Philox4x32-10 block of
 // `lax.rng_bit_generator` under `rbg`, jax.random.uniform's float32
-// mapping, and the per-thread body of each kernel (`threefry_item`,
+// mapping, and the per-thread body of each kernel (`threefry_path_item`,
 // `split_uniform_tf_item`, `split_uniform_rbg_item`) with the word-level
 // pieces they share, which `engine_core.cuh` calls to derive the one pair
 // of uniforms a fused bulk-pass step consumes. `threefry.cu` and
@@ -129,22 +129,62 @@ constexpr int kModePair = 0;     // the two words (split, fold_in)
 constexpr int kModeBits = 1;     // a ^ b (random_bits)
 constexpr int kModeUniform = 2;  // float32 through bits_to_uniform
 
-// Item t of threefry2x32_launch: key k = t / (n * halves), counter
-// i = (t / halves) % n, half h = t % halves (halves = 2 for an rbg key,
-// whose halves hash alike). Key k's words start at keys + k * key_stride
-// (adjacent words). The counter is base + i. Pair mode writes
-// out[2t], out[2t + 1] as int64: the layout [K, n, 2 * halves], which is
-// split's under both impls; bits mode out[t] as int64 and uniform mode
-// out[t] as float32, [K, n] (halves = 1 there).
-PRNG_HD void threefry_item(const int64_t* keys, long long key_stride,
-                           int halves, uint64_t base, long long n, int mode,
-                           long long t, void* out) {
+// A path table's entries: a counter c >= 0, kPathVar (the launch's one
+// varying counter), or any other negative value, which ends the path
+// (tables pad short paths with kPathEnd)
+constexpr int64_t kPathEnd = -1;
+constexpr int64_t kPathVar = -2;
+constexpr int kMaxPathDepth = 8;
+
+// The hops of a path row of `depth` entries: the entries before the
+// first end
+PRNG_HD int path_hops(const int64_t* row, int depth) {
+  int len = 0;
+  while (len < depth && (row[len] >= 0 || row[len] == kPathVar)) ++len;
+  return len;
+}
+
+// The key (k0, k1) hashed through the path's hops in place: hop d is
+// threefry of the 64-bit counter row[d] (`var` for kPathVar), the last
+// hop at its counter + j. fold_in(k, c) and split(k, n)[c] are both this
+// hop, so a chain of them from a root is one path.
+PRNG_HD void hash_path(uint32_t& k0, uint32_t& k1, const int64_t* row,
+                       int hops, uint64_t var, uint64_t j) {
+  for (int d = 0; d < hops; ++d) {
+    const uint64_t c = (row[d] == kPathVar ? var : (uint64_t)row[d]) +
+                       (d == hops - 1 ? j : 0ull);
+    uint32_t a, b;
+    threefry_at(k0, k1, c, a, b);
+    k0 = a;
+    k1 = b;
+  }
+}
+
+// Item t of threefry2x32_launch over R roots x P paths x n counters x
+// halves (halves = 2 for an rbg key, whose halves hash alike): half
+// h = t % halves, counter j = (t / halves) % n, path p = (t / (halves *
+// n)) % P, root r = t / (halves * n * P). Root r's words start at
+// roots + r * root_stride (adjacent words); path p is the table row
+// paths + p * depth. The root's half h goes through the path
+// (hash_path, the last hop at its counter + j). Pair mode writes
+// out[2t], out[2t + 1] as int64: the layout [R, P, n, 2 * halves], the
+// halves side by side; bits mode out[t] = a ^ b as int64 and uniform
+// mode out[t] as float32, [R, P, n] (halves = 1 there). A path of no hop
+// leaves the root's words as they are.
+PRNG_HD void threefry_path_item(const int64_t* roots, long long root_stride,
+                                int halves, const int64_t* paths, int depth,
+                                long long num_paths, uint64_t var,
+                                long long n, int mode, long long t,
+                                void* out) {
   const long long h = t % halves;
-  const long long ki = t / halves;
-  const long long k = ki / n, i = ki % n;
-  const int64_t* key = keys + k * key_stride + 2 * h;
-  uint32_t a, b;
-  threefry_at((uint32_t)key[0], (uint32_t)key[1], base + (uint64_t)i, a, b);
+  const long long rest = t / halves;
+  const long long j = rest % n;
+  const long long p = (rest / n) % num_paths;
+  const long long r = rest / n / num_paths;
+  const int64_t* key = roots + r * root_stride + 2 * h;
+  const int64_t* row = paths + p * depth;
+  uint32_t a = (uint32_t)key[0], b = (uint32_t)key[1];
+  hash_path(a, b, row, path_hops(row, depth), var, (uint64_t)j);
   if (mode == kModePair) {
     int64_t* o = static_cast<int64_t*>(out) + 2 * t;
     o[0] = (int64_t)a;

@@ -1,21 +1,31 @@
-"""JAX's threefry2x32 key chain and draws: wrapper of the hash kernel and
+"""JAX's threefry2x32 key chain and draws: wrapper of the path kernel and
 its plain version.
 
 `jax.random.split`, `fold_in` and (under the default impl) `bits` /
 `uniform` all hash a 64-bit counter under each key with threefry2x32
 (jax 0.9.0, `jax_threefry_partitionable` on: the counter c is the words
 (c >> 32, c & 0xFFFFFFFF)): split's counters are 0..num-1, fold_in's the
-one datum, random_bits' the flat iota over the draw's shape. An rbg key
-(four words) splits and folds as threefry on each 2-word half.
+one datum, random_bits' the flat iota over the draw's shape. So every
+derived key is a root hashed through a path of counters: `fold_in(
+split(k, 4)[1], b)` is k through (1, b). An rbg key (four words) splits
+and folds as threefry on each 2-word half.
 
-`threefry2x32(keys, n, base, mode)` hashes counters base .. base + n - 1
-under every key of `keys` ([..., W] int64 words, W = 2 or 4) and returns,
-by `mode`:
+A path table is an int64 tensor `[..., D]` (`path_table`): each row the
+counters of one path's hops, `PATH_VAR` for the call's one varying
+counter (`base`), padded with `PATH_END`. `threefry2x32(keys, n, base,
+mode, paths)` hashes every key of `keys` ([..., W] int64 words, W = 2 or
+4) through every path, the last hop at its counter + 0 .. n - 1, and
+returns, by `mode`:
 
-- "pair": the two words, `keys.shape[:-1] + [n, W]` (an rbg key's halves
-  side by side: split's layout under both impls);
-- "bits": a ^ b, `keys.shape[:-1] + [n]` int64 (threefry keys only);
+- "pair": the two words, `keys.shape[:-1] + paths.shape[:-1] + [n, W]`
+  (an rbg key's halves side by side: split's layout under both impls);
+- "bits": a ^ b, `keys.shape[:-1] + paths.shape[:-1] + [n]` int64
+  (threefry keys only);
 - "uniform": jax.random.uniform's float32 of those bits (threefry only).
+
+Without `paths` the table is the one path (`PATH_VAR`,) of shape [1]:
+counters base .. base + n - 1 under each key, a plain split, fold_in or
+draw (`keys.shape[:-1] + [n, W]`).
 
 On a CUDA key it launches `csrc/threefry.cu` (one launch, counted in
 `threefry2x32.launches`) or raises; on a CPU key it runs the plain
@@ -34,6 +44,11 @@ import torch
 _M32 = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
 MODES = {"pair": 0, "bits": 1, "uniform": 2}
+# path table entries (csrc/prng_core.cuh): a counter >= 0, the call's
+# varying counter, or the end of a shorter path
+PATH_END = -1
+PATH_VAR = -2
+MAX_DEPTH = 8
 
 _COUNT_LOCK = threading.Lock()
 
@@ -64,17 +79,67 @@ def bits_to_uniform(bits: torch.Tensor) -> torch.Tensor:
     return torch.clamp_min(fbits.view(torch.float32) - 1.0, 0.0)
 
 
+def path_table(rows, device, shape: tuple[int, ...] | None = None
+               ) -> torch.Tensor:
+    """An int64 path table on `device` from `rows`, one sequence of hops
+    per path (counters in [0, 2^32), the fold_in and split range, or
+    PATH_VAR), padded with PATH_END to the longest: [P, D], or
+    `shape + [D]`. Raises on a path of no hop or of more than MAX_DEPTH
+    hops, and on any other entry."""
+    rows = [tuple(int(c) for c in r) for r in rows]
+    depth = max((len(r) for r in rows), default=1)
+    if any(not 1 <= len(r) <= MAX_DEPTH for r in rows):
+        raise ValueError(f"a path has 1 to {MAX_DEPTH} hops")
+    if any(not (0 <= c < 2**32 or c == PATH_VAR) for r in rows for c in r):
+        raise ValueError("a hop's counter lies in [0, 2^32) or is PATH_VAR")
+    table = torch.tensor([r + (PATH_END,) * (depth - len(r)) for r in rows],
+                         dtype=torch.int64).reshape(-1, depth)
+    if shape is not None:
+        table = table.reshape(tuple(shape) + (depth,))
+    return table.to(device)
+
+
+@functools.lru_cache(maxsize=None)
+def _var_path(device: torch.device) -> torch.Tensor:
+    """The one path (PATH_VAR,): a plain split, fold_in or draw."""
+    return path_table([(PATH_VAR,)], device)[0]
+
+
 def threefry2x32_keys_ref(keys: torch.Tensor, n: int, base: int = 0,
-                          mode: str = "pair") -> torch.Tensor:
-    """The plain version of `threefry2x32`, in int64 torch ops."""
+                          mode: str = "pair",
+                          paths: torch.Tensor | None = None) -> torch.Tensor:
+    """The plain version of `threefry2x32`, in int64 torch ops: every
+    path's hops but the last on all of its rows at once (a row past its
+    own hops keeps its key), then the last hop at n counters."""
+    if paths is None:
+        paths = _var_path(keys.device)
     w = keys.shape[-1]
-    halves = keys.unflatten(-1, (w // 2, 2))  # [..., h, 2]
-    c = base + torch.arange(n, dtype=torch.int64, device=keys.device)
-    a, b = threefry2x32_ref(halves[..., 0:1], halves[..., 1:2], c >> 32,
-                            c & _M32)  # [..., h, n]
+    lead, pshape, depth = keys.shape[:-1], paths.shape[:-1], paths.shape[-1]
+    rows = paths.reshape(-1, depth)
+    live = ((rows >= 0) | (rows == PATH_VAR)).long().cumprod(-1)
+    hops = live.sum(-1)  # [P]
+    c = torch.where(rows == PATH_VAR, base, rows)
+    halves = keys.reshape(-1, w // 2, 2)  # [R, h, 2]
+    shape = (halves.shape[0], rows.shape[0], w // 2)
+    k0 = halves[:, None, :, 0].expand(shape)  # [R, P, h]
+    k1 = halves[:, None, :, 1].expand(shape)
+    for d in range(depth - 1):
+        mid = (d < hops - 1)[None, :, None]
+        cd = c[None, :, d, None]
+        a, b = threefry2x32_ref(k0, k1, cd >> 32, cd & _M32)
+        k0, k1 = torch.where(mid, a, k0), torch.where(mid, b, k1)
+    last = c.gather(-1, (hops - 1).clamp_min(0)[:, None])  # [P, 1]
+    cl = (last + torch.arange(n, dtype=torch.int64, device=keys.device))[
+        None, :, None, :]  # [1, P, 1, n]
+    a, b = threefry2x32_ref(k0[..., None], k1[..., None], cl >> 32,
+                            cl & _M32)  # [R, P, h, n]
+    has = (hops > 0)[None, :, None, None]
+    a = torch.where(has, a, k0[..., None])
+    b = torch.where(has, b, k1[..., None])
     if mode == "pair":
-        return torch.stack([a, b], -1).movedim(-3, -2).flatten(-2)
-    bits = (a ^ b)[..., 0, :]
+        out = torch.stack([a, b], -1).movedim(-3, -2).flatten(-2)
+        return out.reshape(lead + pshape + (n, w))
+    bits = (a ^ b)[:, :, 0, :].reshape(lead + pshape + (n,))
     return bits_to_uniform(bits) if mode == "uniform" else bits
 
 
@@ -85,8 +150,9 @@ def _launcher():
 
     fn = load("threefry").threefry2x32_launch
     vp, ll = ctypes.c_void_p, ctypes.c_longlong
-    fn.argtypes = [vp, ll, ll, ctypes.c_int, ctypes.c_ulonglong, ll,
-                   ctypes.c_int, vp, vp]
+    ci = ctypes.c_int
+    fn.argtypes = [vp, ll, ll, ci, vp, ci, ll, ctypes.c_ulonglong, ll, ci,
+                   vp, vp]
     fn.restype = ctypes.c_int
     return fn
 
@@ -112,32 +178,47 @@ def flat_keys(keys: torch.Tensor) -> tuple[torch.Tensor, int]:
 
 
 def threefry2x32(keys: torch.Tensor, n: int, base: int = 0,
-                 mode: str = "pair") -> torch.Tensor:
-    """Counters base .. base + n - 1 hashed under every key (module
-    docstring): the kernel on a CUDA key, the plain version on a CPU
-    key."""
+                 mode: str = "pair",
+                 paths: torch.Tensor | None = None) -> torch.Tensor:
+    """Every key through every path of `paths`, the last hop at n
+    counters, `base` the value of PATH_VAR (module docstring): the
+    kernel on a CUDA key, the plain version on a CPU key. The table lies
+    on the keys' device; one built by `path_table` holds only valid
+    entries, and the kernel reads any entry it does not know as an end."""
     w = key_words(keys)
     if mode not in MODES or (w == 4 and mode != "pair"):
         raise ValueError(f"mode {mode!r} for keys of {w} words")
     n, base = int(n), int(base)
     if n < 0 or base < 0 or base + n > 2**63:
         raise ValueError(f"counters {base} + [0, {n}) out of range")
+    if paths is None:
+        paths = _var_path(keys.device)
+    elif (paths.dtype != torch.int64 or paths.dim() < 1
+          or not 1 <= paths.shape[-1] <= MAX_DEPTH
+          or paths.device != keys.device):
+        raise ValueError(f"want an int64 path table [..., 1..{MAX_DEPTH}] "
+                         f"on {keys.device}, got {paths.dtype} "
+                         f"{tuple(paths.shape)} on {paths.device}")
     if keys.device.type == "cpu":
         with _COUNT_LOCK:
             threefry2x32.plain_calls += 1
-        return threefry2x32_keys_ref(keys, n, base, mode)
+        return threefry2x32_keys_ref(keys, n, base, mode, paths)
     if keys.device.type != "cuda":
         raise ValueError(f"unsupported device {keys.device}")
-    lead = tuple(keys.shape[:-1])
+    lead = tuple(keys.shape[:-1]) + tuple(paths.shape[:-1])
     out = torch.empty(lead + ((n, w) if mode == "pair" else (n,)),
                       dtype=torch.float32 if mode == "uniform"
                       else torch.int64, device=keys.device)
     if out.numel() == 0:
         return out
     flat, stride = flat_keys(keys)
+    rows = paths.reshape(-1, paths.shape[-1])
+    if not rows.is_contiguous():
+        rows = rows.contiguous()
     stream = torch.cuda.current_stream(keys.device).cuda_stream
-    rc = _launcher()(flat.data_ptr(), stride, flat.shape[0], w // 2, base,
-                     n, MODES[mode], out.data_ptr(), stream)
+    rc = _launcher()(flat.data_ptr(), stride, flat.shape[0], w // 2,
+                     rows.data_ptr(), rows.shape[1], rows.shape[0], base, n,
+                     MODES[mode], out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"threefry2x32 launch failed (rc={rc})")
     with _COUNT_LOCK:

@@ -9,7 +9,8 @@ runs, bit for bit:
 - `threefry2x32` (the default; 20 rounds) with `jax_threefry_partitionable`
   on, which makes `split` and `random_bits` hash a 64-bit iota counter
   (`kernels/threefry.py`: the kernel on the card, one launch for a
-  split, a fold_in or a draw; its plain version on the CPU);
+  split, a fold_in, a draw, or a call site's whole key chain through
+  `derive`; its plain version on the CPU);
 - `rbg`, which the trainer's `fast_prng: True` selects: a key of four
   words whose `split` and `fold_in` are threefry's applied to each 2-word
   half, and whose `random_bits` is Philox4x32-10 (`kernels/rbg.py`: the
@@ -40,8 +41,8 @@ import math
 import torch
 
 from .kernels.rbg import rbg_random_bits, rbg_uniform, split_uniform
+from .kernels.threefry import PATH_VAR, path_table, threefry2x32_ref
 from .kernels.threefry import threefry2x32 as _threefry
-from .kernels.threefry import threefry2x32_ref
 
 _M32 = 0xFFFFFFFF
 # impl name -> key width (the JAX package's `jax_default_prng_impl` names)
@@ -86,6 +87,19 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     for keys of W words (an rbg key: threefry's on both 2-word halves,
     in the same launch)."""
     return _threefry(key, num)
+
+
+def derive(roots: torch.Tensor, paths: torch.Tensor, var: int = 0
+           ) -> torch.Tensor:
+    """Every key a chain of `split` / `fold_in` makes from `roots`, in
+    one launch: `fold_in(k, c)` and `split(k, n)[c]` are the same hop, so
+    `split(fold_in(k, 5), 4)[2]` is k through the path (5, 2). `paths` is
+    a table from `path_table` (each row one key's hops; PATH_VAR stands
+    for `var`, a counter that changes per call, taken as fold_in takes
+    its datum: its low 32 bits) on the roots' device. Shape
+    `roots.shape[:-1] + paths.shape[:-1] + [W]`. Build a site's table
+    once and keep it: the table is a device tensor."""
+    return _threefry(roots, 1, int(var) & _M32, "pair", paths)[..., 0, :]
 
 
 def random_bits(key: torch.Tensor, shape: tuple[int, ...] = ()

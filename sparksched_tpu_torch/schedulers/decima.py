@@ -323,11 +323,12 @@ def sample_action(rng, stage_scores, exec_scores, f: DecimaFeatures,
                   deterministic: bool = False):
     """Autoregressive action per lane: the stage by a masked softmax over
     every schedulable node, then the executor count from the chosen
-    job's exec head; both by Gumbel-max on the lane's key (`rng` [B,2],
-    split into the stage and the exec key as the JAX package does), or
-    with `deterministic` both by the masked argmax (`rng` unused, may be
-    None). Returns (DecimaAction, lgprob[B]), the log-probability of the
-    chosen action."""
+    job's exec head; both by Gumbel-max on the lane's key (`rng` [B, W],
+    split into the stage and the exec key as the JAX package does, or
+    those two keys already split, [B, 2, W]), or with `deterministic`
+    both by the masked argmax (`rng` unused, may be None). Returns
+    (DecimaAction, lgprob[B]), the log-probability of the chosen
+    action."""
     b, j_cap, s_cap = f.stage_mask.shape
     rows = torch.arange(b, device=stage_scores.device)
     flat_mask = f.stage_mask.reshape(b, -1)
@@ -338,7 +339,7 @@ def sample_action(rng, stage_scores, exec_scores, f: DecimaFeatures,
     if deterministic:
         pick = torch.argmax(stage_logits, 1)
     else:
-        keys = prng.split(rng)
+        keys = rng if rng.dim() == 3 else prng.split(rng)
         k_stage, k_exec = keys[:, 0], keys[:, 1]
         pick = prng.categorical(k_stage, stage_logits)
     stage_flat = torch.where(valid, pick, -1).to(_i32)
@@ -478,9 +479,10 @@ class DecimaScheduler(TrainableScheduler):
     @torch.no_grad()
     def lane_policy(self, keys, obs: Observation,
                     deterministic: bool = False):
-        """`batch_policy` with the lanes' keys given (`keys` [B,2], each
-        lane's key as the JAX package's vmapped `policy` takes it; None
-        when `deterministic`)."""
+        """`batch_policy` with the lanes' keys given (`keys` [B, W], each
+        lane's key as the JAX package's vmapped `policy` takes it, or
+        [B, 2, W], its split as the collector derives it; None when
+        `deterministic`)."""
         f = self.features(obs)
         stage_scores, exec_scores = self.score(f)
         action, lgprob = sample_action(keys, stage_scores, exec_scores, f,

@@ -12,8 +12,12 @@ A decision: gather the session(s), observe, run the policy (or take the
 caller's forced action), `apply_and_drain` to the next decision point
 with the engine knobs (`SERVE_KNOBS` by default), compute the health
 sentinel over the post-drain state and the span reward, scatter back.
-The call's key splits into (policy, engine) as the JAX programs split
-it; the batched program's lanes take the K-way splits of each. Padding
+A program takes the store's root key and the call's count: the call's
+key is `fold_in(root, call)`, which splits into (policy, engine) as the
+JAX programs split it, and the batched program's lanes take the K-way
+splits of each. Each such key is the root through a path of counters,
+(call, 0, i) and (call, 1, i), so one launch derives all of them
+(`prng.derive`, the count as the table's varying counter). Padding
 slots of a batch carry index C: they are never computed or written, and
 their outputs are masked (`valid` off), where the JAX package clamps
 their gathers and drops their scatters.
@@ -213,13 +217,26 @@ def _decide(params: EnvParams, bank: WorkloadBank, policy_fn: Callable,
     return ls2, out
 
 
+@functools.lru_cache(maxsize=None)
+def _call_paths(K: int, device: torch.device) -> torch.Tensor:
+    """The paths from the store's root of a call's keys: the policy and
+    engine keys (call, 0) and (call, 1) of a single call (K = 0, [2, 2]),
+    or their K-way splits (call, 0, i) and (call, 1, i) of a batched one
+    ([2, K, 3]); the call's count is the table's varying counter."""
+    c = prng.PATH_VAR
+    if not K:
+        return prng.path_table([(c, 0), (c, 1)], device)
+    rows = [(c, h, i) for h in (0, 1) for i in range(K)]
+    return prng.path_table(rows, device, (2, K))
+
+
 def _single_program(params: EnvParams, bank: WorkloadBank,
                     policy_fn: Callable, kn: dict[str, Any], record: bool):
-    """One session's decision: `(store, slot, key, force_stage,
+    """One session's decision: `(store, slot, root, call, force_stage,
     force_nexec, use_force) -> (ServeOut of one row, decisions after)`."""
 
-    def fn(store: LoopState, slot: int, key: torch.Tensor, force_stage: int,
-           force_nexec: int, use_force: bool):
+    def fn(store: LoopState, slot: int, root: torch.Tensor, call: int,
+           force_stage: int, force_nexec: int, use_force: bool):
         dev = store.mode.device
         idx = torch.tensor([slot], device=dev)
         ls = take_slot(store, idx)
@@ -227,7 +244,8 @@ def _single_program(params: EnvParams, bank: WorkloadBank,
         def t(v, dtype):
             return torch.tensor([v], dtype=dtype, device=dev)
 
-        k_pol, k_env = prng.split(key)[:, None]
+        k_pol, k_env = prng.derive(root, _call_paths(0, root.device),
+                                   call)[:, None]
         ls2, out = _decide(
             params, bank, policy_fn, ls, k_pol, k_env, t(force_stage, _i32),
             t(force_nexec, _i32), t(use_force, torch.bool), kn,
@@ -242,10 +260,11 @@ def _single_program(params: EnvParams, bank: WorkloadBank,
 def _batch_program(params: EnvParams, bank: WorkloadBank,
                    batch_policy_fn: Callable, K: int, kn: dict[str, Any],
                    record: bool):
-    """Up to K sessions' decisions: `(store, slots [K], key) -> (ServeOut
-    of [K], decisions after [K])`, padding rows filled."""
+    """Up to K sessions' decisions: `(store, slots [K], root, call) ->
+    (ServeOut of [K], decisions after [K])`, padding rows filled."""
 
-    def fn(store: LoopState, slots: torch.Tensor, key: torch.Tensor):
+    def fn(store: LoopState, slots: torch.Tensor, root: torch.Tensor,
+           call: int):
         if slots.shape != (K,):
             raise ValueError(f"slots must have shape ({K},)")
         C = store.mode.shape[0]
@@ -257,7 +276,8 @@ def _batch_program(params: EnvParams, bank: WorkloadBank,
             raise ValueError("a batch needs at least one real slot")
         ls = take_slot(store, real)
         pos = valid.nonzero()[:, 0]
-        k_pol, k_env = (prng.split(k, K)[pos] for k in prng.split(key))
+        k_pol, k_env = prng.derive(root, _call_paths(K, root.device),
+                                   call)[:, pos]
         no = torch.zeros(n, dtype=_i32, device=dev)
         ls2, out = _decide(
             params, bank, batch_policy_fn, ls, k_pol, k_env, no, no,
@@ -289,10 +309,10 @@ def serve_decide_fn(params: EnvParams, bank: WorkloadBank,
                     knobs: dict[str, Any] | None = None,
                     record: bool = False) -> Callable:
     """The single-session program:
-    `(store [C], slot, key, force_stage, force_nexec, use_force) ->
-    ServeOut` of one row; the store is updated in place. The key splits
-    as the JAX program's does: (policy, engine). `record` adds the
-    decision's `StoredObs`."""
+    `(store [C], slot, root, call, force_stage, force_nexec, use_force)
+    -> ServeOut` of one row; the store is updated in place. The call's
+    key `fold_in(root, call)` splits as the JAX program's does: (policy,
+    engine). `record` adds the decision's `StoredObs`."""
     prog = _single_program(params, bank, policy_fn,
                            SERVE_KNOBS | (knobs or {}), record)
     return lambda *args: prog(*args)[0]
@@ -302,13 +322,13 @@ def serve_decide_batch_fn(params: EnvParams, bank: WorkloadBank,
                           batch_policy_fn: Callable, batch: int,
                           knobs: dict[str, Any] | None = None,
                           record: bool = False) -> Callable:
-    """The batched program: `(store [C], slots [K], key) -> ServeOut of
-    [K]`. ONE batched policy evaluation over the gathered sessions, then
-    the batched apply-and-drain, batch position i on the i-th key of the
-    engine key's K-way split (the JAX program's); the store is updated
-    in place. Slots equal to C are padding. A stochastic policy samples
-    lane i on the i-th key of the policy key's K-way split. `record`
-    adds each lane's `StoredObs`."""
+    """The batched program: `(store [C], slots [K], root, call) ->
+    ServeOut of [K]`. ONE batched policy evaluation over the gathered
+    sessions, then the batched apply-and-drain, batch position i on the
+    i-th key of the engine key's K-way split (the JAX program's); the
+    store is updated in place. Slots equal to C are padding. A
+    stochastic policy samples lane i on the i-th key of the policy key's
+    K-way split. `record` adds each lane's `StoredObs`."""
     prog = _batch_program(params, bank, batch_policy_fn, int(batch),
                           SERVE_KNOBS | (knobs or {}), record)
     return lambda *args: prog(*args)[0]
@@ -318,8 +338,8 @@ def serve_decide_ring_fn(params: EnvParams, bank: WorkloadBank,
                          policy_fn: Callable,
                          knobs: dict[str, Any] | None = None) -> Callable:
     """The ring-recording single-session program:
-    `(store [C], ring, slot, sid, pver, key, force_stage, force_nexec,
-    use_force) -> ServeOut` of one row. The record-on decision, whose
+    `(store [C], ring, slot, sid, pver, root, call, force_stage,
+    force_nexec, use_force) -> ServeOut` of one row. The record-on decision, whose
     full `RingRec` (stamped with `sid`, the version `pver` and the
     lane's decision count as `seq`) is appended to `ring` when the lane
     decided; the output carries no `obs`, the record-off payload. Store
@@ -328,9 +348,9 @@ def serve_decide_ring_fn(params: EnvParams, bank: WorkloadBank,
                            SERVE_KNOBS | (knobs or {}), True)
 
     def fn(store: LoopState, ring: TrajRing, slot: int, sid: int,
-           pver: int, key: torch.Tensor, force_stage: int,
+           pver: int, root: torch.Tensor, call: int, force_stage: int,
            force_nexec: int, use_force: bool) -> ServeOut:
-        out, seq = prog(store, slot, key, force_stage, force_nexec,
+        out, seq = prog(store, slot, root, call, force_stage, force_nexec,
                         use_force)
         dev = seq.device
         stamp = functools.partial(torch.full, (1,), dtype=_i32, device=dev)
@@ -347,8 +367,8 @@ def serve_decide_batch_ring_fn(params: EnvParams, bank: WorkloadBank,
                                knobs: dict[str, Any] | None = None
                                ) -> Callable:
     """The ring-recording batched program:
-    `(store [C], ring, slots [K], sids [K], pver, key) -> ServeOut of
-    [K]`. The record-on batch, one masked append of its decided lanes in
+    `(store [C], ring, slots [K], sids [K], pver, root, call) -> ServeOut
+    of [K]`. The record-on batch, one masked append of its decided lanes in
     lane order (padding and no-decision lanes go to the sink), and the
     record-off payload. `pver` is one version for the whole call: every
     decision of a batch reads the same weights."""
@@ -357,8 +377,9 @@ def serve_decide_batch_ring_fn(params: EnvParams, bank: WorkloadBank,
                           SERVE_KNOBS | (knobs or {}), True)
 
     def fn(store: LoopState, ring: TrajRing, slots: torch.Tensor,
-           sids: torch.Tensor, pver: int, key: torch.Tensor) -> ServeOut:
-        out, seq = prog(store, slots, key)
+           sids: torch.Tensor, pver: int, root: torch.Tensor,
+           call: int) -> ServeOut:
+        out, seq = prog(store, slots, root, call)
         pv = torch.full((K,), pver, dtype=_i32, device=seq.device)
         ring_append(ring, _ring_rec(out, sids.to(_i32), seq.to(_i32), pv),
                     out.decided)

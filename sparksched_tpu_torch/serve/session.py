@@ -499,9 +499,11 @@ class SessionStore:
             raise AttributeError("grouped store (groups > 1): use _stores[g]")
         return self._stores[0]
 
-    def _next_key(self) -> torch.Tensor:
+    def _next_call(self) -> int:
+        """The next call's count: the call's key is `fold_in(base key,
+        count)`, derived inside the program with the keys split from it."""
         self._calls += 1
-        return prng.fold_in(self._base_key, self._calls)
+        return self._calls
 
     def _reset1(self, key: torch.Tensor):
         return init_loop_state(core.reset(self.params, self.bank, key[None]))
@@ -515,11 +517,12 @@ class SessionStore:
         if self._ring_on:
             out = self._decide1(self._stores[group], self._rings[group],
                                 local, sid, self.params_version,
-                                self._next_key(), fstage, fnexec, use_force)
+                                self._base_key, self._next_call(), fstage,
+                                fnexec, use_force)
             self._ring_dispatched(group, 1)
             return out
-        return self._decide1(self._stores[group], local, self._next_key(),
-                             fstage, fnexec, use_force)
+        return self._decide1(self._stores[group], local, self._base_key,
+                             self._next_call(), fstage, fnexec, use_force)
 
     def _callk(self, group: int, locals_: list[int],
                sids: list[int] | None = None):
@@ -534,12 +537,12 @@ class SessionStore:
                 self.device)
             out = self._decidek(self._stores[group], self._rings[group],
                                 both[:K], both[K:], self.params_version,
-                                self._next_key())
+                                self._base_key, self._next_call())
             self._ring_dispatched(group, K if sids is None else len(sids))
             return out
         return self._decidek(self._stores[group],
                              torch.from_numpy(slots).to(self.device),
-                             self._next_key())
+                             self._base_key, self._next_call())
 
     # -- the trajectory ring's drain ---------------------------------------
 

@@ -23,6 +23,8 @@ gate off they are skipped.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from .. import prng
@@ -36,6 +38,14 @@ EPS = 1e-8
 # stages at the flagship shape, ~25 MB of saved activations each), sized
 # to stay well inside an 80 GB card.
 UPDATE_CHUNK = 1024
+
+
+@functools.lru_cache(maxsize=None)
+def permutation_paths(E: int, B: int, device: torch.device) -> torch.Tensor:
+    """The update's permutation keys' paths from the state key: epoch e,
+    lane b at (13, e, b), [E, B, 3]."""
+    rows = [(13, e, b) for e in range(E) for b in range(B)]
+    return prng.path_table(rows, device, (E, B))
 
 
 class PPO(Trainer):
@@ -54,9 +64,8 @@ class PPO(Trainer):
         minibatch k takes steps mb_idx[k, b]; slots past T are padding."""
         E, nb = self.num_epochs, self.num_batches
         mbs = -(-T // nb)
-        ep_keys = prng.split(prng.fold_in(rng, 13), E)  # [E, 2]
-        lane_keys = torch.stack([prng.fold_in(ep_keys, b) for b in range(B)],
-                                1)  # [E, B, 2]
+        # fold_in(split(fold_in(rng, 13), E)[e], b): the path (13, e, b)
+        lane_keys = prng.derive(rng, permutation_paths(E, B, rng.device))
         perms = prng.permutation(lane_keys, T)  # [E, B, T]
         pad = nb * mbs - T
         perms = torch.cat([perms, perms.new_zeros((E, B, pad))], -1)

@@ -8,9 +8,11 @@ whole lane batch: one `observe`, ONE batched policy evaluation
 (`batch_policy_fn(key, obs)`), `decide_micro_step` acting on it, then
 `drain_to_decision` up to every lane's next decision. The key chain per
 row is the JAX package's (`split(k, 4)`, then one key per lane of the
-decide and of the drain key). Each lane's decisions are written in place
-into fixed `[B, T]` buffers allocated once on the device; row T of each
-buffer is scratch, where writes past T (JAX's dropped scatters) land.
+policy, decide and drain keys, and each lane's policy key split in two),
+all derived from the row's key in one launch (`row_paths`). Each lane's
+decisions are written in place into fixed `[B, T]` buffers allocated
+once on the device; row T of each buffer is scratch, where writes past T
+(JAX's dropped scatters) land.
 A span's reward goes to the slot of the lane's latest decision.
 
 The JAX scan runs exactly T rows. This loop leaves as soon as no lane can
@@ -28,6 +30,7 @@ are not ported.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
@@ -157,18 +160,37 @@ def zero_stored(params: EnvParams, lead: tuple[int, ...],
     )
 
 
+@functools.lru_cache(maxsize=None)
+def row_paths(lanes: int, split_policy_keys: bool,
+              device: torch.device) -> torch.Tensor:
+    """The paths from a row's key k of the keys that row needs, as
+    `split(k, 4)` and the splits under it make them: k's successor (0),
+    the policy key (1) or, with `split_policy_keys`, each lane's policy
+    keys already split, (1, b, 0) and (1, b, 1), then each lane's decide
+    key (2, b) and drain key (3, b); in that order."""
+    pol = ([(1, b, h) for b in range(lanes) for h in (0, 1)]
+           if split_policy_keys else [(1,)])
+    rows = [(0,)] + pol + [(2, b) for b in range(lanes)]
+    return prng.path_table(rows + [(3, b) for b in range(lanes)], device)
+
+
 def collect_flat_sync_batch(params: EnvParams, bank: WorkloadBank,
                             batch_policy_fn, rng: torch.Tensor,
                             num_steps: int, states: EnvState, *,
                             event_bulk: bool = True, bulk_events: int = 8,
                             fulfill_bulk: bool = True, bulk_cycles: int = 1,
                             bulk_fused: bool = True, health: bool = False,
-                            counts: dict | None = None, telemetry=None):
+                            counts: dict | None = None, telemetry=None,
+                            split_policy_keys: bool = False):
     """One episode per lane from the freshly reset `states` ([B]), one
     policy evaluation per decision row, at most `num_steps` (T) decisions
     per lane recorded. `batch_policy_fn(key, obs)` returns per-lane
-    `(stage_idx, num_exec_1based, aux)`; `rng` is one key. Returns the
-    `Rollout`, and with `health` also the per-lane i32 health mask
+    `(stage_idx, num_exec_1based, aux)`; `rng` is one key. With
+    `split_policy_keys` the policy is called with the lanes' keys in
+    place of the one key: each lane's policy key already split ([B, 2,
+    W]: `split(split(key, B)[b])`), which the row's one launch derives
+    beside its other keys. Returns the `Rollout`, and with
+    `health` also the per-lane i32 health mask
     (`state_health` over each row's drained state against the row's
     start, OR `reward_health` of the row's reward). `counts`, when
     given, receives the rows run (`rows`). With `telemetry` (the lanes'
@@ -196,10 +218,14 @@ def collect_flat_sync_batch(params: EnvParams, bank: WorkloadBank,
     t_ref = env.wall_time
     ndec = torch.zeros(B, dtype=_i32, device=dev)
     n_rows = 0
+    paths = row_paths(B, split_policy_keys, k.device)
+    n_pol = 2 * B if split_policy_keys else 1
     for _ in range(T):
         n_rows += 1
-        keys = prng.split(k, 4)
-        k, k_pol, k_dec, k_drain = keys[0], keys[1], keys[2], keys[3]
+        keys = prng.derive(k, paths)
+        k, k_pol = keys[0], keys[1:1 + n_pol]
+        k_pol = k_pol.unflatten(0, (B, 2)) if split_policy_keys else k_pol[0]
+        k_dec, k_drain = keys[1 + n_pol:1 + n_pol + B], keys[1 + n_pol + B:]
         env0 = ls.env
         wall0 = env0.wall_time
         obs = observe(params, env0)
@@ -209,12 +235,12 @@ def collect_flat_sync_batch(params: EnvParams, bank: WorkloadBank,
             torch.as_tensor(lgprob, dtype=torch.float32, device=dev), (B,))
         out = decide_micro_step(
             params, bank, ls, stage_idx.to(_i32), num_exec.to(_i32),
-            prng.split(k_dec, B), False, fulfill_bulk, telemetry=telemetry,
+            k_dec, False, fulfill_bulk, telemetry=telemetry,
         )
         ls2, (decided, rw1, dt1, rs1) = out[0], out[1]
         t_ref = torch.where(decided, wall0, t_ref)
         out = drain_to_decision(
-            params, bank, ls2, prng.split(k_drain, B), False, event_bulk,
+            params, bank, ls2, k_drain, False, event_bulk,
             bulk_events, bulk_cycles, t_ref, bulk_fused,
             out[2] if telemetry is not None else None,
         )

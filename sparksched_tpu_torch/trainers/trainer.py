@@ -35,6 +35,7 @@ from __future__ import annotations
 import abc
 import copy
 import dataclasses
+import functools
 import hashlib
 import json
 import os
@@ -171,6 +172,17 @@ HEALTH_KEYS = frozenset({"enabled", "max_retries", "backoff_seconds",
                          "checkpoint_every", "keep", "straggler_ratio_max"})
 # update stats the JAX package's `scalars` records do not carry
 _PORT_ONLY_STATS = ("minibatches_applied", "kl_stopped", "update_chunks")
+
+
+@functools.lru_cache(maxsize=None)
+def lane_paths(G: int, R: int, device: torch.device) -> torch.Tensor:
+    """`Trainer.lane_keys`' paths from the master key, [2, G*R, 3]: the
+    sequence keys (g, iteration) and the lane keys (g, iteration,
+    1000 + r), the iteration the table's varying counter."""
+    it = prng.PATH_VAR
+    rows = [(g, it) for g in range(G) for _ in range(R)]
+    rows += [(g, it, 1000 + r) for g in range(G) for r in range(R)]
+    return prng.path_table(rows, device, (2, G * R))
 
 
 class Trainer(abc.ABC):
@@ -344,17 +356,16 @@ class Trainer(abc.ABC):
                             impl=self.prng_impl)
 
     def lane_keys(self, iteration: int) -> tuple[torch.Tensor, torch.Tensor]:
-        """(sequence keys, lane keys), [G*R, W] each, of an iteration."""
+        """(sequence keys, lane keys), [G*R, W] each, of an iteration: for
+        g, r the sequence key `fold_in(fold_in(master, g), iteration)` and
+        the lane key its `fold_in(., 1000 + r)`, all from the master key
+        in one launch (the iteration is the table's varying counter)."""
         if self.fixed_sequences:
             iteration = 0
-        master = self.seed_key()
-        seq, lane = [], []
-        for g in range(self.num_sequences):
-            s = prng.fold_in(prng.fold_in(master, g), iteration)
-            for r in range(self.num_rollouts):
-                seq.append(s)
-                lane.append(prng.fold_in(s, 1000 + r))
-        return torch.stack(seq), torch.stack(lane)
+        paths = lane_paths(self.num_sequences, self.num_rollouts,
+                           torch.device(self.device))
+        keys = prng.derive(self.seed_key(), paths, var=iteration)
+        return keys.unbind(0)
 
     def _collect(self, iteration: int, rng: torch.Tensor,
                  counts: dict | None = None):
@@ -369,9 +380,10 @@ class Trainer(abc.ABC):
               if self.obs_telemetry else None)
         out = collect_flat_sync_batch(
             self.params_env, self.bank,
-            lambda k, obs: self.scheduler.batch_policy(k, obs),
+            self.scheduler.lane_policy,
             prng.fold_in(rng, 7), self.rollout_steps, states,
             health=self.health_enabled, counts=counts, telemetry=tm,
+            split_policy_keys=True,
             **self.flat_batch_knobs,
         )
         if tm is not None:

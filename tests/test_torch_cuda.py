@@ -556,3 +556,54 @@ def test_rbg_kernel_matches_plain_version(card):
         assert torch.equal(got, bits_to_uniform(want)), (batch, shape)
     torch.cuda.synchronize()
     assert rbg_random_bits.launches == launches + 2 * keys.shape[0] + 4
+
+
+def test_threefry_path_kernel_matches_plain_version(card):
+    """The path kernel bit-equal to its plain version on random path
+    tables (depths 1 to 3, varying counters, counters near 2^32) and at
+    the call sites' tables, roots read through a row stride, one launch
+    a call."""
+    from sparksched_tpu_torch import prng
+    from sparksched_tpu_torch.kernels.threefry import (
+        MODES,
+        PATH_VAR,
+        path_table,
+        threefry2x32,
+        threefry2x32_keys_ref,
+    )
+    from sparksched_tpu_torch.serve.aot import _call_paths
+    from sparksched_tpu_torch.trainers.ppo import permutation_paths
+    from sparksched_tpu_torch.trainers.rollout import row_paths
+    from sparksched_tpu_torch.trainers.trainer import lane_paths
+
+    g = torch.Generator().manual_seed(11)
+    words = torch.randint(0, 2**32, (512, 3, 4), generator=g,
+                          dtype=torch.int64).to(card)
+    pool = {4: words[:, 1], 2: words[:, 2, 1:3]}
+    tables = [row_paths(16, True, card), row_paths(16, False, card),
+              lane_paths(4, 4, card), permutation_paths(3, 16, card),
+              _call_paths(8, card), _call_paths(0, card)]
+    for depth in (1, 2, 3):
+        rows = torch.randint(0, 2**32, (40, depth), generator=g).tolist()
+        for i, r in enumerate(rows):
+            r[i % depth] = PATH_VAR if i % 3 == 0 else 2**32 - 1 - i
+            del r[:i % depth]
+        tables.append(path_table(rows, card))
+    launches = threefry2x32.launches
+    calls = 0
+    for w in (2, 4):
+        for mode in (MODES if w == 2 else ("pair",)):
+            for t in tables:
+                for n in (1, 3):
+                    for var in (0, 5, 2**32 - 1):
+                        got = threefry2x32(pool[w][:64], n, var, mode, t)
+                        calls += 1
+                        want = threefry2x32_keys_ref(pool[w][:64], n, var,
+                                                     mode, t)
+                        assert torch.equal(got, want), (w, mode, t.shape, n)
+        root = pool[w][7]
+        assert torch.equal(prng.derive(root, tables[0]),
+                           prng.derive(root.cpu(), tables[0].cpu()).to(card))
+        calls += 1
+    torch.cuda.synchronize()
+    assert threefry2x32.launches == launches + calls

@@ -3,9 +3,11 @@
 - `csrc/prng_core.cuh`, the arithmetic both PRNG kernels run, built with
   g++ into a small shared library through a C shim (the box has no nvcc):
   the threefry2x32 hash against `threefry2x32_p` (counters past 2^32),
-  the per-thread body of the hash kernel (`threefry_item`: split,
-  fold_in, bits and uniforms of a few thousand keys of both impls, key
-  rows read through a stride, counter bases across 2^32), its Philox
+  the per-thread body of the hash kernel on the one-hop path
+  (`threefry_path_item` over the table (PATH_VAR,): split, fold_in, bits
+  and uniforms of a few thousand keys of both impls, key rows read
+  through a stride, counter bases across 2^32; deeper paths are
+  `test_torch_key_paths.py`'s), its Philox
   block against `lax.rng_bit_generator` (counters that carry and wrap),
   and the per-thread bodies of `split_uniform` under both impls.
 - `threefry2x32_ref` and the wrapper's plain version, and `prng.split`,
@@ -59,8 +61,10 @@ void shim_hash(long long n, const uint32_t* k0, const uint32_t* k1,
 void shim_threefry(const int64_t* keys, long long key_stride, long long k,
                    int halves, unsigned long long base, long long n, int mode,
                    void* out) {
+  const int64_t path[1] = {kPathVar};
   for (long long t = 0; t < k * n * halves; ++t)
-    threefry_item(keys, key_stride, halves, base, n, mode, t, out);
+    threefry_path_item(keys, key_stride, halves, path, 1, 1, base, n, mode,
+                       t, out);
 }
 void shim_philox(const uint32_t* key, unsigned long long blk0,
                  long long nblk, uint32_t* out) {
