@@ -49,11 +49,13 @@ LeakyReLU on the branch of the kernel's float32 forward (the error
 against the plain float64 backward on its own branches reported beside),
 and the same bits on a rerun at the timed chunks. The rbg kernel is held
 bit for bit against its plain version on 4,096 keys at odd counts (wrap
-keys among them) and at every draw shape training made; the threefry
+keys among them) and at every draw shape training and the three engine
+phases made; the threefry
 path kernel and split_uniform likewise under both impls, on 4,096 keys
 with counters past 2^32, random path tables, every path table that
-training, `serve_front` and `online` used, and every split-then-draw
-shape training made. The fused bulk event kernel is held bit for bit against
+training, `serve_front`, `online`, `train_core`, `train_async` and
+`train_flat_lane` used (the resets' per-call tables among them), and
+every split-then-draw shape those paths made. The fused bulk event kernel is held bit for bit against
 its plain version on every EnvState field of the pass's inputs captured
 on the card from `train` (rbg keys, and the same states with threefry
 keys), `lowprec` (the int16 bank) and `serve_front` (a serving store's
@@ -71,7 +73,7 @@ one-group, pipelined against synchronous), `serve_http` (a `ServeServer`
 on 127.0.0.1 in front of the paged store; a `ServeClient`'s 8 x 16
 decisions bit-equal to an in-process store's), `online` (the config's
 documented `online:` block over the `serve:` block with the record path
-and a 32-record device ring, 960 requests at 40 requests/s from 16
+and a 32-record device ring, 800 requests at 40 requests/s from 16
 tenants, the learner in the background on its own stream and swaps on
 `on_poll`: at least 3 updates accepted and published, one version a
 call and never going back, every decided record through the ring and
@@ -97,14 +99,29 @@ replayed on the CPU), `train` (the main path; a `train_iteration` line
 per iteration), `train_update_profile` (torch.profiler over an update:
 both kernels recorded), `kernel_vs_plain_train` (the forward at
 training's shapes), `bwd_kernel_vs_plain`, `kernel_alone`,
-`rbg` (the rbg kernel against its plain version, then timed at the
-train phase's most launched draw shapes against its bound, its plain
+`train_core` (`config/test.yaml` as shipped
+through `make_trainer(...).train()`: the `core` engine, `collect_sync`
+over `core.step`, 2 lanes, T = 480; then its collector on the card
+against the CPU, 2 lanes, T = 32), `train_async` (the flagship with
+`rollout_duration` 4e6, `collect_flat_async_batch`, 2 iterations of at
+most 128 rows: the second starts from the first's `LoopState` and reset
+ordinals, and some lane's ordinal advances), `train_flat_lane` (the
+flagship with `flat_single_eval: false`, the per-lane
+`collect_flat_sync` over `micro_step(record=True)`, 1 iteration, T =
+64; each of the three: decisions per second and launches a row, every
+kernel of its path launched and no plain version called),
+`rbg` (the rbg kernel against its plain version at every draw shape of
+`train` and the three engine phases, then timed at the train phase's
+most launched draw shapes against its bound, its plain
 version and the threefry draw of the same shape), `prng` (the threefry
 path kernel and split_uniform against their plain versions under both
-impls, then timed at the train phase's most launched calls),
+impls at every key table and draw shape of those paths and of
+`serve_front` and `online`, then timed at the train phase's most
+launched calls),
 `train_parity` (one
 collection per device, updated at the config's Adam and at a linear
-Adam; 2 lanes, T = 64), `train_resume` (2 lanes, T = 32: 2 iterations
+Adam; 2 lanes, T = 64),
+`train_resume` (2 lanes, T = 32: 2 iterations
 against 1 + a resume), `lowprec` (`bank_dtype: int16` and `obs_dtype: bfloat16`: one
 iteration at T = 128, its peak memory beside the f32 layout's, and a
 2-lane collection on the card against the CPU), `chaos` (the `chaos:`
@@ -142,6 +159,7 @@ package next to this script. Imports no JAX.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import importlib.util
 import json
@@ -240,6 +258,10 @@ PRNG_CHECK_KEYS = 4096
 PRNG_COUNTS = ((3, 0), (67, 2**32 - 33), (2, 2**32 - 1), (1, 2**40 + 5))
 PRNG_TABLES = 6  # random path tables, depths 1 to 3
 PRNG_TIMED = 2
+# the paths whose threefry tables, split_uniform and rbg draw shapes the
+# `prng` and `rbg` phases check on the card (KEY_TABLES)
+PRNG_PATHS = ("train", "serve_front", "online", "train_core", "train_async",
+              "train_flat_lane")
 # threefry2x32's integer work per hash (20 rounds of an add, a rotate and
 # a xor, 5 key injections of 2 adds and the counter's words), counted low
 TF_OPS_PER_HASH = 80
@@ -259,6 +281,9 @@ LOWPREC_ENV = {"bank_dtype": "int16", "obs_dtype": "bfloat16"}
 # each fault class at its own iteration (seed 3: the bank_row NaN lands
 # on a live node of the drill config; here it is reported either way)
 CHAOS_STEPS, CHAOS_ITERS = 16, 5
+# lowprec's card-vs-CPU collection: 2 lanes x 32 rows (cut from
+# PARITY_STEPS, 64, to make room for the collection engines' phases)
+LOWPREC_PARITY_STEPS = 32
 CHAOS_FAULTS = {"nan_grad": [1], "bank_row": [2], "straggler": [3],
                 "oom": [4], "seed": 3}
 # H100 SXM peaks (NVIDIA data sheet): HBM3 rate and FP32 outside the
@@ -1067,16 +1092,16 @@ def phase_serve_http(params, bank, sched, device: str = "cuda") -> dict:
 # the online loop: the config's documented `online:` block, over the
 # serve: block with the record path and a 32-record device ring (the
 # default cadence is then 16); open-loop load from 16 tenants at 40
-# requests/s, 960 requests (about 60 decisions a session, so each
-# completes one or two 32-decision segments and the learner sees >= 3
-# batches of 4)
+# requests/s, 800 requests (about 50 decisions a session, so each
+# completes one 32-decision segment and the learner sees >= 3 batches of
+# 4; cut from 960 to make room for the collection engines' phases)
 ONLINE_BLOCK = {"max_trajectories": 64, "max_steps": 32,
                 "batch_trajectories": 4, "min_decisions": 2,
                 "max_param_lag": 4, "swap_every": 1,
                 "probation_decisions": 32, "max_quarantine_rate": 0.5,
                 "learner": {"num_epochs": 2, "num_batches": 2}, "seed": 0}
 ONLINE_RING = 32
-ONLINE_TENANTS, ONLINE_RPS, ONLINE_REQUESTS = 16, 40.0, 960
+ONLINE_TENANTS, ONLINE_RPS, ONLINE_REQUESTS = 16, 40.0, 800
 ONLINE_MIN_UPDATES = 3
 ONLINE_REPLAY_ROUNDS = 6  # the ring-vs-per-decision replay's rounds
 ONLINE_TOL = {"rtol": 1e-4, "atol": 1e-6}  # tests/test_torch_ppo.py's TOL
@@ -2150,6 +2175,7 @@ def engine_launches() -> dict:
 
 
 KEY_TABLES: dict[str, dict] = {}
+KEY_TABLES_KEEP = 16  # per-call path tables kept under one call key
 
 
 class PrngDraws:
@@ -2161,9 +2187,11 @@ class PrngDraws:
     with (`tables`), and
     split_uniform calls by (key batch shape, key words, draw shape)
     (`su`), each with its count -- and the plain versions' calls of all
-    three wrappers since entry (`plain`). Named, it leaves `tf` and
-    `tables` in KEY_TABLES[name] on exit (the `prng` phase checks the
-    kernel at every site's table)."""
+    three wrappers since entry (`plain`). A table built per call (a
+    reset's ordinals) is kept for its first KEY_TABLES_KEEP calls under
+    each key. Named, it leaves `tf`, `tables`, `su` and `shapes` in
+    KEY_TABLES[name] on exit (the `prng` and `rbg` phases check the
+    kernels at every site's table and draw shape)."""
 
     def __init__(self, name: str | None = None):
         self.name = name
@@ -2195,7 +2223,10 @@ class PrngDraws:
                        mode, None if paths is None else tuple(paths.shape))
                 self.tf[key] += 1
                 ptr = None if paths is None else paths.data_ptr()
-                self.tables.setdefault(key, {})[ptr] = (paths, int(base))
+                kept = self.tables.setdefault(key, {})
+                # a kept table holds its memory: no later one shares its ptr
+                if ptr in kept or len(kept) < KEY_TABLES_KEEP:
+                    kept[ptr] = (paths, int(base))
             return tf0(keys, n, base, mode, paths)
 
         def su(keys, shape=()):
@@ -2216,7 +2247,8 @@ class PrngDraws:
         (self._rbg._draw, self._prng._threefry,
          self._prng.split_uniform) = self._orig
         if self.name:
-            KEY_TABLES[self.name] = {"tf": self.tf, "tables": self.tables}
+            KEY_TABLES[self.name] = {"tf": self.tf, "tables": self.tables,
+                                     "su": self.su, "shapes": self.shapes}
 
 
 def tf_count() -> int:
@@ -2646,6 +2678,325 @@ def phase_train_parity(parity) -> None:
 
 
 # ---------------------------------------------------------------------------
+# the other collection engines: core.step, asynchronous, per-lane
+# ---------------------------------------------------------------------------
+
+TEST_CONFIG = os.path.join(HERE, "config", "test.yaml")
+# the core collector, card against CPU: the test config at 2 lanes, T cut
+# from 480 to 32
+CORE_PARITY_STEPS = 32
+# asynchronous training: the flagship with a budget of simulated time per
+# iteration, 2 iterations of at most ASYNC_STEPS decision rows
+ASYNC_ITERS, ASYNC_STEPS, ASYNC_DURATION = 2, 128, 4.0e6
+# the per-lane flat collectors: the flagship, 1 iteration, T cut
+LANE_STEPS = 64
+# the asynchronous and per-lane collectors, card against CPU: the
+# flagship at PARITY_LANES lanes, T cut to ENGINE_PARITY_STEPS; in the
+# asynchronous check episodes are cut short (the env's mean_time_limit)
+# so that lanes restart inside its two chunks
+ENGINE_PARITY_STEPS = 32
+PARITY_TIME_LIMIT = 2.0e5
+ENCODER_KERNELS = ("decima_node_encoder", "decima_node_encoder_bwd")
+ALL_KERNELS = ENCODER_KERNELS + ("rbg_random_bits", "threefry2x32",
+                                 "split_uniform", "bulk_events_fused")
+
+
+class CollectCarry:
+    """While active: each of `trainer`'s collections, its iteration, the
+    carry it was given (`_env_states`) and the carry it returned, both
+    cloned (`calls`)."""
+
+    def __init__(self, trainer):
+        self.trainer = trainer
+        self.calls: list[tuple] = []
+
+    @staticmethod
+    def _clone(carry):
+        from sparksched_tpu_torch.env import flat_loop
+
+        if carry is None:
+            return None
+        ls, rc = carry
+        return ([v.clone() for _, v in flat_loop.leaves(ls)], rc.clone())
+
+    def __enter__(self):
+        tr = self.trainer
+        self._orig = tr._collect
+
+        def collect(iteration, rng, counts=None):
+            given = self._clone(tr._env_states)
+            out = self._orig(iteration, rng, counts)
+            self.calls.append((iteration, given,
+                               self._clone(counts["env_states"])))
+            return out
+
+        tr._collect = collect
+        return self
+
+    def __exit__(self, *exc):
+        self.trainer._collect = self._orig
+
+
+def _train_engine(name: str, cfg: dict, kernels: tuple, carry=False) -> dict:
+    """`make_trainer(cfg).train()` on the card with every kernel's
+    launches counted from 0 and the plain versions' calls counted: a
+    line per iteration (decisions per second, rows, launches a row), the
+    gates (each of `kernels` launched, no plain version called, health
+    0: the trainer's mask, and `state_health` / `reward_health` of the
+    last rollout where the config has no health block; parameters finite
+    and changed). Returns the trainer, its state, the iteration lines,
+    the launches and, with `carry`, the `CollectCarry` calls."""
+    import torch
+
+    from sparksched_tpu_torch.env.health import reward_health, state_health
+    from sparksched_tpu_torch.kernels.decima_encoder import (
+        decima_node_encoder,
+        decima_node_encoder_bwd,
+    )
+    from sparksched_tpu_torch.trainers import make_trainer
+
+    t_phase = time.perf_counter()
+    trainer = make_trainer(cfg, device="cuda")
+    p0 = {k: v.detach().clone()
+          for k, v in trainer.scheduler.net.named_parameters()}
+    lines = []
+
+    def report(i, state, stats):
+        line = {"phase": f"{name}_iteration", "iteration": i + 1}
+        line.update({k: stats[k] for k in (
+            "collect_seconds", "rows", "decisions", "update_seconds",
+            "minibatches_applied", "health_mask", "episode_length",
+            "avg_num_jobs")})
+        line["decisions_per_s"] = stats["decisions"] / stats["collect_seconds"]
+        lines.append(line)
+
+    torch.cuda.synchronize()
+    decima_node_encoder.launches = 0
+    decima_node_encoder_bwd.launches = 0
+    zero_engine_launches()
+    tracker = CollectCarry(trainer) if carry else contextlib.nullcontext()
+    with PlainCalls() as plain, PrngDraws(name) as draws, tracker:
+        state = trainer.train(callback=report)
+    torch.cuda.synchronize()
+    launches = {"decima_node_encoder": decima_node_encoder.launches,
+                "decima_node_encoder_bwd": decima_node_encoder_bwd.launches,
+                **engine_launches()}
+    if plain.n or draws.plain:
+        raise AssertionError(f"{name}: the plain encoder ran {plain.n} "
+                             f"times, the plain PRNG and bulk versions "
+                             f"{draws.plain} times on the card")
+    for k in kernels:
+        if launches[k] <= 0:
+            raise AssertionError(f"{name} launched no {k}")
+    ro = trainer.last_rollout
+    health = int((state_health(ro.final_state)
+                  | reward_health(ro.reward).amax(1)).max())
+    if health or any(line["health_mask"] for line in lines):
+        raise AssertionError(f"{name}: health {health}, "
+                             f"{[line['health_mask'] for line in lines]}")
+    params = dict(trainer.scheduler.net.named_parameters())
+    if not all(bool(torch.isfinite(v).all()) for v in params.values()):
+        raise AssertionError(f"{name}: a parameter is not finite")
+    moved = max(float((v.detach() - p0[k]).abs().max())
+                for k, v in params.items())
+    if not moved > 0:
+        raise AssertionError(f"{name}: training changed no parameter")
+    rows = sum(line["rows"] for line in lines)
+    for line in lines:
+        emit(line)
+    out = {"phase": name, "engine": trainer.rollout_engine,
+           "single_eval": (trainer.flat_single_eval
+                           if trainer.rollout_engine == "flat" else None),
+           "rollout_duration": trainer.rollout_duration,
+           "iterations": len(lines), "rollout_steps": trainer.rollout_steps,
+           "lanes": trainer.num_envs, "prng_impl": trainer.prng_impl,
+           "decisions": sum(line["decisions"] for line in lines),
+           "rows": rows,
+           "decisions_per_s": sum(line["decisions"] for line in lines)
+           / sum(line["collect_seconds"] for line in lines),
+           "kernel_launches": launches,
+           "launches_per_row": {k: v / rows for k, v in launches.items()
+                                if k not in ENCODER_KERNELS},
+           "plain_calls": plain.n + draws.plain, "health": health,
+           "max_param_change": moved,
+           "seconds": time.perf_counter() - t_phase, "card": card_line()}
+    return {"trainer": trainer, "state": state, "lines": lines,
+            "launches": launches, "out": out,
+            "carry": tracker.calls if carry else None}
+
+
+def collector_parity(name: str, cfg: dict, chunks: int = 1) -> dict:
+    """`_collect` of `cfg`'s trainer on the card and on the CPU port from
+    the same weights (the port's init x WEIGHT_SCALE) and keys, over
+    `chunks` iterations, each from the carry (`_env_states`) the one
+    before left on its own device. Held as `train_parity` holds the
+    single-eval collector: stage indices, valid, resets and the reset
+    ordinals equal, `job_idx` and `num_exec_k` too (under the core
+    engine on the valid steps: its frozen rows hold the policy's sample,
+    which nothing reads), the health masks equal, log-probs and wall
+    times within rtol 1e-5, the rewards within 1e-5 of their largest
+    magnitude (a discounted reward is a difference of two float32
+    exponentials, where the card's and the CPU's `exp` may part in the
+    last ulp; `lowprec`'s bound)."""
+    import numpy as np
+    import torch
+
+    from sparksched_tpu_torch import prng
+    from sparksched_tpu_torch.trainers import make_trainer
+
+    t_par = time.perf_counter()
+    out, sd = {}, None
+    for dev in ("cuda", "cpu"):
+        trainer = make_trainer(cfg, device=dev)
+        if sd is None:
+            sd = {k: v.cpu() * WEIGHT_SCALE
+                  for k, v in trainer.scheduler.params.items()}
+        trainer.scheduler.load_params(sd)
+        key = prng.PRNGKey(SEED, dev, impl=trainer.prng_impl)
+        out[dev] = []
+        for i in range(chunks):
+            counts: dict = {}
+            ro, hm = trainer._collect(i, prng.fold_in(key, i), counts)
+            out[dev].append((ro, hm))
+            trainer._env_states = counts.get("env_states")
+    core_engine = trainer.rollout_engine == "core"
+    errs: dict = {}
+    for c, ((rc, hc), (rp, hp)) in enumerate(zip(out["cuda"], out["cpu"])):
+        for k in ("stage_idx", "job_idx", "num_exec_k", "valid", "resets",
+                  "final_reset_count"):
+            a, b = getattr(rc, k).cpu(), getattr(rp, k)
+            if core_engine and k in ("job_idx", "num_exec_k"):
+                a, b = a[rp.valid], b[rp.valid]
+            if not torch.equal(a, b):
+                raise AssertionError(f"{name} parity: {k} differs "
+                                     f"(chunk {c})")
+        if (hp is None) != (hc is None) or (
+                hp is not None and not torch.equal(hc.cpu(), hp)):
+            raise AssertionError(f"{name} parity: health masks {hc} "
+                                 f"against {hp}")
+        for k in ("lgprob", "reward", "wall_times"):
+            a, b = getattr(rc, k).cpu().numpy(), getattr(rp, k).numpy()
+            ok = (np.abs(a - b).max() <= 1e-5 * np.abs(b).max() + 1e-6
+                  if k == "reward"
+                  else np.allclose(a, b, rtol=1e-5, atol=1e-6))
+            if not ok:
+                raise AssertionError(f"{name} parity: {k} differs by "
+                                     f"{np.abs(a - b).max()} (chunk {c})")
+            errs[k] = max(errs.get(k, 0.0), float(np.abs(a - b).max()))
+    ros = [ro for ro, _ in out["cpu"]]
+    return {"lanes": int(ros[0].valid.shape[0]),
+            "rollout_steps": int(ros[0].valid.shape[1]), "chunks": chunks,
+            "decisions": sum(int(ro.valid.sum()) for ro in ros),
+            "resets": sum(int(ro.resets.sum()) for ro in ros),
+            "final_reset_count": ros[-1].final_reset_count.tolist(),
+            "max_abs_diff": errs, "seconds": time.perf_counter() - t_par}
+
+
+def phase_train_core() -> dict:
+    """`config/test.yaml` as shipped (the `core` engine: `collect_sync`
+    over `core.step`, 2 lanes, T = 480, 1 PPO iteration of 3 x 10
+    minibatches, run log and telemetry on) through
+    `make_trainer(...).train()` on the card, only `artifacts_dir` moved
+    below TMP_ROOT: both encoder kernels, the threefry kernel (the rows'
+    keys, the policy's Gumbel draws) and split_uniform (the event loop's
+    bulk passes, `_apply_action`, `_bulk_fulfill`) launched, no plain
+    version called, health 0, parameters finite and changed. Then the
+    same collector on the card and on the CPU port, 2 lanes at T =
+    CORE_PARITY_STEPS (`collector_parity`)."""
+    from sparksched_tpu_torch.config import load
+
+    cfg = load(TEST_CONFIG)
+    cfg["trainer"]["artifacts_dir"] = tempfile.mkdtemp(prefix="core_",
+                                                       dir=TMP_ROOT)
+    run = _train_engine("train_core", cfg, ENCODER_KERNELS + (
+        "threefry2x32", "split_uniform"))
+    if run["trainer"].rollout_engine != "core":
+        raise AssertionError("config/test.yaml trained on "
+                             f"{run['trainer'].rollout_engine}")
+    pcfg = load(TEST_CONFIG)
+    pcfg["trainer"].update(rollout_steps=CORE_PARITY_STEPS,
+                           artifacts_dir=cfg["trainer"]["artifacts_dir"])
+    run["out"]["parity"] = collector_parity("train_core", pcfg)
+    run["out"]["seconds"] += run["out"]["parity"]["seconds"]
+    emit(run["out"])
+    return run["launches"]
+
+
+def phase_train_async() -> dict:
+    """The flagship config with `rollout_duration: ASYNC_DURATION` (the
+    asynchronous single-eval collector, `collect_flat_async_batch`),
+    ASYNC_ITERS iterations at rollout_steps ASYNC_STEPS: every kernel
+    launched (the resets' key chains through the threefry kernel, their
+    draws through rbg), no plain version called, health 0, and the
+    carry: the second iteration starts from exactly the `LoopState` and
+    reset ordinals the first returned, every lane's ordinal starts at 1
+    and never goes back, and some lane's advances (an episode ended and
+    restarted inside a call). Then the same collector on the card and on
+    the CPU port (`collector_parity`): 2 lanes of one sequence group, 2
+    chunks of T = ENGINE_PARITY_STEPS, each from its device's carry,
+    episodes cut to a mean time limit of PARITY_TIME_LIMIT so that lanes
+    restart inside the chunks (group resets, their key chains and rbg
+    draws compared too); at least one reset is required."""
+    import torch
+
+    cfg = train_cfg(num_iterations=ASYNC_ITERS, rollout_steps=ASYNC_STEPS,
+                    rollout_duration=ASYNC_DURATION)
+    run = _train_engine("train_async", cfg, ALL_KERNELS, carry=True)
+    calls = run["carry"]
+    if [c[0] for c in calls] != list(range(ASYNC_ITERS)) or calls[0][1]:
+        raise AssertionError(
+            f"train_async: collections {[c[0] for c in calls]}")
+    for (_, _, ret), (_, given, _) in zip(calls, calls[1:]):
+        same = all(torch.equal(a, b) for a, b in zip(ret[0], given[0]))
+        if not (same and torch.equal(ret[1], given[1])):
+            raise AssertionError("train_async: an iteration did not start "
+                                 "from the carry the one before returned")
+    rcs = [c[2][1].cpu() for c in calls]
+    if not ((rcs[0] >= 1).all() and all((b >= a).all()
+                                        for a, b in zip(rcs, rcs[1:]))
+            and int(rcs[-1].sum()) > len(rcs[-1])):
+        raise AssertionError(f"train_async: reset ordinals {rcs}")
+    run["out"]["final_reset_count"] = [r.tolist() for r in rcs]
+    run["out"]["resets"] = int(run["trainer"].last_rollout.resets.sum())
+    pcfg = train_cfg(cfg["trainer"]["artifacts_dir"], num_sequences=1,
+                     num_rollouts=PARITY_LANES,
+                     rollout_steps=ENGINE_PARITY_STEPS,
+                     rollout_duration=ASYNC_DURATION)
+    pcfg["env"]["mean_time_limit"] = PARITY_TIME_LIMIT
+    par = collector_parity("train_async", pcfg, chunks=2)
+    if not par["resets"]:
+        raise AssertionError("train_async parity: no lane reset")
+    run["out"]["parity"] = par
+    run["out"]["seconds"] += par["seconds"]
+    emit(run["out"])
+    return run["launches"]
+
+
+def phase_train_flat_lane() -> dict:
+    """The flagship config with `flat_single_eval: false` (the per-lane
+    collector, `collect_flat_sync` over `micro_step(record=True)` with
+    the config's event burst of 4, ceil(T x flat_micro_per_decision / 4)
+    groups), 1 iteration at rollout_steps LANE_STEPS: every kernel
+    launched, no plain version called, health 0. Then the same collector
+    on the card and on the CPU port, 2 lanes at T = ENGINE_PARITY_STEPS
+    (`collector_parity`)."""
+    cfg = train_cfg(num_iterations=1, rollout_steps=LANE_STEPS,
+                    flat_single_eval=False)
+    run = _train_engine("train_flat_lane", cfg, ALL_KERNELS)
+    tr = run["trainer"]
+    run["out"]["micro_groups"] = tr.flat_micro_groups
+    run["out"]["event_burst"] = tr.flat_knobs["event_burst"]
+    pcfg = train_cfg(cfg["trainer"]["artifacts_dir"], num_sequences=1,
+                     num_rollouts=PARITY_LANES,
+                     rollout_steps=ENGINE_PARITY_STEPS,
+                     flat_single_eval=False)
+    run["out"]["parity"] = collector_parity("train_flat_lane", pcfg)
+    run["out"]["seconds"] += run["out"]["parity"]["seconds"]
+    emit(run["out"])
+    return run["launches"]
+
+
+# ---------------------------------------------------------------------------
 # phase 8: training resumed from a train state
 # ---------------------------------------------------------------------------
 
@@ -2805,7 +3156,8 @@ def phase_rbg(draws) -> dict:
     Bit-equal: RBG_CHECK_KEYS random single keys (the first three with
     counters that carry across words and wrap) at odd counts, as words
     and as uniforms, and key batches at every draw shape the `train`
-    phase made (`draws`: one stream of the batch's first key). Timed at
+    phase made (`draws`: one stream of the batch's first key) and every
+    one the other PRNG_PATHS made (KEY_TABLES). Timed at
     the RBG_TIMED most launched shapes of `train` and at the largest: the
     kernel's own device time (torch.profiler's records, `ms`, or CUDA
     events where the profiler delivers no record: `ms_from`) and a whole
@@ -2844,7 +3196,9 @@ def phase_rbg(draws) -> dict:
             bad.append(i)
         words += n
     shapes = sorted(draws, key=lambda d: -draws[d])
-    for batch, shape, uniform in shapes:
+    checked = set(shapes) | {d for path in PRNG_PATHS
+                             for d in KEY_TABLES[path]["shapes"]}
+    for batch, shape, uniform in sorted(checked):
         kb = keys[:max(1, math.prod(batch))].reshape(batch + (4,))
         got = (rbg_uniform if uniform else rbg_random_bits)(kb, shape)
         want = rbg_bits_ref(kb, got.numel()).reshape(got.shape)
@@ -2884,7 +3238,7 @@ def phase_rbg(draws) -> dict:
                     "bound_by": "bytes" if t_bytes >= t_ops
                     else "operations", "bytes": nbytes, "int_ops": ops}
     out = {"phase": "rbg", "checked_keys": RBG_CHECK_KEYS,
-           "checked_words": words, "batch_shapes_checked": len(shapes),
+           "checked_words": words, "batch_shapes_checked": len(checked),
            "max_abs_err": 0, "timed": at,
            "seconds": time.perf_counter() - t_phase, "card": card_line()}
     emit(out)
@@ -2977,12 +3331,14 @@ def phase_prng(train: dict) -> dict:
     one-hop default in every mode at PRNG_COUNTS (bases past 2^32) and
     through PRNG_TABLES random path tables (depths 1 to 3, varying
     counters, counters near 2^32) at 1 and 3 counters; at every (key
-    batch, counters, mode, table) that `train`, `serve_front` and
-    `online` called (KEY_TABLES: the collector row's table, the lane
-    keys', PPO's, a served call's, the one-hop default), with the
-    varying counter the path last used and 2^32 - 1; split_uniform at
-    every (key batch, draw shape) the five engine sites drew in `train`,
-    with threefry and rbg keys. Timed at the PRNG_TIMED most launched
+    batch, counters, mode, table) that `train`, `serve_front`, `online`,
+    `train_core`, `train_async` and `train_flat_lane` called
+    (KEY_TABLES: the collector rows' tables, the lane keys', the
+    sequence bases', the per-lane policy keys', a reset's per-call
+    [B, 2, 2] table over [B] roots, PPO's, a served call's, the one-hop
+    default), with the varying counter the path last used and 2^32 - 1;
+    split_uniform at every (key batch, draw shape) the engine sites drew
+    on those paths, with threefry and rbg keys. Timed at the PRNG_TIMED most launched
     calls of `train` (rbg keys) and at the most launched with threefry
     keys: the kernel's own device time (`ms`, `ms_from` as in `rbg`), a
     whole wrapper call (`call_ms`, CUDA events), the plain version on
@@ -3033,7 +3389,7 @@ def phase_prng(train: dict) -> dict:
                     check(pool[w][:512], n, 2**32 - 1 - i, mode, table.cuda(),
                           ("threefry2x32", w, n, mode, "table", i))
     sites = 0
-    for path in ("train", "serve_front", "online"):
+    for path in PRNG_PATHS:
         tf, tables = KEY_TABLES[path]["tf"], KEY_TABLES[path]["tables"]
         for key in tf:
             batch, w, n, mode, _ = key
@@ -3044,7 +3400,9 @@ def phase_prng(train: dict) -> dict:
                         check(keys(batch, kw), n, var, mode, paths,
                               ("threefry2x32", path, key, kw, var))
     su_shapes = sorted(train["su_draws"], key=lambda d: -train["su_draws"][d])
-    for batch, _, shape in su_shapes:
+    su_checked = {(batch, shape) for path in PRNG_PATHS
+                  for batch, _, shape in KEY_TABLES[path]["su"]}
+    for batch, shape in sorted(su_checked):
         for w in (2, 4):
             cases += 1
             kb = keys(batch, w)
@@ -3092,7 +3450,8 @@ def phase_prng(train: dict) -> dict:
     out = {"phase": "prng", "checked_keys": PRNG_CHECK_KEYS,
            "cases": cases, "random_tables": PRNG_TABLES,
            "site_tables_checked": sites,
-           "split_uniform_shapes_checked": len(su_shapes),
+           "paths_checked": list(PRNG_PATHS),
+           "split_uniform_shapes_checked": len(su_checked),
            "max_abs_err": 0, "timed": at,
            "seconds": time.perf_counter() - t_phase, "card": card_line()}
     emit(out)
@@ -3414,7 +3773,7 @@ def phase_lowprec(train: dict) -> dict:
     version called) with its peak device memory beside the f32 layout's
     over the `train` phase's first iteration (the same config, seed, lanes
     and T); then PARITY_LANES lanes of one collection on the card and on
-    the CPU port from the same weights and keys, PARITY_STEPS rows:
+    the CPU port from the same weights and keys, LOWPREC_PARITY_STEPS rows:
     actions and valid equal, the bf16 duration buffer bit-equal, log-probs
     and wall times within rtol 1e-5 (`train_parity`'s bound); the int16
     codes go through each device's float32 `expm1`, which may part in
@@ -3467,7 +3826,7 @@ def phase_lowprec(train: dict) -> dict:
            "kernel_launches": launches}
     # the card against the CPU port on PARITY_LANES lanes
     pcfg = train_cfg(num_sequences=1, num_rollouts=PARITY_LANES,
-                     rollout_steps=PARITY_STEPS)
+                     rollout_steps=LOWPREC_PARITY_STEPS)
     pcfg["env"] = pcfg["env"] | LOWPREC_ENV
     got, sd = {}, None
     for dev in ("cuda", "cpu"):
@@ -3496,7 +3855,7 @@ def phase_lowprec(train: dict) -> dict:
     errs["wall_times_bit_equal"] = bool(torch.equal(rc.wall_times.cpu(),
                                                     rp.wall_times))
     out |= {"card_vs_cpu": {"lanes": PARITY_LANES,
-                            "rollout_steps": PARITY_STEPS,
+                            "rollout_steps": LOWPREC_PARITY_STEPS,
                             "decisions": int(rp.valid.sum()),
                             "actions_equal": True,
                             "duration_bits_equal": True,
@@ -3939,12 +4298,17 @@ def main() -> int:
         tsched = train["trainer"].scheduler
         bwd, bwd_err_max = phase_bwd_kernel(tsched, checks, chunks)
         phase_kernel_alone(cases, calls, tsched, chunks[CHUNK_TIMED], bwd)
+        # before `rbg` and `prng`, which check the kernels at the key
+        # tables and draw shapes these paths used
+        engines = {"train_core": phase_train_core(),
+                   "train_async": phase_train_async(),
+                   "train_flat_lane": phase_train_flat_lane()}
         rbg = phase_rbg(train["rbg_draws"])
         prng_out = phase_prng(train)
         phase_train_parity(parity_helpers())
         paths = {"serve_front": front, "serve_http": http,
                  "online": online, "serve_fleet": fleet,
-                 "train": train["launches"],
+                 "train": train["launches"], **engines,
                  "train_resume": phase_train_resume(),
                  "lowprec": phase_lowprec(train),
                  "chaos": phase_chaos(),

@@ -1477,12 +1477,16 @@ def _resume_simulation(params: EnvParams, bank: WorkloadBank,
     the queue drains. With `bulk`, each iteration first runs the
     relaunch cascade and the arrival burst, then still pops the
     run-cutting event when the skipped between-event tail is a no-op
-    (`num_committable() == 0`). A lane whose loop has ended keeps its
-    state, as under the JAX package's vmapped while loop. Returns the
-    state, and with `telemetry` `(state, telemetry)`: each lane's own
-    iterations (`loop_iters`, `drain_iters`), its pops by kind and the
-    bulk passes' events."""
+    (`num_committable() == 0`). As under the JAX package's vmapped while
+    loop, an iteration runs its body on every lane and a lane whose loop
+    has ended keeps its state: the body's passes advance such a lane's
+    rng within the iteration, which under rbg moves the stream the
+    batch's later draws in it take (a batch draws its first key's
+    stream). Returns the state, and with `telemetry` `(state,
+    telemetry)`: each lane's own iterations (`loop_iters`,
+    `drain_iters`), its pops by kind and the bulk passes' events."""
     track = telemetry is not None
+    every = torch.ones_like(active)
     while True:
         cond = active & _has_pending_event(state) & ~state.round_ready
         if not bool(cond.any()):
@@ -1490,9 +1494,9 @@ def _resume_simulation(params: EnvParams, bank: WorkloadBank,
         st = state
         bulk_counts = {}
         if bulk:
-            st, nb1 = _bulk_relaunch(params, bank, st, cond,
+            st, nb1 = _bulk_relaunch(params, bank, st, every,
                                      max_events=bulk_events)
-            st, nb2 = _bulk_ready(params, bank, st, cond)
+            st, nb2 = _bulk_ready(params, bank, st, every)
             single = ((nb1 + nb2) == 0) | (st.num_committable() == 0)
             if track:
                 bulk_counts = dict(bulk_relaunch_events=nb1,
@@ -1501,7 +1505,7 @@ def _resume_simulation(params: EnvParams, bank: WorkloadBank,
         else:
             single = torch.ones_like(cond)
         st, rk, rj, rs, arg, quirk, popped, kind = _pop_event(
-            params, st, cond & single)
+            params, st, single)
         if track:
             telemetry = _tm_add(
                 telemetry, cond, loop_iters=cond, drain_iters=cond,

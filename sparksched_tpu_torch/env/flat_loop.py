@@ -20,10 +20,17 @@ branches applied in turn, each masked to its own lanes; a `lax.scan`
 over groups becomes a Python loop. Each function takes the optional
 `telemetry` counters (`obs.telemetry.Telemetry`) and then returns them
 as a trailing element, advanced as the JAX package advances them; the
-default None counts nothing and runs nothing extra. `TrajRing` and
-`ring_append` are the serving store's device trajectory ring. The
-micro-step trajectory records (`record=True`) and `reset_fn` are not
-ported.
+default None counts nothing and runs nothing extra. With `record=True`
+`micro_step` and `event_micro_step` also return the micro-step's
+trajectory record (`MicroRec`, or its `(reward, dt, reset)` tail), which
+the per-lane flat collectors scatter into their decision buffers.
+`reset_fn(key, episodes)`, where an auto-reset is on, draws a lane
+batch's fresh episodes in place of `core.reset(key)` from the lanes'
+completed-episode counts (the asynchronous collectors' group-shared
+reset ordinals); it is called on the whole batch, once per micro-step in
+which some lane resets, so a batch of rbg keys draws the stream the JAX
+package's vmapped call draws. `TrajRing` and `ring_append` are the
+serving store's device trajectory ring.
 """
 
 from __future__ import annotations
@@ -100,6 +107,26 @@ def aux_action_fields(aux: dict, stage_idx, num_exec, max_stages: int):
         torch.div(stage_idx, max_stages, rounding_mode="floor"), 0))
     k = aux.get("num_exec_k", num_exec - 1)
     return lgprob, job, k
+
+
+@dataclasses.dataclass
+class MicroRec:
+    """One micro-step's trajectory record (`micro_step(record=True)`),
+    per lane. `obs` and the action fields mean something only where
+    `decide` is set (the lane ran the DECIDE branch live); `reward` is
+    the micro-step's negative job-time, discounted against the caller's
+    `t_ref`, `dt` its wall-clock advance (before a reset) and `reset`
+    whether the episode ended in it."""
+
+    obs: Any  # Observation at the micro-step's start
+    stage_idx: torch.Tensor  # i32[B]; the policy's raw output
+    job_idx: torch.Tensor  # i32[B]
+    num_exec_k: torch.Tensor  # i32[B]; 0-based executor choice
+    lgprob: torch.Tensor  # f32[B]
+    decide: torch.Tensor  # bool[B]
+    reward: torch.Tensor  # f32[B]
+    dt: torch.Tensor  # f32[B]
+    reset: torch.Tensor  # bool[B]
 
 
 def leaves(ls: LoopState) -> list[tuple[str, torch.Tensor]]:
@@ -446,15 +473,18 @@ def _work_branches(params: EnvParams, ls: LoopState, is_ful, is_ev, nb,
 def _finish_micro_step(params: EnvParams, bank: WorkloadBank, ls: LoopState,
                        ls2: LoopState, rk, rj, rs, e, quirk, t_ref,
                        k_reset=None, auto_reset: bool = False,
-                       fulfill_bulk: bool = False, telemetry=None):
+                       fulfill_bulk: bool = False, telemetry=None,
+                       reset_fn=None):
     """Shared micro-step tail: the bulk fulfillment of a round that just
     finished (`fulfill_bulk`), move resolution/application, round
     clearing and readiness, episode end. `ls` is the pre-step state
     (pre-bulk: a lane frozen by `auto_reset=False` goes back to exactly
     it), `ls2` the state after the mode branch. With `auto_reset`, a
     lane whose episode ended restarts from `core.reset` on its key of
-    `k_reset`. Returns (ls, (reward, dt, reset)) — the JAX `record=True`
-    form, measured on the pre-reset state — and with `telemetry` the
+    `k_reset`, or from `reset_fn(k_reset, episodes)` with the lanes'
+    completed-episode counts before this step's. Returns (ls, (reward,
+    dt, reset)) — the JAX `record=True` form, measured on the pre-reset
+    state — and with `telemetry` the
     counters, the bulk fulfillment's hits added on lanes live at entry."""
     st = ls2.env
     if fulfill_bulk:
@@ -491,8 +521,10 @@ def _finish_micro_step(params: EnvParams, bank: WorkloadBank, ls: LoopState,
         done & ~was_done,
     )
     if auto_reset:
-        if bool(done.any()):
-            st = select_env(done, core.reset(params, bank, k_reset), st)
+        if bool(done.any()):  # the whole batch draws, as under vmap
+            fresh = (core.reset(params, bank, k_reset) if reset_fn is None
+                     else reset_fn(k_reset, ls2.episodes))
+            st = select_env(done, fresh, st)
         mode = torch.where(done, M_DECIDE, mode).to(_i32)
     else:
         # lanes whose episode was over at entry freeze
@@ -514,7 +546,8 @@ def micro_step(params: EnvParams, bank: WorkloadBank, policy_fn,
                compute_levels: bool = True, event_bulk: bool = True,
                bulk_events: int = 8, fulfill_bulk: bool = False,
                bulk_cycles: int = 1, bulk_fused: bool = True,
-               telemetry=None):
+               telemetry=None, *, record: bool = False, reset_fn=None,
+               t_ref=None):
     """One unit of work per lane: EVENT lanes first run the bulk passes
     (`event_bulk`), then every lane runs its mode's branch — DECIDE asks
     `policy_fn(keys, obs)` for `(stage_idx, num_exec, aux)` and commits,
@@ -522,7 +555,11 @@ def micro_step(params: EnvParams, bank: WorkloadBank, policy_fn,
     and the shared tail. `rng` holds one key per lane. Returns the new
     LoopState, and with `telemetry` `(ls, telemetry)`: every live lane
     counts its micro-step by entry mode, its events and a finished
-    round."""
+    round. With `record` the observation and the policy run on every
+    lane (as the JAX package hoists them) and a `MicroRec` follows the
+    state: `(ls, rec[, telemetry])`, its reward discounted against
+    `t_ref`. `reset_fn` replaces the auto-reset draw (module
+    docstring)."""
     track = telemetry is not None
     keys = prng.split(rng)
     k_pol, k_reset = keys[:, 0], keys[:, 1]
@@ -537,42 +574,67 @@ def micro_step(params: EnvParams, bank: WorkloadBank, policy_fn,
     # DECIDE: one commitment from the policy (core.step's front half)
     ls2 = ls
     quirk = ls.env.source_job_id()
-    if bool(is_dec.any()):
+    if record or bool(is_dec.any()):
+        # the bulk passes leave DECIDE lanes alone: the post-bulk
+        # observation is the one the branch acts on
         obs = observe(params, ls.env, compute_levels)
-        stage_idx, num_exec, _ = policy_fn(k_pol, obs)
-        ls_d = _apply_decision(params, ls, stage_idx.to(_i32),
-                               num_exec.to(_i32), fulfill_bulk)
+        stage_idx, num_exec, aux = policy_fn(k_pol, obs)
+        stage_idx, num_exec = stage_idx.to(_i32), num_exec.to(_i32)
+        ls_d = _apply_decision(params, ls, stage_idx, num_exec, fulfill_bulk)
         ls2 = select(is_dec, ls_d, ls)
         quirk = torch.where(is_dec, ls_d.env.source_job_id(), quirk)
     ls2, req, popped, kind = _work_branches(params, ls2, is_ful, is_ev, nb,
                                             quirk)
-    out = _finish_micro_step(params, bank, ls0, ls2, *req, None, k_reset,
-                             auto_reset, fulfill_bulk, telemetry)
-    if not track:
-        return out[0]
-    is_dec0 = ls0.mode == M_DECIDE
-    telemetry = _tm_add(
-        out[2], ~_lane_done(ls0.env),
-        decide_steps=is_dec0, fulfill_steps=ls0.mode == M_FULFILL,
-        event_steps=is_ev, commit_rounds=is_dec0 & (ls2.mode != M_DECIDE),
-        **_event_counts(nb, nb_rel, nb_rdy, popped, kind),
-    )
-    return out[0], telemetry
+    out = _finish_micro_step(params, bank, ls0, ls2, *req, t_ref, k_reset,
+                             auto_reset, fulfill_bulk, telemetry, reset_fn)
+    if track:
+        is_dec0 = ls0.mode == M_DECIDE
+        telemetry = _tm_add(
+            out[2], ~_lane_done(ls0.env),
+            decide_steps=is_dec0, fulfill_steps=ls0.mode == M_FULFILL,
+            event_steps=is_ev,
+            commit_rounds=is_dec0 & (ls2.mode != M_DECIDE),
+            **_event_counts(nb, nb_rel, nb_rdy, popped, kind),
+        )
+    ret = (out[0],)
+    if record:
+        lgprob, job, k = aux_action_fields(aux, stage_idx, num_exec,
+                                           params.max_stages)
+        reward, dt, reset = out[1]
+        ret += (MicroRec(
+            obs=obs, stage_idx=stage_idx, job_idx=job.to(_i32),
+            num_exec_k=k.to(_i32),
+            lgprob=torch.broadcast_to(torch.as_tensor(
+                lgprob, dtype=torch.float32, device=stage_idx.device),
+                stage_idx.shape),
+            decide=(ls0.mode == M_DECIDE) & ~_lane_done(ls0.env),
+            reward=reward, dt=dt, reset=reset,
+        ),)
+    if track:
+        ret += (telemetry,)
+    return ret[0] if len(ret) == 1 else ret
 
 
 def event_micro_step(params: EnvParams, bank: WorkloadBank, ls: LoopState,
                      rng: torch.Tensor, auto_reset: bool = True,
                      event_bulk: bool = True, bulk_events: int = 8,
                      bulk_cycles: int = 1, bulk_fused: bool = True,
-                     telemetry=None):
+                     telemetry=None, *, record: bool = False, reset_fn=None,
+                     t_ref=None):
     """One EVENT-only micro-step: lanes in EVENT mode run the bulk
     passes, pop one event and the shared tail; every other lane is left
     exactly as it was (rng and counters included). With `telemetry`
-    returns `(ls, telemetry)`, live EVENT lanes counted."""
+    returns `(ls, telemetry)`, live EVENT lanes counted. With `record`
+    the micro-step's `(reward, dt, reset)` (zero on the other lanes)
+    follows the state: `(ls, rec[, telemetry])`."""
     track = telemetry is not None
     is_event = ls.mode == M_EVENT
     if not bool(is_event.any()):
-        return (ls, telemetry) if track else ls
+        zero = torch.zeros_like(ls.env.wall_time)
+        ret = (ls,) + (((zero, zero.clone(), torch.zeros_like(is_event)),)
+                       if record else ())
+        ret += (telemetry,) if track else ()
+        return ret[0] if len(ret) == 1 else ret
     k_reset = _reset_key(rng, auto_reset)
     ls0 = ls.replace(mode=torch.full_like(ls.mode, M_EVENT))
     if event_bulk:
@@ -586,24 +648,28 @@ def event_micro_step(params: EnvParams, bank: WorkloadBank, ls: LoopState,
     st, rk, rj, rs, arg, quirk, popped, kind = _pop_event(params, ls.env,
                                                           pop_on)
     ls_ev = ls.replace(mode=torch.full_like(ls.mode, M_EVENT), env=st)
-    out, _ = _finish_micro_step(params, bank, ls0, ls_ev, rk, rj, rs, arg,
-                                quirk, None, k_reset, auto_reset)
-    final = select(is_event, out, ls)
-    if not track:
-        return final
-    telemetry = _tm_add(
-        telemetry, is_event & ~_lane_done(ls0.env), event_steps=is_event,
-        **_event_counts(nb, nb_rel, nb_rdy, popped, kind),
-    )
-    return final, telemetry
+    out, (rw, dt, rs_) = _finish_micro_step(
+        params, bank, ls0, ls_ev, rk, rj, rs, arg, quirk, t_ref, k_reset,
+        auto_reset, reset_fn=reset_fn)
+    ret = (select(is_event, out, ls),)
+    if record:
+        ret += ((torch.where(is_event, rw, 0.0),
+                 torch.where(is_event, dt, 0.0), is_event & rs_),)
+    if track:
+        ret += (_tm_add(
+            telemetry, is_event & ~_lane_done(ls0.env), event_steps=is_event,
+            **_event_counts(nb, nb_rel, nb_rdy, popped, kind),
+        ),)
+    return ret[0] if len(ret) == 1 else ret
 
 
 def decide_micro_step(params: EnvParams, bank: WorkloadBank, ls: LoopState,
                       stage_idx, num_exec, rng: torch.Tensor,
                       auto_reset: bool = True, fulfill_bulk: bool = False,
-                      t_ref=None, telemetry=None):
+                      t_ref=None, telemetry=None, *, reset_fn=None):
     """One DECIDE micro-step driven by a precomputed decision per lane;
-    lanes not in DECIDE mode are left exactly as they were. Returns
+    lanes not in DECIDE mode are left exactly as they were (`reset_fn`:
+    the module docstring). Returns
     `(ls, (decided, reward, dt, reset))`, and with `telemetry` the
     counters as a third element: the decisions, the rounds they finish
     and the bulk fulfillment's hits (the tail runs on every live lane, as
@@ -616,7 +682,7 @@ def decide_micro_step(params: EnvParams, bank: WorkloadBank, ls: LoopState,
     out = _finish_micro_step(
         params, bank, ls0, ls2, zero + RQ_NONE, zero - 1, zero - 1, zero,
         ls2.env.source_job_id(), t_ref, k_reset, auto_reset, fulfill_bulk,
-        telemetry,
+        telemetry, reset_fn,
     )
     out_ls, (rw, dt, rs_) = out[0], out[1]
     was_done = _lane_done(ls.env)
@@ -640,7 +706,8 @@ def drain_micro_step(params: EnvParams, bank: WorkloadBank, ls: LoopState,
                      event_bulk: bool = True, bulk_events: int = 8,
                      bulk_cycles: int = 1, t_ref=None,
                      bulk_fused: bool = True, masked: bool = True,
-                     telemetry=None, count_on: torch.Tensor | None = None):
+                     telemetry=None, count_on: torch.Tensor | None = None,
+                     reset_fn=None):
     """One non-policy micro-step: FULFILL and EVENT lanes advance as in
     `micro_step` (bulk passes and fused pop included); DECIDE lanes are
     rolled back unless `masked=False` (legal only where the caller
@@ -661,7 +728,8 @@ def drain_micro_step(params: EnvParams, bank: WorkloadBank, ls: LoopState,
     ls2, req, popped, kind = _work_branches(params, ls, is_ful, is_ev, nb,
                                             ls.env.source_job_id())
     out, (rw, dt, rs_) = _finish_micro_step(params, bank, ls0, ls2, *req,
-                                            t_ref, k_reset, auto_reset)
+                                            t_ref, k_reset, auto_reset,
+                                            reset_fn=reset_fn)
     if track:
         on = active & ~_lane_done(ls0.env)
         extra = {}
@@ -683,12 +751,14 @@ def drain_to_decision(params: EnvParams, bank: WorkloadBank, ls: LoopState,
                       rng: torch.Tensor, auto_reset: bool = True,
                       event_bulk: bool = True, bulk_events: int = 8,
                       bulk_cycles: int = 1, t_ref=None,
-                      bulk_fused: bool = True, telemetry=None):
+                      bulk_fused: bool = True, telemetry=None, *,
+                      reset_fn=None):
     """Drain each lane's non-decision work — FULFILL leftovers and the
     event run — until it can DECIDE again, its episode is over or its
     queue is drained, accumulating the span's reward/dt/reset. With
     `auto_reset` each iteration splits the lane's key (a lane whose
-    loop has ended keeps its key). Returns `(ls, (reward, dt,
+    loop has ended keeps its key; `reset_fn`: the module docstring).
+    Returns `(ls, (reward, dt,
     reset))`, and with `telemetry` the counters as a third element
     (each lane counts its own iterations in `drain_iters`)."""
     track = telemetry is not None
@@ -710,6 +780,7 @@ def drain_to_decision(params: EnvParams, bank: WorkloadBank, ls: LoopState,
             params, bank, ls, sub, auto_reset, event_bulk, bulk_events,
             bulk_cycles, t_ref, bulk_fused, masked=False,
             telemetry=telemetry, count_on=cond if track else None,
+            reset_fn=reset_fn,
         )
         nxt, (r, d, re) = out[0], out[1]
         if track:

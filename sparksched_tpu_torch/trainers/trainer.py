@@ -1,19 +1,34 @@
 """Training orchestration (counterpart of
 `sparksched_tpu/trainers/trainer.py`).
 
-One iteration: fresh episodes on `num_sequences x num_rollouts` lanes
-(the lanes of a sequence group share the job-sequence key), the
-single-eval flat collector, returns and the group baselines, then the
-trainer's `_update`. The seed layout is the JAX package's: the sequence
-key of group g at iteration i is `fold_in(fold_in(PRNGKey(seed), g), i)`,
-lane r of it `fold_in(seq, 1000 + r)`, the iteration key
-`fold_in(PRNGKey(seed), i)` (`fold_in(·, 90_000 + attempt)` on a health
-retry) and the collector's `fold_in(iteration key, 7)`. Every one of them
-is a threefry2x32 key, or an rbg key with `fast_prng: True` (the JAX
+One iteration: rollouts on `num_sequences x num_rollouts` lanes (the
+lanes of a sequence group share the job-sequence key), returns and the
+group baselines, then the trainer's `_update`. `_collect` dispatches as
+the JAX package's does: `rollout_engine` `core` (the default:
+`collect_sync` / `collect_async` over `core.step`) or `flat`, the latter
+single-eval (`flat_single_eval`, the default: `collect_flat_sync_batch`
+/ `collect_flat_async_batch`) or per lane (`collect_flat_sync` /
+`collect_flat_async`, sized by `flat_micro_per_decision` and
+`flat_event_burst`); each synchronous (fresh episodes every iteration)
+or, with `rollout_duration`, asynchronous: the lanes persist across
+iterations (`_env_states`: the `LoopState` for the flat engines, the
+`EnvState` for core, and the lanes' next reset ordinals) and a finished
+episode restarts at once from `fold_in(fold_in(PRNGKey(seed), g),
+ordinal)`. The carry is taken as the next iteration's only when the
+iteration is kept: a health or out-of-memory retry starts again from the
+carry before it (no collector writes its input carry in place).
+
+The seed layout is the JAX package's: the sequence key of group g at
+iteration i is `fold_in(fold_in(PRNGKey(seed), g), i)`, lane r of it
+`fold_in(seq, 1000 + r)`, the iteration key `fold_in(PRNGKey(seed), i)`
+(`fold_in(·, 90_000 + attempt)` on a health retry), the single-eval
+collector's `fold_in(iteration key, 7)` and the per-lane collectors'
+`fold_in(fold_in(iteration key, b), 7)` for lane b. Every one of them is
+a threefry2x32 key, or an rbg key with `fast_prng: True` (the JAX
 package's `use_fast_prng`, which switches its whole training program).
 
-Ported: `rollout_engine: flat` with `flat_single_eval` in sync mode, the
-Adam optimizer (`lr_anneal`, global-norm clipping as optax writes it),
+Ported: every collection engine above, the Adam optimizer
+(`lr_anneal`, global-norm clipping as optax writes it),
 `fixed_sequences`, `entropy_anneal`, `beta_discount` or the differential
 returns, the health block (rollback-and-retry with reseed and backoff,
 the `straggler_ratio_max` quarantine, `checkpoint_every` / `keep`, the
@@ -24,8 +39,7 @@ parameters as a flax-msgpack `model.msgpack` either package loads;
 train state written with the port's codec under the JAX package's file
 names) and the `obs:` block's run log, telemetry and memory samples.
 Not ported yet (the trainer names the keys it ignores when it starts):
-asynchronous collection (`rollout_duration`) and the `core` engine (both
-raise), TensorBoard and the profiler, `obs.trace_iteration` /
+TensorBoard and the profiler, `obs.trace_iteration` /
 `trace_dir` / `slo`. A train state of the JAX package does not load
 here (its optax tree differs); model files load both ways.
 """
@@ -51,6 +65,7 @@ from .. import metrics, prng
 from ..chaos import ChaosMonkey
 from ..config import EnvParams, env_params_from_cfg, resolve_device
 from ..env import core
+from ..env.flat_loop import init_loop_state
 from ..env.health import H_OOM, H_STRAGGLER, RETRYABLE_MASK, describe_mask
 from ..obs.memory import device_memory_stats
 from ..obs.runlog import RunLog, emit
@@ -66,7 +81,16 @@ from .returns import (
     discounted_returns,
     step_dts,
 )
-from .rollout import Rollout, collect_flat_sync_batch
+from .rollout import (
+    Rollout,
+    collect_async,
+    collect_flat_async,
+    collect_flat_async_batch,
+    collect_flat_sync,
+    collect_flat_sync_batch,
+    collect_sync,
+    flat_micro_group_budget,
+)
 
 CfgType = dict[str, Any]
 
@@ -185,6 +209,21 @@ def lane_paths(G: int, R: int, device: torch.device) -> torch.Tensor:
     return prng.path_table(rows, device, (2, G * R))
 
 
+@functools.lru_cache(maxsize=None)
+def seq_base_paths(G: int, R: int, device: torch.device) -> torch.Tensor:
+    """The asynchronous lanes' sequence bases from the master key: lane
+    (g, r)'s `fold_in(master, g)`, [G*R, 1]."""
+    return prng.path_table([(g,) for g in range(G) for _ in range(R)],
+                           device)
+
+
+@functools.lru_cache(maxsize=None)
+def policy_paths(B: int, device: torch.device) -> torch.Tensor:
+    """The per-lane collectors' policy keys from the iteration key: lane
+    b's `fold_in(fold_in(key, b), 7)`, [B, 2]."""
+    return prng.path_table([(b, 7) for b in range(B)], device)
+
+
 class Trainer(abc.ABC):
     """Base trainer; subclasses implement `_update`."""
 
@@ -196,16 +235,13 @@ class Trainer(abc.ABC):
                  chaos_cfg: CfgType | None = None) -> None:
         self.device = resolve_device(device)
         unported = list(unported or [])
-        if train_cfg.get("rollout_duration") is not None:
-            raise NotImplementedError(
-                "asynchronous collection (rollout_duration, "
-                "collect_flat_async_batch) is not ported yet")
-        engine = str(train_cfg.get("rollout_engine", "core"))
-        if engine != "flat" or not train_cfg.get("flat_single_eval", True):
-            raise NotImplementedError(
-                f"rollout_engine {engine!r} without single-eval flat "
-                "collection is not ported yet (set rollout_engine: flat, "
-                "flat_single_eval: true)")
+        rd = train_cfg.get("rollout_duration")
+        # YAML exponent literals without a sign ("2.0e7") arrive as strings
+        self.rollout_duration = float(rd) if rd is not None else None
+        self.rollout_engine = str(train_cfg.get("rollout_engine", "core"))
+        if self.rollout_engine not in ("core", "flat"):
+            raise ValueError(f"rollout_engine must be 'core' or 'flat', got "
+                             f"{self.rollout_engine!r}")
         unported += [k for k in _UNPORTED_TRAIN if train_cfg.get(k)]
         # the impl of every key of the run (the JAX package's names; the
         # stamp of its train states): rbg keys are four words, threefry's
@@ -246,6 +282,11 @@ class Trainer(abc.ABC):
                 "entropy_anneal requires an explicit 'iterations' horizon "
                 "(absolute iteration count, spanning resumed sessions)")
         self.fixed_sequences = bool(train_cfg.get("fixed_sequences", False))
+        if self.fixed_sequences and self.rollout_duration:
+            # a mid-loop reset draws from fold_in(seq_base, ordinal): only
+            # the first episode would be pinned
+            raise ValueError("fixed_sequences is only supported in sync mode "
+                             "(remove rollout_duration)")
 
         hc = dict(health_cfg or {})
         if set(hc) - HEALTH_KEYS:
@@ -309,13 +350,30 @@ class Trainer(abc.ABC):
             raise TypeError("scheduler must be trainable")
         self.scheduler = scheduler
         self.scheduler.net.requires_grad_(True)
-        self.flat_batch_knobs = {
+        # single-eval collection needs one batched evaluation per row;
+        # a scheduler without it falls back to the per-lane collectors
+        self.flat_single_eval = bool(train_cfg.get(
+            "flat_single_eval", True)) and hasattr(scheduler, "batch_policy")
+        self.flat_knobs = {
+            "event_burst": int(train_cfg.get("flat_event_burst", 1)),
             "event_bulk": bool(train_cfg.get("flat_event_bulk", True)),
             "bulk_events": int(train_cfg.get("flat_bulk_events", 8)),
-            "fulfill_bulk": bool(train_cfg.get("flat_fulfill_bulk", True)),
+            # on by default in single-eval mode (the final mode, after the
+            # capability check), off for the per-lane collectors
+            "fulfill_bulk": bool(train_cfg.get("flat_fulfill_bulk",
+                                               self.flat_single_eval)),
             "bulk_cycles": int(train_cfg.get("flat_bulk_cycles", 1)),
             "bulk_fused": bool(train_cfg.get("flat_bulk_fused", True)),
         }
+        self.flat_batch_knobs = {k: v for k, v in self.flat_knobs.items()
+                                 if k != "event_burst"}
+        self.flat_micro_per_decision = float(train_cfg.get(
+            "flat_micro_per_decision", 4.0))
+        self.flat_micro_groups = flat_micro_group_budget(
+            self.rollout_steps, self.flat_micro_per_decision,
+            self.flat_knobs["event_burst"])
+        # asynchronous mode's persistent lanes: (states, reset ordinals)
+        self._env_states = None
         self.train_cfg = train_cfg
         self.stats_log: list[dict[str, float]] = []
         self.last_rollout: Rollout | None = None
@@ -369,29 +427,85 @@ class Trainer(abc.ABC):
 
     def _collect(self, iteration: int, rng: torch.Tensor,
                  counts: dict | None = None):
-        """One iteration's rollouts from fresh episodes: `(Rollout,
-        health mask[B] or None)`. `counts`, when given, receives the rows
-        run (`rows`) and, with telemetry on, the lanes' counters
-        (`telemetry`)."""
-        seq_rngs, lane_rngs = self.lane_keys(iteration)
-        states = core.reset_pair(self.params_env, self.bank, seq_rngs,
-                                 lane_rngs)
-        tm = (telemetry_zeros(self.num_envs, self.device)
-              if self.obs_telemetry else None)
-        out = collect_flat_sync_batch(
-            self.params_env, self.bank,
-            self.scheduler.lane_policy,
-            prng.fold_in(rng, 7), self.rollout_steps, states,
-            health=self.health_enabled, counts=counts, telemetry=tm,
-            split_policy_keys=True,
-            **self.flat_batch_knobs,
-        )
+        """One iteration's rollouts, by the engine settings (module
+        docstring): `(Rollout, health mask[B] or None)`. `counts`, when
+        given, receives the rows run (`rows`), with telemetry on the
+        lanes' counters (`telemetry`) and in asynchronous mode the new
+        carry (`env_states`), which `train` keeps once the iteration is
+        kept; `self._env_states` is only read here."""
+        p, bank = self.params_env, self.bank
+        G, R = self.num_sequences, self.num_rollouts
+        B = self.num_envs
+        dev = torch.device(self.device)
+        tm = telemetry_zeros(B, self.device) if self.obs_telemetry else None
+        flat = self.rollout_engine == "flat"
+        single = flat and self.flat_single_eval
+        policy = self.scheduler.lane_policy
+        health = self.health_enabled
+        if not single:  # lane b's key fold_in(fold_in(rng, b), 7)
+            pol_rngs = prng.derive(rng, policy_paths(B, dev))
+        if self.rollout_duration:
+            if self._env_states is None:
+                states = core.reset_pair(p, bank, *self.lane_keys(iteration))
+                if flat:
+                    states = init_loop_state(states)
+                # the first reset used ordinal `iteration`
+                reset_counts = torch.full((B,), iteration + 1,
+                                          dtype=torch.int32, device=dev)
+            else:
+                states, reset_counts = self._env_states
+            seq_bases = prng.derive(self.seed_key(), seq_base_paths(G, R, dev))
+            lane_salts = (1000 + torch.arange(R, device=dev)).repeat(G).to(
+                torch.int32)
+            args = (self.rollout_duration, seq_bases, lane_salts,
+                    reset_counts, tm)
+            if single:
+                out = collect_flat_async_batch(
+                    p, bank, policy, prng.fold_in(rng, 7),
+                    self.rollout_steps, states, *args, health=health,
+                    counts=counts, split_policy_keys=True,
+                    **self.flat_batch_knobs)
+            elif flat:
+                out = collect_flat_async(
+                    p, bank, policy, pol_rngs, self.rollout_steps, states,
+                    *args, micro_groups=self.flat_micro_groups,
+                    health=health, counts=counts, **self.flat_knobs)
+            else:
+                out = collect_async(
+                    p, bank, policy, pol_rngs, self.rollout_steps, states,
+                    *args, health=health, counts=counts,
+                    split_policy_keys=True)
+        else:
+            states = core.reset_pair(p, bank, *self.lane_keys(iteration))
+            if single:
+                out = collect_flat_sync_batch(
+                    p, bank, policy, prng.fold_in(rng, 7),
+                    self.rollout_steps, states, health=health,
+                    counts=counts, telemetry=tm, split_policy_keys=True,
+                    **self.flat_batch_knobs)
+            elif flat:
+                out = collect_flat_sync(
+                    p, bank, policy, pol_rngs, self.rollout_steps, states,
+                    tm, micro_groups=self.flat_micro_groups, health=health,
+                    counts=counts, **self.flat_knobs)
+            else:
+                out = collect_sync(
+                    p, bank, policy, pol_rngs, self.rollout_steps, states,
+                    tm, health, counts=counts, split_policy_keys=True)
+        out = out if isinstance(out, tuple) else (out,)
+        ro, out = out[0], out[1:]
+        if self.rollout_duration:
+            # the flat engines carry their LoopState, core its EnvState
+            carry = ro.final_state
+            if flat:
+                carry, out = out[0], out[1:]
+            if counts is not None:
+                counts["env_states"] = (carry, ro.final_reset_count)
         if tm is not None:
             *out, tm = out
             if counts is not None:
                 counts["telemetry"] = tm
-            out = out[0] if len(out) == 1 else tuple(out)
-        return out if self.health_enabled else (out, None)
+        return ro, (out[0] if health else None)
 
     def _returns_and_baselines(self, state: TrainState, ro: Rollout):
         T = self.rollout_steps
@@ -520,6 +634,8 @@ class Trainer(abc.ABC):
                     self._record_health(i, attempt, health_mask,
                                         action="quarantine")
                 break
+            if self.rollout_duration:  # the kept iteration's carry
+                self._env_states = counts["env_states"]
             state.iteration += 1
             roll_stats = self._rollout_stats(ro)
             avg = float(stats.get("avg_num_jobs_est")
@@ -670,7 +786,8 @@ class Trainer(abc.ABC):
             self._runlog.write(
                 "run_start", trainer=type(self).__name__,
                 num_iterations=self.num_iterations, num_envs=self.num_envs,
-                rollout_steps=self.rollout_steps, rollout_engine="flat",
+                rollout_steps=self.rollout_steps,
+                rollout_engine=self.rollout_engine,
                 telemetry=self.obs_telemetry, memory=self.obs_memory,
                 seed=self.seed)
 

@@ -5,6 +5,8 @@ are compared as numpy arrays. Also the seeded NodeEncoder inputs of
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -643,3 +645,129 @@ def runlog_records(art) -> list[dict]:
     for p in sorted(pathlib.Path(art, "runlog").glob("*.jsonl")):
         recs.extend(json.loads(ln) for ln in open(p))
     return recs
+
+
+# -------------------------------------------------------------------------
+# The collectors' parity tests (`test_torch_collect_*.py`): a small
+# environment where episodes end within a few dozen decisions (a mean
+# time limit of 1e6), lanes and keys laid out as the trainer lays them
+# out, and the leaf-by-leaf comparison of two Rollouts.
+
+COLLECT_N, COLLECT_J = 4, 4
+
+
+def collect_env(mean_time_limit: float = 1e6):
+    """(JAX params, JAX bank, port params, port bank) at 4 executors and
+    4 job slots on the synthetic bank."""
+    from sparksched_tpu.config import EnvParams as JaxParams
+    from sparksched_tpu.workload import make_workload_bank as jax_bank
+    from sparksched_tpu_torch.config import EnvParams
+    from sparksched_tpu_torch.workload import make_workload_bank
+
+    kw = dict(num_executors=COLLECT_N, max_jobs=COLLECT_J,
+              moving_delay=500.0, warmup_delay=200.0,
+              mean_time_limit=mean_time_limit)
+    jp = JaxParams(**kw)
+    jb = jax_bank(COLLECT_N, jp.max_stages)
+    jp = jp.replace(max_stages=jb.max_stages, max_levels=jb.max_stages)
+    tp = EnvParams(**kw).replace(max_stages=jp.max_stages,
+                                 max_levels=jp.max_levels)
+    return jp, jb, tp, make_workload_bank(COLLECT_N, tp.max_stages,
+                                          device="cpu")
+
+
+def collect_policies(kind: str):
+    """(JAX per-lane policy, port lane policy, split_policy_keys) of the
+    fair heuristic or of a small Decima (`decima_pair`)."""
+    from sparksched_tpu.schedulers.heuristics import (
+        round_robin_policy as j_round_robin,
+    )
+    from sparksched_tpu_torch.schedulers.heuristics import round_robin_policy
+
+    if kind == "fair":
+        return (lambda k, o: j_round_robin(o, COLLECT_N, True) + ({},),
+                lambda k, o: round_robin_policy(o, COLLECT_N, True) + ({},),
+                False)
+    js, ts = decima_pair(COLLECT_N)
+    return (lambda k, o: js.policy(k, o, js.params), ts.lane_policy, True)
+
+
+def to_port_key(k) -> torch.Tensor:
+    return torch.from_numpy(np.asarray(k).astype(np.int64))
+
+
+def group_lanes(seed: int, iteration: int = 0):
+    """The trainer's lanes at an iteration under jax's current default
+    impl: 2 sequence groups x 2 lanes. Returns a dict of JAX arrays
+    (`seq`, `lane`: the reset keys; `bases`: fold_in(master, g);
+    `salts`: 1000 + r; `pol`: lane b's fold_in(fold_in(key, b), 7) of
+    `key` = fold_in(master, 99)) and the same as port tensors."""
+    import jax
+    import jax.numpy as jnp
+
+    master = jax.random.PRNGKey(seed)
+    g_ids, r_ids = (0, 0, 1, 1), (0, 1, 0, 1)
+    bases = jnp.stack([jax.random.fold_in(master, g) for g in g_ids])
+    seq = jnp.stack([jax.random.fold_in(b, iteration) for b in bases])
+    lane = jnp.stack([jax.random.fold_in(s, 1000 + r)
+                      for s, r in zip(seq, r_ids)])
+    key = jax.random.fold_in(master, 99)
+    pol = jnp.stack([jax.random.fold_in(jax.random.fold_in(key, b), 7)
+                     for b in range(4)])
+    salts = jnp.asarray([1000 + r for r in r_ids], jnp.int32)
+    j = dict(seq=seq, lane=lane, bases=bases, salts=salts, pol=pol, key=key)
+    t = {k: (torch.from_numpy(np.array(v)) if k == "salts"
+             else to_port_key(v)) for k, v in j.items()}
+    return j, t
+
+
+@contextlib.contextmanager
+def jax_impl(impl: str):
+    """jax's default PRNG impl set to `impl` inside, restored after."""
+    import jax
+
+    saved = jax.config.jax_default_prng_impl
+    jax.config.update("jax_default_prng_impl", impl)
+    try:
+        yield
+    finally:
+        jax.config.update("jax_default_prng_impl", saved)
+
+
+def jax_telemetry_array(tm) -> np.ndarray:
+    """A JAX Telemetry's counters as the port's [B, F] layout."""
+    from sparksched_tpu_torch.obs.telemetry import FIELDS
+
+    return np.stack([np.asarray(getattr(tm, f)) for f in FIELDS], -1)
+
+
+def rollout_mismatches(jro, tro, lg_rtol: float = 1e-5,
+                       reward_rtol: float = 1e-6, wall_rtol: float = 0.0,
+                       actions_where_valid: bool = False) -> list[str]:
+    """The leaves of a port Rollout that differ from a JAX Rollout's:
+    every leaf bit-equal but the rewards (within `reward_rtol`), the
+    log-probs (within `lg_rtol`) and the final state's floats (within
+    1e-6: a reset's exponential arrival gaps take float32 `log1p`, where
+    torch and XLA may part in the last ulp); `wall_rtol` > 0 holds the
+    wall times so too (elapsed times summed across resets). With
+    `actions_where_valid`, `job_idx` and `num_exec_k` only on the valid
+    steps (the rows a `core.step` collector leaves out)."""
+    pl = port_rollout_leaves(tro)
+    jl = jax_leaves(jro)
+    assert len(pl) == len(jl)
+    valid = tro.valid.numpy()
+    bad = []
+    for a, (name, b) in zip(jl, pl):
+        if actions_where_valid and name in ("job_idx", "num_exec_k"):
+            a, b = a[valid], b[valid]
+        rtol = {"lgprob": lg_rtol, "reward": reward_rtol,
+                "wall_times": wall_rtol}.get(name, 0.0)
+        if a.dtype.kind == "f" and rtol:
+            if a.shape != b.shape or not np.allclose(a, b, rtol=rtol,
+                                                     atol=1e-6):
+                bad.append(name)
+        else:
+            bad += mismatched_leaves(
+                [a], [(name, b)],
+                rtol=1e-6 if name.startswith("final_state.") else 0.0)
+    return bad
