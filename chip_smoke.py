@@ -137,7 +137,22 @@ plain version on the captured inputs and on the corner cases of
 version, each `train` capture's time beside its longest lane's scan
 steps with the fit ms = fixed + per_step x steps, a launch with every
 lane disabled, and the wrapper's host cost) runs after
-`eval_trained`.
+`eval_trained`. Then the trainer's remaining paths, before
+`telemetry_cost`: `train_vpg_bf16` (the flagship with `trainer_cls:
+VPG`, `compute_dtype: bfloat16`, `profiling`, `use_tensorboard` and
+`obs.trace_iteration` on the second of 2 iterations at `rollout_steps`
+16: both bf16 NodeEncoder kernels launched and the float32 ones never,
+the traced iteration's collect and update traces holding their `iter 2`
+ranges, the `decima/gnn` and `train/vpg_update` labels and the bf16
+kernels' device records, with their bytes and export seconds a row;
+the scalars' sink), `bf16_kernels` (both bf16 kernels against their
+bf16 plain versions at that run's collection row [16, 200] and
+compacted [16, 32], its update chunk [256, 200] and the serve shapes
+[8, 32] / [8, 200], in bf16 ulps and relative to the gradient's norm,
+timed beside the float32 kernels at the same shapes, with their bounds
+and ptxas) and `vpg_update_parity` (one VPG update on the card and on
+the CPU port from that run's last rollout, 4 lanes, in bf16 and in
+float32).
 
 Each phase prints one JSON line. Before the last line come the
 `{"kernels": [...]}` line (per kernel: launches on the main path and
@@ -149,7 +164,9 @@ backward also its time, bound and scratch bytes at both timed chunks;
 for the rbg kernel its time, plain time, threefry time and bound at
 each timed draw shape; for the threefry path kernel, split_uniform and
 bulk_events_fused their time, wrapper-call time, plain time and bound
-at each timed shape)
+at each timed shape; for the two bf16 kernels, launched on
+`train_vpg_bf16`, the float32 kernel's time at the same shape beside
+theirs)
 and the card's
 name and power limit from nvidia-smi; the last line is
 `{"ok": true, "device": {...}}`. Any failed phase exits non-zero
@@ -161,6 +178,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import glob
 import importlib.util
 import json
 import math
@@ -374,10 +392,11 @@ def phase_build() -> None:
 # ---------------------------------------------------------------------------
 
 
-def bound(nbytes: int, flops: int) -> dict:
+def bound(nbytes: int, flops: int, peak: float = FP32_FLOPS_PER_S) -> dict:
     """The least time the card could take for work that moves `nbytes`
-    and does `flops` FP32 operations: the larger of the two times."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
+    and does `flops` operations at `peak` (FP32 by default): the larger
+    of the two times."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return {"bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": nbytes, "flops": flops}
@@ -387,10 +406,11 @@ def _mlp_flops(layers) -> int:
     return sum(2 * int(w.shape[0]) * int(w.shape[1]) for w, _ in layers)
 
 
-def encoder_work(f, net) -> tuple[int, int]:
+def encoder_work(f, net, elem: int = 4) -> tuple[int, int]:
     """(bytes, flops) the NodeEncoder must move and do for these inputs.
     Bytes: each input read once (x, adj, levels, node mask, the per-lane
-    edgeless flag, the packed weights), the output written once. Flops:
+    edgeless flag, the packed weights), the output written once; x, the
+    weights and the output at `elem` bytes an element (2 in bf16). Flops:
     what this data needs, on node_mask-valid nodes only — prep once per
     node; update once per node (a leaf from its h_init, a node with
     children at its level; none on an edgeless lane, which keeps h_init);
@@ -400,9 +420,9 @@ def encoder_work(f, net) -> tuple[int, int]:
     b, k, s, _ = f.x.shape
     d = net.embed_dim
     w = net.encoder_weights()
-    nbytes = (f.x.numel() * 4 + f.adj.numel() + f.node_level.numel() * 4
-              + f.node_mask.numel() + b + w.packed.numel() * 4
-              + b * k * s * d * 4)
+    nbytes = (f.x.numel() * elem + f.adj.numel() + f.node_level.numel() * 4
+              + f.node_mask.numel() + b + w.packed.numel() * elem
+              + b * k * s * d * elem)
     nl = min(net.num_levels, s) if net.num_levels else s
     edged = f.adj.reshape(b, -1).any(1)[:, None, None]
     has_child = f.adj.any(-1)
@@ -1884,11 +1904,12 @@ def bwd_err(got, ref) -> tuple[float, float]:
     return max(e for e, _ in errs), max(e / t for e, t in errs)
 
 
-def bwd_work(f, net) -> tuple[int, int]:
+def bwd_work(f, net, elem: int = 4) -> tuple[int, int]:
     """(bytes, flops) the NodeEncoder backward must move and do for these
     inputs. Bytes: each input read once (x, adj, levels, node mask, the
-    per-lane edgeless flag, the packed weights, dL/dh), the gradient
-    written once. Flops: what this data needs, counted on the kernel's
+    per-lane edgeless flag, the packed weights, dL/dh; x, the weights and
+    dL/dh at `elem` bytes an element), the float32 gradient written once.
+    Flops: what this data needs, counted on the kernel's
     algorithm, node_mask-valid rows only: per job with a valid node, prep
     forward and backward (no input gradient at its first layer) over its
     valid nodes; on an edged lane also update and msg forward and
@@ -1899,9 +1920,9 @@ def bwd_work(f, net) -> tuple[int, int]:
     b, k, s, _ = f.x.shape
     d = net.embed_dim
     w = net.encoder_weights()
-    nbytes = (f.x.numel() * 4 + f.adj.numel() + f.node_level.numel() * 4
-              + f.node_mask.numel() + b + w.packed.numel() * 4
-              + b * k * s * d * 4 + w.packed.numel() * 4)
+    nbytes = (f.x.numel() * elem + f.adj.numel() + f.node_level.numel() * 4
+              + f.node_mask.numel() + b + w.packed.numel() * elem
+              + b * k * s * d * elem + w.packed.numel() * 4)
     nl = min(net.num_levels, s) if net.num_levels else s
     edged = f.adj.reshape(b, -1).any(1)[:, None, None]
     has_child = f.adj.any(-1)
@@ -2163,6 +2184,16 @@ def engine_wrappers() -> dict:
             "threefry2x32": threefry.threefry2x32,
             "split_uniform": rbg.split_uniform,
             "bulk_events_fused": bulk_events.bulk_events_fused}
+
+
+def encoder_wrappers() -> dict:
+    """name -> the wrapper of each NodeEncoder kernel: float32 and bf16,
+    forward and backward."""
+    from sparksched_tpu_torch.kernels import decima_encoder as de
+
+    return {fn.__name__: fn for fn in (
+        de.decima_node_encoder, de.decima_node_encoder_bwd,
+        de.decima_node_encoder_bf16, de.decima_node_encoder_bwd_bf16)}
 
 
 def zero_engine_launches() -> None:
@@ -2749,10 +2780,6 @@ def _train_engine(name: str, cfg: dict, kernels: tuple, carry=False) -> dict:
     import torch
 
     from sparksched_tpu_torch.env.health import reward_health, state_health
-    from sparksched_tpu_torch.kernels.decima_encoder import (
-        decima_node_encoder,
-        decima_node_encoder_bwd,
-    )
     from sparksched_tpu_torch.trainers import make_trainer
 
     t_phase = time.perf_counter()
@@ -2763,7 +2790,7 @@ def _train_engine(name: str, cfg: dict, kernels: tuple, carry=False) -> dict:
 
     def report(i, state, stats):
         line = {"phase": f"{name}_iteration", "iteration": i + 1}
-        line.update({k: stats[k] for k in (
+        line.update({k: stats.get(k) for k in (
             "collect_seconds", "rows", "decisions", "update_seconds",
             "minibatches_applied", "health_mask", "episode_length",
             "avg_num_jobs")})
@@ -2771,16 +2798,16 @@ def _train_engine(name: str, cfg: dict, kernels: tuple, carry=False) -> dict:
         lines.append(line)
 
     torch.cuda.synchronize()
-    decima_node_encoder.launches = 0
-    decima_node_encoder_bwd.launches = 0
+    encoders = encoder_wrappers()
+    for fn in encoders.values():
+        fn.launches = 0
     zero_engine_launches()
     tracker = CollectCarry(trainer) if carry else contextlib.nullcontext()
     with PlainCalls() as plain, PrngDraws(name) as draws, tracker:
         state = trainer.train(callback=report)
     torch.cuda.synchronize()
-    launches = {"decima_node_encoder": decima_node_encoder.launches,
-                "decima_node_encoder_bwd": decima_node_encoder_bwd.launches,
-                **engine_launches()}
+    launches = {n: fn.launches for n, fn in encoders.items()}
+    launches.update(engine_launches())
     if plain.n or draws.plain:
         raise AssertionError(f"{name}: the plain encoder ran {plain.n} "
                              f"times, the plain PRNG and bulk versions "
@@ -2816,7 +2843,7 @@ def _train_engine(name: str, cfg: dict, kernels: tuple, carry=False) -> dict:
            / sum(line["collect_seconds"] for line in lines),
            "kernel_launches": launches,
            "launches_per_row": {k: v / rows for k, v in launches.items()
-                                if k not in ENCODER_KERNELS},
+                                if k not in encoders},
            "plain_calls": plain.n + draws.plain, "health": health,
            "max_param_change": moved,
            "seconds": time.perf_counter() - t_phase, "card": card_line()}
@@ -4254,6 +4281,334 @@ def phase_telemetry_cost() -> None:
           "seconds": time.perf_counter() - t_phase})
 
 
+# ---------------------------------------------------------------------------
+# VPG, the iteration trace and compute_dtype: bfloat16 with the bf16
+# NodeEncoder kernels
+# ---------------------------------------------------------------------------
+
+# the flagship with trainer_cls VPG and compute_dtype bfloat16, profiling,
+# TensorBoard and obs.trace_iteration on: VPG_ITERS iterations of
+# VPG_STEPS rows, the last traced (a traced collection row records every
+# one of its ~16k launches, host and device)
+VPG_ITERS, VPG_STEPS = 2, 16
+BF16_KERNELS = ("decima_node_encoder_bf16", "decima_node_encoder_bwd_bf16")
+BF16_FWD_KERNELS = ("decima_node_encoder_bf16_kernel",)
+BF16_BWD_KERNELS = ("decima_node_encoder_bwd_bf16_kernel",
+                    "reduce_blocks_kernel")
+# the least time bf16 work could take: the tensor cores' dense bf16 peak
+# (NVIDIA data sheet, H100 SXM)
+BF16_FLOPS_PER_S = 989e12
+BF16_TIMED = "update_chunk_256"  # the kernels line's shape
+# vpg_update_parity: a zero-gradient output bias's change on either device
+# against its head's largest change
+OUT_BIAS_REL = 1e-3
+
+
+def _trace_has(path: str, names) -> list[str]:
+    """The names no event of the exported trace is named (or, for a
+    kernel, whose demangled name does not start with), read as bytes:
+    a traced collection's JSON runs to hundreds of MB."""
+    with open(path, "rb") as fp:
+        data = fp.read()
+    return [n for n in names if b'"' + n.encode() not in data]
+
+
+def phase_train_vpg_bf16() -> dict:
+    """The flagship config with `trainer_cls: VPG`, `compute_dtype:
+    bfloat16`, `profiling`, `use_tensorboard` and `obs.trace_iteration` on
+    the last of VPG_ITERS iterations of VPG_STEPS rows, through
+    `make_trainer(...).train()` (`_train_engine`): both bf16 encoder
+    kernels and the engine's kernels launched, the float32 encoder kernels
+    never, no plain version called, health 0, parameters changed. The
+    traced iteration's collect and update traces must hold their `iter N`
+    ranges, the `decima/gnn` and `train/vpg_update` labels and device
+    records of the bf16 kernels by name; their bytes and export seconds a
+    row are reported. A line says which sink took the scalars (the card's
+    machine has no `tensorboard` package: the run log)."""
+    t_phase = time.perf_counter()
+    art = tempfile.mkdtemp(prefix="vpg_bf16_", dir=TMP_ROOT)
+    cfg = train_cfg(art, trainer_cls="VPG", num_iterations=VPG_ITERS,
+                    rollout_steps=VPG_STEPS, profiling=True,
+                    use_tensorboard=True)
+    cfg["agent"]["compute_dtype"] = "bfloat16"
+    cfg["obs"] = dict(cfg.get("obs") or {}, trace_iteration=VPG_ITERS - 1,
+                      trace_dir=os.path.join(art, "trace"))
+    run = _train_engine("train_vpg_bf16", cfg,
+                        BF16_KERNELS + tuple(engine_wrappers()))
+    launches = run["launches"]
+    if any(launches[k] for k in ENCODER_KERNELS):
+        raise AssertionError(f"train_vpg_bf16 launched the float32 encoder "
+                             f"kernels: {launches}")
+    trainer = run["trainer"]
+    rows = trainer.stats_log[-1]["rows"]
+    traces = {}
+    for p in trainer.last_traces:
+        kind = p.label.rsplit(" ", 1)[1]
+        need = [p.label, "decima/gnn", *BF16_FWD_KERNELS]
+        if kind == "update":
+            need += ["train/vpg_update", BF16_BWD_KERNELS[0]]
+        missing = _trace_has(p.trace_path, need)
+        if missing:
+            raise AssertionError(f"the {p.label} trace lacks {missing}")
+        traces[kind] = {"file": os.path.basename(p.trace_path),
+                        "bytes": p.trace_bytes,
+                        "export_seconds": p.export_seconds,
+                        "bytes_per_row": p.trace_bytes / rows,
+                        "export_seconds_per_row": p.export_seconds / rows,
+                        "holds": need}
+    if sorted(traces) != ["collect", "update"]:
+        raise AssertionError(f"traced spans: {sorted(traces)}")
+    tb = os.path.join(art, "tb")
+    recs = []
+    for path in sorted(glob.glob(os.path.join(art, "runlog", "*.jsonl"))):
+        with open(path) as fp:
+            recs += [json.loads(x) for x in fp]
+    scalars = [r for r in recs if r["ev"] == "scalars"]
+    spans = [r["name"] for r in recs if r["ev"] == "span"]
+    if len(scalars) != VPG_ITERS or len(spans) != 2 * VPG_ITERS:
+        raise AssertionError(f"run log: {len(scalars)} scalars records, "
+                             f"spans {spans}")
+    sink = ("tensorboard " + tb if os.path.isdir(tb) else
+            "the run log (torch.utils.tensorboard unavailable: "
+            f"tensorboard installed: "
+            f"{importlib.util.find_spec('tensorboard') is not None})")
+    emit({"phase": "train_vpg_bf16_scalars", "sink": sink,
+          "runlog_scalars_records": len(scalars)})
+    emit(run["out"] | {"trainer": "VPG", "compute_dtype": "bfloat16",
+                       "traces": traces, "traced_rows": rows,
+                       "seconds": time.perf_counter() - t_phase})
+    return run
+
+
+def phase_bf16_kernels(vpg) -> dict:
+    """Both bf16 kernels against their bf16 plain versions on the card, at
+    the trained weights of `train_vpg_bf16` on its last rollout: a
+    collection row at full width [16, 200] and compacted [16, 32], the
+    update chunk [256, 200] and the serve shapes [8, 32] / [8, 200]
+    (a row's first 8 lanes), each with a seeded bf16 dL/dh. The forward
+    within BF16_FWD_ULPS bf16 ulps at the output's scale and at least
+    BF16_FWD_EQUAL of it bit-equal, the gradient within BF16_BWD_REL of
+    each tensor's norm and the same bits on a rerun
+    (`tests/_torch_parity.py`; the plain version's bf16 GEMMs with
+    reduced-precision reductions off). Each is timed (torch.profiler)
+    beside the float32 kernel at the same shape and weights and the plain
+    version, against its bound at 2 bytes an element and the bf16 peak;
+    the ptxas lines of both sources are reported."""
+    import torch
+
+    from sparksched_tpu_torch.kernels import build
+    from sparksched_tpu_torch.kernels.decima_encoder import (
+        BF16,
+        decima_node_encoder,
+        decima_node_encoder_bf16,
+        decima_node_encoder_bwd,
+        decima_node_encoder_bwd_bf16,
+        decima_node_encoder_bwd_ref,
+        decima_node_encoder_ref,
+        pack_weights,
+    )
+    from sparksched_tpu_torch.schedulers.decima import DecimaFeatures
+
+    t_phase = time.perf_counter()
+    ph = parity_helpers()
+    trainer = vpg["trainer"]
+    sched, ro = trainer.scheduler, trainer.last_rollout
+    net = sched.net
+    w16 = net.encoder_weights()
+    w32 = pack_weights(w16.prep, w16.msg, w16.update)
+    nl, slope, d = net.num_levels, net.slope, net.embed_dim
+    feats = collection_rows(sched, trainer.bank, ro, sched.job_bucket)
+    feats[BF16_TIMED] = update_chunk_features(trainer, ro, 256)
+
+    def lanes(f, n):
+        return DecimaFeatures(**{k: getattr(f, k)[:n].contiguous()
+                                 for k in DecimaFeatures.__dataclass_fields__})
+
+    feats["serve_B8_K200"] = lanes(feats["collection_row_full"], 8)
+    if "collection_row_compact" in feats:
+        feats["serve_B8_K32"] = lanes(feats["collection_row_compact"], 8)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    prev = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    cases = {}
+    try:
+        for name, f in feats.items():
+            ins32 = tuple(a.contiguous()
+                          for a in (f.x, f.adj, f.node_level, f.node_mask))
+            ins = (ins32[0].to(BF16), *ins32[1:])
+            g = torch.randn(tuple(f.x.shape[:3]) + (d,), device="cuda",
+                            generator=gen).to(BF16)
+            fwd = functools.partial(decima_node_encoder_bf16, *ins, w16, nl,
+                                    slope)
+            bwd = functools.partial(decima_node_encoder_bwd_bf16, *ins, w16,
+                                    nl, slope, g)
+            with torch.no_grad():
+                out = fwd()
+                ref = decima_node_encoder_ref(*ins, w16, nl, slope)
+            got, again = bwd(), bwd()
+            gref = decima_node_encoder_bwd_ref(*ins, w16, nl, slope, g)
+            torch.cuda.synchronize()
+            rec = {"shape": list(f.x.shape),
+                   "ulps": ph.bf16_ulps(out, ref),
+                   "bit_equal": float((out == ref).float().mean()),
+                   "max_abs_err": float((out.float() - ref.float()).abs()
+                                        .max()),
+                   "max_abs_ref": float(ref.float().abs().max()),
+                   "bwd_rel_norm": max(ph.rel_norm(a, b)
+                                       for a, b in zip(got, gref)),
+                   "bwd_max_abs_err": max(float((a - b).abs().max())
+                                          for a, b in zip(got, gref)),
+                   "bwd_same_bits": all(torch.equal(a, b)
+                                        for a, b in zip(got, again))}
+            if not (rec["ulps"] <= ph.BF16_FWD_ULPS
+                    and rec["bit_equal"] >= ph.BF16_FWD_EQUAL
+                    and rec["bwd_rel_norm"] <= ph.BF16_BWD_REL
+                    and rec["bwd_same_bits"]):
+                raise AssertionError(f"bf16 kernels at {name}: {rec}")
+            with torch.no_grad():
+                rec["ms"], _, rec["ms_from"] = kernel_ms(fwd, 20,
+                                                         BF16_FWD_KERNELS)
+                rec["f32_ms"], _, _ = kernel_ms(
+                    functools.partial(decima_node_encoder, *ins32, w32, nl,
+                                      slope), 20, "decima_node_encoder_kernel")
+                rec["plain_ms"] = cuda_ms(functools.partial(
+                    decima_node_encoder_ref, *ins, w16, nl, slope), 3)
+            rec["bwd_ms"], _, _ = kernel_ms(bwd, 5, BF16_BWD_KERNELS)
+            rec["bwd_f32_ms"], _, _ = kernel_ms(
+                functools.partial(decima_node_encoder_bwd, *ins32, w32, nl,
+                                  slope, g.float()), 5, BWD_KERNELS)
+            rec["bwd_plain_ms"] = cuda_ms(functools.partial(
+                decima_node_encoder_bwd_ref, *ins, w16, nl, slope, g), 2)
+            rec["bwd_scratch_bytes"] = decima_node_encoder_bwd_bf16.scratch_bytes
+            rec |= bound(*encoder_work(f, net, 2), BF16_FLOPS_PER_S)
+            bb = bound(*bwd_work(f, net, 2), BF16_FLOPS_PER_S)
+            rec |= {f"bwd_{k}": v for k, v in bb.items()}
+            cases[name] = rec
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = (
+            prev)
+    ptxas = {n: [ln.strip() for ln in build.build_log.get(n, "").splitlines()
+                 if "registers" in ln or "spill" in ln]
+             for n in ("decima_encoder_bf16", "decima_encoder_bwd_bf16")}
+    out = {"phase": "bf16_kernels", "kernels": list(BF16_KERNELS),
+           "tolerance": {"fwd_ulps": ph.BF16_FWD_ULPS,
+                         "fwd_bit_equal": ph.BF16_FWD_EQUAL,
+                         "bwd_rel_norm": ph.BF16_BWD_REL},
+           "cases": cases, "ptxas": ptxas,
+           "seconds": time.perf_counter() - t_phase, "card": card_line()}
+    emit(out)
+    return out
+
+
+def rollout_lanes(ro, n: int, device):
+    """The first n lanes of a Rollout, on `device`."""
+    import dataclasses
+
+    def t(a):
+        return a[:n].to(device)
+
+    fs = ro.final_state
+    return dataclasses.replace(
+        ro, obs=ro.obs.map(t),
+        final_state=dataclasses.replace(fs, **{
+            f.name: t(getattr(fs, f.name))
+            for f in dataclasses.fields(fs)}),
+        **{f.name: t(getattr(ro, f.name)) for f in dataclasses.fields(ro)
+           if f.name not in ("obs", "final_state")})
+
+
+def phase_vpg_update_parity(vpg) -> None:
+    """The last rollout of `train_vpg_bf16`, its first sequence group's
+    lanes, and one VPG update on the card and on the CPU port from the
+    run's trained parameters x WEIGHT_SCALE (as every card-vs-CPU check
+    here: at the init scale outputs reach ~280, and a float32 LeakyReLU
+    kink that the card and the CPU put on different branches moved an
+    element of mlp_prep.dense_0.weight's change past the per-element
+    bound, 1.19x) and a fresh optimizer at the linear Adam (eps 1e-2, lr
+    3e-2), in bf16 and in float32. In float32 every parameter's change
+    within rtol 1e-4 / atol 1e-7 of the CPU's, the heads per tensor (as
+    `train_parity`: the card's float32 summation order), but the heads'
+    output biases: their exact gradient is 0 (log-softmax and the entropy
+    do not change when every score moves alike), so on each device their
+    change must stay at float32 noise, within OUT_BIAS_REL of their
+    head's largest change (two noises are not compared: at 64 rows the
+    exec head's differed by 1.55x the tier-1 bound). In bf16 the change
+    of all parameters together within BF16_UPDATE_REL of the CPU's norm
+    (`tests/test_torch_bf16.py`'s tolerance)."""
+    import torch
+
+    from sparksched_tpu_torch.trainers import make_trainer
+
+    t_phase = time.perf_counter()
+    ph = parity_helpers()
+    tr0 = vpg["trainer"]
+    lanes = tr0.num_rollouts
+    sd = {k: v.detach().cpu() * WEIGHT_SCALE
+          for k, v in tr0.scheduler.net.named_parameters()}
+    out, seconds = {}, {}
+    for cdt in ("bfloat16", None):
+        cfg = train_cfg(trainer_cls="VPG", num_sequences=1,
+                        num_rollouts=lanes, rollout_steps=VPG_STEPS,
+                        opt_kwargs=ph.LINEAR_ADAM)
+        cfg["agent"]["compute_dtype"] = cdt
+        res = {}
+        for dev in ("cuda", "cpu"):
+            tr = make_trainer(cfg, device=dev)
+            tr.scheduler.load_params(sd)
+            st = tr.init_state()
+            ro = rollout_lanes(tr0.last_rollout, lanes, dev)
+            t = time.perf_counter()
+            st, stats = tr._update(st, ro)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            seconds[f"{dev}_{cdt or 'float32'}"] = time.perf_counter() - t
+            res[dev] = ({k: v.detach().cpu().clone()
+                         for k, v in st.params.items()}, stats)
+        (pc, sc), (pp, sp) = res["cuda"], res["cpu"]
+        p0 = {k: v for k, v in sd.items()}
+        if cdt:
+            a = torch.cat([(pc[k] - p0[k]).reshape(-1) for k in p0])
+            b = torch.cat([(pp[k] - p0[k]).reshape(-1) for k in p0])
+            err = ph.rel_norm(a, b)
+            if not err <= ph.BF16_UPDATE_REL:
+                raise AssertionError(f"vpg update parity (bf16): the change "
+                                     f"is {err:.3g} of its norm apart")
+            out["bfloat16"] = {"rel_norm": err}
+        else:
+            # the heads' output biases: an exact gradient of 0, float32
+            # noise on either device; each side's change must stay at
+            # that noise, within OUT_BIAS_REL of its head's largest
+            pc, pp = dict(pc), dict(pp)
+            noise = {}
+            for k in ph.OUT_BIASES:
+                head = k.split(".")[0]
+                for dev, ps in (("cuda", pc), ("cpu", pp)):
+                    scale = max(float((v - p0[n]).abs().max())
+                                for n, v in ps.items() if n.startswith(head)
+                                and n not in ph.OUT_BIASES)
+                    moved = float((ps[k] - p0[k]).abs().max())
+                    noise[f"{k}_{dev}"] = moved / (1e-7 + OUT_BIAS_REL * scale)
+                    if not noise[f"{k}_{dev}"] <= 1.0:
+                        raise AssertionError(
+                            f"vpg update parity: {k} moved {moved:.3g} on "
+                            f"{dev}, its head at most {scale:.3g}")
+                pc.pop(k)
+                pp.pop(k)
+            out["float32"] = {
+                "worst_err_over_tol": ph.assert_update_close(
+                    {k: v.numpy() for k, v in pp.items()}, pc, p0, 1,
+                    ph.LINEAR_ADAM["lr"], True, heads_per_tensor=True),
+                "out_bias_change_over_tol": noise}
+        out[cdt or "float32"] |= {
+            "policy_loss": [sc["policy_loss"], sp["policy_loss"]],
+            "entropy": [sc["entropy"], sp["entropy"]]}
+    emit({"phase": "vpg_update_parity", "lanes": lanes,
+          "rollout_steps": VPG_STEPS, "decisions": int(
+              tr0.last_rollout.valid[:lanes].sum()),
+          "updates": out, "seconds_by_part": seconds,
+          "seconds": time.perf_counter() - t_phase})
+
+
 def main() -> int:
     import torch
 
@@ -4314,6 +4669,10 @@ def main() -> int:
                  "chaos": phase_chaos(),
                  "eval_trained": phase_eval_trained()}
         bulk = phase_bulk_kernel()
+        vpg = phase_train_vpg_bf16()
+        paths["train_vpg_bf16"] = vpg["launches"]
+        bf16 = phase_bf16_kernels(vpg)
+        phase_vpg_update_parity(vpg)
         phase_telemetry_cost()
     except Exception:
         traceback.print_exc()
@@ -4426,7 +4785,33 @@ def main() -> int:
         "per_step_ms": {k: f["per_step_ms"] for k, f in bulk["fit"].items()},
         "disabled_ms": bulk["disabled"]["ms"],
         "corners_checked": len(bulk["corners"]),
-    }]})
+    }, *({
+        "name": name,
+        "route": "cuda",
+        "source": source,
+        "replaces": "sparksched_tpu/schedulers/decima.py:206-223, 244-274, "
+                    "285-288 under compute_dtype=\"bfloat16\"" + extra,
+        "launches": vpg["launches"][name],
+        "launches_by_path": {p: n[name] for p, n in paths.items()
+                             if name in n},
+        "max_abs_err": max(c[err] for c in bf16["cases"].values()),
+        "ms": bf16["cases"][BF16_TIMED][pre + "ms"],
+        "plain_ms": bf16["cases"][BF16_TIMED][pre + "plain_ms"],
+        "bound_ms": bf16["cases"][BF16_TIMED][pre + "bound_ms"],
+        "bound_by": bf16["cases"][BF16_TIMED][pre + "bound_by"],
+        "library_ms": None,
+        "f32_ms": bf16["cases"][BF16_TIMED][pre + "f32_ms"],
+        "at": {n: {k: c[pre + k] for k in ("ms", "f32_ms", "plain_ms",
+                                           "bound_ms")}
+               for n, c in bf16["cases"].items()},
+    } for name, source, extra, pre, err in (
+        ("decima_node_encoder_bf16",
+         "sparksched_tpu_torch/csrc/decima_encoder_bf16.cu", "", "",
+         "max_abs_err"),
+        ("decima_node_encoder_bwd_bf16",
+         "sparksched_tpu_torch/csrc/decima_encoder_bwd_bf16.cu",
+         " (the gradient XLA derives under jax.checkpoint, :706-728)",
+         "bwd_", "bwd_max_abs_err")))]})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

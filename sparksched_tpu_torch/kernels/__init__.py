@@ -9,13 +9,20 @@ def kernel_counts() -> dict[str, int]:
     tensor). Counts are per process: a router's replicas report theirs
     over the pipe."""
     from .bulk_events import bulk_events_fused
-    from .decima_encoder import decima_node_encoder, decima_node_encoder_bwd
+    from .decima_encoder import (
+        decima_node_encoder,
+        decima_node_encoder_bf16,
+        decima_node_encoder_bwd,
+        decima_node_encoder_bwd_bf16,
+    )
     from .rbg import rbg_random_bits, split_uniform
     from .threefry import threefry2x32
 
     out = {}
-    for fn in (decima_node_encoder, decima_node_encoder_bwd, rbg_random_bits,
-               threefry2x32, split_uniform, bulk_events_fused):
+    for fn in (decima_node_encoder, decima_node_encoder_bwd,
+               decima_node_encoder_bf16, decima_node_encoder_bwd_bf16,
+               rbg_random_bits, threefry2x32, split_uniform,
+               bulk_events_fused):
         out[fn.__name__] = fn.launches
         out[f"{fn.__name__}_plain"] = fn.plain_calls
     return out

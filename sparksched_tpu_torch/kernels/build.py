@@ -21,7 +21,8 @@ import threading
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("bulk_events", "decima_encoder", "decima_encoder_bwd", "rbg_philox",
+SOURCES = ("bulk_events", "decima_encoder", "decima_encoder_bwd",
+           "decima_encoder_bf16", "decima_encoder_bwd_bf16", "rbg_philox",
            "threefry")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

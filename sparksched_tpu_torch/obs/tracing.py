@@ -3,8 +3,12 @@
 
 `annotate(name)` opens an NVTX range (`torch.cuda.nvtx`) when a CUDA
 card is present, so a profile of the serving front carries the phase
-labels (`serve/flush`, `serve/dispatch`); without a card it does
-nothing. The JAX package's version also names the traced HLO
+labels (`serve/flush`, `serve/dispatch`), and, while a torch.profiler
+capture runs (a `trainers.profiler.Profiler` trace among them), a
+`torch.profiler.record_function` range beside it, so the trace holds
+the labels (`decima/gnn`, `train/ppo_update`,
+`train/vpg_update`); without a card and outside a capture
+it does nothing. The JAX package's version also names the traced HLO
 (`jax.named_scope`); the eager port traces nothing.
 
 `RequestTrace` is the serving path's span walk, copied: a trace id
@@ -33,17 +37,26 @@ class annotate:
     def __init__(self, name: str) -> None:
         self.name = name
         self._pushed = False
+        self._range = None
 
     def __enter__(self) -> "annotate":
         if torch.cuda.is_available():
             torch.cuda.nvtx.range_push(self.name)
             self._pushed = True
+        if torch.autograd._profiler_enabled():
+            self._range = torch.profiler.record_function(self.name)
+            self._range.__enter__()
         return self
 
     def __exit__(self, exc_type, exc_val, exc_tb):
-        if self._pushed:
-            self._pushed = False
-            torch.cuda.nvtx.range_pop()
+        rng, self._range = self._range, None
+        try:
+            if rng is not None:
+                rng.__exit__(exc_type, exc_val, exc_tb)
+        finally:
+            if self._pushed:
+                self._pushed = False
+                torch.cuda.nvtx.range_pop()
         return False
 
 

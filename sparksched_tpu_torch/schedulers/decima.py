@@ -15,8 +15,14 @@ log-probs and normalised entropies the PPO update differentiates, with
 the NodeEncoder's gradient from its own backward kernel
 (`kernels.decima_encoder.DecimaNodeEncoderFn`).
 
-Waiting for a later slice: `compute_dtype="bfloat16"` (ROADMAP A9b, with
-bf16 variants of both NodeEncoder kernels).
+`compute_dtype="bfloat16"` runs every Dense layer, activation, the
+NodeEncoder's aggregation and the DAG and global sums in bfloat16, as the
+JAX package's bf16 `DecimaNet` does (x cast to bf16, the float32
+parameters cast at each use, each Dense's product and bias sum rounded
+apart); the NodeEncoder goes through the bf16 kernels
+(`decima_node_encoder_bf16`, `decima_node_encoder_bwd_bf16`), and the
+scores come back float32. Parameters, optimizer state and model files
+stay float32.
 """
 
 from __future__ import annotations
@@ -31,16 +37,24 @@ from .. import prng
 from ..config import resolve_device
 from ..env.observe import Observation
 from ..kernels.decima_encoder import (
+    BF16,
     DecimaNodeEncoderFn,
     EncoderWeights,
+    act_slope,
     decima_node_encoder,
+    decima_node_encoder_bf16,
+    dense,
     pack_weights,
 )
+from ..obs.tracing import annotate
 from .base import TrainableScheduler
 
 NUM_NODE_FEATURES = 5
 NUM_DAG_FEATURES = 3
 NEG_INF = -1e30
+# the `compute_dtype` values the port takes
+COMPUTE_DTYPES = {None: torch.float32, "float32": torch.float32,
+                  "bfloat16": BF16}
 
 _i32 = torch.int32
 
@@ -149,12 +163,15 @@ def scatter_job_scores(stage_k, exec_k, ids, j_cap: int):
 # --------------------------------------------------------------------------
 
 
-def make_act(name: str, kwargs: Any = None) -> Callable:
-    """Activation factory (the JAX package's `make_act`)."""
+def make_act(name: str, kwargs: Any = None,
+             dtype: torch.dtype = torch.float32) -> Callable:
+    """Activation factory (the JAX package's `make_act`), for inputs of
+    the compute dtype `dtype` (LeakyReLU's slope rounded to it, as a
+    weakly typed constant is in JAX)."""
     kwargs = dict(kwargs or {})
     name = name.lower()
     if name in ("leakyrelu", "leaky_relu"):
-        slope = float(kwargs.get("negative_slope", 0.01))
+        slope = act_slope(float(kwargs.get("negative_slope", 0.01)), dtype)
         return lambda x: torch.where(x >= 0, x, slope * x)
     if name == "tanh":
         return torch.tanh
@@ -178,7 +195,10 @@ def _leaky_slope(name: str, kwargs: Any) -> float:
 
 
 class MLP(nn.Module):
-    """Dense stack with layers `dense_0..dense_n` (the flax names)."""
+    """Dense stack with layers `dense_0..dense_n` (the flax names). An
+    input of another dtype than the (float32) parameters runs in its own
+    dtype, the compute dtype: weight and bias cast at use, the product
+    and the bias sum rounded apart, as flax's `Dense(dtype=)`."""
 
     def __init__(self, in_dim: int, hid_dims, out_dim: int,
                  act: Callable) -> None:
@@ -199,7 +219,11 @@ class MLP(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for i in range(self.n):
-            x = getattr(self, f"dense_{i}")(x)
+            lin = getattr(self, f"dense_{i}")
+            if x.dtype == lin.weight.dtype:
+                x = lin(x)
+            else:
+                x = dense(x, lin.weight, lin.bias)
             if i < self.n - 1:
                 x = self.act(x)
         return x
@@ -207,20 +231,23 @@ class MLP(nn.Module):
 
 class DecimaNet(nn.Module):
     """Encoder + both policy heads: masked stage scores [B,J,S] and exec
-    scores for every job [B,J,N]."""
+    scores for every job [B,J,N], float32 whatever the compute dtype
+    (`None`/float32, or bfloat16)."""
 
     def __init__(self, num_executors: int, embed_dim: int = 16,
                  gnn_hid=(32, 16), policy_hid=(64, 64),
                  gnn_act: str = "LeakyReLU", gnn_act_kwargs: Any = None,
                  policy_act: str = "Tanh", policy_act_kwargs: Any = None,
-                 num_levels: int = 0) -> None:
+                 num_levels: int = 0,
+                 compute_dtype: torch.dtype = torch.float32) -> None:
         super().__init__()
         self.num_executors = int(num_executors)
         self.embed_dim = d = int(embed_dim)
         self.num_levels = int(num_levels)
+        self.cdt = compute_dtype
         self.slope = _leaky_slope(gnn_act, gnn_act_kwargs)
-        g_act = make_act(gnn_act, gnn_act_kwargs)
-        p_act = make_act(policy_act, policy_act_kwargs)
+        g_act = make_act(gnn_act, gnn_act_kwargs, compute_dtype)
+        p_act = make_act(policy_act, policy_act_kwargs, compute_dtype)
         f = NUM_NODE_FEATURES
         self.mlp_prep = MLP(f, gnn_hid, d, g_act)
         self.mlp_msg = MLP(d, gnn_hid, d, g_act)
@@ -241,32 +268,42 @@ class DecimaNet(nn.Module):
         key = tuple((t.data_ptr(), t._version)
                     for ls in layers for pair in ls for t in pair)
         if key != self._enc_key:
-            self._enc_w, self._enc_key = pack_weights(*layers), key
+            self._enc_w = pack_weights(*layers, dtype=self.cdt)
+            self._enc_key = key
         return self._enc_w
 
-    def encode(self, f: DecimaFeatures) -> torch.Tensor:
-        """NodeEncoder h_node [B,J,S,D] through the kernel wrapper; with
-        grad enabled through `DecimaNodeEncoderFn`, whose backward is the
-        encoder's backward kernel (its plain version on the CPU)."""
+    def encode(self, f: DecimaFeatures,
+               x: torch.Tensor | None = None) -> torch.Tensor:
+        """NodeEncoder h_node [B,J,S,D] of x (f.x in the compute dtype,
+        by default) through the kernel wrapper of that dtype; with grad
+        enabled through `DecimaNodeEncoderFn`, whose backward is the
+        encoder's backward kernel of the dtype (its plain version on the
+        CPU)."""
+        if x is None:
+            x = f.x.to(self.cdt)
         w = self.encoder_weights()
         if torch.is_grad_enabled() and any(
                 t.requires_grad for ls in (w.prep, w.msg, w.update)
                 for pair in ls for t in pair):
             return DecimaNodeEncoderFn.apply(
-                f.x, f.adj, f.node_level, f.node_mask, w, self.num_levels,
+                x, f.adj, f.node_level, f.node_mask, w, self.num_levels,
                 self.slope,
                 *(t for ls in (w.prep, w.msg, w.update)
                   for pair in ls for t in pair),
             )
-        return decima_node_encoder(
-            f.x, f.adj, f.node_level, f.node_mask, w, self.num_levels,
-            self.slope,
-        )
+        fn = decima_node_encoder_bf16 if self.cdt == BF16 else \
+            decima_node_encoder
+        return fn(x, f.adj, f.node_level, f.node_mask, w, self.num_levels,
+                  self.slope)
 
     def forward(self, f: DecimaFeatures):
-        x = f.x
+        with annotate("decima/gnn"):
+            return self._forward(f)
+
+    def _forward(self, f: DecimaFeatures):
+        x = f.x.to(self.cdt)
         d = self.embed_dim
-        h_node = self.encode(f)
+        h_node = self.encode(f, x)
         # DagEncoder
         z = self.mlp_dag(torch.cat([x, h_node], -1))
         h_dag = torch.where(f.node_mask[..., None], z, 0.0).sum(-2)
@@ -280,7 +317,7 @@ class DecimaNet(nn.Module):
             h_dag[:, :, None, :].expand(b, j_cap, s_cap, d),
             h_glob[:, None, None, :].expand(b, j_cap, s_cap, d),
         ], -1)
-        stage_scores = self.mlp_stage(stage_in)[..., 0]
+        stage_scores = self.mlp_stage(stage_in)[..., 0].to(torch.float32)
         # ExecPolicyNetwork
         first = torch.argmax(f.node_mask.to(torch.uint8), -1)
         x_dag = torch.gather(
@@ -294,7 +331,7 @@ class DecimaNet(nn.Module):
             h_glob[:, None, None, :].expand(b, j_cap, n, d),
             k_frac[None, None, :, None].expand(b, j_cap, n, 1),
         ], -1)
-        exec_scores = self.mlp_exec(exec_in)[..., 0]
+        exec_scores = self.mlp_exec(exec_in)[..., 0].to(torch.float32)
         return stage_scores, exec_scores
 
 
@@ -397,7 +434,8 @@ class DecimaScheduler(TrainableScheduler):
     seed)`, from a model file (`state_dict_path`: the JAX package's
     flax-msgpack `model.msgpack` or a reference torch `.pt`, see
     `load_state_dict_file`) or, through `load_params`, from a state
-    dict."""
+    dict. `compute_dtype`: None or "float32", or "bfloat16" (the
+    parameters stay float32)."""
 
     def __init__(self, num_executors: int, embed_dim: int = 16,
                  gnn_mlp_kwargs: dict[str, Any] | None = None,
@@ -408,11 +446,11 @@ class DecimaScheduler(TrainableScheduler):
                  job_bucket: int = 0, device: str | torch.device = "cuda",
                  **_: Any) -> None:
         self.device = resolve_device(device)
-        if compute_dtype not in (None, "float32"):
+        cdt = COMPUTE_DTYPES.get(compute_dtype)
+        if cdt is None:
             raise NotImplementedError(
-                "compute_dtype=bfloat16 is not ported yet (ROADMAP A9b: "
-                "bf16 variants of both NodeEncoder kernels)"
-            )
+                f"compute_dtype {compute_dtype!r} is not ported (the port "
+                f"takes {sorted(map(str, COMPUTE_DTYPES))})")
         self.name = "Decima"
         self.num_executors = int(num_executors)
         self.num_tasks_scale = num_tasks_scale
@@ -430,7 +468,7 @@ class DecimaScheduler(TrainableScheduler):
                 gnn_act_kwargs=g.get("act_kwargs"),
                 policy_act=p.get("act_cls", "Tanh"),
                 policy_act_kwargs=p.get("act_kwargs"),
-                num_levels=int(num_levels),
+                num_levels=int(num_levels), compute_dtype=cdt,
             )
         self.net = net.to(self.device).eval()
         self.net.requires_grad_(False)

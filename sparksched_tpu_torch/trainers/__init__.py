@@ -1,9 +1,10 @@
 """RL training layer of the port (counterpart of
 `sparksched_tpu/trainers/`): single-eval rollout collection, returns,
-critic-free baselines and PPO."""
+critic-free baselines, PPO and VPG, and the profiler."""
 
 from .baselines import group_baselines  # noqa: F401
 from .ppo import PPO  # noqa: F401
+from .profiler import Profiler  # noqa: F401
 from .returns import (  # noqa: F401
     AvgNumJobsBuffer,
     differential_returns,
@@ -23,3 +24,4 @@ from .trainer import (  # noqa: F401
     make_optimizer,
     make_trainer,
 )
+from .vpg import VPG  # noqa: F401

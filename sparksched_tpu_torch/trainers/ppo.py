@@ -29,6 +29,7 @@ import torch
 
 from .. import prng
 from ..env.health import H_NONFINITE_GRAD, H_NONFINITE_LOSS, grad_health
+from ..obs.tracing import annotate
 from ..schedulers.decima import DecimaAction
 from .rollout import Rollout, stored_to_observation
 from .trainer import CfgType, Trainer, TrainState
@@ -76,6 +77,10 @@ class PPO(Trainer):
         return mb_idx, mb_ok
 
     def _update(self, state: TrainState, ro: Rollout):
+        with annotate("train/ppo_update"):
+            return self._ppo_update(state, ro)
+
+    def _ppo_update(self, state: TrainState, ro: Rollout):
         returns, baselines, buf, avg_num_jobs = self._returns_and_baselines(
             state, ro)
         B, T = ro.reward.shape

@@ -37,11 +37,18 @@ checkpoints and resume (`checkpointing_freq`: the best pre-update
 parameters as a flax-msgpack `model.msgpack` either package loads;
 `save_train_state` / `load_train_state` / `train(resume_from=)`, the
 train state written with the port's codec under the JAX package's file
-names) and the `obs:` block's run log, telemetry and memory samples.
-Not ported yet (the trainer names the keys it ignores when it starts):
-TensorBoard and the profiler, `obs.trace_iteration` /
-`trace_dir` / `slo`. A train state of the JAX package does not load
-here (its optax tree differs); model files load both ways.
+names), the `obs:` block's run log, telemetry and memory samples, and
+the profiler as the JAX package selects it: `profiling` echoes each
+iteration's collect and update spans, `obs.trace_iteration` (absolute,
+it wins) traces that iteration's collect and update into `obs.trace_dir`
+(default `<artifacts_dir>/trace`), `profile_trace_dir` the session's
+first collect (`trainers/profiler.py`: torch.profiler, one Chrome trace
+a span). `use_tensorboard` mirrors the run log's `scalars` into a
+`SummaryWriter` under `<artifacts_dir>/tb` (the run goes on with a
+message naming the run log when `torch.utils.tensorboard` cannot be
+imported). `obs.slo` is admitted and read by nothing, as in the JAX
+trainer. A train state of the JAX package does not load here (its optax
+tree differs); model files load both ways.
 """
 
 from __future__ import annotations
@@ -75,6 +82,7 @@ from ..schedulers.decima import params_from_flax
 from ..serialization import from_bytes, params_to_flax, to_bytes
 from ..workload import make_workload_bank
 from .baselines import group_baselines
+from .profiler import Profiler
 from .returns import (
     AvgNumJobsBuffer,
     differential_returns,
@@ -187,11 +195,8 @@ class TrainState:
         self.buf = snap["buf"]
 
 
-# config keys whose machinery the port does not have yet
-_UNPORTED_TRAIN = ("use_tensorboard", "profiling", "profile_trace_dir")
-_UNPORTED_OBS = ("trace_iteration", "trace_dir", "slo")
-OBS_KEYS = frozenset({"runlog", "telemetry", "memory", "runlog_max_bytes"}
-                     | set(_UNPORTED_OBS))
+OBS_KEYS = frozenset({"runlog", "telemetry", "memory", "runlog_max_bytes",
+                      "trace_iteration", "trace_dir", "slo"})
 HEALTH_KEYS = frozenset({"enabled", "max_retries", "backoff_seconds",
                          "checkpoint_every", "keep", "straggler_ratio_max"})
 # update stats the JAX package's `scalars` records do not carry
@@ -242,7 +247,6 @@ class Trainer(abc.ABC):
         if self.rollout_engine not in ("core", "flat"):
             raise ValueError(f"rollout_engine must be 'core' or 'flat', got "
                              f"{self.rollout_engine!r}")
-        unported += [k for k in _UNPORTED_TRAIN if train_cfg.get(k)]
         # the impl of every key of the run (the JAX package's names; the
         # stamp of its train states): rbg keys are four words, threefry's
         # two, so a train state resumes only under the impl that wrote it
@@ -257,6 +261,10 @@ class Trainer(abc.ABC):
                                                     "artifacts"))
         self.checkpointing_freq = int(train_cfg.get("checkpointing_freq",
                                                     50))
+        self.use_tensorboard = bool(train_cfg.get("use_tensorboard", False))
+        self._tb = None
+        self.profiling = bool(train_cfg.get("profiling", False))
+        self.profile_trace_dir = train_cfg.get("profile_trace_dir")
 
         # the obs: block (runlog: true | false | path, runlog_max_bytes,
         # telemetry, memory), validated like the JAX package's
@@ -270,8 +278,13 @@ class Trainer(abc.ABC):
         self.obs_runlog_max_bytes = int(rmb) if rmb else None
         self.obs_telemetry = bool(oc.get("telemetry", False))
         self.obs_memory = bool(oc.get("memory", True))
-        unported += [f"obs.{k}" for k in _UNPORTED_OBS
-                     if oc.get(k) is not None]
+        ti = oc.get("trace_iteration")
+        self.obs_trace_iteration = None if ti is None else int(ti)
+        self.obs_trace_dir = str(oc.get(
+            "trace_dir", osp.join(self.artifacts_dir, "trace")))
+        # the spans' Profilers of the last traced iteration (the trace
+        # files, their bytes and export times)
+        self.last_traces: list[Profiler] = []
         self._runlog: RunLog | None = None
 
         self.entropy_anneal = train_cfg.get("entropy_anneal")
@@ -564,7 +577,18 @@ class Trainer(abc.ABC):
             state = self.init_state()
         best: dict[str, Any] | None = None
         start = state.iteration
+        sink = self._runlog.span_event if self._runlog is not None else None
         for i in range(start, start + self.num_iterations):
+            # the device trace: the obs block's (absolute) iteration wins;
+            # profile_trace_dir traces the session's first collect
+            if i == self.obs_trace_iteration:
+                trace_dir = self.obs_trace_dir
+            elif i == start and self.profile_trace_dir:
+                trace_dir = str(self.profile_trace_dir)
+            else:
+                trace_dir = None
+            trace_upd = (self.obs_trace_dir if i == self.obs_trace_iteration
+                         else None)
             last_good = state.snapshot()
             attempt = 0
             while True:
@@ -574,18 +598,23 @@ class Trainer(abc.ABC):
                 state.rng = rng_i
                 counts: dict = {}
                 self._sync()
-                t0 = time.perf_counter()
                 oom = False
+                p_col = Profiler(trace_dir, f"iter {i + 1} collect",
+                                 quiet=not self.profiling, sink=sink,
+                                 device=self.device)
+                p_upd = Profiler(trace_upd, f"iter {i + 1} update",
+                                 quiet=not self.profiling, sink=sink,
+                                 device=self.device)
                 try:
-                    ro, hm = self._collect(state.iteration, state.rng,
-                                           counts)
-                    self._sync()
-                    t1 = time.perf_counter()
-                    self._span(f"iter {i + 1} collect", t1 - t0)
+                    with p_col:
+                        ro, hm = self._collect(state.iteration, state.rng,
+                                               counts)
+                        self._sync()
                     if self._chaos is not None:
                         ro = self._inject(ro, counts, i, attempt)
-                    state, stats = self._update(state, ro)
-                    self._sync()
+                    with p_upd:
+                        state, stats = self._update(state, ro)
+                        self._sync()
                 except torch.OutOfMemoryError as e:
                     # a real CUDA allocation failure or the simulated one:
                     # with the health block on, roll back and retry
@@ -604,8 +633,6 @@ class Trainer(abc.ABC):
                         torch.cuda.empty_cache()
                     attempt += 1
                     continue
-                t2 = time.perf_counter()
-                self._span(f"iter {i + 1} update", t2 - t1)
                 tm = counts.get("telemetry")
                 tsum = summarize(tm) if tm is not None else None
                 health_mask = 0
@@ -634,6 +661,8 @@ class Trainer(abc.ABC):
                     self._record_health(i, attempt, health_mask,
                                         action="quarantine")
                 break
+            if trace_dir or trace_upd:
+                self.last_traces = [p for p in (p_col, p_upd) if p.trace_path]
             if self.rollout_duration:  # the kept iteration's carry
                 self._env_states = counts["env_states"]
             state.iteration += 1
@@ -656,8 +685,8 @@ class Trainer(abc.ABC):
                        if v is not None and k not in (
                            "avg_num_jobs_est", "health_mask")
                        + _PORT_ONLY_STATS}
-            scalars["collect_seconds"] = t1 - t0
-            scalars["update_seconds"] = t2 - t1
+            scalars["collect_seconds"] = p_col.elapsed
+            scalars["update_seconds"] = p_upd.elapsed
             if self.health_enabled:
                 scalars["health_mask"] = float(health_mask)
                 scalars["health_retries"] = float(attempt)
@@ -674,8 +703,7 @@ class Trainer(abc.ABC):
                         self._runlog.memory(mem, iteration=i)
                     scalars["mem_bytes_in_use"] = mem["bytes_in_use"]
                     scalars["mem_peak_bytes"] = mem["peak_bytes_in_use"]
-            if self._runlog is not None:
-                self._runlog.scalars(i, scalars | roll_stats)
+            self._write_stats(i, scalars | roll_stats)
             if (self.health_enabled and self.health_checkpoint_every
                     and (i + 1) % self.health_checkpoint_every == 0):
                 self.save_train_state(
@@ -686,8 +714,9 @@ class Trainer(abc.ABC):
                                                    "health_mask")}
             host.update(roll_stats)
             host.update(
-                iteration=float(i), collect_seconds=t1 - t0,
-                update_seconds=t2 - t1, rows=float(counts.get("rows", 0)),
+                iteration=float(i), collect_seconds=p_col.elapsed,
+                update_seconds=p_upd.elapsed,
+                rows=float(counts.get("rows", 0)),
                 decisions=float(ro.valid.sum()),
                 health_mask=float(health_mask),
                 health_retries=float(attempt))
@@ -707,10 +736,6 @@ class Trainer(abc.ABC):
     # ------------------------------------------------------------------
     # health recording
     # ------------------------------------------------------------------
-
-    def _span(self, name: str, secs: float) -> None:
-        if self._runlog is not None:
-            self._runlog.span_event(name, secs)
 
     def _inject(self, ro: Rollout, counts: dict, i: int, attempt: int
                 ) -> Rollout:
@@ -790,9 +815,35 @@ class Trainer(abc.ABC):
                 rollout_engine=self.rollout_engine,
                 telemetry=self.obs_telemetry, memory=self.obs_memory,
                 seed=self.seed)
+        self._tb = None
+        if self.use_tensorboard:
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+            except ImportError as e:
+                emit("use_tensorboard: torch.utils.tensorboard is "
+                     f"unavailable ({e}); stats go to the JSONL runlog "
+                     "instead" + (f" ({self._runlog.path})"
+                                  if self._runlog is not None
+                                  else " (enable it via the obs: config "
+                                  "block)"))
+            else:
+                self._tb = SummaryWriter(osp.join(self.artifacts_dir, "tb"))
+
+    def _write_stats(self, i: int, stats: dict[str, float]) -> None:
+        """An iteration's scalars: the run log's `scalars` record and the
+        TensorBoard mirror when on, with the same keys and values."""
+        if self._runlog is not None:
+            self._runlog.scalars(i, stats)
+        if self._tb is not None:
+            for k, v in stats.items():
+                self._tb.add_scalar(k, v, i)
 
     def _cleanup(self, state: TrainState) -> None:
-        """The final train state, always, and the run log's `run_end`."""
+        """The TensorBoard writer closed, the final train state, always,
+        and the run log's `run_end`."""
+        if self._tb is not None:
+            self._tb.close()
+            self._tb = None
         self.save_train_state(
             state, osp.join(self.artifacts_dir, "train_state.msgpack"))
         if self._runlog is not None:
@@ -1025,13 +1076,14 @@ def _intact(gen: str) -> bool:
 
 def make_trainer(cfg: CfgType, device: str | torch.device = "cuda"
                  ) -> Trainer:
-    """String-keyed factory over `cfg["trainer"]["trainer_cls"]` (PPO),
-    with the top-level `health:`, `obs:` and `chaos:` blocks. The
+    """String-keyed factory over `cfg["trainer"]["trainer_cls"]` (PPO,
+    VPG), with the top-level `health:`, `obs:` and `chaos:` blocks. The
     `parallel:` block is not ported: its keys are named as ignored when
     the trainer starts."""
     from .ppo import PPO
+    from .vpg import VPG
 
-    registry = {"PPO": PPO}
+    registry = {"PPO": PPO, "VPG": VPG}
     name = cfg["trainer"]["trainer_cls"]
     if name not in registry:
         raise ValueError(f"'{name}' is not a valid trainer (the port has "

@@ -6,6 +6,7 @@ are compared as numpy arrays. Also the seeded NodeEncoder inputs of
 from __future__ import annotations
 
 import contextlib
+import math
 
 import numpy as np
 import pytest
@@ -293,6 +294,27 @@ def bwd_ref64(x, adj, lvl, mask, w, num_levels, slope, g, lanes=None):
     return total
 
 
+def bf16_ulps(got, ref) -> float:
+    """The largest |got - ref| in bfloat16 ulps at the scale of ref (the
+    ulp of max |ref|): the tolerance unit of the bf16 NodeEncoder, whose
+    two evaluations round apart where a float32 sum in another order
+    lands on the other side of a bf16 rounding boundary."""
+    a, b = got.double().cpu(), ref.double().cpu()
+    top = float(b.abs().max())
+    if top == 0.0:
+        return 0.0 if torch.equal(a, b) else float("inf")
+    ulp = 2.0 ** (math.floor(math.log2(top)) - 7)
+    return float((a - b).abs().max()) / ulp
+
+
+def rel_norm(got, ref) -> float:
+    """||got - ref|| / ||ref|| of one tensor (0 when both are 0)."""
+    a, b = got.double().cpu(), ref.double().cpu()
+    den = float(b.norm())
+    num = float((a - b).norm())
+    return num / den if den else (0.0 if num == 0.0 else float("inf"))
+
+
 def _fma32(a, w, c):
     """fmaf(a, w, c) of float32 tensors, rounded once: the product of two
     float32s is exact in float64, so is the sum but in rare halfway
@@ -550,6 +572,49 @@ def assert_update_close(want: dict, got: dict, p0: dict, steps: int,
         assert ratio <= 1.0, f"{k}: {ratio:.3g}x its tolerance"
         worst = max(worst, ratio)
     return worst
+
+
+# the heads' output biases of MINI_AGENT and the flagship: log-softmax and
+# the entropy do not change when every score moves alike, so their exact
+# gradient is 0 and any two float32 updates step them along noise
+OUT_BIASES = ("mlp_stage.dense_2.bias", "mlp_exec.dense_2.bias")
+
+
+def assert_linear_update_close(want: dict, got: dict, p0: dict,
+                               heads_per_tensor: bool = False) -> float:
+    """One step at LINEAR_ADAM (`got` against `want`, both from `p0`):
+    `assert_update_close` on every parameter but OUT_BIASES, which are
+    held within 1e-7 + 1e-4 of their head's largest change. Returns the
+    worst error over its tolerance."""
+    want, got = dict(want), dict(got)
+    worst = 0.0
+    for k in OUT_BIASES:
+        head = k.split(".")[0]
+        w = torch.as_tensor(np.asarray(want.pop(k))).double()
+        scale = max(float((torch.as_tensor(np.asarray(v)).double()
+                           - p0[n].detach().cpu().double()).abs().max())
+                    for n, v in want.items() if n.startswith(head))
+        err = float((got.pop(k).detach().cpu().double() - w).abs().max())
+        ratio = err / (1e-7 + 1e-4 * scale)
+        assert ratio <= 1.0, f"{k}: {ratio:.3g}x its tolerance"
+        worst = max(worst, ratio)
+    return max(worst, assert_update_close(
+        want, got, p0, 1, LINEAR_ADAM["lr"], True, heads_per_tensor))
+
+
+# The bf16 NodeEncoder kernels against their plain versions (the card, and
+# their arithmetic built with g++): the forward within BF16_FWD_ULPS bf16
+# ulps at the output's scale and at least BF16_FWD_EQUAL of it bit-equal
+# (a float32 sum in another order lands on the other side of a bf16
+# rounding boundary now and then, and the level chain carries it on); the
+# backward within BF16_BWD_REL of each gradient tensor's norm (the plain
+# version rounds each use's weight gradient to bf16, the kernel sums the
+# uses in float32). A bf16 update's change of all parameters together
+# within BF16_UPDATE_REL of the reference's norm (XLA:CPU sums the
+# cotangents of broadcasts, biases' among them, one bf16 addition at a
+# time; torch and the kernels in float32).
+BF16_FWD_ULPS, BF16_FWD_EQUAL, BF16_BWD_REL = 2.0, 0.98, 2e-2
+BF16_UPDATE_REL = 5e-2
 
 
 SERVE_AGENT = dict(embed_dim=8, gnn_mlp_kwargs={"hid_dims": [16]},

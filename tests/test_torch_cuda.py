@@ -29,15 +29,29 @@ import pytest
 import torch
 
 from sparksched_tpu_torch.kernels.decima_encoder import (
+    BF16,
     DecimaNodeEncoderFn,
     decima_node_encoder,
+    decima_node_encoder_bf16,
     decima_node_encoder_bwd,
+    decima_node_encoder_bwd_bf16,
+    decima_node_encoder_bwd_ref,
     decima_node_encoder_ref,
     encoder_params,
     pack_weights,
 )
 
-from ._torch_parity import CASES, bwd_ref64, bwd_ref64_pinned, make_case
+from ._torch_parity import (
+    BF16_BWD_REL,
+    BF16_FWD_EQUAL,
+    BF16_FWD_ULPS,
+    CASES,
+    bf16_ulps,
+    bwd_ref64,
+    bwd_ref64_pinned,
+    make_case,
+    rel_norm,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -253,6 +267,92 @@ def test_encoder_function_gradients_on_card_match_cpu(card):
         (h * g.to(dev)).sum().backward()
         grads[dev] = [p.grad.cpu() for p in encoder_params(w)]
     assert _grad_err(grads["cuda"], grads["cpu"]) <= 1.0
+
+
+# The bf16 kernels against their plain versions evaluated on the CPU (the
+# card's bf16 GEMMs may reduce in other orders), within the tolerances of
+# `tests/_torch_parity.py` (BF16_FWD_ULPS, BF16_FWD_EQUAL, BF16_BWD_REL),
+# and the backward bit-equal from run to run.
+
+
+def _bf16_check(card, x, adj, lvl, mask, w, num_levels, g, lanes=None):
+    ins = [torch.from_numpy(a).to(card) for a in (x, adj, lvl, mask)]
+    ins[0] = ins[0].to(BF16)
+    cpu = [t.cpu() for t in ins]
+    wc = pack_weights(*([(a.cpu(), b.cpu()) for a, b in ls]
+                        for ls in (w.prep, w.msg, w.update)), dtype=BF16)
+    f0, b0 = (decima_node_encoder_bf16.launches,
+              decima_node_encoder_bwd_bf16.launches)
+    out = decima_node_encoder_bf16(*ins, w, num_levels, 0.2)
+    got = decima_node_encoder_bwd_bf16(*ins, w, num_levels, 0.2, g.to(card))
+    torch.cuda.synchronize()
+    assert decima_node_encoder_bf16.launches == f0 + 1
+    assert decima_node_encoder_bwd_bf16.launches == b0 + 1
+    ref = decima_node_encoder_ref(*cpu, wc, num_levels, 0.2)
+    assert out.dtype == BF16 and bf16_ulps(out, ref) <= BF16_FWD_ULPS
+    assert float((out.cpu() == ref).float().mean()) >= BF16_FWD_EQUAL
+    step = lanes or x.shape[0]
+    gref = None
+    for i in range(0, x.shape[0], step):
+        part = decima_node_encoder_bwd_ref(
+            *(t[i:i + step] for t in cpu), wc, num_levels, 0.2,
+            g[i:i + step].cpu())
+        gref = part if gref is None else [a + b for a, b in zip(gref, part)]
+    assert max(rel_norm(a, b) for a, b in zip(got, gref)) <= BF16_BWD_REL
+    again = decima_node_encoder_bwd_bf16(*ins, w, num_levels, 0.2,
+                                         g.to(card))
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+
+
+@pytest.mark.parametrize("num_levels", [0, 3])
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("b,k", [(1, 1), (3, 86), (8, 32)])
+def test_bf16_kernels_match_plain_versions(card, b, k, case, num_levels):
+    x, adj, lvl, mask = make_case(case, b, k, 20, 5, seed=b * 1000 + k)
+    if b > 1:
+        adj[0] = False  # an edgeless lane beside edged ones
+    gen = torch.Generator().manual_seed(7)
+    w = pack_weights(_layers(gen, [5, 32, 16, 16], card),
+                     _layers(gen, [16, 32, 16, 16], card),
+                     _layers(gen, [16, 32, 16, 16], card), dtype=BF16)
+    g = torch.randn(b, k, 20, 16, generator=gen).to(BF16)
+    _bf16_check(card, x, adj, lvl, mask, w, num_levels, g)
+
+
+def test_bf16_kernels_at_the_update_chunk_with_dead_jobs(card):
+    """[256, 200] jobs, every other one dead: the update chunk's shape."""
+    x, adj, lvl, mask = make_case("dead_jobs", 256, 200, 20, 5, seed=11)
+    gen = torch.Generator().manual_seed(7)
+    w = pack_weights(_layers(gen, [5, 32, 16, 16], card),
+                     _layers(gen, [16, 32, 16, 16], card),
+                     _layers(gen, [16, 32, 16, 16], card), dtype=BF16)
+    g = torch.randn(256, 200, 20, 16, generator=gen).to(BF16)
+    _bf16_check(card, x, adj, lvl, mask, w, 0, g, lanes=32)
+
+
+def test_bf16_and_f32_wrappers_take_only_their_dtype(card):
+    """On the card a call launches the kernel of its dtype or raises: no
+    bf16 work goes to the float32 kernel or a plain version."""
+    x, adj, lvl, mask = make_case("dag", 2, 3, 20, 5, seed=0)
+    gen = torch.Generator().manual_seed(0)
+    dims = ([5, 32, 16, 16], [16, 32, 16, 16], [16, 32, 16, 16])
+    layers = [_layers(gen, d, card) for d in dims]
+    w32, w16 = pack_weights(*layers), pack_weights(*layers, dtype=BF16)
+    ins = [torch.from_numpy(a).to(card) for a in (x, adj, lvl, mask)]
+    xb = ins[0].to(BF16)
+    before = (decima_node_encoder.launches, decima_node_encoder.plain_calls,
+              decima_node_encoder_bf16.plain_calls)
+    for fn, args in ((decima_node_encoder, (xb, *ins[1:], w32)),
+                     (decima_node_encoder, (xb, *ins[1:], w16)),
+                     (decima_node_encoder_bf16, (ins[0], *ins[1:], w16)),
+                     (decima_node_encoder_bf16, (xb, *ins[1:], w32))):
+        with pytest.raises(ValueError):
+            fn(*args, 0, 0.2)
+    g = torch.zeros(2, 3, 20, 16, device=card)
+    with pytest.raises(ValueError):
+        decima_node_encoder_bwd_bf16(xb, *ins[1:], w16, 0, 0.2, g)
+    assert (decima_node_encoder.launches, decima_node_encoder.plain_calls,
+            decima_node_encoder_bf16.plain_calls) == before
 
 
 FLAGSHIP_AGENT = dict(

@@ -14,7 +14,7 @@
   `test_torch_rollout.py` holds it (floats within rtol 1e-6, log-probs
   within rtol 1e-5), the rewards there with XLA's `expm1` handed to the
   port, and on the lanes whose wall times are bit-equal with torch's.
-- `compute_dtype: bfloat16` still raises, naming ROADMAP A9b.
+  (`compute_dtype: bfloat16` is `test_torch_bf16.py`'s.)
 
 Sizes: 5 executors, 6 job slots on the synthetic bank, weights x0.3."""
 
@@ -40,7 +40,6 @@ from sparksched_tpu.workload.sampling import (
 )
 from sparksched_tpu_torch.config import EnvParams
 from sparksched_tpu_torch.env import core
-from sparksched_tpu_torch.schedulers import DecimaScheduler
 from sparksched_tpu_torch.trainers import rollout as tro
 from sparksched_tpu_torch.workload import (
     bank_dtype_label,
@@ -50,7 +49,6 @@ from sparksched_tpu_torch.workload import (
 from sparksched_tpu_torch.workload.sampling import sample_task_duration
 
 from ._torch_parity import (
-    MINI_AGENT,
     decima_pair,
     jax_leaves,
     mismatched_leaves,
@@ -227,9 +225,3 @@ def test_bf16_obs_collection_matches_jax(bank_dtype, expm1, monkeypatch):
     assert not bad, bad
     assert np.array_equal(jhm, thm.numpy())
     assert not thm.any() and tout.valid.sum() > LANES * 10
-
-
-def test_compute_dtype_bf16_still_raises():
-    with pytest.raises(NotImplementedError, match="A9b"):
-        DecimaScheduler(num_executors=N, compute_dtype="bfloat16",
-                        device="cpu", **MINI_AGENT)
